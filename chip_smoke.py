@@ -5,24 +5,40 @@
 
 Phases, each printed as it goes; any failure exits non-zero:
   1. device: torch.cuda, and the card's name and power limit from nvidia-smi;
-  2. build: nvcc builds csrc/spmm_csr.cu from this checkout (timed);
-  3. kernel vs plain: the CSR SpMM kernel against its plain PyTorch version
-     in float64, |out - ref| <= 1e-5 (|A| @ |B|) + 1e-6 (bf16: 8e-3 (|A| @ |B|)),
-     at the GCN slice's shapes (pubmed-scale SBM graph, K=32 and K=3, over
-     the CSR and the CSC) and on rmat15 (hub rows, empty rows) at
-     K in {1, 3, 32, 33, 128, 130, 512}, valued and binary, f32 and bf16;
-  4. autograd on the card: grad_B and grad_values against float64;
-  5. GCN train: dims [128, 32, 3] on the pubmed-scale SBM graph, 50 epochs
-     through the kernel (launch count >= 4 per epoch), loss falling, train
-     accuracy above chance, logits agreeing with a float64 CPU forward;
-     then the same run with method="xla" (the plain version, no launches);
-  6. timings: kernel and plain device time and GFLOP/s (2 nnz K / t) at the
-     slice's shapes and at rmat15 K=128, their call times, and GCN ms/epoch
-     for both methods (two runs each, in the order auto, xla, xla, auto).
+  2. build: nvcc builds csrc/spmm_csr.cu and csrc/spmm_minmax.cu from this
+     checkout, both at once (timed);
+  3. sum kernel vs plain: the CSR SpMM kernel against its plain PyTorch
+     version in float64, |out - ref| <= 1e-5 (|A| @ |B|) + 1e-6 (bf16:
+     8e-3 (|A| @ |B|)), at the GCN slice's shapes (pubmed-scale SBM graph with
+     self-loops, K=32 and K=3, over the CSR and the CSC) and on rmat15 (hub
+     rows, empty rows) at K in {1, 3, 32, 33, 128, 130, 512}, valued and
+     binary, f32 and bf16;
+  4. max/min kernels vs plain: on the SBM graph without self-loops (the
+     SAGE slice's graph) at K in {128, 16} and on rmat15 at K in {1, 3, 32,
+     33, 128, 130}, binary and valued in f32, binary in bf16, with B in
+     multiples of 0.5 so that ties are common.  The forward's out and ties
+     equal the plain version's exactly, and an f32 out equals the float64
+     reference rounded to f32.  The backward's grad_B and grad_values are
+     within 1e-5 (bf16: 8e-3) x max |ref| of the float64 plain version;
+  5. autograd on the card: sum-SpMM grad_B and grad_values against float64;
+  6. GCN train: dims [128, 32, 3] on the SBM graph with self-loops, 50 epochs
+     through the sum kernel (>= 4 launches per epoch), loss falling, train
+     accuracy above chance, logits agreeing with a float64 CPU forward; then
+     the same run with method="xla" (the plain version, no launches);
+  7. SAGE-pool train: dims [128, 16, 3] on the SBM graph without
+     self-loops, 50 epochs through the max/min forward and backward kernels
+     (>= 2 launches of each per epoch), with the same checks; then
+     method="xla" with no launches;
+  8. timings: device time of every kernel against its plain version at the
+     slice's shapes and at rmat15 K=128, call times of the sum kernel, and
+     GCN and SAGE-pool ms/epoch for both methods (two runs each, in the
+     order auto, xla, xla, auto).
 
-Output: one line per phase, then a {"kernels": [...]} JSON line, the
-nvidia-smi line, and as the last line {"ok": true, "device": {...}}.  With
---record, the full record of the run is also written to PATH as JSON.
+Each path's launches are counted from 0 in its own run; the comparison
+launches of phases 3-5 are not counted.  Output: one line per phase, then
+a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}.  With --record, the full record of the run is
+also written to PATH as JSON.
 """
 
 import argparse
@@ -31,14 +47,19 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 EPOCHS = 50
-DIMS = [128, 32, 3]
+GCN_DIMS = [128, 32, 3]
+SAGE_DIMS = [128, 16, 3]
 SBM_PUBMED = dict(n_per_class=6573, num_classes=3, p_in=0.0006, p_out=0.00002,
                   feat_dim=128, seed=SEED)
+LIBS = ("spmm_csr", "spmm_minmax")
 RMAT_KS = (1, 3, 32, 33, 128, 130, 512)
+MINMAX_RMAT_KS = (1, 3, 32, 33, 128, 130)
+MINMAX_SBM_KS = (128, 16)
 
 
 class SmokeFailure(Exception):
@@ -61,6 +82,14 @@ def nvidia_smi_line():
     return out.strip().splitlines()[0].strip()
 
 
+def mean(xs):
+    return sum(xs) / len(xs)
+
+
+def finite_list(xs):
+    return all(x == x and abs(x) != float("inf") for x in xs)
+
+
 def bound_check(torch, ref, out, indptr, indices, rows, data, B):
     """Max abs error against float64, and whether it is within the bound."""
     m = indptr.shape[0] - 1
@@ -72,6 +101,13 @@ def bound_check(torch, ref, out, indptr, indices, rows, data, B):
     err = (out.double() - exact).abs()
     ok = bool(torch.isfinite(out.double()).all()) and bool((err <= bound).all())
     return float(err.max()) if err.numel() else 0.0, ok
+
+
+def alternate(measure, kernel, plain):
+    """(kernel, plain) measurements in ms, taken plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = measure(plain), measure(kernel), measure(kernel), \
+        measure(plain)
+    return [k1 * 1e3, k2 * 1e3], [p1 * 1e3, p2 * 1e3]
 
 
 def main(argv=None):
@@ -88,7 +124,9 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     from gespmm_tpu_torch.kernels import _build
     from gespmm_tpu_torch.kernels import spmm_csr as kspmm
+    from gespmm_tpu_torch.kernels import spmm_minmax as kmm
     from gespmm_tpu_torch.models.gcn import GCN
+    from gespmm_tpu_torch.models.sage import GraphSAGE
     from gespmm_tpu_torch.ops import reference as ref
     from gespmm_tpu_torch.ops.graph import add_self_loops
     from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
@@ -101,6 +139,14 @@ def main(argv=None):
     dev = torch.device("cuda")
     record = {}
 
+    def reset_counts():
+        kspmm.reset_launches()
+        kmm.reset_launches()
+
+    def counts():
+        return {"spmm_csr": kspmm.launches, "spmm_minmax": kmm.launches,
+                "spmm_minmax_vjp": kmm.vjp_launches}
+
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -110,23 +156,35 @@ def main(argv=None):
     record["card"] = card
 
     phase("2 build")
-    t0 = time.perf_counter()
-    lib = _build.build("spmm_csr")
-    build_s = time.perf_counter() - t0
-    print(f"nvcc {' '.join(_build.NVCC_FLAGS)} -> {os.path.relpath(lib, HERE)} "
-          f"in {build_s:.2f} s", flush=True)
-    record["build_s"] = build_s
 
-    phase("3 kernel vs plain (float64 bound)")
+    def timed_build(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        return lib, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBS)) as pool:
+        built = dict(zip(LIBS, pool.map(timed_build, LIBS)))
+    record["build_s"] = {name: s for name, (_, s) in built.items()}
+    record["build_s"]["all"] = time.perf_counter() - t0
+    for name, (lib, s) in built.items():
+        print(f"nvcc {' '.join(_build.NVCC_FLAGS)} -> "
+              f"{os.path.relpath(lib, HERE)} in {s:.2f} s", flush=True)
+    print(f"both built in {record['build_s']['all']:.2f} s", flush=True)
+
+    phase("3 sum kernel vs plain (float64 bound)")
     ds = sbm_graph(**SBM_PUBMED).to(dev)
     adj = Adjacency.from_csr(add_self_loops(ds.csr))
+    sage_adj = Adjacency.from_csr(ds.csr)
     rmat = Adjacency.from_csr(rmat_graph(scale=15, edge_factor=8, seed=SEED),
                               device=dev)
-    for name, a in (("sbm-pubmed+loops", adj), ("rmat15", rmat)):
+    for name, a in (("sbm-pubmed+loops", adj), ("sbm-pubmed", sage_adj),
+                    ("rmat15", rmat)):
         deg = a.csr.indptr[1:] - a.csr.indptr[:-1]
         print(f"{name}: n={a.shape[0]} nnz={a.nnz} max_deg={int(deg.max())} "
               f"empty_rows={int((deg == 0).sum())}", flush=True)
-    record["graphs"] = {"sbm_pubmed": [adj.shape[0], adj.nnz],
+    record["graphs"] = {"sbm_pubmed_loops": [adj.shape[0], adj.nnz],
+                        "sbm_pubmed": [sage_adj.shape[0], sage_adj.nnz],
                         "rmat15": [rmat.shape[0], rmat.nnz]}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rmat_vals = torch.randn(rmat.nnz, device=dev, generator=gen)
@@ -163,7 +221,75 @@ def main(argv=None):
         compared.append({"case": label, "max_abs_err": err})
     record["kernel_vs_plain"] = compared
 
-    phase("4 autograd on the card")
+    phase("4 max/min kernels vs plain (exact forward, float64 backward)")
+
+    def quantized(shape, dtype):
+        x = torch.randn(shape, device=dev, generator=gen)
+        return (torch.round(x * 2) / 2).to(dtype)
+
+    sbm_vals = torch.randn(sage_adj.nnz, device=dev, generator=gen)
+    mm_cases = []  # (label, adjacency, CSR values or None, K, dtype, on path)
+    for graph, a, vals, ks in (("sbm", sage_adj, sbm_vals, MINMAX_SBM_KS),
+                               ("rmat15", rmat, rmat_vals, MINMAX_RMAT_KS)):
+        for K in ks:
+            for data, dtype in ((None, torch.float32), (vals, torch.float32),
+                                (None, torch.bfloat16)):
+                kind_s = "binary" if data is None else "valued"
+                mm_cases.append((f"{graph} K={K} {kind_s} "
+                                 f"{str(dtype).split('.')[-1]}", a, data, K,
+                                 dtype, graph == "sbm" and data is None
+                                 and dtype == torch.float32))
+    fwd_err = bwd_err = 0.0
+    mm_compared = []
+    for label, a, data, K, dtype, on_path in mm_cases:
+        m, n = a.shape
+        B = quantized((n, K), dtype)
+        csc_data = None if data is None else data[a.perm.long()]
+        for reduce in ("max", "min"):
+            out, ties = kmm.spmm_minmax(a.csr.indptr, a.csr.indices, data, B,
+                                        reduce)
+            torch.cuda.synchronize()
+            want, want_ties = ref.spmm_minmax_rows(a.rows, a.csr.indices, data,
+                                                   B, m, reduce)
+            exact = torch.equal(out, want) and torch.equal(ties, want_ties)
+            if dtype == torch.float32:  # rounding to f32 is monotone
+                want64 = ref.spmm_rows(a.rows, a.csr.indices,
+                                       None if data is None else data.double(),
+                                       B.double(), m, reduce=reduce)
+                exact = exact and torch.equal(out, want64.float())
+            err = float((out.double() - want.double()).abs().max())
+            g = torch.randn(m, K, device=dev, generator=gen)
+            grad_B, grad_vals = kmm.spmm_minmax_vjp(
+                a.csc.indptr, a.csc.indices, csc_data, B, out, g, ties)
+            torch.cuda.synchronize()
+            gt64 = g.double() / torch.clamp(ties, min=1.0).double()
+            want_B, want_vals = ref.spmm_minmax_vjp_cols(
+                a.rows_t, a.csc.indices, csc_data, B, out, gt64)
+            tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+            grads_ok, g_err = True, 0.0
+            for got, w in ((grad_B, want_B), (grad_vals, want_vals)):
+                if w is None:
+                    grads_ok = grads_ok and got is None
+                    continue
+                e = float((got.double() - w).abs().max())
+                g_err = max(g_err, e)
+                grads_ok = grads_ok and bool(torch.isfinite(got).all()) and \
+                    e <= tol * max(float(w.abs().max()), 1.0)
+            print(f"{label} {reduce}: out/ties {'exact' if exact else 'DIFFER'}"
+                  f" (max ties {int(ties.max())}) | grad max_abs_err="
+                  f"{g_err:.3e} {'ok' if grads_ok else 'OUT OF BOUND'}",
+                  flush=True)
+            check(exact, f"forward kernel disagrees with plain: {label} {reduce}")
+            check(grads_ok, f"backward kernel disagrees with float64: {label} "
+                  f"{reduce}")
+            if on_path and reduce == "max":
+                fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, g_err)
+            mm_compared.append({"case": f"{label} {reduce}", "exact": exact,
+                                "grad_max_abs_err": g_err,
+                                "max_ties": int(ties.max())})
+    record["minmax_vs_plain"] = mm_compared
+
+    phase("5 autograd on the card")
     d = adj.data.clone().requires_grad_(True)
     B = torch.randn(adj.shape[1], 32, device=dev, generator=gen,
                     requires_grad=True)
@@ -180,60 +306,87 @@ def main(argv=None):
         check(torch.isfinite(got).all() and err <= 1e-5 * max(scale, 1.0),
               f"{name} disagrees with float64")
 
-    phase(f"5 GCN train, dims {DIMS}, {EPOCHS} epochs")
+    def make_gcn(method):
+        return GCN(GCN_DIMS, dropout_rate=0.5, method=method,
+                   generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev).with_norms(adj)
 
-    def train(method):
-        model = GCN(DIMS, dropout_rate=0.5, method=method,
-                    generator=torch.Generator(device=dev).manual_seed(SEED),
-                    device=dev).with_norms(adj)
-        kspmm.reset_launches()
-        res = train_node_classifier(model, adj, ds.features, ds.labels,
+    def make_sage(method):
+        return GraphSAGE(SAGE_DIMS, aggregator="pool", dropout_rate=0.5,
+                         method=method,
+                         generator=torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+
+    def train(make, a, method):
+        model = make(method)
+        reset_counts()
+        res = train_node_classifier(model, a, ds.features, ds.labels,
                                     ds.masks, seed=SEED, epochs=EPOCHS)
         torch.cuda.synchronize()
-        return model, res, kspmm.launches
+        return model, res, counts()
 
-    runs = {}
-    for method in ("auto", "xla"):
-        model, res, launches = train(method)
-        loss = res["history"]["loss"]
-        print(f"method={method}: loss {loss[0]:.4f} -> {loss[-1]:.4f} | "
-              f"train/val/test acc {res['train_acc']:.4f}/{res['val_acc']:.4f}/"
-              f"{res['test_acc']:.4f} | {res['mean_epoch_time'] * 1e3:.4f} "
-              f"ms/epoch | kernel launches {launches}", flush=True)
-        finite = all(map(lambda v: v == v and abs(v) != float("inf"), loss))
-        check(finite and loss[-1] < loss[0], f"{method}: loss did not fall")
-        check(res["train_acc"] > 1 / 3, f"{method}: train accuracy at chance")
-        check(all(torch.isfinite(p).all() for p in model.parameters()),
-              f"{method}: non-finite parameters")
-        if method == "auto":
-            check(launches >= 4 * EPOCHS,
-                  f"only {launches} kernel launches in {EPOCHS} epochs")
-            main_launches = launches
-            model.eval()
-            with torch.no_grad():
-                logits = model(adj, ds.features)
-                cpu = GCN(DIMS, method="xla").double()
-                cpu.load_state_dict({k: v.cpu().double()
-                                     for k, v in model.state_dict().items()})
-                cpu.eval()
-                want = cpu(Adjacency.from_csr(adj.csr.to("cpu").with_data(
-                    adj.data.cpu().double())), ds.features.cpu().double())
-            check(logits.shape == (adj.shape[0], DIMS[-1]), "logits shape")
-            err = float((logits.cpu().double() - want).abs().max())
-            scale = float(want.abs().max())
-            print(f"logits vs float64 CPU forward: max_abs_err={err:.3e} "
-                  f"(max |ref| {scale:.3e})", flush=True)
-            check(err <= 1e-4 * max(scale, 1.0), "logits disagree with float64")
-        else:
-            check(launches == 0, "method='xla' launched the kernel")
-        runs[method] = {"loss_first": loss[0], "loss_last": loss[-1],
-                        "train_acc": res["train_acc"], "val_acc": res["val_acc"],
-                        "test_acc": res["test_acc"],
-                        "ms_per_epoch_runs": [res["mean_epoch_time"] * 1e3],
-                        "launches": launches}
-    record["gcn"] = runs
+    def drive(name, make, a, cpu_model, path_kernels):
+        """Train with both methods; check the run and the path's launches."""
+        runs = {}
+        for method in ("auto", "xla"):
+            model, res, launched = train(make, a, method)
+            loss = res["history"]["loss"]
+            print(f"{name} method={method}: loss {loss[0]:.4f} -> "
+                  f"{loss[-1]:.4f} | train/val/test acc {res['train_acc']:.4f}/"
+                  f"{res['val_acc']:.4f}/{res['test_acc']:.4f} | "
+                  f"{res['mean_epoch_time'] * 1e3:.4f} ms/epoch | launches "
+                  f"{launched}", flush=True)
+            check(finite_list(loss) and loss[-1] < loss[0],
+                  f"{name} {method}: loss did not fall")
+            check(res["train_acc"] > 1 / 3, f"{name} {method}: train accuracy "
+                  "at chance")
+            check(all(torch.isfinite(p).all() for p in model.parameters()),
+                  f"{name} {method}: non-finite parameters")
+            if method == "auto":
+                for kname, per_epoch in path_kernels.items():
+                    check(launched[kname] >= per_epoch * EPOCHS,
+                          f"{name}: only {launched[kname]} {kname} launches in "
+                          f"{EPOCHS} epochs")
+                model.eval()
+                with torch.no_grad():
+                    logits = model(a, ds.features)
+                    cpu_model.load_state_dict(
+                        {k: v.cpu().double() for k, v in model.state_dict().items()})
+                    cpu_model.eval()
+                    cpu_adj = Adjacency.from_csr(a.csr.to("cpu").with_data(
+                        None if a.data is None else a.data.cpu().double()))
+                    want = cpu_model(cpu_adj, ds.features.cpu().double())
+                check(logits.shape == (a.shape[0], cpu_model.dims[-1]),
+                      f"{name}: logits shape")
+                err = float((logits.cpu().double() - want).abs().max())
+                scale = float(want.abs().max())
+                print(f"{name} logits vs float64 CPU forward: max_abs_err="
+                      f"{err:.3e} (max |ref| {scale:.3e})", flush=True)
+                check(err <= 1e-4 * max(scale, 1.0),
+                      f"{name}: logits disagree with float64")
+            else:
+                check(not any(launched.values()),
+                      f"{name}: method='xla' launched a kernel: {launched}")
+            runs[method] = {"loss_first": loss[0], "loss_last": loss[-1],
+                            "train_acc": res["train_acc"],
+                            "val_acc": res["val_acc"],
+                            "test_acc": res["test_acc"],
+                            "ms_per_epoch_runs": [res["mean_epoch_time"] * 1e3],
+                            "launches": launched}
+        return runs
 
-    phase("6 timings, in the order plain / kernel / kernel / plain")
+    phase(f"6 GCN train, dims {GCN_DIMS}, {EPOCHS} epochs")
+    gcn_runs = drive("GCN", make_gcn, adj,
+                     GCN(GCN_DIMS, method="xla").double(), {"spmm_csr": 4})
+    record["gcn"] = gcn_runs
+
+    phase(f"7 SAGE-pool train, dims {SAGE_DIMS}, {EPOCHS} epochs")
+    sage_runs = drive("SAGE-pool", make_sage, sage_adj,
+                      GraphSAGE(SAGE_DIMS, aggregator="pool", method="xla").double(),
+                      {"spmm_minmax": 2, "spmm_minmax_vjp": 2})
+    record["sage_pool"] = sage_runs
+
+    phase("8 timings, in the order plain / kernel / kernel / plain")
     # Device time: CUDA events around calls queued behind a spin kernel,
     # so they run back to back on the card.  Call time: CUDA events around
     # groups of calls, which at these sizes is the host's enqueue rate
@@ -246,14 +399,6 @@ def main(argv=None):
                        adj.rows_t, adj.csc.data, adj.shape[0], K))
     shapes.append(("rmat15 csr K=128 binary", rmat.csr.indptr, rmat.csr.indices,
                    rmat.rows, None, rmat.shape[1], 128))
-
-    def alternate(measure, kernel, plain):
-        p1, k1, k2, p2 = measure(plain), measure(kernel), measure(kernel), \
-            measure(plain)
-        return [k1 * 1e3, k2 * 1e3], [p1 * 1e3, p2 * 1e3]
-
-    def mean(xs):
-        return sum(xs) / len(xs)
 
     timings = []
     for label, indptr, indices, rows, data, n_in, K in shapes:
@@ -281,22 +426,71 @@ def main(argv=None):
               f"{mean(k_call):.5f} ms, plain {mean(p_call):.5f} ms | {card}",
               flush=True)
     record["timings"] = timings
-    for method in ("xla", "auto"):
-        runs[method]["ms_per_epoch_runs"].append(
-            train(method)[1]["mean_epoch_time"] * 1e3)
-    for method, r in runs.items():
-        ms = r["ms_per_epoch_runs"]
-        r["ms_per_epoch"] = mean(ms)
-        print(f"GCN {method}: {mean(ms):.4f} ms/epoch (runs "
-              f"{', '.join(f'{x:.4f}' for x in ms)}) | {card}", flush=True)
 
-    main_shape = timings[0]
-    kernels = {"kernels": [{
-        "name": "spmm_csr", "route": "cuda", "source": kspmm.SOURCE,
-        "replaces": kspmm.REPLACES, "launches": main_launches,
-        "max_abs_err": slice_err, "ms": mean(main_shape["kernel_device_ms"]),
-        "plain_ms": mean(main_shape["plain_device_ms"]),
-    }]}
+    # Max/min at the SAGE-pool slice's shapes: layer 0 gathers K=128 (the
+    # pooled input), layer 1 K=16; relu'd inputs, as the pool layer gives.
+    # Then rmat15 K=128, where the hub row and column set the time.
+    mm_timings = []
+    for graph, a, K in [("sbm", sage_adj, K) for K in MINMAX_SBM_KS] + [
+            ("rmat15", rmat, 128)]:
+        B = torch.relu(torch.randn(a.shape[1], K, device=dev, generator=gen))
+        g = torch.randn(a.shape[0], K, device=dev, generator=gen)
+        out, ties = kmm.spmm_minmax(a.csr.indptr, a.csr.indices, None, B, "max")
+
+        def fwd_kernel():
+            return kmm.spmm_minmax(a.csr.indptr, a.csr.indices, None, B, "max")
+
+        def fwd_plain():
+            return ref.spmm_minmax_rows(a.rows, a.csr.indices, None, B,
+                                        a.shape[0], "max")
+
+        def bwd_kernel():
+            return kmm.spmm_minmax_vjp(a.csc.indptr, a.csc.indices, None, B,
+                                       out, g, ties)
+
+        def bwd_plain():
+            return ref.spmm_minmax_vjp_cols(
+                a.rows_t, a.csc.indices, None, B, out,
+                g / torch.clamp(ties, min=1.0))
+
+        for label, kernel, plain in (("spmm_minmax", fwd_kernel, fwd_plain),
+                                     ("spmm_minmax_vjp", bwd_kernel, bwd_plain)):
+            k_dev, p_dev = alternate(timing.device_time, kernel, plain)
+            row = {"kernel": label, "shape": f"{graph} K={K}", "nnz": a.nnz,
+                   "K": K, "kernel_device_ms": k_dev, "plain_device_ms": p_dev}
+            mm_timings.append(row)
+            print(f"{label} {graph} K={K}: device time kernel {mean(k_dev):.5f} ms"
+                  f" | plain {mean(p_dev):.5f} ms | {card}", flush=True)
+    record["minmax_timings"] = mm_timings
+
+    for name, runs, make, a in (("GCN", gcn_runs, make_gcn, adj),
+                                ("SAGE-pool", sage_runs, make_sage, sage_adj)):
+        for method in ("xla", "auto"):
+            runs[method]["ms_per_epoch_runs"].append(
+                train(make, a, method)[1]["mean_epoch_time"] * 1e3)
+        for method, r in runs.items():
+            ms = r["ms_per_epoch_runs"]
+            r["ms_per_epoch"] = mean(ms)
+            print(f"{name} {method}: {mean(ms):.4f} ms/epoch (runs "
+                  f"{', '.join(f'{x:.4f}' for x in ms)}) | {card}", flush=True)
+
+    def kernel_entry(name, source, replaces, launches, err, row):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": mean(row["kernel_device_ms"]),
+                "plain_ms": mean(row["plain_device_ms"])}
+
+    kernels = {"kernels": [
+        kernel_entry("spmm_csr", kspmm.SOURCE, kspmm.REPLACES,
+                     gcn_runs["auto"]["launches"]["spmm_csr"], slice_err,
+                     timings[0]),
+        kernel_entry("spmm_minmax", kmm.SOURCE, kmm.REPLACES,
+                     sage_runs["auto"]["launches"]["spmm_minmax"], fwd_err,
+                     mm_timings[0]),
+        kernel_entry("spmm_minmax_vjp", kmm.SOURCE, kmm.VJP_REPLACES,
+                     sage_runs["auto"]["launches"]["spmm_minmax_vjp"], bwd_err,
+                     mm_timings[1]),
+    ]}
     record.update(kernels)
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -26,8 +26,10 @@
 // Not here yet: nnz-balanced splitting of hub rows (a warp walks a hub row
 // serially), wgmma/TMA staging, and a bf16 contribution stream for "fast".
 //
-// Plain C interface, loaded with ctypes.  Each entry point launches on the
-// given stream, does not synchronise, and returns cudaGetLastError().
+// Plain C interface, loaded with ctypes.  The caller picks VEC (1, 2 or 4;
+// K % VEC == 0 and B and out aligned to VEC elements).  Each entry point
+// launches on the given stream, does not synchronise, and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a VEC it does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,6 +121,9 @@ template <typename T, int VEC>
 cudaError_t launch_vec(int m, int K, const int* indptr, const int* indices,
                        const float* vals, const T* B, T* out,
                        cudaStream_t stream) {
+  if (K % VEC != 0 || (uintptr_t)B % (VEC * sizeof(T)) != 0 ||
+      (uintptr_t)out % (VEC * sizeof(T)) != 0)
+    return cudaErrorInvalidValue;
   const unsigned rows_blocks = (unsigned)((m + kWarps - 1) / kWarps);
   const dim3 grid(rows_blocks < kMaxBlocksX ? rows_blocks : kMaxBlocksX,
                   (unsigned)((K + 32 * VEC - 1) / (32 * VEC)));
@@ -132,34 +137,36 @@ cudaError_t launch_vec(int m, int K, const int* indptr, const int* indices,
   return cudaGetLastError();
 }
 
-// Widest lane vector that divides K and keeps the loads aligned; narrow K
-// stays scalar so that all 32 lanes have a column (K=32 -> one per lane).
 template <typename T>
-cudaError_t launch(int m, int K, const int* indptr, const int* indices,
-                   const float* vals, const T* B, T* out, cudaStream_t stream) {
-  const uintptr_t addr = (uintptr_t)B | (uintptr_t)out;
-  if (K % 4 == 0 && K >= 128 && addr % (4 * sizeof(T)) == 0)
-    return launch_vec<T, 4>(m, K, indptr, indices, vals, B, out, stream);
-  if (K % 2 == 0 && K >= 64 && addr % (2 * sizeof(T)) == 0)
-    return launch_vec<T, 2>(m, K, indptr, indices, vals, B, out, stream);
-  return launch_vec<T, 1>(m, K, indptr, indices, vals, B, out, stream);
+cudaError_t launch(int m, int K, int vec, const int* indptr,
+                   const int* indices, const float* vals, const T* B, T* out,
+                   cudaStream_t stream) {
+  switch (vec) {
+    case 4:
+      return launch_vec<T, 4>(m, K, indptr, indices, vals, B, out, stream);
+    case 2:
+      return launch_vec<T, 2>(m, K, indptr, indices, vals, B, out, stream);
+    case 1:
+      return launch_vec<T, 1>(m, K, indptr, indices, vals, B, out, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // m >= 1, K >= 1 (the caller returns early otherwise); vals may be null.
-extern "C" int gespmm_spmm_csr_f32(int m, int K, const int* indptr,
+extern "C" int gespmm_spmm_csr_f32(int m, int K, int vec, const int* indptr,
                                    const int* indices, const float* vals,
                                    const float* B, float* out, void* stream) {
-  return (int)launch<float>(m, K, indptr, indices, vals, B, out,
+  return (int)launch<float>(m, K, vec, indptr, indices, vals, B, out,
                             (cudaStream_t)stream);
 }
 
-extern "C" int gespmm_spmm_csr_bf16(int m, int K, const int* indptr,
+extern "C" int gespmm_spmm_csr_bf16(int m, int K, int vec, const int* indptr,
                                     const int* indices, const float* vals,
                                     const void* B, void* out, void* stream) {
   return (int)launch<__nv_bfloat16>(
-      m, K, indptr, indices, vals, (const __nv_bfloat16*)B,
+      m, K, vec, indptr, indices, vals, (const __nv_bfloat16*)B,
       (__nv_bfloat16*)out, (cudaStream_t)stream);
 }
 

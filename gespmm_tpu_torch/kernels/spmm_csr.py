@@ -41,8 +41,8 @@ def reset_launches() -> None:
 def _entry(dtype: torch.dtype):
     lib = load_library("spmm_csr")
     fn = getattr(lib, _ENTRY[dtype])
-    p = ctypes.c_void_p
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p, p, p, p]
+    i, p = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [i, i, i, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     lib.gespmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gespmm_cuda_error_string.restype = ctypes.c_char_p
@@ -63,8 +63,22 @@ def spmm_csr(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
     return spmm_csr_cuda(indptr, indices, data, B)
 
 
-def _check(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
-           B: Tensor) -> None:
+def lane_vector(K: int, *tensors: Tensor) -> int:
+    """Columns per lane for the kernels of ``csrc/``: 4 (16-byte f32 loads)
+    for K % 4 == 0 and K >= 128, 2 for K % 2 == 0 and K >= 64, else 1, if
+    every table is aligned to it; narrow K stays scalar so that all 32
+    lanes have a column (K=32 -> one per lane)."""
+    for vec, min_k in ((4, 128), (2, 64)):
+        if K % vec == 0 and K >= min_k and all(
+                t.data_ptr() % (vec * t.element_size()) == 0 for t in tensors):
+            return vec
+    return 1
+
+
+def check_operands(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
+                   B: Tensor) -> None:
+    """Raise on a sparse operand or a dense ``B`` that the kernels of
+    ``csrc/`` do not take (shared by every wrapper)."""
     if B.device.type != "cuda":
         raise ValueError(f"B must be a CUDA tensor, got device {B.device}")
     if B.dtype not in _ENTRY:
@@ -96,7 +110,7 @@ def spmm_csr_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
                   B: Tensor) -> Tensor:
     """Launch the kernel on the current stream of B's device."""
     global launches
-    _check(indptr, indices, data, B)
+    check_operands(indptr, indices, data, B)
     m, K = indptr.shape[0] - 1, B.shape[1]
     if m == 0 or K == 0 or indices.shape[0] == 0:
         # A zero-size grid is an invalid launch; the answer is all zeros.
@@ -105,7 +119,8 @@ def spmm_csr_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
     vals = None if data is None else data.to(torch.float32).contiguous()
     out = torch.empty((m, K), dtype=B.dtype, device=B.device)
     with torch.cuda.device(B.device):
-        err = fn(m, K, indptr.data_ptr(), indices.data_ptr(),
+        err = fn(m, K, lane_vector(K, B, out), indptr.data_ptr(),
+                 indices.data_ptr(),
                  None if vals is None else vals.data_ptr(),
                  B.data_ptr(), out.data_ptr(),
                  torch.cuda.current_stream(B.device).cuda_stream)

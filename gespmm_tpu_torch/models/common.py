@@ -2,14 +2,15 @@
 
 Initialisation and dropout draw from an explicit ``torch.Generator``.  It
 draws other numbers than ``jax.random`` from the same seed, so parity with
-the JAX package goes through ``models/gcn.py::params_from_jax``.
+the JAX package goes through ``params_from_jax``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -51,3 +52,19 @@ def dropout(x: Tensor, rate: float, training: bool,
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
+
+
+def params_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, Tensor]:
+    """A JAX parameter pytree of nested dicts -> a flat ``state_dict``.
+
+    ``{"layer_0": {"self": {"w": ...}}}`` becomes ``{"layer_0.self.w": ...}``
+    (f32 tensors), the names the port's modules give their parameters.
+    """
+    flat = {}
+    for key, value in params.items():
+        if isinstance(value, Mapping):
+            flat.update(params_from_jax(value, f"{prefix}{key}."))
+        else:
+            flat[f"{prefix}{key}"] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
+    return flat

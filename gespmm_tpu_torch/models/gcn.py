@@ -3,18 +3,18 @@
 Each layer runs, in this order: ``x @ W``, ``* in_norm``, sum-SpMM,
 ``* out_norm``, ``+ b``, then ReLU and dropout between layers.  Parameters
 are named ``layer_{i}.w`` (shaped (in, out)) and ``layer_{i}.b``, so
-``params_from_jax`` carries the JAX package's parameters across unchanged.
+``params_from_jax`` (``models/common.py``, re-exported here) carries the JAX
+package's parameters across unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
-import numpy as np
 import torch
 from torch import nn
 
-from gespmm_tpu_torch.models.common import Dense, dropout
+from gespmm_tpu_torch.models.common import Dense, dropout, params_from_jax
 from gespmm_tpu_torch.ops.graph import degree_norm
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 
@@ -76,10 +76,4 @@ class GCN(nn.Module):
         return torch.log_softmax(self(adj, x, **kw), dim=-1)
 
 
-def params_from_jax(params: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, Tensor]:
-    """JAX GCN params ``{"layer_i": {"w", "b"}}`` -> a state_dict for ``GCN``."""
-    return {
-        f"{layer}.{name}": torch.from_numpy(np.array(value, dtype=np.float32))
-        for layer, p in params.items()
-        for name, value in p.items()
-    }
+__all__ = ["GCN", "params_from_jax"]

@@ -1,0 +1,104 @@
+"""GraphSAGE on the SpMM primitive — port of ``gespmm_tpu/models/sage.py``.
+
+SAGEConv semantics (as in DGL and the JAX package):
+  mean:  h = x·W_self + mean_agg(x)·W_neigh + b
+  gcn:   h = gcn_agg(x)·W_neigh + b                    (no W_self)
+  pool:  h = x·W_self + max_agg(relu(x·W_pool + b_pool))·W_neigh + b
+  sum:   h = x·W_self + sum_agg(x)·W_neigh + b
+
+``pool`` runs the max-SpMM kernel forward and backward.  Parameters are
+named ``layer_{i}.{self,neigh,pool}.{w,b}`` after the JAX pytree, so
+``params_from_jax`` carries them across.  ``aggregator="lstm"`` is not
+ported yet (ROADMAP A7).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from gespmm_tpu_torch.models.common import Dense, dropout
+from gespmm_tpu_torch.ops.graph import sage_aggregate
+from gespmm_tpu_torch.ops.spmm import Adjacency
+
+Tensor = torch.Tensor
+
+AGGREGATORS = ("mean", "gcn", "pool", "sum")
+
+
+def _check_aggregator(aggregator: str) -> None:
+    if aggregator == "lstm":
+        raise NotImplementedError(
+            "aggregator='lstm' (the neighbour-table LSTM aggregate) is ROADMAP "
+            "A7: not ported yet")
+    if aggregator not in AGGREGATORS:
+        raise ValueError(f"unknown aggregator {aggregator!r}; expected one of "
+                         f"{AGGREGATORS}")
+
+
+class SAGEConv(nn.Module):
+    """One GraphSAGE layer: ``self`` is a Dense without bias, ``neigh`` a
+    Dense with bias, ``pool`` (pool only) a Dense in -> in with bias."""
+
+    def __init__(self, in_dim: int, out_dim: int, aggregator: str = "mean",
+                 bias: bool = True, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        _check_aggregator(aggregator)
+        self.aggregator = aggregator
+        kw = dict(generator=generator, device=device)
+        if aggregator != "gcn":
+            self.add_module("self", Dense(in_dim, out_dim, bias=False, **kw))
+        self.neigh = Dense(in_dim, out_dim, bias=bias, **kw)
+        if aggregator == "pool":
+            self.pool = Dense(in_dim, in_dim, bias=True, **kw)
+
+    def forward(self, adj: Adjacency, x: Tensor, method: str = "auto") -> Tensor:
+        h = torch.relu(self.pool(x)) if self.aggregator == "pool" else x
+        agg = sage_aggregate(adj, h, aggregator=self.aggregator, method=method)
+        if self.aggregator == "gcn":
+            return self.neigh(agg)
+        return getattr(self, "self")(x) + self.neigh(agg)
+
+
+class GraphSAGE(nn.Module):
+    """n-layer GraphSAGE, ``dims = [in, hidden..., out]``.
+
+    ``forward`` is the JAX package's ``apply``: it returns logits.  In
+    training mode (``model.train()``) dropout runs before every layer, the
+    input layer too, drawing from the ``generator`` passed to ``forward``;
+    ReLU runs between layers.
+    """
+
+    def __init__(self, dims: Sequence[int], aggregator: str = "mean",
+                 dropout_rate: float = 0.5, method: str = "auto", *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        _check_aggregator(aggregator)
+        self.dims = list(dims)
+        self.aggregator = aggregator
+        self.dropout_rate = dropout_rate
+        self.method = method
+        for i in range(self.n_layers):
+            self.add_module(f"layer_{i}", SAGEConv(
+                dims[i], dims[i + 1], aggregator, generator=generator,
+                device=device))
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.dims) - 1
+
+    def forward(self, adj: Adjacency, x: Tensor, *,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        h = x
+        for i in range(self.n_layers):
+            h = dropout(h, self.dropout_rate, self.training, generator)
+            h = getattr(self, f"layer_{i}")(adj, h, self.method)
+            if i < self.n_layers - 1:
+                h = torch.relu(h)
+        return h
+
+    def log_probs(self, adj: Adjacency, x: Tensor, **kw) -> Tensor:
+        return torch.log_softmax(self(adj, x, **kw), dim=-1)

@@ -1,8 +1,8 @@
-"""Graph-level ops on the SpMM primitive — the GCN part of ``gespmm_tpu/ops/graph.py``.
+"""Graph-level ops on the SpMM primitive — port of part of ``gespmm_tpu/ops/graph.py``.
 
 Ported so far: degree normalisation, the symmetric-normalised GCN
-aggregation and self-loop insertion.  SAGE aggregates, edge softmax and
-attention wait for their ROADMAP items (A5, A6).
+aggregation, the GraphSAGE aggregates and self-loop insertion.  Edge
+softmax and attention wait for their ROADMAP item (A6).
 """
 
 from __future__ import annotations
@@ -40,6 +40,28 @@ def gcn_aggregate(adj: Adjacency, x: Tensor, *, out_norm: Optional[Tensor] = Non
     x = x * in_norm[:, None].to(x.dtype)
     agg = spmm(adj, x, reduce="sum", method=method)
     return agg * out_norm[:, None].to(agg.dtype)
+
+
+def sage_aggregate(adj: Adjacency, x: Tensor, *, aggregator: str = "mean",
+                   method: str = "auto") -> Tensor:
+    """Neighbourhood aggregation for GraphSAGE.
+
+    aggregator:
+      "mean": mean of neighbour features (SpMM mean-reduce).
+      "gcn":  symmetric-norm aggregation including self (caller adds loops).
+      "pool": elementwise max of neighbour features (SpMM max-reduce) — the
+              caller applies the pre-pool MLP, per SAGEConv semantics.
+      "sum":  plain sum.
+    """
+    if aggregator == "mean":
+        return spmm(adj, x, reduce="mean", method=method)
+    if aggregator == "sum":
+        return spmm(adj, x, reduce="sum", method=method)
+    if aggregator == "pool":
+        return spmm(adj, x, reduce="max", method=method)
+    if aggregator == "gcn":
+        return gcn_aggregate(adj, x, method=method)
+    raise ValueError(f"unknown aggregator {aggregator!r}")
 
 
 def add_self_loops(csr: CSR, weight: float = 1.0) -> CSR:

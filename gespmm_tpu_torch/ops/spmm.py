@@ -1,15 +1,21 @@
-"""SpMM with a transpose-paired autograd Function — port of ``gespmm_tpu/ops/spmm.py``.
+"""SpMM with transpose-paired autograd Functions — port of ``gespmm_tpu/ops/spmm.py``.
 
 The backward of SpMM is SpMM on Aᵀ, so ``Adjacency`` carries both the CSR
 and the CSC ordering (plus the CSC -> CSR edge permutation), built once per
-graph, and the backward never transposes at step time:
+graph, and the backward never transposes at step time.  Sum:
 
   * grad_B = Aᵀ @ g, the same kernel over the CSC with ``data[perm]``;
   * grad_values[e] = g[row_e] · B[col_e] (SDDMM, in CSR order), computed
     only when the edge values require a gradient.
 
+Max/min route the gradient through the edges that achieve each output,
+split evenly among ties (``jnp.max``'s VJP, as in the JAX package): the
+forward kernel returns the tie counts with ``out``, and the backward kernel
+walks the CSC, giving grad_B and grad_values (back to CSR order through
+``perm``).
+
 ``reduce="mean"`` composes on sum.  Method tiers: ``"auto"``/``"tiled"`` run
-the CUDA kernel on a CUDA tensor and its plain version on a CPU tensor;
+the CUDA kernels on a CUDA tensor and their plain versions on a CPU tensor;
 ``"xla"`` is the plain PyTorch version on any device (kept as the explicit
 reference tier, named after the JAX package's tier).
 """
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from gespmm_tpu_torch.kernels.spmm_csr import spmm_csr
+from gespmm_tpu_torch.kernels.spmm_minmax import spmm_minmax, spmm_minmax_vjp
 from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.sparse.formats import CSC, CSR
 
@@ -36,8 +43,6 @@ _NOT_PORTED = {
     "pallas": "method='pallas' (per-row and grouped kernels) is ROADMAP B5/B6",
     "scatter": "method='scatter' (the push tier) is ROADMAP A2",
     "dense": "method='dense' (the densify tier) is ROADMAP A2",
-    "max": "reduce='max' is ROADMAP B2",
-    "min": "reduce='min' is ROADMAP B2",
 }
 
 
@@ -121,7 +126,9 @@ def _forward(method: str, indptr: Tensor, indices: Tensor,
              data: Optional[Tensor], B: Tensor, rows: Tensor) -> Tensor:
     if method == "xla":
         return ref.spmm_rows(rows, indices, data, B, indptr.shape[0] - 1)
-    return spmm_csr(indptr, indices, data, B, rows=rows)
+    # The kernel takes a contiguous B; a column slice or a transposed view
+    # is a valid operand of the op.
+    return spmm_csr(indptr, indices, data, B.contiguous(), rows=rows)
 
 
 class _SpmmSum(torch.autograd.Function):
@@ -151,17 +158,65 @@ class _SpmmSum(torch.autograd.Function):
         return None, None, grad_data, grad_B
 
 
+class _SpmmMinMax(torch.autograd.Function):
+    """Max/min-SpMM over ``adj``; differentiable in ``data`` and ``B``."""
+
+    @staticmethod
+    def forward(ctx, adj: Adjacency, method: str, reduce: str,
+                data: Optional[Tensor], B: Tensor) -> Tensor:
+        B = B.contiguous()
+        if method == "xla":
+            ties = None  # the plain VJP recounts them
+            out = ref.spmm_rows(adj.rows, adj.csr.indices, data, B,
+                                adj.shape[0], reduce=reduce)
+        else:
+            out, ties = spmm_minmax(adj.csr.indptr, adj.csr.indices, data, B,
+                                    reduce, rows=adj.rows)
+        ctx.adj, ctx.method = adj, method
+        ctx.save_for_backward(data, B, out, ties)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        adj, method = ctx.adj, ctx.method
+        data, B, out, ties = ctx.saved_tensors
+        g = g.contiguous()
+        want_values = data is not None and ctx.needs_input_grad[3]
+        if method == "xla":
+            # The JAX package's plain VJP: ties recounted against ``out``.
+            grad_c = ref.spmm_max_vjp_edges(adj.rows, adj.csr.indices, data, B,
+                                            out, g, adj.shape[0])
+            scaled = (grad_c if data is None
+                      else grad_c * data.to(grad_c.dtype)[:, None])
+            grad_B = torch.zeros((B.shape[0], B.shape[1]), dtype=grad_c.dtype,
+                                 device=B.device)
+            grad_B.index_add_(0, adj.csr.indices.long(), scaled)
+            grad_data = None
+            if want_values:
+                gathered = B.index_select(0, adj.csr.indices.long())
+                grad_data = (grad_c * gathered.to(grad_c.dtype)).sum(-1)
+        else:
+            t_data = None if data is None else data[adj.perm.long()]
+            grad_B, grad_data = spmm_minmax_vjp(
+                adj.csc.indptr, adj.csc.indices, t_data, B, out, g, ties,
+                want_values=want_values, cols=adj.rows_t)
+            if grad_data is not None:  # CSC order -> CSR order
+                grad_data = grad_data[adj.inv_perm.long()]
+        if grad_data is not None:
+            grad_data = grad_data.to(data.dtype)
+        grad_B = grad_B.to(B.dtype) if ctx.needs_input_grad[4] else None
+        return None, None, None, grad_data, grad_B
+
+
 def _check_method(reduce: str, method: str) -> None:
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
     if reduce not in REDUCES:
         raise ValueError(f"reduce must be one of {REDUCES}, got {reduce!r}")
-    for key in (method, reduce):
-        if key in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{_NOT_PORTED[key]}: not ported yet; use method='auto' or "
-                "'xla' with reduce='sum' or 'mean'"
-            )
+    if method in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{_NOT_PORTED[method]}: not ported yet; use method='auto' or 'xla'"
+        )
 
 
 def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
@@ -172,8 +227,8 @@ def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
       adj: ``Adjacency`` (preferred — carries the transpose pairing) or a
         bare ``CSR`` (the pairing is built on the fly).
       B: dense (n, K) tensor, float32 or bfloat16 on the card.
-      reduce: "sum" | "mean".
-      method: "auto" | "tiled" (the CUDA kernel on the card) | "xla" (plain).
+      reduce: "sum" | "mean" | "max" | "min" (empty rows give 0 under each).
+      method: "auto" | "tiled" (the CUDA kernels on the card) | "xla" (plain).
       mode: "trilo" | "hilo" | "fast" | "highest", validated as in the JAX
         package; every mode accumulates in f32 here, which meets each
         mode's tolerance.
@@ -196,4 +251,6 @@ def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
         out = spmm(adj, B, reduce="sum", method=method, mode=mode)
         deg = (adj.csr.indptr[1:] - adj.csr.indptr[:-1]).to(out.dtype)
         return out / torch.clamp(deg, min=1.0)[:, None]
+    if reduce in ("max", "min"):
+        return _SpmmMinMax.apply(adj, method, reduce, adj.csr.data, B)
     return _SpmmSum.apply(adj, method, adj.csr.data, B)

@@ -1,14 +1,17 @@
-"""The CUDA CSR SpMM kernel on the card, against its plain PyTorch version.
+"""The CUDA kernels on the card, against their plain PyTorch versions.
 
-Every test here needs a CUDA card (the kernel has no CPU mode) and skips
+Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one.  The file imports neither JAX nor the JAX package, so on a
 machine with the card it runs without them:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Error bound, against the plain version in float64:
+Sum kernel error bound, against the plain version in float64:
 |out - ref| <= 1e-5 * (|A| @ |B|) + 1e-6 for f32, 8e-3 * (|A| @ |B|) for
-bf16 (one output rounding to bf16 is 2**-8 relative).
+bf16 (one output rounding to bf16 is 2**-8 relative).  Max/min forward: out
+and ties equal the plain version exactly (the same f32 products, selected,
+not summed).  Max/min backward: grad_B and grad_values within 1e-5 of the
+float64 plain version, relative to the largest reference value.
 """
 
 import numpy as np
@@ -16,7 +19,9 @@ import pytest
 import torch
 
 from gespmm_tpu_torch.kernels import spmm_csr as kspmm
+from gespmm_tpu_torch.kernels import spmm_minmax as kmm
 from gespmm_tpu_torch.models.gcn import GCN
+from gespmm_tpu_torch.models.sage import GraphSAGE
 from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.ops.graph import add_self_loops
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
@@ -171,3 +176,150 @@ def test_gcn_training_goes_through_the_kernel(dev):
     model.method = "xla"
     train_node_classifier(model, adj, ds.features, ds.labels, ds.masks, epochs=3)
     assert kspmm.launches == 0
+
+
+@pytest.mark.parametrize("view", ["column slice", "transposed"])
+def test_spmm_takes_a_non_contiguous_B(dev, view):
+    # A column slice or a transposed view is a valid operand of the op; the
+    # op hands the kernel a contiguous copy.
+    csr = skewed_csr(300, 250, seed=3)
+    adj = Adjacency.from_csr(csr, device=dev)
+    full = torch.randn(250, 40, device=dev)
+    B = full[:, :16] if view == "column slice" else torch.randn(
+        16, 250, device=dev).t()
+    assert not B.is_contiguous()
+    for reduce in ("sum", "max"):
+        out = spmm(adj, B, reduce=reduce)
+        want = spmm(adj, B.contiguous(), reduce=reduce, method="xla")
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+
+
+def quantized(shape, dev, seed, dtype=torch.float32):
+    """Multiples of 0.5, so that many contributions tie exactly."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.round(torch.randn(shape, device=dev, generator=g) * 2) / 2).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,binary", [(torch.float32, True),
+                                          (torch.float32, False),
+                                          (torch.bfloat16, True),
+                                          (torch.bfloat16, False)])
+@pytest.mark.parametrize("K", [1, 3, 16, 33, 128, 130])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+def test_minmax_kernel_matches_plain(dev, reduce, K, dtype, binary):
+    csr = skewed_csr().to(dev)
+    data = None if binary else csr.data
+    B = quantized((csr.shape[1], K), dev, K, dtype)
+    before = kmm.launches
+    out, ties = kmm.spmm_minmax(csr.indptr, csr.indices, data, B, reduce)
+    torch.cuda.synchronize()
+    assert kmm.launches == before + 1
+    assert out.dtype == dtype and ties.dtype == torch.float32
+    want, want_ties = ref.spmm_minmax_rows(csr.row_ids(), csr.indices, data, B,
+                                           csr.shape[0], reduce)
+    assert torch.equal(out, want) and torch.equal(ties, want_ties)
+    assert ties.max() > 1
+    empty = (csr.indptr[1:] == csr.indptr[:-1]).nonzero()[:, 0]
+    assert not out[empty].any() and not ties[empty].any()
+
+
+@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("K", [1, 16, 33, 128, 130])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+def test_minmax_vjp_kernel_matches_float64(dev, reduce, K, binary):
+    csr = skewed_csr(seed=4).to(dev)
+    adj = Adjacency.from_csr(csr)
+    data = None if binary else adj.csc.data
+    B = torch.relu(quantized((csr.shape[1], K), dev, K))  # zeros tie often
+    out, ties = kmm.spmm_minmax(adj.csr.indptr, adj.csr.indices,
+                                None if binary else adj.data, B, reduce)
+    g = torch.randn(csr.shape[0], K, device=dev)
+    before = kmm.vjp_launches
+    grad_B, grad_vals = kmm.spmm_minmax_vjp(adj.csc.indptr, adj.csc.indices,
+                                            data, B, out, g, ties)
+    torch.cuda.synchronize()
+    assert kmm.vjp_launches == before + 1
+    gt64 = g.double() / torch.clamp(ties, min=1.0).double()
+    want_B, want_vals = ref.spmm_minmax_vjp_cols(
+        adj.rows_t, adj.csc.indices, data, B, out, gt64)
+    for got, want in ((grad_B, want_B), (grad_vals, want_vals)):
+        if want is None:
+            assert got is None
+            continue
+        scale = max(float(want.abs().max()), 1.0)
+        assert float((got.double() - want).abs().max()) <= 1e-5 * scale
+
+
+def test_minmax_kernels_are_deterministic(dev):
+    csr = skewed_csr().to(dev)
+    adj = Adjacency.from_csr(csr)
+    B = torch.relu(quantized((csr.shape[1], 130), dev, 1))  # 3 K slabs
+    out, ties = kmm.spmm_minmax(adj.csr.indptr, adj.csr.indices, adj.data, B,
+                                "max")
+    g = torch.randn(csr.shape[0], 130, device=dev)
+    runs = [kmm.spmm_minmax_vjp(adj.csc.indptr, adj.csc.indices, adj.csc.data,
+                                B, out, g, ties) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_minmax_empty_work_and_refusals(dev):
+    before = (kmm.launches, kmm.vjp_launches)
+    z = torch.zeros(1, dtype=torch.int32, device=dev)
+    out, ties = kmm.spmm_minmax(torch.zeros(6, dtype=torch.int32, device=dev),
+                                z[:0], None, torch.ones(4, 8, device=dev), "min")
+    assert out.shape == ties.shape == (5, 8) and not out.any() and not ties.any()
+    assert (kmm.launches, kmm.vjp_launches) == before
+    csr = skewed_csr(50, 40).to(dev)
+    B = torch.randn(40, 8, device=dev)
+    with pytest.raises(ValueError, match="max"):
+        kmm.spmm_minmax(csr.indptr, csr.indices, None, B, "sum")
+    with pytest.raises(ValueError, match="contiguous"):
+        kmm.spmm_minmax_cuda(csr.indptr, csr.indices, None, B.t().contiguous().t(),
+                             "max")
+    adj = Adjacency.from_csr(csr)
+    out, ties = kmm.spmm_minmax(adj.csr.indptr, adj.csr.indices, None, B, "max")
+    with pytest.raises(ValueError, match="g_over_ties"):
+        kmm.spmm_minmax_vjp(adj.csc.indptr, adj.csc.indices, None, B, out,
+                            torch.ones_like(out[:-1]), ties[:-1])
+    with pytest.raises(TypeError, match="out"):
+        kmm.spmm_minmax_vjp(adj.csc.indptr, adj.csc.indices, None, B,
+                            out.double(), torch.ones_like(out), ties)
+
+
+@pytest.mark.parametrize("reduce", ["max", "min"])
+def test_minmax_autograd_on_card_matches_plain(dev, reduce):
+    csr = skewed_csr(800, 700, seed=1)
+    adj = Adjacency.from_csr(csr, device=dev)
+    d = adj.data.clone().requires_grad_(True)
+    B = torch.relu(quantized((700, 32), dev, 2)).requires_grad_(True)
+    g = torch.randn(800, 32, device=dev)
+    before = (kmm.launches, kmm.vjp_launches)
+    spmm(adj.with_data(d), B, reduce=reduce).backward(g)
+    assert (kmm.launches, kmm.vjp_launches) == (before[0] + 1, before[1] + 1)
+    d64 = csr.data.double().requires_grad_(True)
+    B64 = B.detach().cpu().double().requires_grad_(True)
+    spmm(Adjacency.from_csr(csr).with_data(d64), B64, reduce=reduce,
+         method="xla").backward(g.cpu().double())
+    torch.testing.assert_close(B.grad.cpu().double(), B64.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d.grad.cpu().double(), d64.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_sage_pool_training_goes_through_the_kernels(dev):
+    ds = sbm_graph(n_per_class=300, num_classes=3, p_in=0.02, p_out=0.001,
+                   feat_dim=32, seed=0).to(dev)
+    adj = Adjacency.from_csr(ds.csr)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = GraphSAGE([32, 16, 3], aggregator="pool", generator=gen, device=dev)
+    kmm.reset_launches()
+    res = train_node_classifier(model, adj, ds.features, ds.labels, ds.masks,
+                                epochs=20)
+    assert kmm.launches >= 2 * 20 and kmm.vjp_launches >= 2 * 20
+    loss = res["history"]["loss"]
+    assert loss[-1] < loss[0] and np.all(np.isfinite(loss))
+    assert res["train_acc"] > 1 / 3
+
+    kmm.reset_launches()
+    model.method = "xla"
+    train_node_classifier(model, adj, ds.features, ds.labels, ds.masks, epochs=3)
+    assert kmm.launches == kmm.vjp_launches == 0

@@ -183,7 +183,8 @@ def test_shape_and_argument_errors():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(reduce="max"), "B2"), (dict(reduce="min"), "B2"),
+    (dict(method="pallas", reduce="max"), "B5"),
+    (dict(method="scatter", reduce="min"), "A2"),
     (dict(method="pallas"), "B5"), (dict(method="scatter"), "A2"),
     (dict(method="dense"), "A2"),
 ])
@@ -218,6 +219,19 @@ def test_wrapper_on_cpu_uses_plain_version_without_launching():
     assert kspmm.launches == before
     plain = tref.spmm_rows(t.row_ids(), t.indices, t.data, B, M)
     assert torch.equal(out, plain)
+
+
+def test_lane_vector_needs_width_and_alignment():
+    buf = torch.zeros(4 * 130 + 1)
+    assert kspmm.lane_vector(128, buf[:128]) == 4
+    assert kspmm.lane_vector(64, buf[:64]) == 2
+    assert kspmm.lane_vector(130, buf[:130]) == 2  # 130 % 4 != 0
+    assert kspmm.lane_vector(16, buf[:16]) == 1  # narrow K: one column a lane
+    assert kspmm.lane_vector(33, buf[:33]) == 1
+    assert kspmm.lane_vector(128, buf[1:129]) == 1  # 4-byte offset
+    assert kspmm.lane_vector(128, buf[2:130]) == 2  # 8-byte offset
+    bf = torch.zeros(256, dtype=torch.bfloat16)
+    assert kspmm.lane_vector(128, bf[4:132]) == 4  # 8 bytes is a bf16 4-vector
 
 
 # -- the nvcc build step (exercised with stand-in compilers) ----------------
