@@ -5,8 +5,8 @@
 
 Phases, each printed as it goes; any failure exits non-zero:
   1. device: torch.cuda, and the card's name and power limit from nvidia-smi;
-  2. build: nvcc builds csrc/spmm_csr.cu and csrc/spmm_minmax.cu from this
-     checkout, both at once (timed);
+  2. build: nvcc builds csrc/spmm_csr.cu, spmm_minmax.cu, edge_reduce.cu and
+     gat_fused.cu from this checkout, all four at once (timed);
   3. sum kernel vs plain: the CSR SpMM kernel against its plain PyTorch
      version in float64, |out - ref| <= 1e-5 (|A| @ |B|) + 1e-6 (bf16:
      8e-3 (|A| @ |B|)), at the GCN slice's shapes (pubmed-scale SBM graph with
@@ -29,13 +29,30 @@ Phases, each printed as it goes; any failure exits non-zero:
      self-loops, 50 epochs through the max/min forward and backward kernels
      (>= 2 launches of each per epoch), with the same checks; then
      method="xla" with no launches;
-  8. timings: device time of every kernel against its plain version at the
-     slice's shapes and at rmat15 K=128, call times of the sum kernel, and
-     GCN and SAGE-pool ms/epoch for both methods (two runs each, in the
+  8. attention kernels vs plain: the edge segment reduce (sum, max) and the
+     three fused GAT kernels (forward; backward over the CSR and over the
+     CSC) against their plain versions in float64, on the SBM graph with
+     self-loops (K=H in {1, 8} for the reduce; heads 1 and 8 at K=64 and
+     K=3/24, exact and bound) and on rmat15 (hub and empty rows), f32 and
+     bf16.  Forward within 1e-5 x max |ref| + 1e-6 (bf16 out: 8e-3 x), a
+     max exactly; gradients within 1e-4 x max(|ref|, 1) (bf16 grad_B:
+     8e-3 x);
+  9. composed attention chain on the card at layer 0's shapes (K=64):
+     additive logits, leaky ReLU, edge_softmax, spmm(with_data(alpha)),
+     forward and backward: 5 segment-reduce launches, and the result and
+     its gradients held to the fused op and to float64;
+ 10. GAT train: dims [128, 64, 3], one head, on the SBM graph with
+     self-loops, 50 epochs through the fused kernels (>= 2 forward, 2
+     CSR-backward and 2 CSC-backward launches per epoch) with the same
+     checks as phase 6; method="xla" with no launches; then DGL's
+     multi-head shape, dims [128, 8, 3] with 8 heads, 20 epochs;
+ 11. timings: device time of every kernel against its plain version at the
+     slice's shapes and at rmat15, call times of the sum kernel, and GCN,
+     SAGE-pool and GAT ms/epoch for both methods (two runs each, in the
      order auto, xla, xla, auto).
 
 Each path's launches are counted from 0 in its own run; the comparison
-launches of phases 3-5 are not counted.  Output: one line per phase, then
+launches of phases 3-5 and 8 are not counted.  Output: one line per phase, then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  With --record, the full record of the run is
 also written to PATH as JSON.
@@ -54,12 +71,20 @@ SEED = 0
 EPOCHS = 50
 GCN_DIMS = [128, 32, 3]
 SAGE_DIMS = [128, 16, 3]
+GAT_DIMS = [128, 64, 3]
+GAT_MH_DIMS, GAT_MH_HEADS, GAT_MH_EPOCHS = [128, 8, 3], 8, 20
+GAT_LR = 5e-3  # the JAX GAT bench's; weight decay 5e-4 as for the others
 SBM_PUBMED = dict(n_per_class=6573, num_classes=3, p_in=0.0006, p_out=0.00002,
                   feat_dim=128, seed=SEED)
-LIBS = ("spmm_csr", "spmm_minmax")
+LIBS = ("spmm_csr", "spmm_minmax", "edge_reduce", "gat_fused")
 RMAT_KS = (1, 3, 32, 33, 128, 130, 512)
 MINMAX_RMAT_KS = (1, 3, 32, 33, 128, 130)
 MINMAX_SBM_KS = (128, 16)
+# (heads, head width) of the fused kernel checks: layer 0 (K=64) and layer 1
+# (K=3) of the slice, and DGL's 8-head shape at both layers.
+GAT_SBM_SHAPES = ((1, 64), (1, 3), (8, 8), (8, 3))
+GAT_RMAT_SHAPES = ((1, 64), (8, 3))
+SLOPE = 0.2
 
 
 class SmokeFailure(Exception):
@@ -103,6 +128,51 @@ def bound_check(torch, ref, out, indptr, indices, rows, data, B):
     return float(err.max()) if err.numel() else 0.0, ok
 
 
+def gat_kernels_vs_float64(torch, ref, kgat, adj, H, dh, max_mode, dtype,
+                           gen):
+    """Run the three fused kernels once; {name: (max abs error, bound)}
+    against the float64 plain versions (the backward's s = <g, out> from
+    the kernel's stored out, as the op takes it)."""
+    dev = adj.csr.indptr.device
+    m, n = adj.shape
+    src = torch.randn(m, H, device=dev, generator=gen)
+    dst = torch.randn(n, H, device=dev, generator=gen)
+    B = torch.randn(n, H * dh, device=dev, generator=gen).to(dtype)
+    g = torch.randn(m, H * dh, device=dev, generator=gen)
+    out, mx, den = kgat.gat_forward(adj.csr.indptr, adj.csr.indices, src, dst,
+                                    B, slope=SLOPE, heads=H, max_mode=max_mode)
+    s_row = ref.gat_row_dot(g, out, H)
+    grad_src = kgat.gat_backward_rows(adj.csr.indptr, adj.csr.indices, src,
+                                      dst, B, g, mx, den, s_row, slope=SLOPE,
+                                      heads=H)
+    grad_dst, grad_B = kgat.gat_backward_cols(
+        adj.csc.indptr, adj.csc.indices, src, dst, B, g, mx, den, s_row,
+        slope=SLOPE, heads=H)
+    torch.cuda.synchronize()
+    edges = (adj.rows, adj.csr.indices)
+    s64, d64, B64, g64 = src.double(), dst.double(), B.double(), g.double()
+    want_out, mx64, den64 = ref.gat_fused_rows(*edges, s64, d64, B64, m, SLOPE,
+                                               max_mode, H)
+    vjp = (*edges, s64, d64, B64, g64, mx64, den64,
+           ref.gat_row_dot(g64, out.double(), H))
+    want_src = ref.gat_fused_vjp_rows(*vjp, m, SLOPE, H)
+    want_dst, want_B = ref.gat_fused_vjp_cols(*vjp, SLOPE, H)
+    bf16 = dtype == torch.bfloat16
+    errs = {}
+    for name, got, want, fwd, tol in (
+            ("out", out, want_out, True, 8e-3 if bf16 else 1e-5),
+            ("mx", mx, mx64, True, 1e-5), ("den", den, den64, True, 1e-5),
+            ("grad_src", grad_src, want_src, False, 1e-4),
+            ("grad_dst", grad_dst, want_dst, False, 1e-4),
+            ("grad_B", grad_B, want_B, False, 8e-3 if bf16 else 1e-4)):
+        check(tuple(got.shape) == tuple(want.shape)
+              and bool(torch.isfinite(got).all()), f"{name}: shape or finite")
+        scale = float(want.abs().max())
+        bound = tol * scale + 1e-6 if fwd else tol * max(scale, 1.0)
+        errs[name] = (float((got.double() - want).abs().max()), bound)
+    return errs
+
+
 def alternate(measure, kernel, plain):
     """(kernel, plain) measurements in ms, taken plain, kernel, kernel, plain."""
     p1, k1, k2, p2 = measure(plain), measure(kernel), measure(kernel), \
@@ -123,12 +193,17 @@ def main(argv=None):
         return 2
     sys.path.insert(0, HERE)
     from gespmm_tpu_torch.kernels import _build
+    from gespmm_tpu_torch.kernels import edge_reduce as kedge
+    from gespmm_tpu_torch.kernels import gat_fused as kgat
     from gespmm_tpu_torch.kernels import spmm_csr as kspmm
     from gespmm_tpu_torch.kernels import spmm_minmax as kmm
+    from gespmm_tpu_torch.models.gat import GAT
     from gespmm_tpu_torch.models.gcn import GCN
     from gespmm_tpu_torch.models.sage import GraphSAGE
     from gespmm_tpu_torch.ops import reference as ref
-    from gespmm_tpu_torch.ops.graph import add_self_loops
+    from gespmm_tpu_torch.ops.graph import (add_self_loops,
+                                            additive_attention_logits,
+                                            edge_softmax)
     from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
     from gespmm_tpu_torch.train.loop import train_node_classifier
     from gespmm_tpu_torch.utils import timing
@@ -140,12 +215,16 @@ def main(argv=None):
     record = {}
 
     def reset_counts():
-        kspmm.reset_launches()
-        kmm.reset_launches()
+        for mod in (kspmm, kmm, kedge, kgat):
+            mod.reset_launches()
 
     def counts():
         return {"spmm_csr": kspmm.launches, "spmm_minmax": kmm.launches,
-                "spmm_minmax_vjp": kmm.vjp_launches}
+                "spmm_minmax_vjp": kmm.vjp_launches,
+                "edge_segment_reduce": kedge.launches,
+                "gat_fwd": kgat.launches,
+                "gat_bwd_rows": kgat.bwd_rows_launches,
+                "gat_bwd_cols": kgat.bwd_cols_launches}
 
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
@@ -170,7 +249,8 @@ def main(argv=None):
     for name, (lib, s) in built.items():
         print(f"nvcc {' '.join(_build.NVCC_FLAGS)} -> "
               f"{os.path.relpath(lib, HERE)} in {s:.2f} s", flush=True)
-    print(f"both built in {record['build_s']['all']:.2f} s", flush=True)
+    print(f"all {len(LIBS)} built in {record['build_s']['all']:.2f} s",
+          flush=True)
 
     phase("3 sum kernel vs plain (float64 bound)")
     ds = sbm_graph(**SBM_PUBMED).to(dev)
@@ -317,19 +397,28 @@ def main(argv=None):
                          generator=torch.Generator(device=dev).manual_seed(SEED),
                          device=dev)
 
-    def train(make, a, method):
+    def make_gat(method, dims=GAT_DIMS, heads=1):
+        return GAT(dims, dropout_rate=0.5, method=method, heads=heads,
+                   generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev)
+
+    def make_gat_mh(method):
+        return make_gat(method, GAT_MH_DIMS, GAT_MH_HEADS)
+
+    def train(make, a, method, epochs=EPOCHS, lr=1e-2):
         model = make(method)
         reset_counts()
         res = train_node_classifier(model, a, ds.features, ds.labels,
-                                    ds.masks, seed=SEED, epochs=EPOCHS)
+                                    ds.masks, seed=SEED, epochs=epochs, lr=lr)
         torch.cuda.synchronize()
         return model, res, counts()
 
-    def drive(name, make, a, cpu_model, path_kernels):
-        """Train with both methods; check the run and the path's launches."""
+    def drive(name, make, a, cpu_model, path_kernels, methods=("auto", "xla"),
+              epochs=EPOCHS, lr=1e-2):
+        """Train with each method; check the run and the path's launches."""
         runs = {}
-        for method in ("auto", "xla"):
-            model, res, launched = train(make, a, method)
+        for method in methods:
+            model, res, launched = train(make, a, method, epochs, lr)
             loss = res["history"]["loss"]
             print(f"{name} method={method}: loss {loss[0]:.4f} -> "
                   f"{loss[-1]:.4f} | train/val/test acc {res['train_acc']:.4f}/"
@@ -344,9 +433,9 @@ def main(argv=None):
                   f"{name} {method}: non-finite parameters")
             if method == "auto":
                 for kname, per_epoch in path_kernels.items():
-                    check(launched[kname] >= per_epoch * EPOCHS,
+                    check(launched[kname] >= per_epoch * epochs,
                           f"{name}: only {launched[kname]} {kname} launches in "
-                          f"{EPOCHS} epochs")
+                          f"{epochs} epochs")
                 model.eval()
                 with torch.no_grad():
                     logits = model(a, ds.features)
@@ -386,7 +475,122 @@ def main(argv=None):
                       {"spmm_minmax": 2, "spmm_minmax_vjp": 2})
     record["sage_pool"] = sage_runs
 
-    phase("8 timings, in the order plain / kernel / kernel / plain")
+    phase("8 attention kernels vs plain (float64 bound)")
+    att_err = {"edge_segment_reduce": 0.0, "gat_fwd": 0.0, "gat_bwd_rows": 0.0,
+               "gat_bwd_cols": 0.0}
+    att_compared = []
+    # Edge segment reduce: K is the head count; the slice runs K=1.
+    for graph, a, ks in (("sbm", adj, (1, 8)), ("rmat15", rmat, (1, 3, 8))):
+        m = a.shape[0]
+        for K in ks:
+            for dtype in (torch.float32, torch.bfloat16):
+                vals = torch.randn(a.nnz, K, device=dev, generator=gen).to(dtype)
+                for op in ("sum", "max"):
+                    out = kedge.edge_segment_reduce(a.csr.indptr, vals, op)
+                    torch.cuda.synchronize()
+                    label = (f"edge_segment_reduce {graph} K={K} {op} "
+                             f"{str(dtype).split('.')[-1]}")
+                    if op == "max":  # selected, not summed: exact
+                        want = ref.edge_segment_rows(a.rows, vals, m, "max")
+                        ok = torch.equal(out, want)
+                        err = float((out.double() - want.double()).abs().max())
+                    else:
+                        want = ref.edge_segment_rows(a.rows, vals.double(), m,
+                                                     "sum")
+                        tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+                        err = float((out.double() - want).abs().max())
+                        ok = err <= tol * float(want.abs().max()) + 1e-6
+                    print(f"{label}: max_abs_err={err:.3e} "
+                          f"{'ok' if ok else 'OUT OF BOUND'}", flush=True)
+                    check(ok, f"kernel disagrees with the plain version: {label}")
+                    if graph == "sbm" and K == 1 and dtype == torch.float32:
+                        att_err["edge_segment_reduce"] = max(
+                            att_err["edge_segment_reduce"], err)
+                    att_compared.append({"case": label, "max_abs_err": err})
+    # The three fused kernels.
+    gat_cases = [("sbm", adj, H, dh, mm, dt) for H, dh in GAT_SBM_SHAPES
+                 for mm in ("exact", "bound")
+                 for dt in (torch.float32, torch.bfloat16)]
+    gat_cases += [("rmat15", rmat, H, dh, "exact", dt) for H, dh in
+                  GAT_RMAT_SHAPES for dt in (torch.float32, torch.bfloat16)]
+    for graph, a, H, dh, max_mode, dtype in gat_cases:
+        label = (f"gat {graph} H={H} dh={dh} {max_mode} "
+                 f"{str(dtype).split('.')[-1]}")
+        errs = gat_kernels_vs_float64(torch, ref, kgat, a, H, dh, max_mode,
+                                      dtype, gen)
+        bad = [k for k, (e, b) in errs.items() if e > b]
+        print(f"{label}: " + " ".join(f"{k}={e:.3e}" for k, (e, _) in
+                                      errs.items())
+              + (f" OUT OF BOUND: {bad}" if bad else " ok"), flush=True)
+        check(not bad, f"fused kernels disagree with float64: {label} {bad}")
+        if (graph, H, dh, max_mode, dtype) == ("sbm", 1, 64, "exact",
+                                                torch.float32):
+            att_err["gat_fwd"] = errs["out"][0]
+            att_err["gat_bwd_rows"] = errs["grad_src"][0]
+            att_err["gat_bwd_cols"] = max(errs["grad_dst"][0],
+                                          errs["grad_B"][0])
+        att_compared.append({"case": label, "errors": errs})
+    record["attention_vs_plain"] = att_compared
+
+    phase("9 composed attention chain on the card (layer 0: K=64)")
+
+    def chain(src, dst, h, method):
+        logits = additive_attention_logits(adj, src, dst, method=method)
+        alpha = edge_softmax(
+            adj, torch.nn.functional.leaky_relu(logits, SLOPE), method=method)
+        return spmm(adj.with_data(alpha), h, method=method)
+
+    n_sbm = adj.shape[0]
+    leaves = [torch.randn(shape, device=dev, generator=gen) for shape in
+              ((n_sbm,), (n_sbm,), (n_sbm, GAT_DIMS[1]))]
+    g_out = torch.randn(n_sbm, GAT_DIMS[1], device=dev, generator=gen)
+
+    def grads_of(run, dtype=torch.float32):
+        xs = [t.to(dtype, copy=True).requires_grad_(True) for t in leaves]
+        out = run(*xs)
+        out.backward(g_out.to(dtype))
+        return [out.detach()] + [x.grad for x in xs]
+
+    reset_counts()
+    composed = grads_of(lambda s, d, h: chain(s, d, h, "auto"))
+    torch.cuda.synchronize()
+    chain_launches = counts()
+    fused = grads_of(lambda s, d, h: kgat.gat_attention_aggregate(
+        adj, s, d, h, negative_slope=SLOPE))
+    exact = grads_of(lambda s, d, h: chain(s, d, h, "xla"), torch.float64)
+    print(f"composed chain launches: {chain_launches}", flush=True)
+    check(chain_launches["edge_segment_reduce"] == 5,
+          "composed chain: expected 2 + 3 segment-reduce launches")
+    check(chain_launches["spmm_csr"] == 2,
+          "composed chain: expected 2 spmm_csr launches")
+    chain_errs = {}
+    for name, c, f, x in zip(("out", "grad_src", "grad_dst", "grad_B"),
+                             composed, fused, exact):
+        scale = float(x.abs().max())
+        tol = 1e-5 * scale + 1e-6 if name == "out" else 1e-4 * max(scale, 1.0)
+        e_x = float((c.double() - x).abs().max())
+        e_f = float((c - f).abs().max())
+        chain_errs[name] = {"vs_float64": e_x, "vs_fused": e_f}
+        print(f"{name}: vs float64 {e_x:.3e}, vs fused {e_f:.3e} (max |ref| "
+              f"{scale:.3e})", flush=True)
+        check(bool(torch.isfinite(c).all()) and e_x <= tol and e_f <= tol,
+              f"composed chain {name} disagrees")
+    record["composed_chain"] = {"launches": chain_launches,
+                                "errors": chain_errs}
+
+    phase(f"10 GAT train, dims {GAT_DIMS}, {EPOCHS} epochs; then "
+          f"{GAT_MH_HEADS} heads {GAT_MH_DIMS}, {GAT_MH_EPOCHS} epochs")
+    gat_path = {"gat_fwd": 2, "gat_bwd_rows": 2, "gat_bwd_cols": 2}
+    gat_runs = drive("GAT", make_gat, adj, GAT(GAT_DIMS, method="xla").double(),
+                     gat_path, lr=GAT_LR)
+    record["gat"] = gat_runs
+    gat_mh_runs = drive(
+        f"GAT heads={GAT_MH_HEADS}", make_gat_mh, adj,
+        GAT(GAT_MH_DIMS, method="xla", heads=GAT_MH_HEADS).double(), gat_path,
+        methods=("auto",), epochs=GAT_MH_EPOCHS, lr=GAT_LR)
+    record["gat_multihead"] = gat_mh_runs
+
+    phase("11 timings, in the order plain / kernel / kernel / plain")
     # Device time: CUDA events around calls queued behind a spin kernel,
     # so they run back to back on the card.  Call time: CUDA events around
     # groups of calls, which at these sizes is the host's enqueue rate
@@ -463,16 +667,90 @@ def main(argv=None):
                   f" | plain {mean(p_dev):.5f} ms | {card}", flush=True)
     record["minmax_timings"] = mm_timings
 
-    for name, runs, make, a in (("GCN", gcn_runs, make_gcn, adj),
-                                ("SAGE-pool", sage_runs, make_sage, sage_adj)):
+    # Edge segment reduce at the composed chain's K=1 (sum: the normaliser
+    # and the backward; max: the shift) and at 8 heads; then rmat15.
+    seg_timings = []
+    for graph, a, K, op in (("sbm", adj, 1, "sum"), ("sbm", adj, 1, "max"),
+                            ("sbm", adj, 8, "sum"), ("rmat15", rmat, 1, "sum")):
+        vals = torch.randn(a.nnz, K, device=dev, generator=gen)
+
+        def kernel():
+            return kedge.edge_segment_reduce(a.csr.indptr, vals, op)
+
+        def plain():
+            return ref.edge_segment_rows(a.rows, vals, a.shape[0], op)
+
+        k_dev, p_dev = alternate(timing.device_time, kernel, plain)
+        row = {"kernel": "edge_segment_reduce", "shape": f"{graph} K={K} {op}",
+               "nnz": a.nnz, "K": K, "kernel_device_ms": k_dev,
+               "plain_device_ms": p_dev}
+        seg_timings.append(row)
+        print(f"edge_segment_reduce {graph} K={K} {op}: device time kernel "
+              f"{mean(k_dev):.5f} ms | plain {mean(p_dev):.5f} ms | {card}",
+              flush=True)
+    record["edge_reduce_timings"] = seg_timings
+
+    # The fused kernels at the GAT slice's layer 0 (K=64) and layer 1 (K=3),
+    # at DGL's 8-head layer 0 (K=64, dh=8), and at rmat15 K=64.  The plain
+    # versions walk the CSR edges for every direction.  Each of their calls
+    # is 20-40 launches, so 10 calls a group keep the launch queue from
+    # filling behind the spin kernel (see timing.device_time).
+    def gat_time(f):
+        return timing.device_time(f, iters=10)
+
+    gat_timings = []
+    for graph, a, H, dh in (("sbm", adj, 1, 64), ("sbm", adj, 1, 3),
+                            ("sbm", adj, 8, 8), ("rmat15", rmat, 1, 64)):
+        m, n = a.shape
+        src = torch.randn(m, H, device=dev, generator=gen)
+        dst = torch.randn(n, H, device=dev, generator=gen)
+        B = torch.randn(n, H * dh, device=dev, generator=gen)
+        g = torch.randn(m, H * dh, device=dev, generator=gen)
+        out, mx, den = kgat.gat_forward(a.csr.indptr, a.csr.indices, src, dst,
+                                        B, slope=SLOPE, heads=H)
+        s_row = ref.gat_row_dot(g, out, H)
+        edges = (a.rows, a.csr.indices)
+        tables = (src, dst, B, g, mx, den, s_row)
+        kw = dict(slope=SLOPE, heads=H)
+        for label, kernel, plain in (
+                ("gat_fwd",
+                 lambda: kgat.gat_forward(a.csr.indptr, a.csr.indices, src,
+                                          dst, B, **kw),
+                 lambda: ref.gat_fused_rows(*edges, src, dst, B, m, SLOPE,
+                                            "exact", H)),
+                ("gat_bwd_rows",
+                 lambda: kgat.gat_backward_rows(a.csr.indptr, a.csr.indices,
+                                                *tables, **kw),
+                 lambda: ref.gat_fused_vjp_rows(*edges, *tables, m, SLOPE, H)),
+                ("gat_bwd_cols",
+                 lambda: kgat.gat_backward_cols(a.csc.indptr, a.csc.indices,
+                                                *tables, **kw),
+                 lambda: ref.gat_fused_vjp_cols(*edges, *tables, SLOPE, H))):
+            k_dev, p_dev = alternate(gat_time, kernel, plain)
+            row = {"kernel": label, "shape": f"{graph} H={H} dh={dh}",
+                   "nnz": a.nnz, "K": H * dh, "kernel_device_ms": k_dev,
+                   "plain_device_ms": p_dev}
+            gat_timings.append(row)
+            print(f"{label} {graph} H={H} dh={dh}: device time kernel "
+                  f"{mean(k_dev):.5f} ms | plain {mean(p_dev):.5f} ms | {card}",
+                  flush=True)
+    record["gat_timings"] = gat_timings
+
+    for name, runs, make, a, lr in (
+            ("GCN", gcn_runs, make_gcn, adj, 1e-2),
+            ("SAGE-pool", sage_runs, make_sage, sage_adj, 1e-2),
+            ("GAT", gat_runs, make_gat, adj, GAT_LR)):
         for method in ("xla", "auto"):
             runs[method]["ms_per_epoch_runs"].append(
-                train(make, a, method)[1]["mean_epoch_time"] * 1e3)
+                train(make, a, method, lr=lr)[1]["mean_epoch_time"] * 1e3)
         for method, r in runs.items():
             ms = r["ms_per_epoch_runs"]
             r["ms_per_epoch"] = mean(ms)
             print(f"{name} {method}: {mean(ms):.4f} ms/epoch (runs "
                   f"{', '.join(f'{x:.4f}' for x in ms)}) | {card}", flush=True)
+    mh_ms = gat_mh_runs["auto"]["ms_per_epoch_runs"][0]
+    print(f"GAT heads={GAT_MH_HEADS} auto: {mh_ms:.4f} ms/epoch | {card}",
+          flush=True)
 
     def kernel_entry(name, source, replaces, launches, err, row):
         return {"name": name, "route": "cuda", "source": source,
@@ -490,6 +768,18 @@ def main(argv=None):
         kernel_entry("spmm_minmax_vjp", kmm.SOURCE, kmm.VJP_REPLACES,
                      sage_runs["auto"]["launches"]["spmm_minmax_vjp"], bwd_err,
                      mm_timings[1]),
+        kernel_entry("edge_segment_reduce", kedge.SOURCE, kedge.REPLACES,
+                     chain_launches["edge_segment_reduce"],
+                     att_err["edge_segment_reduce"], seg_timings[0]),
+        kernel_entry("gat_fwd", kgat.SOURCE, kgat.REPLACES,
+                     gat_runs["auto"]["launches"]["gat_fwd"],
+                     att_err["gat_fwd"], gat_timings[0]),
+        kernel_entry("gat_bwd_rows", kgat.SOURCE, kgat.BWD_ROWS_REPLACES,
+                     gat_runs["auto"]["launches"]["gat_bwd_rows"],
+                     att_err["gat_bwd_rows"], gat_timings[1]),
+        kernel_entry("gat_bwd_cols", kgat.SOURCE, kgat.BWD_COLS_REPLACES,
+                     gat_runs["auto"]["launches"]["gat_bwd_cols"],
+                     att_err["gat_bwd_cols"], gat_timings[2]),
     ]}
     record.update(kernels)
     if args.record:

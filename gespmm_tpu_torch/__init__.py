@@ -1,21 +1,25 @@
 """gespmm_tpu_torch — the PyTorch and CUDA port of gespmm_tpu, for NVIDIA Hopper.
 
-Ported so far (the GCN and GraphSAGE training paths): CSR/CSC/COO
+Ported so far (the GCN, GraphSAGE and GAT training paths): CSR/CSC/COO
 containers, .mtx ingest and the synthetic graph generators, ``Adjacency`` +
 ``spmm`` (sum/mean/max/min) with transpose-paired autograd Functions over
 hand-written CUDA kernels (CSR sum SpMM; max/min SpMM with tie counts and
-its CSC backward), the GCN and GraphSAGE models, the training loop, timing
-and the GCN and SAGE benchmarks.
+its CSC backward), ``sddmm``, ``edge_softmax`` and
+``additive_attention_logits`` over an edge segment-reduce kernel, the fused
+GAT attention op ``gat_attention_aggregate`` (forward, CSR and CSC backward
+kernels), the GCN, GraphSAGE and GAT models, the training loop, timing and
+the GCN, SAGE and GAT benchmarks.
 
 Layering mirrors the JAX package:
     sparse/    formats (CSR/CSC/COO of torch tensors), .mtx ingest
     csrc/      CUDA C++ kernels for sm_90a
     kernels/   nvcc build + ctypes wrappers (plain version on CPU tensors)
-    ops/       spmm with its autograd Function, graph ops, plain reference
-    models/    GCN, GraphSAGE
+    ops/       spmm and sddmm with their autograd Functions, graph and
+               attention ops, plain reference
+    models/    GCN, GraphSAGE, GAT
     train/     training loop
     utils/     datasets, timing
-    bench/     GCN and SAGE benchmark CLIs
+    bench/     GCN, SAGE and GAT benchmark CLIs
 
 Importing the package needs no compiler and no GPU: kernels build at
 their first launch.
@@ -23,7 +27,11 @@ their first launch.
 
 from gespmm_tpu_torch.sparse.formats import COO, CSC, CSR, csr_from_coo, csr_to_csc
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
-from gespmm_tpu_torch.ops.graph import gcn_aggregate, sage_aggregate
+from gespmm_tpu_torch.ops.sddmm import sddmm, sddmm_coo
+from gespmm_tpu_torch.ops.graph import (additive_attention_logits, edge_softmax,
+                                        gat_attention, gcn_aggregate,
+                                        sage_aggregate)
+from gespmm_tpu_torch.kernels.gat_fused import gat_attention_aggregate
 
 __version__ = "0.1.0"
 
@@ -35,6 +43,12 @@ __all__ = [
     "csr_from_coo",
     "csr_to_csc",
     "spmm",
+    "sddmm",
+    "sddmm_coo",
+    "edge_softmax",
+    "additive_attention_logits",
+    "gat_attention",
+    "gat_attention_aggregate",
     "gcn_aggregate",
     "sage_aggregate",
     "__version__",

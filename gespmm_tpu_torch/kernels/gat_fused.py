@@ -1,0 +1,365 @@
+"""Fused GATv1 attention — port of ``gespmm_tpu/kernels/gat_fused.py`` (additive attention).
+
+``gat_attention_aggregate`` is the whole attention layer as one op,
+
+    out[r] = Σ_c softmax_c(leaky(src[r] + dst[c])) · B[c]   per head,
+
+a ``torch.autograd.Function`` over three hand-written CUDA kernels in
+``csrc/gat_fused.cu``:
+
+  * ``gat_forward``: (out, mx, den) over the CSR, replacing ``_forward``;
+  * ``gat_backward_rows``: grad_src over the CSR, replacing the pass of
+    ``_gat_bwd`` over ``plan``;
+  * ``gat_backward_cols``: (grad_dst, grad_B) over the CSC, replacing the
+    pass of ``_gat_bwd`` over ``plan_t``.
+
+The backward recomputes every per-edge factor from the node tables and the
+forward's residuals ``mx`` (the softmax shift) and ``den`` (the clamped
+denominator), with ``s = <g, out>`` per head taken from the STORED ``out``
+as the JAX package takes it.  A tensor on the CPU goes to the plain
+versions (``ops/reference.py``); a CUDA tensor launches the kernels or
+raises — there is no fallback.  ``launches``, ``bwd_rows_launches`` and
+``bwd_cols_launches`` count the launches of each kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Union
+
+import torch
+
+from gespmm_tpu_torch.kernels._build import load_library
+from gespmm_tpu_torch.kernels.spmm_csr import (check_operands, check_table,
+                                               lane_vector, raise_on)
+from gespmm_tpu_torch.ops import reference
+from gespmm_tpu_torch.ops.spmm import Adjacency
+from gespmm_tpu_torch.sparse.formats import CSR, expand_indptr
+
+Tensor = torch.Tensor
+
+SOURCE = "gespmm_tpu_torch/csrc/gat_fused.cu"
+REPLACES = "gespmm_tpu/kernels/gat_fused.py:103"
+BWD_ROWS_REPLACES = "gespmm_tpu/kernels/gat_fused.py:223"
+BWD_COLS_REPLACES = "gespmm_tpu/kernels/gat_fused.py:260"
+MAX_MODES = ("exact", "bound")
+MODES = ("trilo", "hilo", "fast")
+
+launches = 0
+bwd_rows_launches = 0
+bwd_cols_launches = 0
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_F32 = torch.float32
+
+
+def reset_launches() -> None:
+    global launches, bwd_rows_launches, bwd_cols_launches
+    launches = bwd_rows_launches = bwd_cols_launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(kind: str, dtype: torch.dtype):
+    """(entry point, error-string function) of ``kind`` "fwd"/"bwd_rows"/"bwd_cols"."""
+    lib = load_library("gat_fused")
+    fn = getattr(lib, f"gespmm_gat_{kind}_{_SUFFIX[dtype]}")
+    i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    fn.argtypes = {"fwd": [i, i, i, i, i, f] + [p] * 9,
+                   "bwd_rows": [i, i, i, f] + [p] * 11,
+                   "bwd_cols": [i, i, i, i, f] + [p] * 12}[kind]
+    fn.restype = ctypes.c_int
+    lib.gespmm_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.gespmm_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.gespmm_cuda_error_string
+
+
+def _stream(t: Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _f32(t: Tensor) -> Tensor:
+    return t.to(_F32).contiguous()
+
+
+def _heads_of(B: Tensor, heads: int) -> int:
+    if heads < 1 or B.shape[1] % heads:
+        raise ValueError(f"B has {B.shape[1]} columns, not a multiple of "
+                         f"heads={heads}")
+    return heads
+
+
+# --- forward -------------------------------------------------------------
+
+
+def gat_forward(indptr: Tensor, indices: Tensor, src2: Tensor, dst2: Tensor,
+                B: Tensor, *, slope: float = 0.2, heads: int = 1,
+                max_mode: str = "exact", rows: Optional[Tensor] = None):
+    """(out, mx, den) of the fused forward over the CSR (indptr, indices).
+
+    src2 (m, H), dst2 (n, H), B (n, H·dh).  ``out`` takes B's dtype; ``mx``
+    and ``den`` (m, H) are f32 (f64 from the plain version for f64 inputs).
+    In "bound" mode the shift leaky(src + max_c dst) is computed with torch
+    ops and handed to the kernel, as the JAX package computes it outside
+    Pallas.  ``rows`` (the expanded indptr) is used only by the plain version.
+    """
+    if max_mode not in MAX_MODES:
+        raise ValueError(f"max_mode must be exact|bound, got {max_mode!r}")
+    m = indptr.shape[0] - 1
+    if B.device.type == "cpu":
+        if rows is None:
+            rows = expand_indptr(indptr, indices.shape[0])
+        return reference.gat_fused_rows(rows, indices, src2, dst2, B, m, slope,
+                                        max_mode, heads)
+    src2, dst2 = _f32(src2), _f32(dst2)
+    mx = (reference.gat_bound_shift(src2, dst2, slope) if max_mode == "bound"
+          else None)
+    return gat_forward_cuda(indptr, indices, src2, dst2, B, slope, heads, mx)
+
+
+def gat_forward_cuda(indptr: Tensor, indices: Tensor, src2: Tensor,
+                     dst2: Tensor, B: Tensor, slope: float, heads: int,
+                     mx: Optional[Tensor] = None):
+    """Launch the forward kernel on the current stream of B's device.  With
+    ``mx`` given (f32 (m, H)) the kernel shifts by it and skips its max pass."""
+    global launches
+    check_operands(indptr, indices, None, B)
+    H = _heads_of(B, heads)
+    m, (n, K) = indptr.shape[0] - 1, B.shape
+    check_table("src", src2, (m, H), _F32, B.device)
+    check_table("dst", dst2, (n, H), _F32, B.device)
+    if mx is not None:
+        check_table("mx", mx, (m, H), _F32, B.device)
+    if m == 0 or K == 0 or indices.shape[0] == 0:
+        # Every row is empty: out 0, shift 0, denominator at its floor.
+        return (torch.zeros((m, K), dtype=B.dtype, device=B.device),
+                torch.zeros((m, H), dtype=_F32, device=B.device)
+                if mx is None else mx,
+                torch.full((m, H), reference.DENOM_EPS, dtype=_F32,
+                           device=B.device))
+    fn, err_str = _entry("fwd", B.dtype)
+    out = torch.empty((m, K), dtype=B.dtype, device=B.device)
+    den = torch.empty((m, H), dtype=_F32, device=B.device)
+    exact = mx is None
+    if exact:
+        mx = torch.empty((m, H), dtype=_F32, device=B.device)
+    with torch.cuda.device(B.device):
+        err = fn(m, K, H, lane_vector(K, B, out), int(exact), float(slope),
+                 indptr.data_ptr(), indices.data_ptr(), src2.data_ptr(),
+                 dst2.data_ptr(), B.data_ptr(), mx.data_ptr(), out.data_ptr(),
+                 den.data_ptr(), _stream(B))
+    raise_on(err, err_str, f"gat forward at m={m} K={K} H={H} dtype={B.dtype}")
+    launches += 1
+    return out, mx, den
+
+
+# --- backward ------------------------------------------------------------
+
+
+def gat_backward_rows(indptr: Tensor, indices: Tensor, src2: Tensor,
+                      dst2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
+                      den: Tensor, s_row: Tensor, *, slope: float = 0.2,
+                      heads: int = 1, rows: Optional[Tensor] = None) -> Tensor:
+    """grad_src (m, H) = Σ_{e in row r} dpre_e over the CSR, with
+    dpre = alpha·(<g[r], B[c]>_h − s[r])·leaky'(pre).  f32 (f64 from the
+    plain version for f64 inputs).  ``rows`` is used only by the plain
+    version."""
+    m = indptr.shape[0] - 1
+    if B.device.type == "cpu":
+        if rows is None:
+            rows = expand_indptr(indptr, indices.shape[0])
+        return reference.gat_fused_vjp_rows(rows, indices, src2, dst2, B, g,
+                                            mx, den, s_row, m, slope, heads)
+    return gat_backward_rows_cuda(indptr, indices, _f32(src2), _f32(dst2), B,
+                                  _f32(g), _f32(mx), _f32(den), _f32(s_row),
+                                  slope, heads)
+
+
+def _check_bwd_tables(m, n, K, H, B, src2, dst2, g, mx, den, s_row) -> None:
+    check_table("src", src2, (m, H), _F32, B.device)
+    check_table("dst", dst2, (n, H), _F32, B.device)
+    check_table("g", g, (m, K), _F32, B.device)
+    for name, t in (("mx", mx), ("den", den), ("s_row", s_row)):
+        check_table(name, t, (m, H), _F32, B.device)
+
+
+def gat_backward_rows_cuda(indptr: Tensor, indices: Tensor, src2: Tensor,
+                           dst2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
+                           den: Tensor, s_row: Tensor, slope: float,
+                           heads: int) -> Tensor:
+    """Launch the backward kernel over the CSR on B's device's stream."""
+    global bwd_rows_launches
+    check_operands(indptr, indices, None, B)
+    H = _heads_of(B, heads)
+    m, (n, K) = indptr.shape[0] - 1, B.shape
+    _check_bwd_tables(m, n, K, H, B, src2, dst2, g, mx, den, s_row)
+    if m == 0 or K == 0 or indices.shape[0] == 0:
+        return torch.zeros((m, H), dtype=_F32, device=B.device)
+    fn, err_str = _entry("bwd_rows", B.dtype)
+    grad_src = torch.empty((m, H), dtype=_F32, device=B.device)
+    with torch.cuda.device(B.device):
+        err = fn(m, K, H, float(slope), indptr.data_ptr(), indices.data_ptr(),
+                 src2.data_ptr(), dst2.data_ptr(), B.data_ptr(), g.data_ptr(),
+                 mx.data_ptr(), den.data_ptr(), s_row.data_ptr(),
+                 grad_src.data_ptr(), _stream(B))
+    raise_on(err, err_str, f"gat backward (rows) at m={m} K={K} H={H} "
+             f"dtype={B.dtype}")
+    bwd_rows_launches += 1
+    return grad_src
+
+
+def gat_backward_cols(colptr: Tensor, rows: Tensor, src2: Tensor,
+                      dst2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
+                      den: Tensor, s_row: Tensor, *, slope: float = 0.2,
+                      heads: int = 1, cols: Optional[Tensor] = None):
+    """(grad_dst (n, H), grad_B (n, K)) over the CSC (colptr, rows):
+    grad_dst[c] = Σ_{e in col c} dpre_e and grad_B[c] = Σ_{e in col c}
+    alpha_e·g[r_e] per head block.  grad_dst is f32 and grad_B takes B's
+    dtype (the plain version returns both in the accumulation dtype).
+    ``cols`` (the expanded colptr) is used only by the plain version."""
+    if B.device.type == "cpu":
+        if cols is None:
+            cols = expand_indptr(colptr, rows.shape[0])
+        return reference.gat_fused_vjp_cols(rows, cols, src2, dst2, B, g, mx,
+                                            den, s_row, slope, heads)
+    return gat_backward_cols_cuda(colptr, rows, _f32(src2), _f32(dst2), B,
+                                  _f32(g), _f32(mx), _f32(den), _f32(s_row),
+                                  slope, heads)
+
+
+def gat_backward_cols_cuda(colptr: Tensor, rows: Tensor, src2: Tensor,
+                           dst2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
+                           den: Tensor, s_row: Tensor, slope: float,
+                           heads: int):
+    """Launch the backward kernel over the CSC on B's device's stream."""
+    global bwd_cols_launches
+    check_operands(colptr, rows, None, B)
+    H = _heads_of(B, heads)
+    n, K = B.shape
+    if colptr.shape[0] - 1 != n:
+        raise ValueError(f"the CSC has {colptr.shape[0] - 1} columns, B has "
+                         f"{n} rows")
+    m = src2.shape[0]
+    _check_bwd_tables(m, n, K, H, B, src2, dst2, g, mx, den, s_row)
+    if n == 0 or K == 0 or rows.shape[0] == 0:
+        return (torch.zeros((n, H), dtype=_F32, device=B.device),
+                torch.zeros((n, K), dtype=B.dtype, device=B.device))
+    fn, err_str = _entry("bwd_cols", B.dtype)
+    grad_dst = torch.empty((n, H), dtype=_F32, device=B.device)
+    grad_B = torch.empty((n, K), dtype=B.dtype, device=B.device)
+    with torch.cuda.device(B.device):
+        err = fn(n, K, H, lane_vector(K, g, grad_B), float(slope),
+                 colptr.data_ptr(), rows.data_ptr(), src2.data_ptr(),
+                 dst2.data_ptr(), B.data_ptr(), g.data_ptr(), mx.data_ptr(),
+                 den.data_ptr(), s_row.data_ptr(), grad_B.data_ptr(),
+                 grad_dst.data_ptr(), _stream(B))
+    raise_on(err, err_str, f"gat backward (cols) at n={n} K={K} H={H} "
+             f"dtype={B.dtype}")
+    bwd_cols_launches += 1
+    return grad_dst, grad_B
+
+
+# --- the op --------------------------------------------------------------
+
+
+class _GatFused(torch.autograd.Function):
+    """The fused op over ``adj``; differentiable in src2, dst2 and B."""
+
+    @staticmethod
+    def forward(ctx, adj: Adjacency, slope: float, max_mode: str, heads: int,
+                plain: bool, src2: Tensor, dst2: Tensor, B: Tensor) -> Tensor:
+        m = adj.shape[0]
+        B = B.contiguous()
+        if plain:
+            out, mx, den = reference.gat_fused_rows(
+                adj.rows, adj.csr.indices, src2, dst2, B, m, slope, max_mode,
+                heads)
+        else:
+            out, mx, den = gat_forward(adj.csr.indptr, adj.csr.indices, src2,
+                                       dst2, B, slope=slope, heads=heads,
+                                       max_mode=max_mode, rows=adj.rows)
+        ctx.adj, ctx.slope, ctx.heads, ctx.plain = adj, slope, heads, plain
+        ctx.save_for_backward(src2, dst2, B, out, mx, den)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        adj, slope, heads = ctx.adj, ctx.slope, ctx.heads
+        src2, dst2, B, out, mx, den = ctx.saved_tensors
+        g = g.contiguous()
+        s_row = reference.gat_row_dot(g, out, heads)
+        want_src = ctx.needs_input_grad[5]
+        want_cols = ctx.needs_input_grad[6] or ctx.needs_input_grad[7]
+        kw = dict(slope=slope, heads=heads)
+        grad_src = grad_dst = grad_B = None
+        if ctx.plain:
+            m = adj.shape[0]
+            if want_src:
+                grad_src = reference.gat_fused_vjp_rows(
+                    adj.rows, adj.csr.indices, src2, dst2, B, g, mx, den,
+                    s_row, m, slope, heads)
+            if want_cols:
+                grad_dst, grad_B = reference.gat_fused_vjp_cols(
+                    adj.rows, adj.csr.indices, src2, dst2, B, g, mx, den,
+                    s_row, slope, heads)
+        else:
+            if want_src:
+                grad_src = gat_backward_rows(
+                    adj.csr.indptr, adj.csr.indices, src2, dst2, B, g, mx,
+                    den, s_row, rows=adj.rows, **kw)
+            if want_cols:
+                grad_dst, grad_B = gat_backward_cols(
+                    adj.csc.indptr, adj.csc.indices, src2, dst2, B, g, mx,
+                    den, s_row, cols=adj.rows_t, **kw)
+        if grad_src is not None:
+            grad_src = grad_src.to(src2.dtype)
+        if grad_dst is not None:
+            grad_dst = grad_dst.to(dst2.dtype)
+            grad_B = grad_B.to(B.dtype)
+        return None, None, None, None, None, grad_src, grad_dst, grad_B
+
+
+def gat_attention_aggregate(adj: Union[Adjacency, CSR], src_score: Tensor,
+                            dst_score: Tensor, B: Tensor, *,
+                            negative_slope: float = 0.2,
+                            interpret: Optional[bool] = None,
+                            max_mode: str = "exact", heads: int = 1,
+                            mode: str = "trilo") -> Tensor:
+    """out[r] = Σ_c softmax_c(leaky(src[r]+dst[c])) · B[c] over the edge
+    pattern — the whole GATv1 attention layer as one fused op.
+
+    ``src_score``: (m,) or (m, H); ``dst_score``: (n,) or (n, H); ``B``:
+    (n, H·dh) in head blocks (``heads`` = H); every head runs in the same
+    kernel launch.  ``out`` takes B's dtype (f32 or bf16 on the card).
+    Differentiable in all three tensors.  Rows without an edge give 0.
+
+    ``adj``: an ``Adjacency``, or a bare ``CSR`` paired on the fly.  The
+    JAX package needs tiled plans here; the port has none, and takes any.
+    ``max_mode``: "exact" (the per-row max of the logits, one pass of the
+    kernel) or "bound" (leaky(src[r] + max_c dst[c]) per head, computed
+    before the launch; exact alphas while the dst scores span under ~80).
+    ``mode``: "trilo" | "hilo" | "fast", validated as in the JAX package;
+    every mode accumulates in f32, which meets each mode's tolerance.
+    ``interpret``: True runs the plain PyTorch version on any device, the
+    port's counterpart of the Pallas interpreter; otherwise a CUDA tensor
+    runs the kernels and a CPU tensor their plain versions.
+    """
+    if isinstance(adj, CSR):
+        adj = Adjacency.from_csr(adj)
+    m, n = adj.shape
+    src2 = src_score[:, None] if src_score.dim() == 1 else src_score
+    dst2 = dst_score[:, None] if dst_score.dim() == 1 else dst_score
+    H = int(heads)
+    if tuple(src2.shape) != (m, H) or tuple(dst2.shape) != (n, H):
+        raise ValueError(
+            f"score shapes {tuple(src_score.shape)}/{tuple(dst_score.shape)} "
+            f"must be ({m}, {H})/({n}, {H}) for heads={H} (1-D accepted when "
+            f"heads=1; single head means heads=1)")
+    if B.dim() != 2 or B.shape[0] != n or B.shape[1] % H:
+        raise ValueError(f"B must be ({n}, {H}*dh), got {tuple(B.shape)}")
+    if max_mode not in MAX_MODES:
+        raise ValueError(f"max_mode must be exact|bound, got {max_mode!r}")
+    if mode not in MODES:
+        raise ValueError(f"mode must be trilo|hilo|fast, got {mode!r}")
+    return _GatFused.apply(adj, float(negative_slope), max_mode, H,
+                           bool(interpret), src2, dst2, B)

@@ -106,6 +106,25 @@ def check_operands(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
             raise TypeError(f"data must be floating point, got {data.dtype}")
 
 
+def check_table(name: str, t: Tensor, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous ``shape`` tensor of ``dtype`` on
+    ``device`` (the dense side tables of the kernels of ``csrc/``)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, B on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {tuple(shape)} tensor, "
+                         f"got {tuple(t.shape)}")
+
+
+def raise_on(err: int, err_str, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
+                           f"({err_str(err).decode()})")
+
+
 def spmm_csr_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
                   B: Tensor) -> Tensor:
     """Launch the kernel on the current stream of B's device."""
@@ -124,10 +143,6 @@ def spmm_csr_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
                  None if vals is None else vals.data_ptr(),
                  B.data_ptr(), out.data_ptr(),
                  torch.cuda.current_stream(B.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"spmm_csr launch failed: CUDA error {err} "
-            f"({err_str(err).decode()}) at m={m} K={K} dtype={B.dtype}"
-        )
+    raise_on(err, err_str, f"spmm_csr at m={m} K={K} dtype={B.dtype}")
     launches += 1
     return out

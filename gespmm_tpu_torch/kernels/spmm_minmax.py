@@ -21,7 +21,8 @@ from typing import Optional
 import torch
 
 from gespmm_tpu_torch.kernels._build import load_library
-from gespmm_tpu_torch.kernels.spmm_csr import check_operands, lane_vector
+from gespmm_tpu_torch.kernels.spmm_csr import (check_operands, check_table,
+                                               lane_vector, raise_on)
 from gespmm_tpu_torch.ops import reference
 from gespmm_tpu_torch.sparse.formats import expand_indptr
 
@@ -63,22 +64,6 @@ def _check_reduce(reduce: str) -> None:
         raise ValueError(f"reduce must be 'max' or 'min', got {reduce!r}")
 
 
-def _check_rows_table(name: str, t: Tensor, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, B on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {tuple(shape)} tensor, "
-                         f"got {tuple(t.shape)}")
-
-
-def _raise_on(err: int, err_str, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
-                           f"({err_str(err).decode()})")
-
-
 def spmm_minmax(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
                 B: Tensor, reduce: str, rows: Optional[Tensor] = None):
     """(out, ties) of the max/min SpMM over the CSR (indptr, indices, data).
@@ -117,7 +102,7 @@ def spmm_minmax_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
                  None if vals is None else vals.data_ptr(),
                  B.data_ptr(), out.data_ptr(), ties.data_ptr(),
                  torch.cuda.current_stream(B.device).cuda_stream)
-    _raise_on(err, err_str, f"spmm_minmax at m={m} K={K} dtype={B.dtype}")
+    raise_on(err, err_str, f"spmm_minmax at m={m} K={K} dtype={B.dtype}")
     launches += 1
     return out, ties
 
@@ -156,8 +141,8 @@ def spmm_minmax_vjp_cuda(colptr: Tensor, rows: Tensor, data: Optional[Tensor],
     if n != B.shape[0]:
         raise ValueError(f"the CSC has {n} columns, B has {B.shape[0]} rows")
     m = out.shape[0]
-    _check_rows_table("out", out, (m, K), B.dtype, B.device)
-    _check_rows_table("g_over_ties", g_over_ties, (m, K), torch.float32,
+    check_table("out", out, (m, K), B.dtype, B.device)
+    check_table("g_over_ties", g_over_ties, (m, K), torch.float32,
                       B.device)
     want_values = want_values and data is not None
     if n == 0 or K == 0 or nnz == 0:
@@ -178,7 +163,7 @@ def spmm_minmax_vjp_cuda(colptr: Tensor, rows: Tensor, data: Optional[Tensor],
                  grad_B.data_ptr(),
                  None if partials is None else partials.data_ptr(),
                  torch.cuda.current_stream(B.device).cuda_stream)
-    _raise_on(err, err_str, f"spmm_minmax_vjp at n={n} K={K} dtype={B.dtype}")
+    raise_on(err, err_str, f"spmm_minmax_vjp at n={n} K={K} dtype={B.dtype}")
     vjp_launches += 1
     # Slab partials summed in slab order: deterministic.
     return grad_B, None if partials is None else partials.sum(0)

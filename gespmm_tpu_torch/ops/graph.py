@@ -1,21 +1,32 @@
 """Graph-level ops on the SpMM primitive — port of part of ``gespmm_tpu/ops/graph.py``.
 
 Ported so far: degree normalisation, the symmetric-normalised GCN
-aggregation, the GraphSAGE aggregates and self-loop insertion.  Edge
-softmax and attention wait for their ROADMAP item (A6).
+aggregation, the GraphSAGE aggregates, self-loop insertion, and the
+attention building blocks: ``edge_softmax``, ``additive_attention_logits``
+and ``gat_attention``.  Their per-row reductions run the edge segment-reduce
+kernel (``kernels/edge_reduce.py``) on a CUDA tensor.  ``attention_aggregate``
+(dot-product attention) waits for ROADMAP A6.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
+from gespmm_tpu_torch.kernels.edge_reduce import edge_segment_reduce
+from gespmm_tpu_torch.ops import reference as ref
+from gespmm_tpu_torch.ops.sddmm import sddmm
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 from gespmm_tpu_torch.sparse.formats import CSR, in_degrees, out_degrees
 
 Tensor = torch.Tensor
+
+# The edge ops' methods: "auto"/"tiled" run the segment-reduce kernel on a
+# CUDA tensor (its plain version on a CPU tensor), "xla" the plain version
+# on any device.
+EDGE_METHODS = ("auto", "tiled", "xla")
 
 
 def degree_norm(adj, power: float = -0.5, eps: float = 0.0):
@@ -62,6 +73,115 @@ def sage_aggregate(adj: Adjacency, x: Tensor, *, aggregator: str = "mean",
     if aggregator == "gcn":
         return gcn_aggregate(adj, x, method=method)
     raise ValueError(f"unknown aggregator {aggregator!r}")
+
+
+def _check_edge_method(method: str) -> None:
+    if method not in EDGE_METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of "
+                         f"{EDGE_METHODS}")
+
+
+def _segment(method: str, indptr: Tensor, rows: Tensor, vals: Tensor,
+             op: str) -> Tensor:
+    """Per-row ``op`` of the (nnz, K) ``vals``, in the edge order of
+    ``indptr``; ``rows`` is that ordering's expanded indptr."""
+    if method == "xla":
+        return ref.edge_segment_rows(rows, vals, indptr.shape[0] - 1, op)
+    return edge_segment_reduce(indptr, vals.contiguous(), op, rows=rows)
+
+
+class _EdgeSoftmax(torch.autograd.Function):
+    """Row-wise softmax of (nnz, K) CSR-ordered edge values."""
+
+    @staticmethod
+    def forward(ctx, adj: Adjacency, method: str, logits2d: Tensor) -> Tensor:
+        indptr, rows = adj.csr.indptr, adj.rows
+        r = rows.long()
+        mx = _segment(method, indptr, rows, logits2d, "max")
+        ex = torch.exp(logits2d - mx.index_select(0, r))
+        den = _segment(method, indptr, rows, ex, "sum")
+        alpha = ex / torch.clamp(den.index_select(0, r), min=ref.DENOM_EPS)
+        ctx.adj, ctx.method = adj, method
+        ctx.save_for_backward(alpha)
+        return alpha
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        # dl = alpha ⊙ (g − rowsum(alpha ⊙ g)[row]): one more row reduction.
+        adj, method = ctx.adj, ctx.method
+        (alpha,) = ctx.saved_tensors
+        t = alpha * g
+        s = _segment(method, adj.csr.indptr, adj.rows, t, "sum")
+        return None, None, t - alpha * s.index_select(0, adj.rows.long())
+
+
+def edge_softmax(adj: Union[Adjacency, CSR], logits: Tensor, *,
+                 method: str = "auto") -> Tensor:
+    """Per-destination-row softmax over edge logits (attention precursor).
+
+    logits: (nnz,) or (nnz, heads) in CSR order; softmax within each row,
+    per head.  Differentiable.  The forward is two row reductions (max, then
+    the normaliser) and the backward one.  ``method``: "auto" | "tiled"
+    run them on the edge segment-reduce kernel for a CUDA tensor, "xla" on
+    the plain version; it stands in for the JAX package's test of whether
+    the adjacency carries a plan, which the port does not build.
+    """
+    _check_edge_method(method)
+    if isinstance(adj, CSR):
+        adj = Adjacency.from_csr(adj)
+    squeeze = logits.dim() == 1
+    logits2d = logits[:, None] if squeeze else logits
+    out = _EdgeSoftmax.apply(adj, method, logits2d)
+    return out[:, 0] if squeeze else out
+
+
+class _AdditiveLogits(torch.autograd.Function):
+    """e = src[row_e] + dst[col_e]; the backward is a segment sum over the
+    CSR (grad_src) and one over the CSC (grad_dst)."""
+
+    @staticmethod
+    def forward(ctx, adj: Adjacency, method: str, src_score: Tensor,
+                dst_score: Tensor) -> Tensor:
+        ctx.adj, ctx.method = adj, method
+        return (src_score.index_select(0, adj.rows.long())
+                + dst_score.index_select(0, adj.csr.indices.long()))
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        adj, method = ctx.adj, ctx.method
+        g2 = g[:, None] if g.dim() == 1 else g
+        gs = _segment(method, adj.csr.indptr, adj.rows, g2, "sum")
+        # The CSC's edge order: permute the cotangent.
+        gd = _segment(method, adj.csc.indptr, adj.rows_t,
+                      g2.index_select(0, adj.perm.long()), "sum")
+        if g.dim() == 1:
+            gs, gd = gs[:, 0], gd[:, 0]
+        return None, None, gs, gd
+
+
+def additive_attention_logits(adj: Union[Adjacency, CSR], src_score: Tensor,
+                              dst_score: Tensor, *,
+                              method: str = "auto") -> Tensor:
+    """Per-edge additive-attention logits: e = src[row_e] + dst[col_e].
+
+    The GATv1 decomposition: two gathers forward, two per-node segment sums
+    backward.  ``src_score``/``dst_score``: (m,) / (n,) or (m, H) / (n, H).
+    ``method`` as for ``edge_softmax``.
+    """
+    _check_edge_method(method)
+    if isinstance(adj, CSR):
+        adj = Adjacency.from_csr(adj)
+    return _AdditiveLogits.apply(adj, method, src_score, dst_score)
+
+
+def gat_attention(adj: Union[Adjacency, CSR], q: Tensor, k: Tensor, *,
+                  method: str = "auto") -> Tensor:
+    """Edge attention scores softmax(SDDMM(q, k)) — composes the two
+    primitives the way graph-attention layers do."""
+    _check_edge_method(method)
+    if isinstance(adj, CSR):
+        adj = Adjacency.from_csr(adj)
+    return edge_softmax(adj, sddmm(adj, q, k, method=method), method=method)
 
 
 def add_self_loops(csr: CSR, weight: float = 1.0) -> CSR:

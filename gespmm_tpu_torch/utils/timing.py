@@ -119,7 +119,10 @@ def device_time(fn: Callable[[], torch.Tensor], iters: int = 50,
     device alone.  If the device has reached the start event by the time
     the stop event is enqueued, the host fell behind; the spin is then
     made 4x longer and the group timed again.  Raises if ``fn``'s output
-    is not on a CUDA device, or if the host never gets ahead.
+    is not on a CUDA device, or if the host never gets ahead.  The host
+    cannot get ahead when ``iters`` calls hold more launches than the
+    stream's launch queue (about a thousand): the enqueue then waits for
+    the spin.  Time a call of many small launches with fewer ``iters``.
     """
     out = None
     for _ in range(max(warmup, 1)):
@@ -144,7 +147,7 @@ def device_time(fn: Callable[[], torch.Tensor], iters: int = 50,
                 return start.elapsed_time(stop) / 1e3 / iters
             sleep_cycles *= 4
     raise RuntimeError(f"the host could not enqueue {iters} calls ahead of "
-                       f"the device in {attempts} attempts")
+                       f"the device in {attempts} attempts (fewer iters?)")
 
 
 def spmm_flops(nnz: int, k: int) -> float:

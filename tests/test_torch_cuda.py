@@ -12,23 +12,38 @@ bf16 (one output rounding to bf16 is 2**-8 relative).  Max/min forward: out
 and ties equal the plain version exactly (the same f32 products, selected,
 not summed).  Max/min backward: grad_B and grad_values within 1e-5 of the
 float64 plain version, relative to the largest reference value.
+
+Edge segment reduce: a max equals the plain version's exactly (selected,
+not summed); a sum is within 1e-5 * (row sum of |vals|) + 1e-6 of float64
+(bf16: 8e-3 *).  Fused GAT attention, against the plain version in float64:
+out, mx and den within 1e-5 * max |ref| + 1e-6 (bf16 out: 8e-3 * max |ref|);
+grad_src, grad_dst and grad_B within 1e-4 * max(|ref|, 1) (a bf16 grad_B:
+8e-3 *), the backward's reference taking s = <g, out> from the kernel's
+stored out, as the op does.
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+from gespmm_tpu_torch.kernels import edge_reduce as kedge
+from gespmm_tpu_torch.kernels import gat_fused as kgat
 from gespmm_tpu_torch.kernels import spmm_csr as kspmm
 from gespmm_tpu_torch.kernels import spmm_minmax as kmm
+from gespmm_tpu_torch.models.gat import GAT
 from gespmm_tpu_torch.models.gcn import GCN
 from gespmm_tpu_torch.models.sage import GraphSAGE
 from gespmm_tpu_torch.ops import reference as ref
-from gespmm_tpu_torch.ops.graph import add_self_loops
+from gespmm_tpu_torch.ops.graph import (add_self_loops,
+                                        additive_attention_logits,
+                                        edge_softmax)
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 from gespmm_tpu_torch.sparse.formats import CSR
 from gespmm_tpu_torch.train.loop import train_node_classifier
 from gespmm_tpu_torch.utils import timing
-from gespmm_tpu_torch.utils.datasets import sbm_graph
+from gespmm_tpu_torch.utils.datasets import rmat_graph, sbm_graph
 
 pytestmark = pytest.mark.cuda
 
@@ -323,3 +338,285 @@ def test_sage_pool_training_goes_through_the_kernels(dev):
     model.method = "xla"
     train_node_classifier(model, adj, ds.features, ds.labels, ds.masks, epochs=3)
     assert kmm.launches == kmm.vjp_launches == 0
+
+
+# --- edge segment reduce and fused GAT attention -------------------------
+
+
+def randn(shape, dev, seed, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 3, 8])
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_edge_reduce_kernel_matches_plain(dev, op, K, dtype):
+    csr = skewed_csr().to(dev)
+    rows, m = csr.row_ids(), csr.shape[0]
+    vals = randn((csr.nnz, K), dev, K, dtype)
+    before = kedge.launches
+    out = kedge.edge_segment_reduce(csr.indptr, vals, op)
+    torch.cuda.synchronize()
+    assert kedge.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, K)
+    if op == "max":
+        assert torch.equal(out, ref.edge_segment_rows(rows, vals, m, "max"))
+    else:
+        want = ref.edge_segment_rows(rows, vals.double(), m, "sum")
+        mag = ref.edge_segment_rows(rows, vals.double().abs(), m, "sum")
+        bound = 8e-3 * mag if dtype == torch.bfloat16 else 1e-5 * mag + 1e-6
+        assert ((out.double() - want).abs() <= bound).all()
+    empty = (csr.indptr[1:] == csr.indptr[:-1]).nonzero()[:, 0]
+    assert not out[empty].any()
+
+
+def gat_kernels_vs_float64(adj, H, dh, max_mode, dtype, seed=0):
+    """Run the three fused kernels once each; return {name: (max abs error,
+    bound)} against the float64 plain versions."""
+    dev = adj.csr.indptr.device
+    m, n = adj.shape
+    src, dst = randn((m, H), dev, seed), randn((n, H), dev, seed + 1)
+    B = randn((n, H * dh), dev, seed + 2, dtype)
+    g = randn((m, H * dh), dev, seed + 3)
+    launched = (kgat.launches, kgat.bwd_rows_launches, kgat.bwd_cols_launches)
+    out, mx, den = kgat.gat_forward(adj.csr.indptr, adj.csr.indices, src, dst,
+                                    B, heads=H, max_mode=max_mode)
+    s_row = ref.gat_row_dot(g, out, H)
+    grad_src = kgat.gat_backward_rows(adj.csr.indptr, adj.csr.indices, src,
+                                      dst, B, g, mx, den, s_row, heads=H)
+    grad_dst, grad_B = kgat.gat_backward_cols(adj.csc.indptr, adj.csc.indices,
+                                              src, dst, B, g, mx, den, s_row,
+                                              heads=H)
+    torch.cuda.synchronize()
+    assert (kgat.launches, kgat.bwd_rows_launches, kgat.bwd_cols_launches) == \
+        tuple(x + 1 for x in launched)
+    assert out.dtype == grad_B.dtype == dtype
+    edges = (adj.rows, adj.csr.indices)
+    s64, d64, B64, g64 = src.double(), dst.double(), B.double(), g.double()
+    want_out, mx64, den64 = ref.gat_fused_rows(*edges, s64, d64, B64, m, 0.2,
+                                               max_mode, H)
+    srow64 = ref.gat_row_dot(g64, out.double(), H)  # the stored out
+    vjp = (*edges, s64, d64, B64, g64, mx64, den64, srow64)
+    want_src = ref.gat_fused_vjp_rows(*vjp, m, 0.2, H)
+    want_dst, want_B = ref.gat_fused_vjp_cols(*vjp, 0.2, H)
+    bf16 = dtype == torch.bfloat16
+    errs = {}
+    for name, got, want, fwd, tol in (
+            ("out", out, want_out, True, 8e-3 if bf16 else 1e-5),
+            ("mx", mx, mx64, True, 1e-5), ("den", den, den64, True, 1e-5),
+            ("grad_src", grad_src, want_src, False, 1e-4),
+            ("grad_dst", grad_dst, want_dst, False, 1e-4),
+            ("grad_B", grad_B, want_B, False, 8e-3 if bf16 else 1e-4)):
+        assert got.shape == want.shape and torch.isfinite(got).all(), name
+        scale = float(want.abs().max())
+        bound = tol * scale + 1e-6 if fwd else tol * max(scale, 1.0)
+        errs[name] = (float((got.double() - want).abs().max()), bound)
+    return errs
+
+
+# (heads, head width): dh in {1, 3, 8, 64}, K not a multiple of 4, K slabs
+# that split a head (K=130 at 64 columns a slab), 16-byte lanes (K=128).
+GAT_SHAPES = [(1, 1), (1, 3), (3, 3), (8, 3), (3, 8), (1, 64), (4, 32),
+              (2, 65)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_mode", ["exact", "bound"])
+@pytest.mark.parametrize("H,dh", GAT_SHAPES)
+def test_gat_fused_kernels_match_float64(dev, H, dh, max_mode, dtype):
+    # The edge values of the skewed graph are ignored by the op, as in JAX.
+    adj = Adjacency.from_csr(skewed_csr(), device=dev)
+    for name, (err, bound) in gat_kernels_vs_float64(adj, H, dh, max_mode,
+                                                     dtype).items():
+        assert err <= bound, (name, err, bound)
+
+
+def test_gat_fused_ignores_edge_values(dev):
+    # The op attends over the pattern: a valued and a binary graph of one
+    # pattern give the same bits, forward and backward.
+    csr = skewed_csr(seed=5)
+    runs = []
+    for data in (csr.data, None):
+        adj = Adjacency.from_csr(csr.with_data(data), device=dev)
+        src, dst, B = (randn(shape, dev, i).requires_grad_(True) for i, shape
+                       in enumerate(((3000, 2), (2500, 2), (2500, 16))))
+        out = kgat.gat_attention_aggregate(adj, src, dst, B, heads=2)
+        out.backward(randn((3000, 16), dev, 9))
+        runs.append((out.detach(), src.grad, dst.grad, B.grad))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def rmat15() -> CSR:
+    return rmat_graph(scale=15, edge_factor=8, seed=0)
+
+
+@pytest.mark.parametrize("H,dh", [(1, 64), (8, 3)])
+def test_gat_fused_kernels_on_rmat15(dev, H, dh):
+    # Hub rows and columns (3,866 edges) and 11,708 empty rows.
+    adj = Adjacency.from_csr(rmat15(), device=dev)
+    for name, (err, bound) in gat_kernels_vs_float64(adj, H, dh, "exact",
+                                                     torch.float32).items():
+        assert err <= bound, (name, err, bound)
+
+
+def test_attention_kernels_are_deterministic(dev):
+    adj = Adjacency.from_csr(skewed_csr(), device=dev)
+    m, n = adj.shape
+    H = 2
+    src, dst = randn((m, H), dev, 1), randn((n, H), dev, 2)
+    B, g = randn((n, 130), dev, 3), randn((m, 130), dev, 4)  # 3 K slabs
+
+    def run():
+        out, mx, den = kgat.gat_forward(adj.csr.indptr, adj.csr.indices, src,
+                                        dst, B, heads=H)
+        s_row = ref.gat_row_dot(g, out, H)
+        gs = kgat.gat_backward_rows(adj.csr.indptr, adj.csr.indices, src, dst,
+                                    B, g, mx, den, s_row, heads=H)
+        gd, gB = kgat.gat_backward_cols(adj.csc.indptr, adj.csc.indices, src,
+                                        dst, B, g, mx, den, s_row, heads=H)
+        seg = kedge.edge_segment_reduce(adj.csr.indptr, randn(
+            (adj.nnz, 3), dev, 5), "sum")
+        return out, mx, den, gs, gd, gB, seg
+
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
+
+
+def test_attention_kernels_empty_work_without_launch(dev):
+    counts = (kedge.launches, kgat.launches, kgat.bwd_rows_launches,
+              kgat.bwd_cols_launches)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    indptr = torch.zeros(6, dtype=torch.int32, device=dev)  # 5 rows, no edge
+    out = kedge.edge_segment_reduce(indptr, torch.zeros(0, 2, device=dev), "max")
+    assert out.shape == (5, 2) and not out.any()
+    src, dst = randn((5, 2), dev, 0), randn((4, 2), dev, 1)
+    B, g = randn((4, 6), dev, 2), randn((5, 6), dev, 3)
+    out, mx, den = kgat.gat_forward(indptr, none, src, dst, B, heads=2)
+    assert out.shape == (5, 6) and not out.any() and not mx.any()
+    assert torch.all(den == ref.DENOM_EPS)
+    s_row = ref.gat_row_dot(g, out, 2)
+    gs = kgat.gat_backward_rows(indptr, none, src, dst, B, g, mx, den, s_row,
+                                heads=2)
+    colptr = torch.zeros(5, dtype=torch.int32, device=dev)
+    gd, gB = kgat.gat_backward_cols(colptr, none, src, dst, B, g, mx, den,
+                                    s_row, heads=2)
+    assert gs.shape == (5, 2) and gd.shape == (4, 2) and gB.shape == (4, 6)
+    assert not gs.any() and not gd.any() and not gB.any()
+    assert (kedge.launches, kgat.launches, kgat.bwd_rows_launches,
+            kgat.bwd_cols_launches) == counts
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    csr = skewed_csr(50, 40).to(dev)
+    vals = randn((csr.nnz, 2), dev, 0)
+    with pytest.raises(TypeError):
+        kedge.edge_segment_reduce(csr.indptr, vals.double(), "sum")
+    with pytest.raises(ValueError, match="contiguous"):
+        kedge.edge_segment_reduce(csr.indptr, vals.t().contiguous().t(), "sum")
+    with pytest.raises(ValueError, match="is on"):
+        kedge.edge_segment_reduce(csr.indptr.cpu(), vals, "sum")
+    with pytest.raises(TypeError, match="int32"):
+        kedge.edge_segment_reduce(csr.indptr.long(), vals, "sum")
+    src, dst, B = randn((50, 2), dev, 1), randn((40, 2), dev, 2), \
+        randn((40, 6), dev, 3)
+    args = (csr.indptr, csr.indices)
+    with pytest.raises(TypeError):
+        kgat.gat_forward(*args, src, dst, B.double(), heads=2)
+    with pytest.raises(ValueError, match="src"):
+        kgat.gat_forward_cuda(*args, src[:-1], dst, B, 0.2, 2)
+    with pytest.raises(ValueError, match="is on"):
+        kgat.gat_forward_cuda(*args, src.cpu(), dst, B, 0.2, 2)
+    with pytest.raises(ValueError, match="multiple"):
+        kgat.gat_forward_cuda(*args, src, dst, randn((40, 5), dev, 4), 0.2, 2)
+    out, mx, den = kgat.gat_forward(*args, src, dst, B, heads=2)
+    g = randn((50, 6), dev, 5)
+    s_row = ref.gat_row_dot(g, out, 2)
+    with pytest.raises(TypeError, match="g must be"):
+        kgat.gat_backward_rows_cuda(*args, src, dst, B, g.double(), mx, den,
+                                    s_row, 0.2, 2)
+    adj = Adjacency.from_csr(csr)
+    with pytest.raises(ValueError, match="columns"):
+        kgat.gat_backward_cols_cuda(adj.csc.indptr[:-1], adj.csc.indices, src,
+                                    dst, B, g, mx, den, s_row, 0.2, 2)
+
+
+def test_gat_autograd_on_card_matches_float64(dev):
+    csr = skewed_csr(800, 700, seed=1)
+    adj, adj64 = Adjacency.from_csr(csr, device=dev), Adjacency.from_csr(csr)
+    H, dh = 2, 8
+    host = [randn(shape, torch.device("cpu"), i) for i, shape in enumerate(
+        ((800, H), (700, H), (700, H * dh), (800, H * dh)))]
+    src, dst, B = (t.to(dev).requires_grad_(True) for t in host[:3])
+    counts = (kgat.launches, kgat.bwd_rows_launches, kgat.bwd_cols_launches)
+    out = kgat.gat_attention_aggregate(adj, src, dst, B, heads=H)
+    out.backward(host[3].to(dev))
+    assert (kgat.launches, kgat.bwd_rows_launches, kgat.bwd_cols_launches) == \
+        tuple(c + 1 for c in counts)
+    src64, dst64, B64 = (t.double().requires_grad_(True) for t in host[:3])
+    out64 = kgat.gat_attention_aggregate(adj64, src64, dst64, B64, heads=H)
+    out64.backward(host[3].double())
+    want = out64.detach()
+    assert float((out.detach().cpu().double() - want).abs().max()) <= \
+        1e-5 * float(want.abs().max()) + 1e-6
+    for got, want in ((src.grad, src64.grad), (dst.grad, dst64.grad),
+                      (B.grad, B64.grad)):
+        err = float((got.cpu().double() - want).abs().max())
+        assert err <= 1e-4 * max(float(want.abs().max()), 1.0)
+
+
+def test_composed_attention_chain_on_card_matches_float64(dev):
+    # additive logits -> leaky -> edge softmax -> spmm(with_data(alpha)):
+    # 2 segment reductions forward, 1 + 2 backward.
+    csr = skewed_csr(800, 800, seed=2)
+    adj, adj64 = Adjacency.from_csr(csr, device=dev), Adjacency.from_csr(csr)
+    host = [randn(shape, torch.device("cpu"), 10 + i) for i, shape in
+            enumerate(((800,), (800,), (800, 16), (800, 16)))]
+
+    def chain(a, src, dst, B):
+        logits = additive_attention_logits(a, src, dst)
+        alpha = edge_softmax(a, torch.nn.functional.leaky_relu(logits, 0.2))
+        return spmm(a.with_data(alpha), B)
+
+    src, dst, B = (t.to(dev).requires_grad_(True) for t in host[:3])
+    before = kedge.launches
+    out = chain(adj, src, dst, B)
+    assert kedge.launches == before + 2
+    out.backward(host[3].to(dev))
+    assert kedge.launches == before + 5
+    src64, dst64, B64 = (t.double().requires_grad_(True) for t in host[:3])
+    out64 = chain(adj64, src64, dst64, B64)
+    out64.backward(host[3].double())
+    want = out64.detach()
+    assert float((out.detach().cpu().double() - want).abs().max()) <= \
+        1e-5 * float(want.abs().max()) + 1e-6
+    for got, want in ((src.grad, src64.grad), (dst.grad, dst64.grad),
+                      (B.grad, B64.grad)):
+        err = float((got.cpu().double() - want).abs().max())
+        assert err <= 1e-4 * max(float(want.abs().max()), 1.0)
+
+
+def test_gat_training_goes_through_the_fused_kernels(dev):
+    ds = sbm_graph(n_per_class=300, num_classes=3, p_in=0.02, p_out=0.001,
+                   feat_dim=32, seed=0).to(dev)
+    adj = Adjacency.from_csr(add_self_loops(ds.csr))
+    for heads in (1, 4):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = GAT([32, 16, 3], heads=heads, generator=gen, device=dev)
+        kgat.reset_launches()
+        res = train_node_classifier(model, adj, ds.features, ds.labels,
+                                    ds.masks, epochs=20, lr=5e-3)
+        assert min(kgat.launches, kgat.bwd_rows_launches,
+                   kgat.bwd_cols_launches) >= 2 * 20
+        loss = res["history"]["loss"]
+        assert loss[-1] < loss[0] and np.all(np.isfinite(loss))
+        assert res["train_acc"] > 1 / 3
+
+    for mod in (kgat, kedge, kspmm):
+        mod.reset_launches()
+    model.method = "xla"
+    train_node_classifier(model, adj, ds.features, ds.labels, ds.masks, epochs=3)
+    assert kgat.launches == kgat.bwd_rows_launches == kgat.bwd_cols_launches == 0
+    assert kedge.launches == kspmm.launches == 0
