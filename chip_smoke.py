@@ -5,8 +5,9 @@
 
 Phases, each printed as it goes; any failure exits non-zero:
   1. device: torch.cuda, and the card's name and power limit from nvidia-smi;
-  2. build: nvcc builds csrc/spmm_csr.cu, spmm_minmax.cu, edge_reduce.cu and
-     gat_fused.cu from this checkout, all four at once (timed);
+  2. build: nvcc builds the six libraries of csrc/ (spmm_csr.cu,
+     spmm_minmax.cu, edge_reduce.cu, gat_fused.cu, dot_attention.cu,
+     spmm_chunk.cu) from this checkout, all at once (timed);
   3. sum kernel vs plain: the CSR SpMM kernel against its plain PyTorch
      version in float64, |out - ref| <= 1e-5 (|A| @ |B|) + 1e-6 (bf16:
      8e-3 (|A| @ |B|)), at the GCN slice's shapes (pubmed-scale SBM graph with
@@ -46,13 +47,44 @@ Phases, each printed as it goes; any failure exits non-zero:
      CSR-backward and 2 CSC-backward launches per epoch) with the same
      checks as phase 6; method="xla" with no launches; then DGL's
      multi-head shape, dims [128, 8, 3] with 8 heads, 20 epochs;
- 11. timings: device time of every kernel against its plain version at the
-     slice's shapes and at rmat15, call times of the sum kernel, and GCN,
-     SAGE-pool and GAT ms/epoch for both methods (two runs each, in the
-     order auto, xla, xla, auto).
+ 11. dot-product attention kernels vs float64: forward, backward over the
+     CSR and over the CSC, on the SBM graph with self-loops at (Ka, K) in
+     {(64, 64), (16, 3)} and on rmat15 at (64, 64), act identity and leaky,
+     B in f32 and bf16, D1 and D2 drawn with std Ka^-1/4 (unit-variance
+     logits).  Forward within 1e-5 x max |ref| + 1e-6 (bf16 out: 8e-3 x);
+     gradients within 1e-4 x max(|ref|, 1) (bf16 grad_B: 8e-3 x); two runs
+     of each kernel bitwise equal;
+ 12. attention_aggregate on the card at (64, 64): the fused op (auto),
+     forward and backward, held to the composed chain on the card (sddmm,
+     edge_softmax on the segment-reduce kernel, spmm with_data on the sum
+     kernel) and to float64; exactly 1 launch of each dot kernel, and
+     method="xla" none;
+ 13. nnz-chunked SpMM vs float64: on the SBM graph and rmat15 at K in {1, 3,
+     32, 33, 128, 130, 512}, valued and binary, f32 and bf16, (R, E) in
+     {(64, 64), (128, 256)}, within the sum kernel's bound and bitwise
+     repeatable; spmm(method="pallas") out, grad_B and grad_values against
+     float64 (one chunk launch forward, one for grad_B), and, on an
+     adjacency without the transposed plan, one chunk launch forward and
+     one CSR-kernel launch for grad_B;
+ 14. the sweep, called as functions: bench_graph("rmat15", [32, 128]) over
+     the tiers xla, tiled, pallas, scatter, dense, bcoo, and
+     bench_sddmm_graph("rmat15", [64]), every cell validated against
+     float64 (synth_graph's rmat15 has edge factor 16, unlike the edge
+     factor 8 of the kernel phases); no cell may fail but a printed dense
+     guard; the JSON rows are printed;
+ 15. timings: the card's copy bandwidth (utils/profiling.py::
+     measure_hbm_bandwidth) beside the published 3.35 TB/s; device time of
+     every kernel against its plain version at the
+     slice's shapes and at rmat15, with its bound (the larger of its bytes
+     over 3.35 TB/s and its operations over 67 TFLOP/s) and the one PyTorch
+     call that computes the same function where there is one (library_ms);
+     the chunk kernel against float64, the CSR kernel and torch.sparse.mm
+     at each timed shape (the kernels line's error is its shape's); call
+     times of the sum kernel; and GCN, SAGE-pool and GAT ms/epoch for both
+     methods (two runs each, in the order auto, xla, xla, auto).
 
 Each path's launches are counted from 0 in its own run; the comparison
-launches of phases 3-5 and 8 are not counted.  Output: one line per phase, then
+launches of phases 3-5, 8, 11 and 13 are not counted.  Output: one line per phase, then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  With --record, the full record of the run is
 also written to PATH as JSON.
@@ -76,7 +108,8 @@ GAT_MH_DIMS, GAT_MH_HEADS, GAT_MH_EPOCHS = [128, 8, 3], 8, 20
 GAT_LR = 5e-3  # the JAX GAT bench's; weight decay 5e-4 as for the others
 SBM_PUBMED = dict(n_per_class=6573, num_classes=3, p_in=0.0006, p_out=0.00002,
                   feat_dim=128, seed=SEED)
-LIBS = ("spmm_csr", "spmm_minmax", "edge_reduce", "gat_fused")
+LIBS = ("spmm_csr", "spmm_minmax", "edge_reduce", "gat_fused", "dot_attention",
+        "spmm_chunk")
 RMAT_KS = (1, 3, 32, 33, 128, 130, 512)
 MINMAX_RMAT_KS = (1, 3, 32, 33, 128, 130)
 MINMAX_SBM_KS = (128, 16)
@@ -85,6 +118,12 @@ MINMAX_SBM_KS = (128, 16)
 GAT_SBM_SHAPES = ((1, 64), (1, 3), (8, 8), (8, 3))
 GAT_RMAT_SHAPES = ((1, 64), (8, 3))
 SLOPE = 0.2
+# (Ka, K) of the dot-attention checks: the (64, 64) main shape, and a narrow
+# K with Ka a multiple of 4 below a lane's vector.
+DOT_SBM_SHAPES = ((64, 64), (16, 3))
+CHUNK_KS = (1, 3, 32, 33, 128, 130, 512)
+CHUNK_SIZES = ((64, 64), (128, 256))  # the sweep's (R, E) and the builder's
+SWEEP_METHODS = ("xla", "tiled", "pallas", "scatter", "dense", "bcoo")
 
 
 class SmokeFailure(Exception):
@@ -173,6 +212,54 @@ def gat_kernels_vs_float64(torch, ref, kgat, adj, H, dh, max_mode, dtype,
     return errs
 
 
+def dot_kernels_vs_float64(torch, ref, kgat, adj, Ka, K, slope, dtype, gen):
+    """Run the three dot-attention kernels twice; ({name: (max abs error,
+    bound)} against the float64 plain versions, whether the two runs are
+    bitwise equal).  D1 and D2 have std Ka^-1/4 (unit-variance logits)."""
+    dev = adj.csr.indptr.device
+    m, n = adj.shape
+    D1 = torch.randn(m, Ka, device=dev, generator=gen) * Ka ** -0.25
+    D2 = torch.randn(n, Ka, device=dev, generator=gen) * Ka ** -0.25
+    B = torch.randn(n, K, device=dev, generator=gen).to(dtype)
+    g = torch.randn(m, K, device=dev, generator=gen)
+
+    def run():
+        out, mx, den = kgat.dot_forward(adj.csr.indptr, adj.csr.indices, D1,
+                                        D2, B, slope=slope)
+        tabs = (D1, D2, B, g, mx, den, ref.dot_row_dot(g, out))
+        gD1 = kgat.dot_backward_rows(adj.csr.indptr, adj.csr.indices, *tabs,
+                                     slope=slope)
+        gD2, gB = kgat.dot_backward_cols(adj.csc.indptr, adj.csc.indices,
+                                         *tabs, slope=slope)
+        return out, mx, den, gD1, gD2, gB
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(first, second))
+    out, mx, den, gD1, gD2, gB = first
+    edges = (adj.rows, adj.csr.indices)
+    want_out, mx64, den64 = ref.dot_attention_rows(
+        *edges, D1.double(), D2.double(), B.double(), m, slope)
+    tabs64 = (D1.double(), D2.double(), B.double(), g.double(), mx64, den64,
+              ref.dot_row_dot(g.double(), out.double()))  # the stored out
+    want_d1 = ref.dot_attention_vjp_rows(*edges, *tabs64, m, slope)
+    want_d2, want_B = ref.dot_attention_vjp_cols(*edges, *tabs64, slope)
+    bf16 = dtype == torch.bfloat16
+    errs = {}
+    for name, got, want, fwd, tol in (
+            ("out", out, want_out, True, 8e-3 if bf16 else 1e-5),
+            ("mx", mx, mx64, True, 1e-5), ("den", den, den64, True, 1e-5),
+            ("grad_D1", gD1, want_d1, False, 1e-4),
+            ("grad_D2", gD2, want_d2, False, 1e-4),
+            ("grad_B", gB, want_B, False, 8e-3 if bf16 else 1e-4)):
+        check(tuple(got.shape) == tuple(want.shape)
+              and bool(torch.isfinite(got).all()), f"{name}: shape or finite")
+        scale = float(want.abs().max())
+        bound = tol * scale + 1e-6 if fwd else tol * max(scale, 1.0)
+        errs[name] = (float((got.double() - want).abs().max()), bound)
+    return errs, repeat
+
+
 def alternate(measure, kernel, plain):
     """(kernel, plain) measurements in ms, taken plain, kernel, kernel, plain."""
     p1, k1, k2, p2 = measure(plain), measure(kernel), measure(kernel), \
@@ -191,23 +278,35 @@ def main(argv=None):
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
               "a CUDA card", file=sys.stderr)
         return 2
+    if not os.path.isdir(os.path.join(HERE, "gespmm_tpu_torch")):
+        print(f"chip_smoke: no gespmm_tpu_torch package beside this script in "
+              f"{HERE}; run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
     sys.path.insert(0, HERE)
     from gespmm_tpu_torch.kernels import _build
     from gespmm_tpu_torch.kernels import edge_reduce as kedge
     from gespmm_tpu_torch.kernels import gat_fused as kgat
     from gespmm_tpu_torch.kernels import spmm_csr as kspmm
     from gespmm_tpu_torch.kernels import spmm_minmax as kmm
+    from gespmm_tpu_torch.kernels import spmm_pallas as kpal
+    from gespmm_tpu_torch.bench.spmm_bench import (bench_graph,
+                                                   bench_sddmm_graph,
+                                                   library_csr)
     from gespmm_tpu_torch.models.gat import GAT
     from gespmm_tpu_torch.models.gcn import GCN
     from gespmm_tpu_torch.models.sage import GraphSAGE
     from gespmm_tpu_torch.ops import reference as ref
     from gespmm_tpu_torch.ops.graph import (add_self_loops,
                                             additive_attention_logits,
-                                            edge_softmax)
+                                            attention_aggregate, edge_softmax)
+    from gespmm_tpu_torch.ops.sddmm import sddmm
     from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
+    from gespmm_tpu_torch.sparse.partition import build_spmm_plan
     from gespmm_tpu_torch.train.loop import train_node_classifier
-    from gespmm_tpu_torch.utils import timing
-    from gespmm_tpu_torch.utils.datasets import rmat_graph, sbm_graph
+    from gespmm_tpu_torch.utils import profiling, timing
+    from gespmm_tpu_torch.utils.datasets import (rmat_graph, sbm_graph,
+                                                 synth_graph)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -215,7 +314,7 @@ def main(argv=None):
     record = {}
 
     def reset_counts():
-        for mod in (kspmm, kmm, kedge, kgat):
+        for mod in (kspmm, kmm, kedge, kgat, kpal):
             mod.reset_launches()
 
     def counts():
@@ -224,7 +323,12 @@ def main(argv=None):
                 "edge_segment_reduce": kedge.launches,
                 "gat_fwd": kgat.launches,
                 "gat_bwd_rows": kgat.bwd_rows_launches,
-                "gat_bwd_cols": kgat.bwd_cols_launches}
+                "gat_bwd_cols": kgat.bwd_cols_launches,
+                "dot_fwd": kgat.dot_launches,
+                "dot_bwd_rows": kgat.dot_bwd_rows_launches,
+                "dot_bwd_cols": kgat.dot_bwd_cols_launches,
+                "spmm_chunk": kpal.launches,
+                "spmm_chunk_carry": kpal.carry_launches}
 
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
@@ -590,7 +694,219 @@ def main(argv=None):
         methods=("auto",), epochs=GAT_MH_EPOCHS, lr=GAT_LR)
     record["gat_multihead"] = gat_mh_runs
 
-    phase("11 timings, in the order plain / kernel / kernel / plain")
+    phase("11 dot-product attention kernels vs float64")
+    dot_err = {"dot_fwd": 0.0, "dot_bwd_rows": 0.0, "dot_bwd_cols": 0.0}
+    dot_compared = []
+    dot_cases = [("sbm", adj, Ka, K) for Ka, K in DOT_SBM_SHAPES]
+    dot_cases.append(("rmat15", rmat, 64, 64))
+    for graph, a, Ka, K in dot_cases:
+        for slope in (None, SLOPE):
+            for dtype in (torch.float32, torch.bfloat16):
+                label = (f"dot {graph} Ka={Ka} K={K} slope={slope} "
+                         f"{str(dtype).split('.')[-1]}")
+                errs, repeat = dot_kernels_vs_float64(torch, ref, kgat, a, Ka,
+                                                      K, slope, dtype, gen)
+                bad = [k for k, (e, b) in errs.items() if e > b]
+                print(f"{label}: " + " ".join(f"{k}={e:.3e}" for k, (e, _) in
+                                              errs.items())
+                      + f" | repeat {'bitwise' if repeat else 'DIFFERS'}"
+                      + (f" OUT OF BOUND: {bad}" if bad else " ok"), flush=True)
+                check(not bad, f"dot kernels disagree with float64: {label} "
+                      f"{bad}")
+                check(repeat, f"dot kernels not bitwise repeatable: {label}")
+                if (graph, Ka, K, slope, dtype) == ("sbm", 64, 64, None,
+                                                    torch.float32):
+                    dot_err = {"dot_fwd": errs["out"][0],
+                               "dot_bwd_rows": errs["grad_D1"][0],
+                               "dot_bwd_cols": max(errs["grad_D2"][0],
+                                                   errs["grad_B"][0])}
+                dot_compared.append({"case": label, "errors": errs})
+    record["dot_vs_plain"] = dot_compared
+
+    phase("12 attention_aggregate on the card (Ka=64, K=64)")
+    Ka = K = 64
+    dot_leaves = [torch.randn(s, device=dev, generator=gen) * f for s, f in
+                  (((n_sbm, Ka), Ka ** -0.25), ((n_sbm, Ka), Ka ** -0.25),
+                   ((n_sbm, K), 1.0))]
+    g_dot = torch.randn(n_sbm, K, device=dev, generator=gen)
+
+    def dot_grads_of(run, dtype=torch.float32):
+        xs = [t.to(dtype, copy=True).requires_grad_(True) for t in dot_leaves]
+        out = run(*xs)
+        out.backward(g_dot.to(dtype))
+        return [out.detach()] + [x.grad for x in xs]
+
+    def dot_chain(q, k, v):
+        return spmm(adj.with_data(edge_softmax(adj, sddmm(adj, q, k))), v)
+
+    reset_counts()
+    fused_dot = dot_grads_of(lambda q, k, v: attention_aggregate(adj, q, k, v))
+    torch.cuda.synchronize()
+    dot_launches = counts()
+    reset_counts()
+    chain_dot = dot_grads_of(dot_chain)
+    torch.cuda.synchronize()
+    dot_chain_launches = counts()
+    reset_counts()
+    xla_dot = dot_grads_of(lambda q, k, v: attention_aggregate(
+        adj, q, k, v, method="xla"))
+    torch.cuda.synchronize()
+    xla_dot_launches = counts()
+    exact_dot = dot_grads_of(lambda q, k, v: attention_aggregate(
+        adj, q, k, v, method="xla"), torch.float64)
+    print(f"fused launches {dot_launches}\ncomposed chain launches "
+          f"{dot_chain_launches}\nxla launches {xla_dot_launches}", flush=True)
+    check((dot_launches["dot_fwd"], dot_launches["dot_bwd_rows"],
+           dot_launches["dot_bwd_cols"]) == (1, 1, 1),
+          "attention_aggregate: expected exactly 1 launch of each dot kernel")
+    check(not any(xla_dot_launches.values()),
+          f"attention_aggregate(method='xla') launched {xla_dot_launches}")
+    check(dot_chain_launches["edge_segment_reduce"] == 3
+          and dot_chain_launches["spmm_csr"] == 4,
+          "composed dot chain: expected 3 segment-reduce and 4 sum launches")
+    dot_op_errs = {}
+    for name, f, c, x in zip(("out", "grad_D1", "grad_D2", "grad_B"),
+                             fused_dot, chain_dot, exact_dot):
+        scale = float(x.abs().max())
+        tol = 1e-5 * scale + 1e-6 if name == "out" else 1e-4 * max(scale, 1.0)
+        e_x = float((f.double() - x).abs().max())
+        e_c = float((f - c).abs().max())
+        dot_op_errs[name] = {"vs_float64": e_x, "vs_chain": e_c}
+        print(f"{name}: vs float64 {e_x:.3e}, vs composed chain {e_c:.3e} "
+              f"(max |ref| {scale:.3e})", flush=True)
+        check(bool(torch.isfinite(f).all()) and e_x <= tol and e_c <= tol,
+              f"attention_aggregate {name} disagrees")
+    record["attention_aggregate"] = {
+        "launches": dot_launches, "chain_launches": dot_chain_launches,
+        "xla_launches": xla_dot_launches, "errors": dot_op_errs}
+
+    phase("13 nnz-chunked SpMM vs float64")
+    chunk_compared = []
+    chunk_graphs = (("sbm", add_self_loops(ds.csr).to("cpu"), adj),
+                    ("rmat15", rmat.csr.to("cpu"), rmat))
+    for graph, host_csr, a in chunk_graphs:
+        vals = torch.randn(a.nnz, device=dev, generator=gen)
+        for R, E in CHUNK_SIZES:
+            plan = build_spmm_plan(host_csr, rows_per_block=R,
+                                   chunk_nnz=E).to(dev)
+            print(f"{graph} (R, E)=({R}, {E}): {plan.num_chunks} chunks, "
+                  f"{plan.cut_rows.numel()} cut rows", flush=True)
+            for K in CHUNK_KS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    for data in (None, vals):
+                        label = (f"chunk {graph} ({R}, {E}) K={K} "
+                                 f"{'binary' if data is None else 'valued'} "
+                                 f"{str(dtype).split('.')[-1]}")
+                        B = torch.randn(a.shape[1], K, device=dev,
+                                        generator=gen).to(dtype)
+                        out = kpal.spmm_pallas(plan, data, B, a.shape[0])
+                        again = kpal.spmm_pallas(plan, data, B, a.shape[0])
+                        torch.cuda.synchronize()
+                        err, ok = bound_check(torch, ref, out, a.csr.indptr,
+                                              a.csr.indices, a.rows, data, B)
+                        same = torch.equal(out, again)
+                        print(f"{label}: max_abs_err={err:.3e} "
+                              f"{'ok' if ok else 'OUT OF BOUND'} | repeat "
+                              f"{'bitwise' if same else 'DIFFERS'}", flush=True)
+                        check(ok, f"chunk kernel disagrees: {label}")
+                        check(same, f"chunk kernel not repeatable: {label}")
+                        chunk_compared.append({"case": label,
+                                               "max_abs_err": err})
+    record["chunk_vs_plain"] = chunk_compared
+    pal_adj = Adjacency.from_csr(add_self_loops(ds.csr), device=dev,
+                                 plan="perrow", rows_per_block=64, chunk_nnz=64)
+    d = pal_adj.data.clone().requires_grad_(True)
+    B = torch.randn(n_sbm, 32, device=dev, generator=gen, requires_grad=True)
+    g = torch.randn(n_sbm, 32, device=dev, generator=gen)
+    reset_counts()
+    pal_out = spmm(pal_adj.with_data(d), B, method="pallas")
+    pal_out.backward(g)
+    torch.cuda.synchronize()
+    pal_launches = counts()
+    d64 = pal_adj.data.double().requires_grad_(True)
+    B64 = B.detach().double().requires_grad_(True)
+    out64 = spmm(pal_adj.with_data(d64), B64, method="xla")
+    out64.backward(g.double())
+    print(f"spmm(method='pallas') launches {pal_launches}", flush=True)
+    check(pal_launches["spmm_chunk"] == 2 and pal_launches["spmm_csr"] == 0,
+          "spmm(method='pallas'): expected 2 chunk launches (forward, grad_B)")
+    for name, got, want, fwd in (("out", pal_out, out64, True),
+                                 ("grad_B", B.grad, B64.grad, False),
+                                 ("grad_values", d.grad, d64.grad, False)):
+        err = float((got.double() - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"pallas {name}: max_abs_err={err:.3e} (max |ref| {scale:.3e})",
+              flush=True)
+        bound = 1e-5 * scale + 1e-6 if fwd else 1e-5 * max(scale, 1.0)
+        check(bool(torch.isfinite(got).all()) and err <= bound,
+              f"spmm(method='pallas') {name} disagrees with float64")
+    # Without a plan of the transpose (the sweep's adjacency), grad_B takes
+    # the CSR kernel: one launch of each, and no plain version.
+    fwd_only = Adjacency.from_csr(add_self_loops(ds.csr), device=dev,
+                                  plan="perrow", plan_transpose=False,
+                                  rows_per_block=64, chunk_nnz=64)
+    B.grad = None
+    reset_counts()
+    spmm(fwd_only, B, method="pallas").backward(g)
+    torch.cuda.synchronize()
+    fwd_only_launches = counts()
+    t = fwd_only.transpose()
+    want = spmm(t.with_data(None if t.data is None else t.data.double()),
+                g.double(), method="xla")
+    err = float((B.grad.double() - want).abs().max())
+    print(f"spmm(method='pallas'), plan_transpose=False: launches "
+          f"{fwd_only_launches}, grad_B max_abs_err={err:.3e}", flush=True)
+    check(fwd_only_launches["spmm_chunk"] == 1
+          and fwd_only_launches["spmm_csr"] == 1
+          and err <= 1e-5 * max(float(want.abs().max()), 1.0),
+          "spmm(method='pallas') without plan_t: expected the chunk kernel "
+          "forward and the CSR kernel for grad_B")
+    record["pallas_op"] = {"launches": pal_launches,
+                           "no_plan_t_launches": fwd_only_launches}
+
+    phase("14 the sweep: bench_graph / bench_sddmm_graph on rmat15 "
+          "(synth_graph, edge factor 16)")
+    reset_counts()
+    sweep_row, sweep_cells = bench_graph("rmat15", [32, 128],
+                                         methods=SWEEP_METHODS, validate=True,
+                                         seed=SEED)
+    torch.cuda.synchronize()
+    sweep_launches = counts()
+    sddmm_row, sddmm_cells = bench_sddmm_graph("rmat15", [64], validate=True,
+                                               seed=SEED)
+    print(json.dumps(sweep_row), flush=True)
+    print(json.dumps(sddmm_row), flush=True)
+    print(f"sweep launches {sweep_launches}", flush=True)
+    failed = []
+    for (K, method), cell in list(sweep_cells.items()) + list(
+            sddmm_cells.items()):
+        if "error" not in cell:
+            print(f"K={K} {method}: {cell['ms']:.5f} ms ({cell['timer']} "
+                  f"time)", flush=True)
+            continue
+        guarded = method == "dense" and "guard" in cell["error"]
+        print(f"K={K} {method}: {cell['error']}"
+              + (" (the dense tier's size guard)" if guarded else ""),
+              flush=True)
+        if not guarded:
+            failed.append(f"K={K} {method}")
+    check(not failed, f"sweep cells failed: {failed}")
+    check(sweep_launches["spmm_chunk"] > 0 and sweep_launches["spmm_csr"] > 0,
+          "the sweep's pallas and tiled cells did not launch their kernels")
+    record["sweep"] = {"spmm_row": sweep_row, "sddmm_row": sddmm_row,
+                       "launches": sweep_launches,
+                       "spmm_cells": {f"K={k}-{mt}": v for (k, mt), v in
+                                      sweep_cells.items()},
+                       "sddmm_cells": {f"K={k}-{mt}": v for (k, mt), v in
+                                       sddmm_cells.items()}}
+
+    phase("15 timings, in the order plain / kernel / kernel / plain")
+    hbm = profiling.measure_hbm_bandwidth()
+    print(f"copy bandwidth (256 MiB f32, device time): {hbm:.1f} GB/s, "
+          f"published H100 SXM {profiling.H100_HBM_GBPS:.0f} GB/s | {card}",
+          flush=True)
+    check(hbm > 0, "measure_hbm_bandwidth")
+    record["hbm_copy_gbps"] = hbm
     # Device time: CUDA events around calls queued behind a spin kernel,
     # so they run back to back on the card.  Call time: CUDA events around
     # groups of calls, which at these sizes is the host's enqueue rate
@@ -698,6 +1014,26 @@ def main(argv=None):
     def gat_time(f):
         return timing.device_time(f, iters=10)
 
+    def library_time(name, call, want=None, iters=50):
+        """Device ms of one PyTorch call that computes the kernel's function
+        (a yardstick the port never calls), or None where the card has no
+        such call for these operands or its result differs from ``want``."""
+        try:
+            got = call()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:
+            print(f"library call {name}: none on the card for these operands "
+                  f"({str(e).splitlines()[0][:160]})", flush=True)
+            return None
+        if want is not None:
+            err = float((got.double() - want.double()).abs().max())
+            scale = float(want.abs().max())
+            print(f"library call {name}: max_abs_err {err:.3e} against the "
+                  f"kernel (max |out| {scale:.3e})", flush=True)
+            if not err <= 1e-3 * max(scale, 1.0):
+                return None
+        return timing.card_time(call, iters=iters)[0] * 1e3
+
     gat_timings = []
     for graph, a, H, dh in (("sbm", adj, 1, 64), ("sbm", adj, 1, 3),
                             ("sbm", adj, 8, 8), ("rmat15", rmat, 1, 64)):
@@ -736,6 +1072,125 @@ def main(argv=None):
                   flush=True)
     record["gat_timings"] = gat_timings
 
+    # Dot-product attention at (Ka, K) = (64, 64) on both graphs; 10 calls a
+    # group, as for the GAT kernels (a plain call is 15-25 launches).
+    dot_timings = []
+    for graph, a in (("sbm", adj), ("rmat15", rmat)):
+        m, n = a.shape
+        Ka = K = 64
+        D1 = torch.randn(m, Ka, device=dev, generator=gen) * Ka ** -0.25
+        D2 = torch.randn(n, Ka, device=dev, generator=gen) * Ka ** -0.25
+        B = torch.randn(n, K, device=dev, generator=gen)
+        g = torch.randn(m, K, device=dev, generator=gen)
+        out, mx, den = kgat.dot_forward(a.csr.indptr, a.csr.indices, D1, D2, B)
+        tabs = (D1, D2, B, g, mx, den, ref.dot_row_dot(g, out))
+        edges = (a.rows, a.csr.indices)
+        for label, kernel, plain in (
+                ("dot_fwd",
+                 lambda: kgat.dot_forward(a.csr.indptr, a.csr.indices, D1, D2,
+                                          B),
+                 lambda: ref.dot_attention_rows(*edges, D1, D2, B, m)),
+                ("dot_bwd_rows",
+                 lambda: kgat.dot_backward_rows(a.csr.indptr, a.csr.indices,
+                                                *tabs),
+                 lambda: ref.dot_attention_vjp_rows(*edges, *tabs, m)),
+                ("dot_bwd_cols",
+                 lambda: kgat.dot_backward_cols(a.csc.indptr, a.csc.indices,
+                                                *tabs),
+                 lambda: ref.dot_attention_vjp_cols(*edges, *tabs))):
+            k_dev, p_dev = alternate(gat_time, kernel, plain)
+            nnz, H4 = a.nnz, 4 * m
+            tables = (m + n) * Ka * 4 + n * K * 4  # D1, D2, B
+            nbytes, ops = {
+                "dot_fwd": ((m + 1) * 4 + nnz * 4 + tables + m * K * 4 + 2 * H4,
+                            nnz * (2 * Ka + 2 * K + 6)),
+                "dot_bwd_rows": ((m + 1) * 4 + nnz * 4 + tables + m * K * 4
+                                 + 3 * H4 + m * Ka * 4,
+                                 nnz * (4 * Ka + 2 * K + 10)),
+                "dot_bwd_cols": ((n + 1) * 4 + nnz * 4 + tables + m * K * 4
+                                 + 3 * H4 + n * Ka * 4 + n * K * 4,
+                                 nnz * (4 * Ka + 4 * K + 10))}[label]
+            row = {"kernel": label, "shape": f"{graph} Ka={Ka} K={K}",
+                   "nnz": nnz, "K": K, "kernel_device_ms": k_dev,
+                   "plain_device_ms": p_dev, "bytes": nbytes, "ops": ops}
+            dot_timings.append(row)
+            print(f"{label} {graph} Ka={Ka} K={K}: device time kernel "
+                  f"{mean(k_dev):.5f} ms | plain {mean(p_dev):.5f} ms | {card}",
+                  flush=True)
+        if graph == "sbm":
+            # scaled_dot_product_attention with the adjacency as a dense
+            # mask computes the same out where no row is empty (self-loops).
+            mask = torch.zeros(m, n, dtype=torch.bool, device=dev)
+            mask[a.rows.long(), a.csr.indices.long()] = True
+            sdpa = library_time(
+                "scaled_dot_product_attention", lambda: torch.nn.functional.
+                scaled_dot_product_attention(D1[None, None], D2[None, None],
+                                             B[None, None],
+                                             attn_mask=mask[None, None],
+                                             scale=1.0)[0, 0],
+                want=out, iters=10)
+            dot_timings[-3]["library_ms"] = sdpa
+            del mask
+    record["dot_timings"] = dot_timings
+
+    # The chunk kernel against the CSR kernel (spmm_csr), its plain version
+    # and torch.sparse.mm (cuSPARSE), at the GCN slice's sbm K=32 (valued),
+    # at rmat15 K=128 (edge factor 8, the earlier phases' graph) and at the
+    # sweep's rmat15 (synth_graph, edge factor 16) K=128, both plan sizes.
+    sweep_csr = synth_graph("rmat15", seed=SEED)
+    sweep_adj = Adjacency.from_csr(sweep_csr, device=dev)
+    chunk_timings = []
+    for graph, host_csr, a, K in (
+            ("sbm", add_self_loops(ds.csr).to("cpu"), adj, 32),
+            ("rmat15", rmat.csr.to("cpu"), rmat, 128),
+            ("rmat15-ef16", sweep_csr, sweep_adj, 128)):
+        m, n = a.shape
+        B = torch.randn(n, K, device=dev, generator=gen)
+        data = a.data
+        lib = library_csr(a.csr.to("cpu"), dev)
+        lib_ms = library_time("torch.sparse.mm",
+                              lambda: torch.sparse.mm(lib, B))
+        for R, E in CHUNK_SIZES:
+            plan = build_spmm_plan(host_csr, rows_per_block=R,
+                                   chunk_nnz=E).to(dev)
+
+            def chunk():
+                return kpal.spmm_pallas(plan, data, B, m)
+
+            def plain():
+                return ref.spmm_chunks(plan.chunk_start, plan.chunk_count,
+                                       a.csr.indices, data, B, a.rows, m)
+
+            def csr_kernel():
+                return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, data, B)
+
+            # The error at this row's own shape, against float64.
+            err, ok = bound_check(torch, ref, chunk(), a.csr.indptr,
+                                  a.csr.indices, a.rows, data, B)
+            check(ok, f"chunk kernel disagrees at {graph} K={K} ({R}, {E})")
+            k_dev, p_dev = alternate(gat_time, chunk, plain)
+            c_dev, b1_dev = alternate(timing.device_time, chunk, csr_kernel)
+            plan_bytes = (6 * plan.num_chunks + 2 * plan.cut_rows.numel()
+                          + 1) * 4
+            row = {"kernel": "spmm_chunk", "shape": f"{graph} K={K} (R, E)="
+                   f"({R}, {E})", "nnz": a.nnz, "K": K, "chunks":
+                   plan.num_chunks, "cut_rows": plan.cut_rows.numel(),
+                   "max_abs_err": err,
+                   "kernel_device_ms": k_dev + c_dev, "plain_device_ms": p_dev,
+                   "spmm_csr_device_ms": b1_dev, "library_ms": lib_ms,
+                   "bytes": profiling.spmm_bytes(a.nnz, m, K, n,
+                                                 valued=data is not None)
+                   + plan_bytes, "ops": 2 * a.nnz * K}
+            chunk_timings.append(row)
+            print(f"spmm_chunk {row['shape']}: {plan.num_chunks} chunks, "
+                  f"{row['cut_rows']} cut rows | max_abs_err {err:.3e} | "
+                  f"device time kernel "
+                  f"{mean(k_dev + c_dev):.5f} ms | plain {mean(p_dev):.5f} ms"
+                  f" | spmm_csr {mean(b1_dev):.5f} ms | torch.sparse.mm "
+                  f"{lib_ms} ms | {card}", flush=True)
+    record["chunk_timings"] = chunk_timings
+
+
     for name, runs, make, a, lr in (
             ("GCN", gcn_runs, make_gcn, adj, 1e-2),
             ("SAGE-pool", sage_runs, make_sage, sage_adj, 1e-2),
@@ -752,12 +1207,60 @@ def main(argv=None):
     print(f"GAT heads={GAT_MH_HEADS} auto: {mh_ms:.4f} ms/epoch | {card}",
           flush=True)
 
+    # The library calls of the earlier kernels, at their kernels-line shapes.
+    B32 = torch.randn(adj.shape[1], 32, device=dev, generator=gen)
+    lib_sbm = library_csr(adj.csr.to("cpu"), dev)
+    timings[0]["library_ms"] = library_time(
+        "torch.sparse.mm", lambda: torch.sparse.mm(lib_sbm, B32),
+        want=kspmm.spmm_csr(adj.csr.indptr, adj.csr.indices, adj.data, B32))
+    B128 = torch.relu(torch.randn(sage_adj.shape[1], 128, device=dev,
+                                  generator=gen))
+    lib_sage = library_csr(sage_adj.csr.to("cpu"), dev)
+    mm_timings[0]["library_ms"] = library_time(
+        "torch.sparse.mm(reduce='amax')",
+        lambda: torch.sparse.mm(lib_sage, B128, reduce="amax"),
+        want=kmm.spmm_minmax(sage_adj.csr.indptr, sage_adj.csr.indices, None,
+                             B128, "max")[0])
+    vals1 = torch.randn(adj.nnz, 1, device=dev, generator=gen)
+    lengths = (adj.csr.indptr[1:] - adj.csr.indptr[:-1]).long()
+    seg_timings[0]["library_ms"] = library_time(
+        "torch.segment_reduce", lambda: torch.segment_reduce(
+            vals1, "sum", lengths=lengths, axis=0, unsafe=True),
+        want=kedge.edge_segment_reduce(adj.csr.indptr, vals1, "sum"))
+
+    # Bytes (each input read once, each output written once) and operations
+    # of the earlier kernels at their kernels-line shapes; f32 throughout.
+    m_s, n_s = adj.shape
+    nnz_s, nnz_p = adj.nnz, sage_adj.nnz
+    idx_s = (m_s + 1) * 4 + nnz_s * 4  # indptr and indices of sbm+loops
+    idx_p = (m_s + 1) * 4 + nnz_p * 4  # of sbm (SAGE-pool, binary)
+    K, Kp, H = 32, 128, 1
+    timings[0].update(bytes=profiling.spmm_bytes(nnz_s, m_s, K, n_s, True),
+                      ops=2 * nnz_s * K)
+    mm_timings[0].update(bytes=idx_p + 3 * m_s * Kp * 4, ops=2 * nnz_p * Kp)
+    mm_timings[1].update(bytes=idx_p + 5 * m_s * Kp * 4, ops=3 * nnz_p * Kp)
+    seg_timings[0].update(bytes=idx_s + nnz_s * 4 + m_s * 4, ops=nnz_s)
+    Kg = 64  # the GAT slice's layer 0: one head of 64
+    gat_tables = 2 * m_s * H * 4 + n_s * Kg * 4  # src, dst, B
+    gat_timings[0].update(bytes=idx_s + gat_tables + m_s * Kg * 4
+                          + 2 * m_s * H * 4, ops=nnz_s * (2 * Kg + 8 * H))
+    gat_timings[1].update(bytes=idx_s + gat_tables + m_s * Kg * 4
+                          + 4 * m_s * H * 4, ops=nnz_s * (2 * Kg + 10 * H))
+    gat_timings[2].update(bytes=idx_s + gat_tables + m_s * Kg * 4
+                          + 4 * m_s * H * 4 + n_s * Kg * 4,
+                          ops=nnz_s * (4 * Kg + 10 * H))
+
     def kernel_entry(name, source, replaces, launches, err, row):
+        bound_s, bound_by = profiling.bound(row["bytes"], row["ops"])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 "ms": mean(row["kernel_device_ms"]),
-                "plain_ms": mean(row["plain_device_ms"])}
+                "plain_ms": mean(row["plain_device_ms"]),
+                "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+                "library_ms": row.get("library_ms"), "shape": row["shape"]}
 
+    chunk_row = next(r for r in chunk_timings
+                     if r["shape"] == "rmat15-ef16 K=128 (R, E)=(64, 64)")
     kernels = {"kernels": [
         kernel_entry("spmm_csr", kspmm.SOURCE, kspmm.REPLACES,
                      gcn_runs["auto"]["launches"]["spmm_csr"], slice_err,
@@ -780,6 +1283,19 @@ def main(argv=None):
         kernel_entry("gat_bwd_cols", kgat.SOURCE, kgat.BWD_COLS_REPLACES,
                      gat_runs["auto"]["launches"]["gat_bwd_cols"],
                      att_err["gat_bwd_cols"], gat_timings[2]),
+        kernel_entry("dot_fwd", kgat.DOT_SOURCE, kgat.DOT_REPLACES,
+                     dot_launches["dot_fwd"], dot_err["dot_fwd"],
+                     dot_timings[0]),
+        kernel_entry("dot_bwd_rows", kgat.DOT_SOURCE,
+                     kgat.DOT_BWD_ROWS_REPLACES, dot_launches["dot_bwd_rows"],
+                     dot_err["dot_bwd_rows"], dot_timings[1]),
+        kernel_entry("dot_bwd_cols", kgat.DOT_SOURCE,
+                     kgat.DOT_BWD_COLS_REPLACES, dot_launches["dot_bwd_cols"],
+                     dot_err["dot_bwd_cols"], dot_timings[2]),
+        dict(kernel_entry("spmm_chunk", kpal.SOURCE, kpal.REPLACES,
+                          sweep_launches["spmm_chunk"],
+                          chunk_row["max_abs_err"], chunk_row),
+             carry_launches=sweep_launches["spmm_chunk_carry"]),
     ]}
     record.update(kernels)
     if args.record:

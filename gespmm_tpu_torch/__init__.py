@@ -1,25 +1,29 @@
 """gespmm_tpu_torch — the PyTorch and CUDA port of gespmm_tpu, for NVIDIA Hopper.
 
-Ported so far (the GCN, GraphSAGE and GAT training paths): CSR/CSC/COO
-containers, .mtx ingest and the synthetic graph generators, ``Adjacency`` +
-``spmm`` (sum/mean/max/min) with transpose-paired autograd Functions over
-hand-written CUDA kernels (CSR sum SpMM; max/min SpMM with tie counts and
-its CSC backward), ``sddmm``, ``edge_softmax`` and
-``additive_attention_logits`` over an edge segment-reduce kernel, the fused
-GAT attention op ``gat_attention_aggregate`` (forward, CSR and CSC backward
-kernels), the GCN, GraphSAGE and GAT models, the training loop, timing and
-the GCN, SAGE and GAT benchmarks.
+Ported so far (the GCN, GraphSAGE and GAT training paths, dot-product
+attention and the SpMM sweep): CSR/CSC/COO containers, .mtx ingest and the
+synthetic graph generators, ``Adjacency`` (with per-row chunk plans) +
+``spmm`` (sum/mean/max/min; tiers auto/tiled/xla/pallas/scatter/dense) with
+transpose-paired autograd Functions over hand-written CUDA kernels (CSR sum
+SpMM; nnz-chunked sum SpMM; max/min SpMM with tie counts and its CSC
+backward), ``sddmm``, ``edge_softmax`` and ``additive_attention_logits``
+over an edge segment-reduce kernel, the fused attention ops
+``gat_attention_aggregate`` and ``dot_attention_aggregate`` (forward, CSR
+and CSC backward kernels each) and ``attention_aggregate``, the GCN,
+GraphSAGE and GAT models, the training loop, timing, profiling, and the
+GCN, SAGE, GAT and SpMM/SDDMM benchmarks.
 
 Layering mirrors the JAX package:
-    sparse/    formats (CSR/CSC/COO of torch tensors), .mtx ingest
+    sparse/    formats (CSR/CSC/COO of torch tensors), .mtx ingest, the
+               per-row chunk plan
     csrc/      CUDA C++ kernels for sm_90a
     kernels/   nvcc build + ctypes wrappers (plain version on CPU tensors)
     ops/       spmm and sddmm with their autograd Functions, graph and
                attention ops, plain reference
     models/    GCN, GraphSAGE, GAT
     train/     training loop
-    utils/     datasets, timing
-    bench/     GCN, SAGE and GAT benchmark CLIs
+    utils/     datasets, timing, profiling (roofline)
+    bench/     GCN, SAGE, GAT and SpMM/SDDMM benchmark CLIs
 
 Importing the package needs no compiler and no GPU: kernels build at
 their first launch.
@@ -28,10 +32,12 @@ their first launch.
 from gespmm_tpu_torch.sparse.formats import COO, CSC, CSR, csr_from_coo, csr_to_csc
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 from gespmm_tpu_torch.ops.sddmm import sddmm, sddmm_coo
-from gespmm_tpu_torch.ops.graph import (additive_attention_logits, edge_softmax,
+from gespmm_tpu_torch.ops.graph import (additive_attention_logits,
+                                        attention_aggregate, edge_softmax,
                                         gat_attention, gcn_aggregate,
                                         sage_aggregate)
-from gespmm_tpu_torch.kernels.gat_fused import gat_attention_aggregate
+from gespmm_tpu_torch.kernels.gat_fused import (dot_attention_aggregate,
+                                                gat_attention_aggregate)
 
 __version__ = "0.1.0"
 
@@ -49,6 +55,8 @@ __all__ = [
     "additive_attention_logits",
     "gat_attention",
     "gat_attention_aggregate",
+    "attention_aggregate",
+    "dot_attention_aggregate",
     "gcn_aggregate",
     "sage_aggregate",
     "__version__",

@@ -1,6 +1,7 @@
-"""Fused GATv1 attention — port of ``gespmm_tpu/kernels/gat_fused.py`` (additive attention).
+"""Fused graph attention — port of ``gespmm_tpu/kernels/gat_fused.py``.
 
-``gat_attention_aggregate`` is the whole attention layer as one op,
+``gat_attention_aggregate`` (GATv1, additive attention) is the whole
+attention layer as one op,
 
     out[r] = Σ_c softmax_c(leaky(src[r] + dst[c])) · B[c]   per head,
 
@@ -20,6 +21,16 @@ as the JAX package takes it.  A tensor on the CPU goes to the plain
 versions (``ops/reference.py``); a CUDA tensor launches the kernels or
 raises — there is no fallback.  ``launches``, ``bwd_rows_launches`` and
 ``bwd_cols_launches`` count the launches of each kernel.
+
+``dot_attention_aggregate`` (dot-product attention) is the same for
+
+    out[r] = Σ_c softmax_c(act(D1[r]·D2[c])) · B[c],
+
+over the three kernels of ``csrc/dot_attention.cu``: ``dot_forward``
+(replacing ``_dot_forward``), ``dot_backward_rows`` (grad_D1, the pass of
+``_dot_bwd`` over ``plan``) and ``dot_backward_cols`` (grad_D2 and grad_B,
+its pass over ``plan_t``), counted by ``dot_launches``,
+``dot_bwd_rows_launches`` and ``dot_bwd_cols_launches``.
 """
 
 from __future__ import annotations
@@ -46,9 +57,17 @@ BWD_COLS_REPLACES = "gespmm_tpu/kernels/gat_fused.py:260"
 MAX_MODES = ("exact", "bound")
 MODES = ("trilo", "hilo", "fast")
 
+DOT_SOURCE = "gespmm_tpu_torch/csrc/dot_attention.cu"
+DOT_REPLACES = "gespmm_tpu/kernels/gat_fused.py:317"
+DOT_BWD_ROWS_REPLACES = "gespmm_tpu/kernels/gat_fused.py:401"
+DOT_BWD_COLS_REPLACES = "gespmm_tpu/kernels/gat_fused.py:430"
+
 launches = 0
 bwd_rows_launches = 0
 bwd_cols_launches = 0
+dot_launches = 0
+dot_bwd_rows_launches = 0
+dot_bwd_cols_launches = 0
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _F32 = torch.float32
@@ -56,7 +75,9 @@ _F32 = torch.float32
 
 def reset_launches() -> None:
     global launches, bwd_rows_launches, bwd_cols_launches
+    global dot_launches, dot_bwd_rows_launches, dot_bwd_cols_launches
     launches = bwd_rows_launches = bwd_cols_launches = 0
+    dot_launches = dot_bwd_rows_launches = dot_bwd_cols_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -363,3 +384,275 @@ def gat_attention_aggregate(adj: Union[Adjacency, CSR], src_score: Tensor,
         raise ValueError(f"mode must be trilo|hilo|fast, got {mode!r}")
     return _GatFused.apply(adj, float(negative_slope), max_mode, H,
                            bool(interpret), src2, dst2, B)
+
+
+# --- dot-product attention (kernel row 6) ---------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _dot_entry(kind: str, dtype: torch.dtype):
+    """(entry point, error-string function) of ``kind`` "fwd"/"bwd_rows"/
+    "bwd_cols" in ``csrc/dot_attention.cu``."""
+    lib = load_library("dot_attention")
+    fn = getattr(lib, f"gespmm_dot_{kind}_{_SUFFIX[dtype]}")
+    i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    fn.argtypes = {"fwd": [i, i, i, i, i, f, i] + [p] * 9,
+                   "bwd_rows": [i, i, i, i, i, f, i] + [p] * 11,
+                   "bwd_cols": [i, i, i, i, i, i, f, i] + [p] * 12}[kind]
+    fn.restype = ctypes.c_int
+    lib.gespmm_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.gespmm_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.gespmm_cuda_error_string
+
+
+def _act_args(slope: Optional[float]):
+    """(leaky flag, slope) for the kernels: identity act when slope is None."""
+    return (0, 0.0) if slope is None else (1, float(slope))
+
+
+def _dot_vec4(D1: Tensor, D2: Tensor) -> int:
+    """1 when the per-edge Ka-wide dot can use 16-byte loads."""
+    Ka = D1.shape[1]
+    return int(Ka % 4 == 0 and D1.data_ptr() % 16 == 0
+               and D2.data_ptr() % 16 == 0)
+
+
+def _check_dot_tables(m: int, n: int, Ka: int, B: Tensor, D1: Tensor,
+                      D2: Tensor) -> None:
+    if Ka < 1:
+        raise ValueError("the dot-attention kernels need Ka >= 1")
+    check_table("D1", D1, (m, Ka), _F32, B.device)
+    check_table("D2", D2, (n, Ka), _F32, B.device)
+
+
+def dot_forward(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
+                B: Tensor, *, slope: Optional[float] = None,
+                rows: Optional[Tensor] = None):
+    """(out, mx, den) of the dot-attention forward over the CSR.
+
+    D1 (m, Ka), D2 (n, Ka), B (n, K).  ``out`` takes B's dtype; ``mx`` and
+    ``den`` (m,) are f32 (f64 from the plain version for f64 inputs).
+    ``slope`` None is the identity act, else leaky ReLU.  ``rows`` (the
+    expanded indptr) is used only by the plain version.
+    """
+    m = indptr.shape[0] - 1
+    if B.device.type == "cpu":
+        if rows is None:
+            rows = expand_indptr(indptr, indices.shape[0])
+        return reference.dot_attention_rows(rows, indices, D1, D2, B, m, slope)
+    return dot_forward_cuda(indptr, indices, _f32(D1), _f32(D2), B, slope)
+
+
+def dot_forward_cuda(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
+                     B: Tensor, slope: Optional[float]):
+    """Launch the forward kernel on the current stream of B's device."""
+    global dot_launches
+    check_operands(indptr, indices, None, B)
+    m, (n, K), Ka = indptr.shape[0] - 1, B.shape, D1.shape[1]
+    _check_dot_tables(m, n, Ka, B, D1, D2)
+    if m == 0 or K == 0 or indices.shape[0] == 0:
+        # Every row is empty: out 0, shift 0, denominator at its floor.
+        return (torch.zeros((m, K), dtype=B.dtype, device=B.device),
+                torch.zeros(m, dtype=_F32, device=B.device),
+                torch.full((m,), reference.DENOM_EPS, dtype=_F32,
+                           device=B.device))
+    fn, err_str = _dot_entry("fwd", B.dtype)
+    out = torch.empty((m, K), dtype=B.dtype, device=B.device)
+    mx = torch.empty(m, dtype=_F32, device=B.device)
+    den = torch.empty(m, dtype=_F32, device=B.device)
+    with torch.cuda.device(B.device):
+        err = fn(m, K, Ka, lane_vector(K, B, out), *_act_args(slope),
+                 _dot_vec4(D1, D2), indptr.data_ptr(), indices.data_ptr(),
+                 D1.data_ptr(), D2.data_ptr(), B.data_ptr(), out.data_ptr(),
+                 mx.data_ptr(), den.data_ptr(), _stream(B))
+    raise_on(err, err_str, f"dot forward at m={m} K={K} Ka={Ka} "
+             f"dtype={B.dtype}")
+    dot_launches += 1
+    return out, mx, den
+
+
+def dot_backward_rows(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
+                      B: Tensor, g: Tensor, mx: Tensor, den: Tensor,
+                      s_row: Tensor, *, slope: Optional[float] = None,
+                      rows: Optional[Tensor] = None) -> Tensor:
+    """grad_D1 (m, Ka) = Σ_{e in row r} dpre_e·D2[c_e] over the CSR, f32 (f64
+    from the plain version for f64 inputs).  ``rows`` is used only by the
+    plain version."""
+    m = indptr.shape[0] - 1
+    if B.device.type == "cpu":
+        if rows is None:
+            rows = expand_indptr(indptr, indices.shape[0])
+        return reference.dot_attention_vjp_rows(rows, indices, D1, D2, B, g,
+                                                mx, den, s_row, m, slope)
+    return dot_backward_rows_cuda(indptr, indices, _f32(D1), _f32(D2), B,
+                                  _f32(g), _f32(mx), _f32(den), _f32(s_row),
+                                  slope)
+
+
+def _check_dot_bwd_tables(m, n, K, Ka, B, D1, D2, g, mx, den, s_row) -> None:
+    _check_dot_tables(m, n, Ka, B, D1, D2)
+    check_table("g", g, (m, K), _F32, B.device)
+    for name, t in (("mx", mx), ("den", den), ("s_row", s_row)):
+        check_table(name, t, (m,), _F32, B.device)
+
+
+def dot_backward_rows_cuda(indptr: Tensor, indices: Tensor, D1: Tensor,
+                           D2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
+                           den: Tensor, s_row: Tensor,
+                           slope: Optional[float]) -> Tensor:
+    """Launch the backward kernel over the CSR on B's device's stream."""
+    global dot_bwd_rows_launches
+    check_operands(indptr, indices, None, B)
+    m, (n, K), Ka = indptr.shape[0] - 1, B.shape, D1.shape[1]
+    _check_dot_bwd_tables(m, n, K, Ka, B, D1, D2, g, mx, den, s_row)
+    if m == 0 or K == 0 or indices.shape[0] == 0:
+        return torch.zeros((m, Ka), dtype=_F32, device=B.device)
+    fn, err_str = _dot_entry("bwd_rows", B.dtype)
+    grad_D1 = torch.empty((m, Ka), dtype=_F32, device=B.device)
+    with torch.cuda.device(B.device):
+        err = fn(m, K, Ka, lane_vector(Ka, D2, grad_D1), *_act_args(slope),
+                 _dot_vec4(D1, D2), indptr.data_ptr(), indices.data_ptr(),
+                 D1.data_ptr(), D2.data_ptr(), B.data_ptr(), g.data_ptr(),
+                 mx.data_ptr(), den.data_ptr(), s_row.data_ptr(),
+                 grad_D1.data_ptr(), _stream(B))
+    raise_on(err, err_str, f"dot backward (rows) at m={m} K={K} Ka={Ka} "
+             f"dtype={B.dtype}")
+    dot_bwd_rows_launches += 1
+    return grad_D1
+
+
+def dot_backward_cols(colptr: Tensor, rows: Tensor, D1: Tensor, D2: Tensor,
+                      B: Tensor, g: Tensor, mx: Tensor, den: Tensor,
+                      s_row: Tensor, *, slope: Optional[float] = None,
+                      cols: Optional[Tensor] = None):
+    """(grad_D2 (n, Ka), grad_B (n, K)) over the CSC (colptr, rows):
+    grad_D2[c] = Σ_{e in col c} dpre_e·D1[r_e] and grad_B[c] = Σ_{e in col c}
+    alpha_e·g[r_e].  grad_D2 is f32 and grad_B takes B's dtype (the plain
+    version returns both in the accumulation dtype).  ``cols`` (the expanded
+    colptr) is used only by the plain version."""
+    if B.device.type == "cpu":
+        if cols is None:
+            cols = expand_indptr(colptr, rows.shape[0])
+        return reference.dot_attention_vjp_cols(rows, cols, D1, D2, B, g, mx,
+                                                den, s_row, slope)
+    return dot_backward_cols_cuda(colptr, rows, _f32(D1), _f32(D2), B,
+                                  _f32(g), _f32(mx), _f32(den), _f32(s_row),
+                                  slope)
+
+
+def dot_backward_cols_cuda(colptr: Tensor, rows: Tensor, D1: Tensor,
+                           D2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
+                           den: Tensor, s_row: Tensor, slope: Optional[float]):
+    """Launch the backward kernel over the CSC on B's device's stream."""
+    global dot_bwd_cols_launches
+    check_operands(colptr, rows, None, B)
+    n, K = B.shape
+    if colptr.shape[0] - 1 != n:
+        raise ValueError(f"the CSC has {colptr.shape[0] - 1} columns, B has "
+                         f"{n} rows")
+    m, Ka = D1.shape
+    _check_dot_bwd_tables(m, n, K, Ka, B, D1, D2, g, mx, den, s_row)
+    if n == 0 or K == 0 or rows.shape[0] == 0:
+        return (torch.zeros((n, Ka), dtype=_F32, device=B.device),
+                torch.zeros((n, K), dtype=B.dtype, device=B.device))
+    fn, err_str = _dot_entry("bwd_cols", B.dtype)
+    grad_D2 = torch.empty((n, Ka), dtype=_F32, device=B.device)
+    grad_B = torch.empty((n, K), dtype=B.dtype, device=B.device)
+    with torch.cuda.device(B.device):
+        err = fn(n, K, Ka, lane_vector(K, g, grad_B),
+                 lane_vector(Ka, D1, grad_D2), *_act_args(slope),
+                 _dot_vec4(D1, D2), colptr.data_ptr(), rows.data_ptr(),
+                 D1.data_ptr(), D2.data_ptr(), B.data_ptr(), g.data_ptr(),
+                 mx.data_ptr(), den.data_ptr(), s_row.data_ptr(),
+                 grad_B.data_ptr(), grad_D2.data_ptr(), _stream(B))
+    raise_on(err, err_str, f"dot backward (cols) at n={n} K={K} Ka={Ka} "
+             f"dtype={B.dtype}")
+    dot_bwd_cols_launches += 1
+    return grad_D2, grad_B
+
+
+class _DotFused(torch.autograd.Function):
+    """Fused dot-product attention over ``adj``; differentiable in D1, D2
+    and B."""
+
+    @staticmethod
+    def forward(ctx, adj: Adjacency, slope: Optional[float], plain: bool,
+                D1: Tensor, D2: Tensor, B: Tensor) -> Tensor:
+        m = adj.shape[0]
+        B = B.contiguous()
+        if plain:
+            out, mx, den = reference.dot_attention_rows(
+                adj.rows, adj.csr.indices, D1, D2, B, m, slope)
+        else:
+            out, mx, den = dot_forward(adj.csr.indptr, adj.csr.indices, D1,
+                                       D2, B, slope=slope, rows=adj.rows)
+        ctx.adj, ctx.slope, ctx.plain = adj, slope, plain
+        ctx.save_for_backward(D1, D2, B, out, mx, den)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        adj, slope = ctx.adj, ctx.slope
+        D1, D2, B, out, mx, den = ctx.saved_tensors
+        g = g.contiguous()
+        s_row = reference.dot_row_dot(g, out)
+        want_d1 = ctx.needs_input_grad[3]
+        want_cols = ctx.needs_input_grad[4] or ctx.needs_input_grad[5]
+        grad_D1 = grad_D2 = grad_B = None
+        tables = (D1, D2, B, g, mx, den, s_row)
+        if ctx.plain:
+            edges = (adj.rows, adj.csr.indices)
+            if want_d1:
+                grad_D1 = reference.dot_attention_vjp_rows(
+                    *edges, *tables, adj.shape[0], slope)
+            if want_cols:
+                grad_D2, grad_B = reference.dot_attention_vjp_cols(
+                    *edges, *tables, slope)
+        else:
+            if want_d1:
+                grad_D1 = dot_backward_rows(adj.csr.indptr, adj.csr.indices,
+                                            *tables, slope=slope,
+                                            rows=adj.rows)
+            if want_cols:
+                grad_D2, grad_B = dot_backward_cols(
+                    adj.csc.indptr, adj.csc.indices, *tables, slope=slope,
+                    cols=adj.rows_t)
+        if grad_D1 is not None:
+            grad_D1 = grad_D1.to(D1.dtype)
+        if grad_D2 is not None:
+            grad_D2 = grad_D2.to(D2.dtype)
+            grad_B = grad_B.to(B.dtype)
+        return None, None, None, grad_D1, grad_D2, grad_B
+
+
+def dot_attention_aggregate(adj: Union[Adjacency, CSR], D1: Tensor,
+                            D2: Tensor, B: Tensor, *,
+                            negative_slope: Optional[float] = None,
+                            interpret: Optional[bool] = None) -> Tensor:
+    """out[r] = Σ_c softmax_c(act(D1[r]·D2[c])) · B[c] over the edge pattern
+    — fused dot-product (transformer-style) graph attention.
+
+    ``act`` is the identity (default) or leaky ReLU when ``negative_slope``
+    is given.  D1: (m, Ka); D2: (n, Ka); B: (n, K); ``out`` takes B's dtype
+    (f32 or bf16 on the card).  Differentiable in all three; each gradient
+    takes its input's dtype.  Rows without an edge give 0.
+
+    ``adj``: an ``Adjacency``, or a bare ``CSR`` paired on the fly.  The JAX
+    package needs tiled plans here; the port walks the CSR and the CSC and
+    needs none.  ``interpret``: True runs the plain PyTorch version on any
+    device; otherwise a CUDA tensor runs the kernels and a CPU tensor their
+    plain versions.
+    """
+    if isinstance(adj, CSR):
+        adj = Adjacency.from_csr(adj)
+    m, n = adj.shape
+    if D1.dim() != 2 or D2.dim() != 2 or D1.shape[1] != D2.shape[1]:
+        raise ValueError(f"D1 {tuple(D1.shape)} / D2 {tuple(D2.shape)} must be "
+                         "(m,Ka)/(n,Ka)")
+    if D1.shape[0] != m or D2.shape[0] != n:
+        raise ValueError(f"D1/D2 rows {D1.shape[0]}/{D2.shape[0]} must match "
+                         f"the pattern {adj.shape}")
+    if B.dim() != 2 or B.shape[0] != n:
+        raise ValueError(f"B must be ({n}, K), got {tuple(B.shape)}")
+    slope = None if negative_slope is None else float(negative_slope)
+    return _DotFused.apply(adj, slope, bool(interpret), D1, D2, B)

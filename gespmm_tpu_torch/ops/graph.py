@@ -1,11 +1,12 @@
 """Graph-level ops on the SpMM primitive — port of part of ``gespmm_tpu/ops/graph.py``.
 
-Ported so far: degree normalisation, the symmetric-normalised GCN
-aggregation, the GraphSAGE aggregates, self-loop insertion, and the
-attention building blocks: ``edge_softmax``, ``additive_attention_logits``
-and ``gat_attention``.  Their per-row reductions run the edge segment-reduce
-kernel (``kernels/edge_reduce.py``) on a CUDA tensor.  ``attention_aggregate``
-(dot-product attention) waits for ROADMAP A6.
+Ported: degree normalisation, the symmetric-normalised GCN aggregation,
+the GraphSAGE aggregates, self-loop insertion, the attention building
+blocks ``edge_softmax``, ``additive_attention_logits`` and
+``gat_attention``, whose per-row reductions run the edge segment-reduce
+kernel (``kernels/edge_reduce.py``) on a CUDA tensor, and
+``attention_aggregate``, the dot-product attention layer, which runs the
+fused kernels of ``kernels/gat_fused.py::dot_attention_aggregate``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from gespmm_tpu_torch.kernels.edge_reduce import edge_segment_reduce
+from gespmm_tpu_torch.kernels.gat_fused import dot_attention_aggregate
 from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.ops.sddmm import sddmm
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
@@ -182,6 +184,34 @@ def gat_attention(adj: Union[Adjacency, CSR], q: Tensor, k: Tensor, *,
     if isinstance(adj, CSR):
         adj = Adjacency.from_csr(adj)
     return edge_softmax(adj, sddmm(adj, q, k, method=method), method=method)
+
+
+def attention_aggregate(adj: Union[Adjacency, CSR], q: Tensor, k: Tensor,
+                        v: Tensor, *, negative_slope: Optional[float] = None,
+                        method: str = "auto") -> Tensor:
+    """out[r] = Σ_c softmax_c(act(q[r]·k[c])) · v[c] over the edge pattern —
+    the whole dot-product attention layer (SDDMM scores, edge softmax,
+    weighted aggregate) in one call.
+
+    ``method``: "auto" | "tiled" run the fused op
+    (``kernels/gat_fused.py::dot_attention_aggregate``: three kernels on a
+    CUDA tensor, their plain versions on a CPU tensor); "xla" composes
+    ``sddmm`` → leaky ReLU (when ``negative_slope`` is given) →
+    ``edge_softmax`` → ``spmm(adj.with_data(alpha), v)``, each with
+    ``method="xla"``.  ``act`` is the identity unless ``negative_slope`` is
+    given.  Differentiable in q, k and v.
+    """
+    _check_edge_method(method)
+    if isinstance(adj, CSR):
+        adj = Adjacency.from_csr(adj)
+    if method in ("auto", "tiled"):
+        return dot_attention_aggregate(adj, q, k, v,
+                                       negative_slope=negative_slope)
+    scores = sddmm(adj, q, k, method=method)
+    if negative_slope is not None:
+        scores = torch.nn.functional.leaky_relu(scores, negative_slope)
+    alpha = edge_softmax(adj, scores, method=method)
+    return spmm(adj.with_data(alpha), v, reduce="sum", method=method)
 
 
 def add_self_loops(csr: CSR, weight: float = 1.0) -> CSR:

@@ -1,8 +1,9 @@
-"""Plain PyTorch SpMM, SDDMM, edge segment reduce and fused GAT attention — the
-reference the CUDA kernels are held to.
+"""Plain PyTorch SpMM, SDDMM, edge segment reduce, fused GAT and dot-product
+attention, and the chunked SpMM — the reference the CUDA kernels are held to.
 
-Counterpart of ``gespmm_tpu/ops/reference.py`` (and of the math of
-``gespmm_tpu/kernels/gat_fused.py``).  These run on any device:
+Counterpart of ``gespmm_tpu/ops/reference.py`` (with its scatter and dense
+tiers) and of the math of ``gespmm_tpu/kernels/gat_fused.py`` and
+``spmm_pallas.py``.  These run on any device:
 the CPU tests use them, the ``method="xla"`` tier runs them on the card, and
 ``chip_smoke.py`` compares the kernels with them (in float64 there).
 
@@ -321,3 +322,163 @@ def gat_fused_vjp(rows, cols, src2, dst2, B, out, mx, den, g, m, slope=0.2,
     grad_dst, grad_B = gat_fused_vjp_cols(rows, cols, src2, dst2, B, g, mx, den,
                                           s_row, slope, heads)
     return grad_src, grad_dst, grad_B
+
+
+# --- fused dot-product attention (kernel row 6) ----------------------------
+#
+# The math of gespmm_tpu/kernels/gat_fused.py::_dot_forward / _dot_bwd, term
+# by term, with act = identity (slope None) or leaky(·, slope):
+#   pre_e = D1[r]·D2[c],  l_e = act(pre_e),  mx[r] = max_{e in row r} l_e
+#   (0 for an empty row),  z_e = exp(max(l_e − mx[r], EXP_FLOOR)),
+#   den[r] = max(Σ z_e, DENOM_EPS),  out[r] = Σ z_e·B[c] / den[r];
+#   alpha_e = z_e / den[r],  u_e = g[r]·B[c],  s[r] = <g[r], out[r]>,
+#   dpre_e = alpha_e·(u_e − s[r])·act'(pre_e).
+
+
+def _act(x: Tensor, slope: Optional[float]) -> Tensor:
+    return x if slope is None else leaky(x, slope)
+
+
+def _dact(x: Tensor, slope: Optional[float]) -> Tensor:
+    return torch.ones_like(x) if slope is None else dleaky(x, slope)
+
+
+def _dot_pre(rows: Tensor, cols: Tensor, D1: Tensor, D2: Tensor,
+             acc: torch.dtype) -> Tensor:
+    """pre_e = D1[rows[e]]·D2[cols[e]] (nnz,) in ``acc``."""
+    return (D1.to(acc).index_select(0, rows.long())
+            * D2.to(acc).index_select(0, cols.long())).sum(-1)
+
+
+def dot_attention_rows(rows: Tensor, cols: Tensor, D1: Tensor, D2: Tensor,
+                       B: Tensor, m: int, slope: Optional[float] = None):
+    """(out, mx, den): the plain version of the dot-attention forward kernel.
+
+    D1 (m, Ka), D2 (n, Ka), B (n, K).  ``out`` (m, K) takes B's dtype;
+    ``mx`` and ``den`` (m,) stay in the accumulation dtype (f32, or f64 for
+    an f64 input).  Empty rows give out 0, mx 0 and den DENOM_EPS.
+    """
+    acc = _gat_acc(D1, D2, B)
+    l = _act(_dot_pre(rows, cols, D1, D2, acc), slope)
+    mx = edge_segment_rows(rows, l[:, None], m, "max")[:, 0]
+    r = rows.long()
+    z = torch.exp(torch.clamp(l - mx.index_select(0, r), min=EXP_FLOOR))
+    den = torch.zeros(m, dtype=acc, device=B.device).index_add_(0, r, z)
+    den = torch.clamp(den, min=DENOM_EPS)
+    out = torch.zeros((m, B.shape[1]), dtype=acc, device=B.device)
+    out.index_add_(0, r, B.index_select(0, cols.long()).to(acc) * z[:, None])
+    return (out / den[:, None]).to(B.dtype), mx, den
+
+
+def dot_row_dot(g: Tensor, out: Tensor) -> Tensor:
+    """s = <g_r, out_r> (m,), from the STORED ``out`` cast up, as
+    ``_dot_bwd`` forms it (one torch op before the backward launches)."""
+    acc = _gat_acc(g, out)
+    return (g.to(acc) * out.to(acc)).sum(-1)
+
+
+def _dot_dpre(rows, cols, D1, D2, B, g, mx, den, s_row, slope):
+    """(alpha, dpre) per edge, in the accumulation dtype."""
+    acc = _gat_acc(D1, D2, B, g)
+    r, c = rows.long(), cols.long()
+    pre = _dot_pre(rows, cols, D1, D2, acc)
+    alpha = (torch.exp(torch.clamp(_act(pre, slope) - mx.to(acc)[r],
+                                   min=EXP_FLOOR))
+             / torch.clamp(den.to(acc), min=DENOM_EPS)[r])
+    u = (g.to(acc).index_select(0, r) * B.to(acc).index_select(0, c)).sum(-1)
+    dpre = alpha * (u - s_row.to(acc)[r]) * _dact(pre, slope)
+    return alpha, dpre
+
+
+def dot_attention_vjp_rows(rows, cols, D1, D2, B, g, mx, den, s_row, m,
+                           slope=None) -> Tensor:
+    """grad_D1 (m, Ka) = Σ_{e in row r} dpre_e·D2[c_e]: the plain version of
+    the backward kernel over the CSR, in the accumulation dtype."""
+    _, dpre = _dot_dpre(rows, cols, D1, D2, B, g, mx, den, s_row, slope)
+    out = torch.zeros((m, D2.shape[1]), dtype=dpre.dtype, device=dpre.device)
+    return out.index_add_(0, rows.long(), D2.to(dpre.dtype).index_select(
+        0, cols.long()) * dpre[:, None])
+
+
+def dot_attention_vjp_cols(rows, cols, D1, D2, B, g, mx, den, s_row,
+                           slope=None):
+    """(grad_D2 (n, Ka), grad_B (n, K)): grad_D2[c] = Σ_{e in col c}
+    dpre_e·D1[r_e] and grad_B[c] = Σ_{e in col c} alpha_e·g[r_e], the plain
+    version of the backward kernel over the CSC, in the accumulation dtype."""
+    alpha, dpre = _dot_dpre(rows, cols, D1, D2, B, g, mx, den, s_row, slope)
+    r, c = rows.long(), cols.long()
+    n = B.shape[0]
+    grad_D2 = torch.zeros((n, D1.shape[1]), dtype=dpre.dtype, device=dpre.device)
+    grad_D2.index_add_(0, c, D1.to(dpre.dtype).index_select(0, r) * dpre[:, None])
+    grad_B = torch.zeros((n, B.shape[1]), dtype=dpre.dtype, device=dpre.device)
+    grad_B.index_add_(0, c, g.to(dpre.dtype).index_select(0, r) * alpha[:, None])
+    return grad_D2, grad_B
+
+
+# --- the scatter and dense tiers, and the chunked sum (kernel row 8) --------
+
+# The dense tier's guard: densifying A costs m·n·4 bytes
+# (gespmm_tpu/ops/reference.py::DENSE_BYTES_LIMIT).
+DENSE_BYTES_LIMIT = 4 << 30
+
+
+def spmm_scatter(rows: Tensor, indices: Tensor, data: Optional[Tensor],
+                 B: Tensor, m: int) -> Tensor:
+    """Push-formulation SpMM, out[row_e] += val_e·B[col_e], as one
+    ``index_add_`` (``spmm_scatter_xla``).  f32 accumulation; B's dtype out."""
+    contrib = _contrib(indices, data, B)
+    out = torch.zeros((m, B.shape[1]), dtype=contrib.dtype, device=B.device)
+    return out.index_add_(0, rows.long(), contrib).to(B.dtype)
+
+
+def spmm_dense(rows: Tensor, indices: Tensor, data: Optional[Tensor],
+               B: Tensor, m: int) -> Tensor:
+    """Densify-and-matmul SpMM (``spmm_dense_xla``): A built by one
+    accumulating scatter, then one full-f32 ``torch.matmul``.  Raises
+    ValueError when A would exceed DENSE_BYTES_LIMIT."""
+    n = B.shape[0]
+    dense_bytes = m * n * 4
+    if dense_bytes > DENSE_BYTES_LIMIT:
+        raise ValueError(
+            f"dense A would be {dense_bytes / 2**30:.1f} GiB "
+            f"(> {DENSE_BYTES_LIMIT / 2**30:.0f} GiB guard): the dense tier is "
+            "a small-graph crossover baseline, not a large-graph path; use "
+            "method='tiled'")
+    acc = _acc_dtype(B.dtype)
+    vals = (torch.ones(indices.shape[0], dtype=acc, device=B.device)
+            if data is None else data.to(acc))
+    A = torch.zeros((m, n), dtype=acc, device=B.device)
+    A.index_put_((rows.long(), indices.long()), vals, accumulate=True)
+    return torch.matmul(A, B.to(acc)).to(B.dtype)
+
+
+def spmm_chunks(chunk_start: Tensor, chunk_count: Tensor, indices: Tensor,
+                data: Optional[Tensor], B: Tensor, rows: Tensor,
+                m: int) -> Tensor:
+    """The plain version of the chunked sum kernel: every chunk's partial
+    sums per row, then the partials of each row added in chunk order.
+
+    Chunk c holds the CSR edges [chunk_start[c], chunk_start[c] +
+    chunk_count[c]); ``rows`` are the CSR's per-edge row ids.  The chunks
+    cover each edge once, so the result is the SpMM, with each row's sum
+    cut where the kernel cuts it.  f32 accumulation; B's dtype out.
+    """
+    nnz = indices.shape[0]
+    r = rows.long()
+    contrib = _contrib(indices, data, B)
+    # A (chunk, row) pair starts at every chunk's first edge and every row
+    # change; pairs are numbered in edge order, at most nnz of them (sized
+    # without reading the count back, so that nothing waits for the device).
+    # The chunks cover the edges in order, so a row's pairs come in chunk
+    # order.
+    new_pair = torch.zeros(nnz + 1, dtype=torch.long, device=B.device)
+    new_pair.index_fill_(0, chunk_start.long(), 1)
+    new_pair = new_pair[:nnz]
+    new_pair[1:] |= (r[1:] != r[:-1]).long()
+    pair = torch.cumsum(new_pair, 0) - 1
+    partial = torch.zeros((nnz, B.shape[1]), dtype=contrib.dtype,
+                          device=B.device).index_add_(0, pair, contrib)
+    pair_row = torch.zeros(nnz, dtype=torch.long, device=B.device)
+    pair_row.scatter_(0, pair, r)  # unused pairs: row 0, a zero partial
+    out = torch.zeros((m, B.shape[1]), dtype=contrib.dtype, device=B.device)
+    return out.index_add_(0, pair_row, partial).to(B.dtype)

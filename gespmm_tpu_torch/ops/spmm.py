@@ -4,7 +4,7 @@ The backward of SpMM is SpMM on Aᵀ, so ``Adjacency`` carries both the CSR
 and the CSC ordering (plus the CSC -> CSR edge permutation), built once per
 graph, and the backward never transposes at step time.  Sum:
 
-  * grad_B = Aᵀ @ g, the same kernel over the CSC with ``data[perm]``;
+  * grad_B = Aᵀ @ g, the same tier over the CSC with ``data[perm]``;
   * grad_values[e] = g[row_e] · B[col_e] (SDDMM, in CSR order), computed
     only when the edge values require a gradient.
 
@@ -14,15 +14,24 @@ forward kernel returns the tie counts with ``out``, and the backward kernel
 walks the CSC, giving grad_B and grad_values (back to CSR order through
 ``perm``).
 
-``reduce="mean"`` composes on sum.  Method tiers: ``"auto"``/``"tiled"`` run
-the CUDA kernels on a CUDA tensor and their plain versions on a CPU tensor;
-``"xla"`` is the plain PyTorch version on any device (kept as the explicit
-reference tier, named after the JAX package's tier).
+``reduce="mean"`` composes on sum.  Method tiers, with the reductions each
+takes (``_METHOD_REDUCES``, as in the JAX package):
+
+  * ``"auto"``/``"tiled"``: the CUDA kernels on a CUDA tensor (the CSR sum
+    kernel, the max/min kernels), their plain versions on a CPU tensor;
+  * ``"xla"``: the plain PyTorch version on any device (the explicit
+    reference tier, named after the JAX package's tier);
+  * ``"pallas"`` (sum/mean): the nnz-chunked kernel over a per-row chunk
+    plan (``Adjacency.from_csr(csr, plan="perrow")``), forward and, over the
+    transposed plan, grad_B (the CSR kernel where there is no such plan);
+  * ``"scatter"`` (sum/mean): the push formulation, one ``index_add_``;
+  * ``"dense"`` (sum/mean): densify and ``torch.matmul``, size-guarded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Optional, Union
 
 import numpy as np
@@ -30,20 +39,45 @@ import torch
 
 from gespmm_tpu_torch.kernels.spmm_csr import spmm_csr
 from gespmm_tpu_torch.kernels.spmm_minmax import spmm_minmax, spmm_minmax_vjp
+from gespmm_tpu_torch.kernels.spmm_pallas import spmm_pallas
 from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.sparse.formats import CSC, CSR
+from gespmm_tpu_torch.sparse.partition import SpmmPlan, build_spmm_plan
 
 Tensor = torch.Tensor
 
 MODES = ("trilo", "hilo", "fast", "highest")
-METHODS = ("auto", "tiled", "xla", "pallas", "scatter", "dense")
 REDUCES = ("sum", "mean", "max", "min")
-# Accepted by the JAX package, not ported yet: each names its ROADMAP item.
-_NOT_PORTED = {
-    "pallas": "method='pallas' (per-row and grouped kernels) is ROADMAP B5/B6",
-    "scatter": "method='scatter' (the push tier) is ROADMAP A2",
-    "dense": "method='dense' (the densify tier) is ROADMAP A2",
+# Reductions each EXPLICIT method supports (mean composes on sum); an
+# explicitly requested tier never silently runs another.
+_METHOD_REDUCES = {
+    "tiled": REDUCES,
+    "pallas": ("sum", "mean"),
+    "scatter": ("sum", "mean"),
+    "dense": ("sum", "mean"),
+    "xla": REDUCES,
+    "auto": REDUCES,
 }
+METHODS = tuple(_METHOD_REDUCES)
+PLANS = (False, True, "auto", "tiled", "perrow", "grouped")
+
+
+def _build_plan(indptr, indices, shape, kind, plan_kwargs) -> Optional[SpmmPlan]:
+    """The plan object of ``kind``: None for the tiled kinds (the CSR kernel
+    walks the CSR and needs none), the per-row chunk plan for "perrow".
+    Unknown ``plan_kwargs`` are ignored, as the JAX package filters them by
+    the builder's signature."""
+    if kind in (True, "auto", "tiled"):
+        return None
+    if kind == "perrow":
+        sig = inspect.signature(build_spmm_plan).parameters
+        kw = {k: v for k, v in plan_kwargs.items() if k in sig}
+        return build_spmm_plan(CSR(indptr, indices, None, shape), **kw)
+    if kind == "grouped":
+        raise NotImplementedError(
+            "plan='grouped' (the grouped tensor-core SpMM, kernel row 9) is "
+            "ROADMAP B6: not ported yet; use plan='perrow' or plan=True")
+    raise ValueError(f"unknown plan kind {kind!r}; expected one of {PLANS}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +86,8 @@ class Adjacency:
 
     ``perm`` maps CSC edge order -> CSR edge order (``csc.data = data[perm]``);
     ``inv_perm`` is its inverse.  ``rows``/``rows_t`` are the per-nonzero row
-    ids of the CSR and of the CSC (the CSR of Aᵀ).
+    ids of the CSR and of the CSC (the CSR of Aᵀ).  ``plan``/``plan_t`` are
+    the per-row chunk plans of A and Aᵀ (``plan="perrow"``), or None.
     """
 
     csr: CSR
@@ -61,11 +96,23 @@ class Adjacency:
     rows: Tensor
     rows_t: Tensor
     inv_perm: Tensor
+    plan: Optional[SpmmPlan] = None
+    plan_t: Optional[SpmmPlan] = None
 
     @classmethod
-    def from_csr(cls, csr: CSR, device=None) -> "Adjacency":
+    def from_csr(cls, csr: CSR, device=None, plan=False, plan_transpose=True,
+                 **plan_kwargs) -> "Adjacency":
         """Build the paired orderings on the host, then move them to
-        ``device`` (default: the device ``csr`` lives on)."""
+        ``device`` (default: the device ``csr`` lives on).
+
+        ``plan``: False (none) | True / "auto" / "tiled" (the CSR kernel's
+        tier, which needs no plan object) | "perrow" (the chunk plans of
+        ``method="pallas"``, with ``rows_per_block``/``chunk_nnz`` from
+        ``plan_kwargs``) | "grouped" (not ported: raises
+        NotImplementedError).  ``plan_transpose=False`` skips the plan of
+        Aᵀ; grad_B of ``method="pallas"`` then takes the CSR kernel (the
+        JAX package takes its plain tier there).
+        """
         device = csr.device if device is None else torch.device(device)
         indptr_h = csr.indptr.cpu().numpy()
         indices_h = csr.indices.cpu().numpy()
@@ -91,8 +138,21 @@ class Adjacency:
             shape=(m, n),
         )
         rows_t = dev(np.repeat(np.arange(n, dtype=np.int32), np.diff(colptr_h)))
+        p = pt = None
+        if plan:
+            p = _build_plan(indptr_h, indices_h, (m, n), plan, plan_kwargs)
+            if plan_transpose:
+                pt = _build_plan(colptr_h.astype(np.int32), rows_h[order],
+                                 (n, m), plan, plan_kwargs)
+        # The plans walk the adjacency's own device arrays.
+        if p is not None:
+            p = dataclasses.replace(p.to(device), indptr=csr_d.indptr,
+                                    indices=csr_d.indices)
+        if pt is not None:
+            pt = dataclasses.replace(pt.to(device), indptr=csc.indptr,
+                                     indices=csc.indices)
         return cls(csr=csr_d, csc=csc, perm=perm, rows=dev(rows_h),
-                   rows_t=rows_t, inv_perm=dev(inv_perm_h))
+                   rows_t=rows_t, inv_perm=dev(inv_perm_h), plan=p, plan_t=pt)
 
     @property
     def shape(self):
@@ -118,16 +178,27 @@ class Adjacency:
             csr=CSR(self.csc.indptr, self.csc.indices, self.csc.data, (n, m)),
             csc=CSC(self.csr.indptr, self.csr.indices, self.csr.data, (n, m)),
             perm=self.inv_perm, rows=self.rows_t, rows_t=self.rows,
-            inv_perm=self.perm,
+            inv_perm=self.perm, plan=self.plan_t, plan_t=self.plan,
         )
 
 
 def _forward(method: str, indptr: Tensor, indices: Tensor,
-             data: Optional[Tensor], B: Tensor, rows: Tensor) -> Tensor:
-    if method == "xla":
-        return ref.spmm_rows(rows, indices, data, B, indptr.shape[0] - 1)
-    # The kernel takes a contiguous B; a column slice or a transposed view
+             data: Optional[Tensor], B: Tensor, rows: Tensor,
+             plan: Optional[SpmmPlan]) -> Tensor:
+    m = indptr.shape[0] - 1
+    # The kernels take a contiguous B; a column slice or a transposed view
     # is a valid operand of the op.
+    if method == "pallas" and plan is not None:
+        return spmm_pallas(plan, data, B.contiguous(), m)
+    if method == "scatter":
+        return ref.spmm_scatter(rows, indices, data, B, m)
+    if method == "dense":
+        return ref.spmm_dense(rows, indices, data, B, m)
+    if method == "xla":
+        return ref.spmm_rows(rows, indices, data, B, m)
+    # "auto"/"tiled", and "pallas" without a plan for this direction (the
+    # grad_B of an Adjacency built with plan_transpose=False): the CSR
+    # kernel, which needs none.
     return spmm_csr(indptr, indices, data, B.contiguous(), rows=rows)
 
 
@@ -140,7 +211,7 @@ class _SpmmSum(torch.autograd.Function):
         ctx.adj, ctx.method = adj, method
         ctx.save_for_backward(data, B if ctx.needs_input_grad[2] else None)
         return _forward(method, adj.csr.indptr, adj.csr.indices, data, B,
-                        adj.rows)
+                        adj.rows, adj.plan)
 
     @staticmethod
     def backward(ctx, g: Tensor):
@@ -151,7 +222,7 @@ class _SpmmSum(torch.autograd.Function):
         if ctx.needs_input_grad[3]:
             t_data = None if data is None else data[adj.perm.long()]
             grad_B = _forward(method, adj.csc.indptr, adj.csc.indices,
-                              t_data, g, adj.rows_t)
+                              t_data, g, adj.rows_t, adj.plan_t)
         if data is not None and ctx.needs_input_grad[2]:
             grad_data = ref.sddmm_rows(adj.rows, adj.csr.indices, g, B)
             grad_data = grad_data.to(data.dtype)
@@ -208,15 +279,19 @@ class _SpmmMinMax(torch.autograd.Function):
         return None, None, None, grad_data, grad_B
 
 
-def _check_method(reduce: str, method: str) -> None:
+def _check_method(adj: Adjacency, reduce: str, method: str) -> None:
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
     if reduce not in REDUCES:
         raise ValueError(f"reduce must be one of {REDUCES}, got {reduce!r}")
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{_NOT_PORTED[method]}: not ported yet; use method='auto' or 'xla'"
-        )
+    if reduce not in _METHOD_REDUCES[method]:
+        raise ValueError(
+            f"method={method!r} does not support reduce={reduce!r} "
+            f"(supported: {_METHOD_REDUCES[method]}); use method='auto' or "
+            "'xla'")
+    if method == "pallas" and not isinstance(adj.plan, SpmmPlan):
+        raise ValueError("method='pallas' needs an Adjacency built with "
+                         "plan='perrow' (Adjacency.from_csr(csr, plan='perrow'))")
 
 
 def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
@@ -228,7 +303,9 @@ def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
         bare ``CSR`` (the pairing is built on the fly).
       B: dense (n, K) tensor, float32 or bfloat16 on the card.
       reduce: "sum" | "mean" | "max" | "min" (empty rows give 0 under each).
-      method: "auto" | "tiled" (the CUDA kernels on the card) | "xla" (plain).
+      method: "auto" | "tiled" (the CUDA kernels on the card) | "xla" (plain)
+        | "pallas" (the chunked kernel; needs ``plan="perrow"``) | "scatter"
+        | "dense" (the last three sum/mean only).
       mode: "trilo" | "hilo" | "fast" | "highest", validated as in the JAX
         package; every mode accumulates in f32 here, which meets each
         mode's tolerance.
@@ -246,7 +323,7 @@ def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
         raise ValueError(
             f"A is {adj.shape}, B is {tuple(B.shape)}: inner dims differ"
         )
-    _check_method(reduce, method)
+    _check_method(adj, reduce, method)
     if reduce == "mean":
         out = spmm(adj, B, reduce="sum", method=method, mode=mode)
         deg = (adj.csr.indptr[1:] - adj.csr.indptr[:-1]).to(out.dtype)

@@ -9,6 +9,7 @@ host; ``GraphDataset.to(device)`` moves a dataset to the card.
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -90,6 +91,124 @@ def rmat_graph(scale: int, edge_factor: int = 16, seed: int = 0,
     rows, cols = rows[uniq], cols[uniq]
     order = np.lexsort((cols, rows))
     return _csr_from_sorted(rows[order], cols[order], (n, n))
+
+
+def banded_graph(n: int, bandwidth: int = 8, seed: int = 0) -> CSR:
+    """Banded sparse matrix: each row links to its ±bandwidth neighbours (no
+    diagonal) — the locality extreme of the corpus, no degree skew."""
+    offs = [o for o in range(-bandwidth, bandwidth + 1) if o != 0]
+    rows = np.concatenate(
+        [np.arange(max(0, -o), min(n, n - o), dtype=np.int64) for o in offs])
+    cols = np.concatenate(
+        [np.arange(max(0, -o), min(n, n - o), dtype=np.int64) + o
+         for o in offs])
+    order = np.lexsort((cols, rows))
+    return _csr_from_sorted(rows[order], cols[order], (n, n))
+
+
+def bipartite_graph(m: int, n: int, row_degree: int = 16, seed: int = 0,
+                    skew: float = 1.2) -> CSR:
+    """Rectangular (m x n) matrix with Zipf-skewed column popularity — the
+    corpus' non-square case (user x item)."""
+    rng = np.random.default_rng(seed)
+    ne = m * row_degree
+    rows = np.repeat(np.arange(m, dtype=np.int64), row_degree)
+    u = rng.random(ne)
+    cols = np.minimum((n * u ** skew).astype(np.int64), n - 1)
+    _, uniq = np.unique(rows * n + cols, return_index=True)
+    rows, cols = rows[uniq], cols[uniq]
+    order = np.lexsort((cols, rows))
+    return _csr_from_sorted(rows[order], cols[order], (m, n))
+
+
+def _coo_to_csr(rows: np.ndarray, cols: np.ndarray, shape) -> CSR:
+    """Dedup + sort row-major + build the CSR (the generators' shared tail)."""
+    m, n = shape
+    _, uniq = np.unique(rows.astype(np.int64) * n + cols, return_index=True)
+    rows, cols = rows[uniq], cols[uniq]
+    order = np.lexsort((cols, rows))
+    return _csr_from_sorted(rows[order], cols[order], (m, n))
+
+
+def chung_lu_graph(n: int, avg_degree: int = 16, gamma: float = 2.3,
+                   seed: int = 0) -> CSR:
+    """Chung-Lu power-law graph: edge (i, j) drawn ∝ w_i·w_j with weights
+    w_i ∝ (i+1)^(-1/(γ-1)), by inverse CDF; symmetric, no self-loops."""
+    rng = np.random.default_rng(seed)
+    w = np.arange(1, n + 1, dtype=np.float64) ** (-1.0 / (gamma - 1.0))
+    cdf = np.cumsum(w / w.sum())
+    ne = n * avg_degree // 2
+    rows = np.searchsorted(cdf, rng.random(ne)).astype(np.int64)
+    cols = np.searchsorted(cdf, rng.random(ne)).astype(np.int64)
+    keep = rows != cols
+    rows, cols = rows[keep], cols[keep]
+    rows, cols = np.concatenate([rows, cols]), np.concatenate([cols, rows])
+    return _coo_to_csr(rows, cols, (n, n))
+
+
+def grid2d_graph(side: int, stencil: int = 5) -> CSR:
+    """2-D grid stencil (side x side nodes, 5- or 9-point, no diagonal):
+    uniform degree, neighbours ±side apart in the row order."""
+    if stencil not in (5, 9):
+        raise ValueError("stencil must be 5 or 9")
+    offs = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    if stencil == 9:
+        offs += [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+    n = side * side
+    ii = np.arange(n, dtype=np.int64)
+    x, y = ii // side, ii % side
+    rows_l, cols_l = [], []
+    for dx, dy in offs:
+        ok = (x + dx >= 0) & (x + dx < side) & (y + dy >= 0) & (y + dy < side)
+        rows_l.append(ii[ok])
+        cols_l.append((x[ok] + dx) * side + (y[ok] + dy))
+    return _coo_to_csr(np.concatenate(rows_l), np.concatenate(cols_l), (n, n))
+
+
+def hub_graph(n: int, n_hubs: int = 4, hub_frac: float = 0.25,
+              base_degree: int = 4, seed: int = 0) -> CSR:
+    """Extreme hubs: a uniform background of degree ``base_degree`` plus
+    ``n_hubs`` nodes each joined to a random ``hub_frac`` of all nodes."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n, size=n * base_degree).astype(np.int64)
+    cols = rng.integers(0, n, size=n * base_degree).astype(np.int64)
+    hub_ids = rng.choice(n, size=n_hubs, replace=False).astype(np.int64)
+    per_hub = int(n * hub_frac)
+    for h in hub_ids:
+        nbrs = rng.choice(n, size=per_hub, replace=False).astype(np.int64)
+        rows = np.concatenate([rows, np.full(per_hub, h, np.int64)])
+        cols = np.concatenate([cols, nbrs])
+    keep = rows != cols
+    rows, cols = rows[keep], cols[keep]
+    rows, cols = np.concatenate([rows, cols]), np.concatenate([cols, rows])
+    return _coo_to_csr(rows, cols, (n, n))
+
+
+def synth_graph(name: str, seed: int = 0) -> Optional[CSR]:
+    """Resolve a synthetic-corpus name to its generator, as the JAX package:
+
+    ``rmat<scale>`` (edge factor 16) | ``banded<n>[-<bw>]`` |
+    ``rect<m>x<n>[-<deg>]`` | ``cl<n>[-<deg>]`` (Chung-Lu) |
+    ``grid<side>[-<stencil>]`` | ``hub<n>[-<nhubs>]`` | ``sbm<n_per_class>``.
+    Returns None for an unknown name.
+    """
+    if m := re.fullmatch(r"rmat(\d+)", name):
+        return rmat_graph(scale=int(m.group(1)), edge_factor=16, seed=seed)
+    if m := re.fullmatch(r"banded(\d+)(?:-(\d+))?", name):
+        return banded_graph(int(m.group(1)), int(m.group(2) or 8), seed=seed)
+    if m := re.fullmatch(r"rect(\d+)x(\d+)(?:-(\d+))?", name):
+        return bipartite_graph(int(m.group(1)), int(m.group(2)),
+                               int(m.group(3) or 16), seed=seed)
+    if m := re.fullmatch(r"cl(\d+)(?:-(\d+))?", name):
+        return chung_lu_graph(int(m.group(1)), int(m.group(2) or 16),
+                              seed=seed)
+    if m := re.fullmatch(r"grid(\d+)(?:-(\d+))?", name):
+        return grid2d_graph(int(m.group(1)), int(m.group(2) or 5))
+    if m := re.fullmatch(r"hub(\d+)(?:-(\d+))?", name):
+        return hub_graph(int(m.group(1)), int(m.group(2) or 4), seed=seed)
+    if m := re.fullmatch(r"sbm(\d+)", name):
+        return sbm_graph(n_per_class=int(m.group(1)), seed=seed).csr
+    return None
 
 
 def sbm_graph(n_per_class: int = 300, num_classes: int = 4,

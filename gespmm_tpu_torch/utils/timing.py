@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
@@ -106,6 +106,10 @@ def benchmark_chained(step: Callable[[torch.Tensor], torch.Tensor],
     return _result([t / iters for t in times], groups * iters, device)
 
 
+class HostBehind(RuntimeError):
+    """``device_time`` could not queue the calls ahead of the device."""
+
+
 def device_time(fn: Callable[[], torch.Tensor], iters: int = 50,
                 warmup: int = 3, sleep_cycles: int = 1 << 20,
                 attempts: int = 6) -> float:
@@ -119,7 +123,8 @@ def device_time(fn: Callable[[], torch.Tensor], iters: int = 50,
     device alone.  If the device has reached the start event by the time
     the stop event is enqueued, the host fell behind; the spin is then
     made 4x longer and the group timed again.  Raises if ``fn``'s output
-    is not on a CUDA device, or if the host never gets ahead.  The host
+    is not on a CUDA device, and ``HostBehind`` if the host never gets
+    ahead (as for a call that synchronises the host).  The host
     cannot get ahead when ``iters`` calls hold more launches than the
     stream's launch queue (about a thousand): the enqueue then waits for
     the spin.  Time a call of many small launches with fewer ``iters``.
@@ -146,10 +151,31 @@ def device_time(fn: Callable[[], torch.Tensor], iters: int = 50,
             if not behind:
                 return start.elapsed_time(stop) / 1e3 / iters
             sleep_cycles *= 4
-    raise RuntimeError(f"the host could not enqueue {iters} calls ahead of "
-                       f"the device in {attempts} attempts (fewer iters?)")
+    raise HostBehind(f"the host could not enqueue {iters} calls ahead of "
+                     f"the device in {attempts} attempts (fewer iters, or a "
+                     "call that synchronises?)")
+
+
+def card_time(fn: Callable[[], torch.Tensor], iters: int = 50,
+              host_sync: bool = False) -> Tuple[float, str]:
+    """(seconds per call, timer) of ``fn`` on the card.
+
+    "device": ``device_time``, whose ``HostBehind`` propagates, so that a
+    call that starts to synchronise the host fails rather than being timed
+    another way.  Only a call known to synchronise the host
+    (``host_sync=True``) is timed with "events": the median of CUDA events
+    around groups of calls, which then include the host's gaps.
+    """
+    if host_sync:
+        return benchmark(fn, iters=iters).median_s, "events"
+    return device_time(fn, iters=iters), "device"
 
 
 def spmm_flops(nnz: int, k: int) -> float:
     """2·nnz·K."""
+    return 2.0 * nnz * k
+
+
+def sddmm_flops(nnz: int, k: int) -> float:
+    """2·nnz·K: one K-wide dot per nonzero."""
     return 2.0 * nnz * k

@@ -19,10 +19,13 @@ not summed); a sum is within 1e-5 * (row sum of |vals|) + 1e-6 of float64
 out, mx and den within 1e-5 * max |ref| + 1e-6 (bf16 out: 8e-3 * max |ref|);
 grad_src, grad_dst and grad_B within 1e-4 * max(|ref|, 1) (a bf16 grad_B:
 8e-3 *), the backward's reference taking s = <g, out> from the kernel's
-stored out, as the op does.
+stored out, as the op does.  Fused dot-product attention: the same bounds
+for out, mx, den and grad_D1, grad_D2, grad_B.  The nnz-chunked SpMM: the
+sum kernel's bound.
 """
 
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -32,15 +35,17 @@ from gespmm_tpu_torch.kernels import edge_reduce as kedge
 from gespmm_tpu_torch.kernels import gat_fused as kgat
 from gespmm_tpu_torch.kernels import spmm_csr as kspmm
 from gespmm_tpu_torch.kernels import spmm_minmax as kmm
+from gespmm_tpu_torch.kernels import spmm_pallas as kpal
 from gespmm_tpu_torch.models.gat import GAT
 from gespmm_tpu_torch.models.gcn import GCN
 from gespmm_tpu_torch.models.sage import GraphSAGE
 from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.ops.graph import (add_self_loops,
                                         additive_attention_logits,
-                                        edge_softmax)
+                                        attention_aggregate, edge_softmax)
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 from gespmm_tpu_torch.sparse.formats import CSR
+from gespmm_tpu_torch.sparse.partition import build_spmm_plan
 from gespmm_tpu_torch.train.loop import train_node_classifier
 from gespmm_tpu_torch.utils import timing
 from gespmm_tpu_torch.utils.datasets import rmat_graph, sbm_graph
@@ -138,6 +143,35 @@ def test_device_time_times_the_device_not_the_host(dev):
     # events around unqueued calls can only be slower (they add host time).
     assert 0 < t1 <= 1.1 * timing.benchmark(once).mean_s
     assert 1.5 * t1 <= t2 <= 2.5 * t1
+
+
+def test_card_time_times_a_host_sync_only_when_told(dev):
+    x = torch.randn(1 << 16, device=dev)
+
+    def syncing():
+        x.sum().item()
+        return x
+
+    with pytest.raises(timing.HostBehind):
+        timing.card_time(syncing, iters=10)
+    t, timer = timing.card_time(syncing, iters=10, host_sync=True)
+    assert t > 0 and timer == "events"
+    t, timer = timing.card_time(lambda: x * 2, iters=10)
+    assert t > 0 and timer == "device"
+
+
+def test_sweep_roofline_on_card(dev, capsys, tmp_path):
+    from gespmm_tpu_torch.bench import spmm_bench
+
+    spmm_bench.main(["--graphs", "rmat8", "--k", "8", "--methods", "tiled",
+                     "pallas", "bcoo", "--validate", "--roofline", "--csv",
+                     str(tmp_path / "out.csv")])
+    cap = capsys.readouterr()
+    assert "copy bandwidth measured" in cap.err and "errors" not in cap.err
+    row = json.loads(cap.out.strip().splitlines()[-1])
+    assert 0 < row["K=8-roofline-frac"] < 1
+    assert all(row[f"K=8-{mt}-gflops"] > 0 for mt in ("tiled", "pallas",
+                                                      "bcoo"))
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -343,9 +377,10 @@ def test_sage_pool_training_goes_through_the_kernels(dev):
 # --- edge segment reduce and fused GAT attention -------------------------
 
 
-def randn(shape, dev, seed, dtype=torch.float32):
+def randn(shape, dev, seed, dtype=torch.float32, requires_grad=False):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return torch.randn(shape, device=dev, generator=g).to(dtype)
+    return torch.randn(shape, device=dev, generator=g).to(dtype).requires_grad_(
+        requires_grad)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -620,3 +655,278 @@ def test_gat_training_goes_through_the_fused_kernels(dev):
     train_node_classifier(model, adj, ds.features, ds.labels, ds.masks, epochs=3)
     assert kgat.launches == kgat.bwd_rows_launches == kgat.bwd_cols_launches == 0
     assert kedge.launches == kspmm.launches == 0
+
+
+# --- the nnz-chunked SpMM (kernel row 8) ----------------------------------
+
+CHUNK_SIZES = [(64, 64), (128, 256), (8, 3)]
+
+
+@pytest.mark.parametrize("R,E", CHUNK_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("K", [1, 3, 33, 130, 512])
+def test_chunk_kernel_matches_plain(dev, K, binary, dtype, R, E):
+    csr = skewed_csr()
+    data = None if binary else csr.data
+    adj = Adjacency.from_csr(csr.with_data(data), device=dev, plan="perrow",
+                             rows_per_block=R, chunk_nnz=E)
+    B = randn((csr.shape[1], K), dev, K, dtype)
+    before = (kpal.launches, kpal.carry_launches)
+    out = kpal.spmm_pallas(adj.plan, adj.data, B, csr.shape[0])
+    torch.cuda.synchronize()
+    assert (kpal.launches, kpal.carry_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert out.dtype == dtype
+    check_bound(out, adj.csr, B, adj.data)
+
+
+def straddling_csr(E, hub=10_000):
+    """Rows of E - 1, E, E + 1 and 2E + 1 edges around one hub row of
+    ``hub`` edges, empty rows between: rows start and end on and off chunk
+    boundaries."""
+    n = hub + 7
+    rng = np.random.default_rng(4)
+    deg = np.array([0, E - 1, E, 0, E + 1, 2 * E + 1, hub, 0, 1, E, 0, 3])
+    cols = np.concatenate([np.sort(rng.choice(n, d, replace=False))
+                           for d in deg])
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    vals = rng.standard_normal(cols.shape[0]).astype(np.float32)
+    return CSR(torch.from_numpy(indptr), torch.from_numpy(cols.astype(np.int32)),
+               torch.from_numpy(vals), (deg.shape[0], n))
+
+
+@pytest.mark.parametrize("E", [1, 3, 64, 256])
+@pytest.mark.parametrize("K", [1, 32, 130])
+def test_chunk_kernel_hub_row_and_straddling_rows(dev, E, K):
+    csr = straddling_csr(E)
+    plan = build_spmm_plan(csr, rows_per_block=8, chunk_nnz=E).to(dev)
+    assert plan.cut_rows.numel() > 0
+    B = randn((csr.shape[1], K), dev, 7)
+    d = csr.data.to(dev)
+    out = kpal.spmm_pallas(plan, d, B, csr.shape[0])
+    torch.cuda.synchronize()
+    check_bound(out, csr.to(dev), B, d)
+
+
+def test_chunk_kernel_is_deterministic(dev):
+    csr = rmat15()
+    plan = build_spmm_plan(csr, rows_per_block=64, chunk_nnz=64).to(dev)
+    B = randn((csr.shape[1], 128), dev, 3)
+    outs = [kpal.spmm_pallas(plan, None, B, csr.shape[0]) for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    check_bound(outs[0], csr.to(dev), B, None)
+
+
+def test_chunk_kernel_never_takes_the_plain_version(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "spmm_chunks", refuse)
+    adj = Adjacency.from_csr(skewed_csr(), device=dev, plan="perrow")
+    B = randn((adj.shape[1], 16), dev, 1, requires_grad=True)
+    kpal.reset_launches()
+    spmm(adj, B, method="pallas").sum().backward()
+    assert (kpal.launches, kpal.carry_launches) == (2, 2)
+    with pytest.raises(AssertionError):
+        kpal.spmm_pallas(adj.plan, adj.data, B.detach().cpu(), adj.shape[0])
+
+
+def test_pallas_without_transposed_plan_launches_the_csr_kernel(dev):
+    adj = Adjacency.from_csr(skewed_csr(), device=dev, plan="perrow",
+                             plan_transpose=False)
+    assert adj.plan_t is None
+    B = randn((adj.shape[1], 16), dev, 1, requires_grad=True)
+    g = randn((adj.shape[0], 16), dev, 2)
+    kpal.reset_launches()
+    kspmm.reset_launches()
+    spmm(adj, B, method="pallas").backward(g)
+    torch.cuda.synchronize()
+    assert (kpal.launches, kspmm.launches) == (1, 1)  # forward, grad_B
+    t = adj.transpose()
+    check_bound(B.grad, t.csr, g, t.data)
+
+
+def test_chunk_kernel_refuses_and_empty_work(dev):
+    adj = Adjacency.from_csr(skewed_csr(), device=dev, plan="perrow")
+    m, n = adj.shape
+    B = randn((n, 8), dev, 1)
+    with pytest.raises(ValueError, match="is on cpu"):
+        kpal.spmm_pallas(adj.plan.to("cpu"), adj.data, B, m)
+    with pytest.raises(TypeError):
+        kpal.spmm_pallas(adj.plan, adj.data, B.double(), m)
+    empty = CSR(torch.zeros(m + 1, dtype=torch.int32),
+                torch.zeros(0, dtype=torch.int32), None, (m, n))
+    before = kpal.launches
+    out = kpal.spmm_pallas(build_spmm_plan(empty).to(dev), None, B, m)
+    assert kpal.launches == before and not out.any()
+
+
+@pytest.mark.parametrize("view", ["column slice", "transposed"])
+def test_spmm_pallas_takes_a_non_contiguous_B(dev, view):
+    adj = Adjacency.from_csr(skewed_csr(), device=dev, plan="perrow")
+    n = adj.shape[1]
+    full = randn((n, 48), dev, 2) if view == "column slice" else \
+        randn((16, n), dev, 2)
+    B = full[:, 8:24] if view == "column slice" else full.t()
+    assert not B.is_contiguous()
+    out = spmm(adj, B, method="pallas")
+    check_bound(out, adj.csr, B.contiguous(), adj.data)
+
+
+def test_spmm_pallas_autograd_on_card_matches_float64(dev):
+    csr = skewed_csr(seed=3)
+    adj = Adjacency.from_csr(csr, device=dev, plan="perrow", rows_per_block=64,
+                             chunk_nnz=64)
+    d = adj.data.clone().requires_grad_(True)
+    B = randn((csr.shape[1], 24), dev, 1, requires_grad=True)
+    g = randn((csr.shape[0], 24), dev, 2)
+    spmm(adj.with_data(d), B, method="pallas").backward(g)
+    adj64 = Adjacency.from_csr(csr)
+    d64 = csr.data.double().requires_grad_(True)
+    B64 = B.detach().cpu().double().requires_grad_(True)
+    spmm(adj64.with_data(d64), B64, method="xla").backward(g.cpu().double())
+    for got, want in ((B.grad, B64.grad), (d.grad, d64.grad)):
+        err = float((got.cpu().double() - want).abs().max())
+        assert err <= 1e-5 * max(float(want.abs().max()), 1.0)
+
+
+# --- fused dot-product attention (kernel row 6) ---------------------------
+
+
+def dot_kernels_vs_float64(adj, Ka, K, slope, dtype, seed=0):
+    """Run the three dot kernels once each; {name: (max abs error, bound)}
+    against the float64 plain versions (s = <g, out> from the stored out)."""
+    dev = adj.csr.indptr.device
+    m, n = adj.shape
+    D1 = randn((m, Ka), dev, seed) * Ka ** -0.25
+    D2 = randn((n, Ka), dev, seed + 1) * Ka ** -0.25
+    B, g = randn((n, K), dev, seed + 2, dtype), randn((m, K), dev, seed + 3)
+    launched = (kgat.dot_launches, kgat.dot_bwd_rows_launches,
+                kgat.dot_bwd_cols_launches)
+    out, mx, den = kgat.dot_forward(adj.csr.indptr, adj.csr.indices, D1, D2, B,
+                                    slope=slope)
+    s_row = ref.dot_row_dot(g, out)
+    tabs = (D1, D2, B, g, mx, den, s_row)
+    gD1 = kgat.dot_backward_rows(adj.csr.indptr, adj.csr.indices, *tabs,
+                                 slope=slope)
+    gD2, gB = kgat.dot_backward_cols(adj.csc.indptr, adj.csc.indices, *tabs,
+                                     slope=slope)
+    torch.cuda.synchronize()
+    assert (kgat.dot_launches, kgat.dot_bwd_rows_launches,
+            kgat.dot_bwd_cols_launches) == tuple(x + 1 for x in launched)
+    assert out.dtype == gB.dtype == dtype
+    edges = (adj.rows, adj.csr.indices)
+    want_out, mx64, den64 = ref.dot_attention_rows(
+        *edges, D1.double(), D2.double(), B.double(), m, slope)
+    tabs64 = (D1.double(), D2.double(), B.double(), g.double(), mx64, den64,
+              ref.dot_row_dot(g.double(), out.double()))
+    want_d1 = ref.dot_attention_vjp_rows(*edges, *tabs64, m, slope)
+    want_d2, want_B = ref.dot_attention_vjp_cols(*edges, *tabs64, slope)
+    bf16 = dtype == torch.bfloat16
+    errs = {}
+    for name, got, want, fwd, tol in (
+            ("out", out, want_out, True, 8e-3 if bf16 else 1e-5),
+            ("mx", mx, mx64, True, 1e-5), ("den", den, den64, True, 1e-5),
+            ("grad_D1", gD1, want_d1, False, 1e-4),
+            ("grad_D2", gD2, want_d2, False, 1e-4),
+            ("grad_B", gB, want_B, False, 8e-3 if bf16 else 1e-4)):
+        assert got.shape == want.shape and torch.isfinite(got).all(), name
+        scale = float(want.abs().max())
+        bound = tol * scale + 1e-6 if fwd else tol * max(scale, 1.0)
+        errs[name] = (float((got.double() - want).abs().max()), bound)
+    return errs
+
+
+# (Ka, K): Ka = 1 (the JAX _pad2 case), widths off the lane vector, K slabs.
+DOT_SHAPES = [(1, 8), (5, 3), (6, 1), (16, 3), (64, 64), (65, 130), (64, 130)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("slope", [None, 0.2])
+@pytest.mark.parametrize("Ka,K", DOT_SHAPES)
+def test_dot_kernels_match_float64(dev, Ka, K, slope, dtype):
+    adj = Adjacency.from_csr(skewed_csr(), device=dev)  # non-square, hub row
+    for name, (err, bound) in dot_kernels_vs_float64(adj, Ka, K, slope,
+                                                     dtype).items():
+        assert err <= bound, (name, err, bound)
+
+
+def test_dot_kernels_on_rmat15(dev):
+    adj = Adjacency.from_csr(rmat15(), device=dev)
+    for name, (err, bound) in dot_kernels_vs_float64(adj, 64, 64, None,
+                                                     torch.float32).items():
+        assert err <= bound, (name, err, bound)
+
+
+def test_dot_kernels_are_deterministic(dev):
+    adj = Adjacency.from_csr(skewed_csr(), device=dev)
+    m, n = adj.shape
+    D1, D2 = randn((m, 65), dev, 1), randn((n, 65), dev, 2)
+    B, g = randn((n, 130), dev, 3), randn((m, 130), dev, 4)
+    runs = []
+    for _ in range(2):
+        out, mx, den = kgat.dot_forward(adj.csr.indptr, adj.csr.indices, D1, D2,
+                                        B, slope=0.2)
+        s = ref.dot_row_dot(g, out)
+        tabs = (D1, D2, B, g, mx, den, s)
+        runs.append((out, mx, den,
+                     kgat.dot_backward_rows(adj.csr.indptr, adj.csr.indices,
+                                            *tabs, slope=0.2),
+                     *kgat.dot_backward_cols(adj.csc.indptr, adj.csc.indices,
+                                             *tabs, slope=0.2)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_dot_fused_op_launches_and_never_takes_the_plain_version(
+        dev, monkeypatch):
+    adj = Adjacency.from_csr(skewed_csr(), device=dev)
+    m, n = adj.shape
+    xs = [randn(s, dev, i, requires_grad=True)
+          for i, s in enumerate(((m, 16), (n, 16), (n, 8)))]
+    g = randn((m, 8), dev, 5)
+    want = attention_aggregate(adj, *xs, method="xla")
+    want.backward(g)
+    want = want.detach()
+    want_grads = [x.grad.clone() for x in xs]
+    for x in xs:
+        x.grad = None
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("dot_attention_rows", "dot_attention_vjp_rows",
+                 "dot_attention_vjp_cols"):
+        monkeypatch.setattr(ref, name, refuse)
+    kgat.reset_launches()
+    out = attention_aggregate(adj, *xs)
+    out.backward(g)
+    out = out.detach()
+    assert (kgat.dot_launches, kgat.dot_bwd_rows_launches,
+            kgat.dot_bwd_cols_launches) == (1, 1, 1)
+    scale = float(want.abs().max())
+    assert float((out - want).abs().max()) <= 1e-5 * scale + 1e-6
+    for x, w in zip(xs, want_grads):
+        assert float((x.grad - w).abs().max()) <= \
+            1e-4 * max(float(w.abs().max()), 1.0)
+
+
+def test_dot_empty_work_and_refusals(dev):
+    m, n = 30, 20
+    empty = Adjacency.from_csr(CSR(torch.zeros(m + 1, dtype=torch.int32),
+                                   torch.zeros(0, dtype=torch.int32), None,
+                                   (m, n)), device=dev)
+    D1, D2, B = randn((m, 4), dev, 1), randn((n, 4), dev, 2), randn((n, 8), dev, 3)
+    kgat.reset_launches()
+    out, mx, den = kgat.dot_forward(empty.csr.indptr, empty.csr.indices, D1,
+                                    D2, B)
+    assert kgat.dot_launches == 0 and not out.any() and not mx.any()
+    adj = Adjacency.from_csr(skewed_csr(), device=dev)
+    m, n = adj.shape
+    with pytest.raises(ValueError, match="D2"):
+        kgat.dot_forward(adj.csr.indptr, adj.csr.indices, randn((m, 4), dev, 1),
+                         randn((n + 1, 4), dev, 2), randn((n, 8), dev, 3))
+    with pytest.raises(TypeError):
+        kgat.dot_forward(adj.csr.indptr, adj.csr.indices, randn((m, 4), dev, 1),
+                         randn((n, 4), dev, 2), randn((n, 8), dev, 3).double())

@@ -182,16 +182,28 @@ def test_shape_and_argument_errors():
         tspmm(adj, torch.zeros(N, 4), reduce="prod")
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(method="pallas", reduce="max"), "B5"),
-    (dict(method="scatter", reduce="min"), "A2"),
-    (dict(method="pallas"), "B5"), (dict(method="scatter"), "A2"),
-    (dict(method="dense"), "A2"),
+@pytest.mark.parametrize("plan,kw,exc,match", [
+    # The sum/mean-only tiers refuse max/min, as the JAX package's do.
+    ("perrow", dict(method="pallas", reduce="max"), ValueError,
+     "does not support reduce"),
+    (False, dict(method="scatter", reduce="min"), ValueError,
+     "does not support reduce"),
+    (False, dict(method="dense", reduce="max"), ValueError,
+     "does not support reduce"),
+    # method="pallas" needs a per-row plan.
+    (False, dict(method="pallas"), ValueError, "plan='perrow'"),
+    (True, dict(method="pallas"), ValueError, "plan='perrow'"),
+    # The grouped plan (kernel row 9) is not ported yet.
+    ("grouped", dict(method="pallas"), NotImplementedError, "B6"),
 ])
-def test_not_ported_raise(kw, item):
-    _, t = graph(False)
-    with pytest.raises(NotImplementedError, match=item):
-        tspmm(TAdjacency.from_csr(t), torch.zeros(N, 4), **kw)
+def test_not_ported_raise(plan, kw, exc, match):
+    j, t = graph(False)
+    with pytest.raises(exc, match=match):
+        tspmm(TAdjacency.from_csr(t, plan=plan), torch.zeros(N, 4), **kw)
+    if exc is ValueError:  # the JAX package refuses the same call
+        with pytest.raises(ValueError):
+            jspmm(JAdjacency.from_csr(j, plan=plan, **PLAN), jnp.zeros((N, 4)),
+                  **kw)
 
 
 @pytest.mark.parametrize("mode", ["trilo", "hilo", "fast", "highest"])
