@@ -5,9 +5,9 @@
 
 Phases, each printed as it goes; any failure exits non-zero:
   1. device: torch.cuda, and the card's name and power limit from nvidia-smi;
-  2. build: nvcc builds the six libraries of csrc/ (spmm_csr.cu,
+  2. build: nvcc builds the seven libraries of csrc/ (spmm_csr.cu,
      spmm_minmax.cu, edge_reduce.cu, gat_fused.cu, dot_attention.cu,
-     spmm_chunk.cu) from this checkout, all at once (timed);
+     spmm_chunk.cu, spmm_grouped.cu) from this checkout, all at once (timed);
   3. sum kernel vs plain: the CSR SpMM kernel against its plain PyTorch
      version in float64, |out - ref| <= 1e-5 (|A| @ |B|) + 1e-6 (bf16:
      8e-3 (|A| @ |B|)), at the GCN slice's shapes (pubmed-scale SBM graph with
@@ -72,19 +72,41 @@ Phases, each printed as it goes; any failure exits non-zero:
      float64 (synth_graph's rmat15 has edge factor 16, unlike the edge
      factor 8 of the kernel phases); no cell may fail but a printed dense
      guard; the JSON rows are printed;
- 15. timings: the card's copy bandwidth (utils/profiling.py::
+ 16. grouped-gather SpMM vs float64: on the SBM graph with self-loops and
+     rmat15, each as generated and RCM-reordered, at K in {1, 3, 32, 33,
+     128, 130, 512}, valued and binary, f32 and bf16, with the grouped
+     plans (R, E, NG, G) = (64, 64, 32, 8) (the JAX defaults) and (8, 16,
+     8, 8), within the sum kernel's bound and bitwise repeatable; each
+     plan's chunks, groups and B rows staged per edge are printed; then
+     spmm(method="pallas") and method="auto" on a grouped adjacency: out,
+     grad_B and grad_values against float64, one grouped launch forward
+     and one for grad_B, none of the CSR kernel; without the transposed
+     plan, one grouped and one CSR-kernel launch;
+ 17. GCN train through the grouped kernel: dims [128, 32, 3] on the
+     RCM-reordered SBM graph with self-loops (features, labels and masks
+     permuted alongside), plan="grouped", 50 epochs (>= 4 grouped launches
+     per epoch, no CSR-kernel launch), with the checks of phase 6; the
+     trained parameters on the original order (phase 6's route) give the
+     same logits after un-permuting, within 1e-4 x max |ref|;
+ 15. timings, run last: the card's copy bandwidth (utils/profiling.py::
      measure_hbm_bandwidth) beside the published 3.35 TB/s; device time of
      every kernel against its plain version at the
      slice's shapes and at rmat15, with its bound (the larger of its bytes
      over 3.35 TB/s and its operations over 67 TFLOP/s) and the one PyTorch
      call that computes the same function where there is one (library_ms);
      the chunk kernel against float64, the CSR kernel and torch.sparse.mm
-     at each timed shape (the kernels line's error is its shape's); call
-     times of the sum kernel; and GCN, SAGE-pool and GAT ms/epoch for both
-     methods (two runs each, in the order auto, xla, xla, auto).
+     at each timed shape (the kernels line's error is its shape's); the
+     grouped kernel likewise, and against the chunk kernel at (64, 64) on
+     the same ordering, on rmat15 (edge factor 16) as generated and
+     RCM-reordered at (64, 64, 32, 8) and (64, 64, 64, 1) and on the
+     RCM-reordered SBM graph at K=32; call times of the sum kernel; GCN,
+     SAGE-pool and GAT ms/epoch for both methods (two runs each, in the
+     order auto, xla, xla, auto); and the GCN on the grouped route against
+     phase 6's CSR route (csr, grouped, grouped, csr).
 
-Each path's launches are counted from 0 in its own run; the comparison
-launches of phases 3-5, 8, 11 and 13 are not counted.  Output: one line per phase, then
+Phases run in the order 1-14, 16, 17, 15.  Each path's launches are counted
+from 0 in its own run; the comparison launches of phases 3-5, 8, 11, 13 and
+16 are not counted.  Output: one line per phase, then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  With --record, the full record of the run is
 also written to PATH as JSON.
@@ -109,7 +131,7 @@ GAT_LR = 5e-3  # the JAX GAT bench's; weight decay 5e-4 as for the others
 SBM_PUBMED = dict(n_per_class=6573, num_classes=3, p_in=0.0006, p_out=0.00002,
                   feat_dim=128, seed=SEED)
 LIBS = ("spmm_csr", "spmm_minmax", "edge_reduce", "gat_fused", "dot_attention",
-        "spmm_chunk")
+        "spmm_chunk", "spmm_grouped")
 RMAT_KS = (1, 3, 32, 33, 128, 130, 512)
 MINMAX_RMAT_KS = (1, 3, 32, 33, 128, 130)
 MINMAX_SBM_KS = (128, 16)
@@ -124,6 +146,9 @@ DOT_SBM_SHAPES = ((64, 64), (16, 3))
 CHUNK_KS = (1, 3, 32, 33, 128, 130, 512)
 CHUNK_SIZES = ((64, 64), (128, 256))  # the sweep's (R, E) and the builder's
 SWEEP_METHODS = ("xla", "tiled", "pallas", "scatter", "dense", "bcoo")
+GROUPED_KS = (1, 3, 32, 33, 128, 130, 512)
+# (R, E, NG, G) of the grouped plan: the JAX defaults and the JAX tests'.
+GROUPED_SIZES = ((64, 64, 32, 8), (8, 16, 8, 8))
 
 
 class SmokeFailure(Exception):
@@ -289,6 +314,7 @@ def main(argv=None):
     from gespmm_tpu_torch.kernels import gat_fused as kgat
     from gespmm_tpu_torch.kernels import spmm_csr as kspmm
     from gespmm_tpu_torch.kernels import spmm_minmax as kmm
+    from gespmm_tpu_torch.kernels import spmm_grouped as kgrp
     from gespmm_tpu_torch.kernels import spmm_pallas as kpal
     from gespmm_tpu_torch.bench.spmm_bench import (bench_graph,
                                                    bench_sddmm_graph,
@@ -302,11 +328,13 @@ def main(argv=None):
                                             attention_aggregate, edge_softmax)
     from gespmm_tpu_torch.ops.sddmm import sddmm
     from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
-    from gespmm_tpu_torch.sparse.partition import build_spmm_plan
+    from gespmm_tpu_torch.sparse.partition import (build_grouped_plan,
+                                                    build_spmm_plan)
+    from gespmm_tpu_torch.sparse.reorder import inverse_permutation, reorder
     from gespmm_tpu_torch.train.loop import train_node_classifier
     from gespmm_tpu_torch.utils import profiling, timing
-    from gespmm_tpu_torch.utils.datasets import (rmat_graph, sbm_graph,
-                                                 synth_graph)
+    from gespmm_tpu_torch.utils.datasets import (GraphDataset, rmat_graph,
+                                                 sbm_graph, synth_graph)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -314,7 +342,7 @@ def main(argv=None):
     record = {}
 
     def reset_counts():
-        for mod in (kspmm, kmm, kedge, kgat, kpal):
+        for mod in (kspmm, kmm, kedge, kgat, kpal, kgrp):
             mod.reset_launches()
 
     def counts():
@@ -328,7 +356,9 @@ def main(argv=None):
                 "dot_bwd_rows": kgat.dot_bwd_rows_launches,
                 "dot_bwd_cols": kgat.dot_bwd_cols_launches,
                 "spmm_chunk": kpal.launches,
-                "spmm_chunk_carry": kpal.carry_launches}
+                "spmm_chunk_carry": kpal.carry_launches,
+                "spmm_grouped": kgrp.launches,
+                "spmm_grouped_carry": kgrp.carry_launches}
 
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
@@ -509,20 +539,26 @@ def main(argv=None):
     def make_gat_mh(method):
         return make_gat(method, GAT_MH_DIMS, GAT_MH_HEADS)
 
-    def train(make, a, method, epochs=EPOCHS, lr=1e-2):
+    def train(make, a, method, epochs=EPOCHS, lr=1e-2, data=None):
+        data = ds if data is None else data
         model = make(method)
         reset_counts()
-        res = train_node_classifier(model, a, ds.features, ds.labels,
-                                    ds.masks, seed=SEED, epochs=epochs, lr=lr)
+        res = train_node_classifier(model, a, data.features, data.labels,
+                                    data.masks, seed=SEED, epochs=epochs,
+                                    lr=lr)
         torch.cuda.synchronize()
         return model, res, counts()
 
     def drive(name, make, a, cpu_model, path_kernels, methods=("auto", "xla"),
-              epochs=EPOCHS, lr=1e-2):
-        """Train with each method; check the run and the path's launches."""
+              epochs=EPOCHS, lr=1e-2, data=None, absent=(), check_model=None):
+        """Train with each method; check the run and the path's launches:
+        at least ``path_kernels[name]`` an epoch of each, none of the
+        kernels named in ``absent``.  ``check_model`` gets the trained
+        model of method "auto"."""
+        data = ds if data is None else data
         runs = {}
         for method in methods:
-            model, res, launched = train(make, a, method, epochs, lr)
+            model, res, launched = train(make, a, method, epochs, lr, data)
             loss = res["history"]["loss"]
             print(f"{name} method={method}: loss {loss[0]:.4f} -> "
                   f"{loss[-1]:.4f} | train/val/test acc {res['train_acc']:.4f}/"
@@ -540,15 +576,18 @@ def main(argv=None):
                     check(launched[kname] >= per_epoch * epochs,
                           f"{name}: only {launched[kname]} {kname} launches in "
                           f"{epochs} epochs")
+                for kname in absent:
+                    check(launched[kname] == 0,
+                          f"{name}: {launched[kname]} {kname} launches")
                 model.eval()
                 with torch.no_grad():
-                    logits = model(a, ds.features)
+                    logits = model(a, data.features)
                     cpu_model.load_state_dict(
                         {k: v.cpu().double() for k, v in model.state_dict().items()})
                     cpu_model.eval()
                     cpu_adj = Adjacency.from_csr(a.csr.to("cpu").with_data(
                         None if a.data is None else a.data.cpu().double()))
-                    want = cpu_model(cpu_adj, ds.features.cpu().double())
+                    want = cpu_model(cpu_adj, data.features.cpu().double())
                 check(logits.shape == (a.shape[0], cpu_model.dims[-1]),
                       f"{name}: logits shape")
                 err = float((logits.cpu().double() - want).abs().max())
@@ -557,6 +596,8 @@ def main(argv=None):
                       f"{err:.3e} (max |ref| {scale:.3e})", flush=True)
                 check(err <= 1e-4 * max(scale, 1.0),
                       f"{name}: logits disagree with float64")
+                if check_model is not None:
+                    check_model(model)
             else:
                 check(not any(launched.values()),
                       f"{name}: method='xla' launched a kernel: {launched}")
@@ -900,6 +941,171 @@ def main(argv=None):
                        "sddmm_cells": {f"K={k}-{mt}": v for (k, mt), v in
                                        sddmm_cells.items()}}
 
+    phase("16 grouped-gather SpMM vs float64")
+
+    def plan_stats(plan):
+        """What a grouped plan's staging moves: chunks, NG, the mean groups
+        and edges a chunk, the dedup factor and the B rows staged per
+        edge."""
+        C = plan.num_chunks
+        return {"chunks": C, "NG": plan.groups_per_chunk,
+                "groups_a_chunk": plan.staged_rows / plan.group_rows / C,
+                "edges_a_chunk": plan.nnz / C,
+                "dedup_factor": plan.dedup_factor,
+                "staged_rows_per_edge": plan.staged_rows / max(plan.nnz, 1)}
+
+    def stats_line(st):
+        return (f"{st['chunks']} chunks, NG {st['NG']}, "
+                f"{st['groups_a_chunk']:.4f} groups and "
+                f"{st['edges_a_chunk']:.4f} edges a chunk, dedup "
+                f"{st['dedup_factor']:.4f}, {st['staged_rows_per_edge']:.4f} "
+                "B rows staged per edge")
+
+    sbm_host = add_self_loops(ds.csr).to("cpu")
+    sbm_rcm, sbm_perm = reorder(sbm_host)
+    rmat_host = rmat.csr.to("cpu")
+    grouped_compared, grouped_plans = [], []
+    for graph, host_csr in (("sbm", sbm_host), ("sbm-rcm", sbm_rcm),
+                            ("rmat15", rmat_host),
+                            ("rmat15-rcm", reorder(rmat_host)[0])):
+        a = Adjacency.from_csr(host_csr, device=dev)
+        vals = torch.randn(a.nnz, device=dev, generator=gen)
+        for sizes in GROUPED_SIZES:
+            plan = build_grouped_plan(host_csr, *sizes).to(dev)
+            st = plan_stats(plan)
+            grouped_plans.append({"graph": graph, "sizes": list(sizes), **st})
+            print(f"{graph} (R, E, NG, G)={sizes}: {stats_line(st)}",
+                  flush=True)
+            for K in GROUPED_KS:
+                errs, all_ok, all_same = [], True, True
+                for dtype in (torch.float32, torch.bfloat16):
+                    for data in (None, vals):
+                        B = torch.randn(a.shape[1], K, device=dev,
+                                        generator=gen).to(dtype)
+                        out = kgrp.spmm_grouped(plan, data, B, a.shape[0])
+                        again = kgrp.spmm_grouped(plan, data, B, a.shape[0])
+                        torch.cuda.synchronize()
+                        err, ok = bound_check(torch, ref, out, a.csr.indptr,
+                                              a.csr.indices, a.rows, data, B)
+                        same = torch.equal(out, again)
+                        label = (f"grouped {graph} {sizes} K={K} "
+                                 f"{'binary' if data is None else 'valued'} "
+                                 f"{str(dtype).split('.')[-1]}")
+                        check(ok, f"grouped kernel disagrees: {label}")
+                        check(same, f"grouped kernel not repeatable: {label}")
+                        errs.append(err)
+                        all_ok, all_same = all_ok and ok, all_same and same
+                        grouped_compared.append({"case": label,
+                                                 "max_abs_err": err})
+                print(f"grouped {graph} {sizes} K={K}, binary/valued x "
+                      f"f32/bf16: max_abs_err "
+                      f"{' '.join(f'{e:.3e}' for e in errs)} "
+                      f"{'ok' if all_ok else 'OUT OF BOUND'} | repeat "
+                      f"{'bitwise' if all_same else 'DIFFERS'}", flush=True)
+    record["grouped_vs_plain"] = grouped_compared
+    record["grouped_plans"] = grouped_plans
+    # The op on a grouped adjacency: the GCN slice's RCM graph, K=32.
+    grp_adj = Adjacency.from_csr(sbm_rcm, device=dev, plan="grouped")
+    grp_fwd_only = Adjacency.from_csr(sbm_rcm, device=dev, plan="grouped",
+                                      plan_transpose=False)
+    m_r, n_r = grp_adj.shape
+    grp_op = {}
+    for method in ("pallas", "auto"):
+        d = grp_adj.data.clone().requires_grad_(True)
+        B = torch.randn(n_r, 32, device=dev, generator=gen, requires_grad=True)
+        g = torch.randn(m_r, 32, device=dev, generator=gen)
+        reset_counts()
+        out = spmm(grp_adj.with_data(d), B, method=method)
+        out.backward(g)
+        torch.cuda.synchronize()
+        launched = counts()
+        d64 = grp_adj.data.double().requires_grad_(True)
+        B64 = B.detach().double().requires_grad_(True)
+        out64 = spmm(grp_adj.with_data(d64), B64, method="xla")
+        out64.backward(g.double())
+        print(f"spmm(method={method!r}) on a grouped adjacency: launches "
+              f"{launched}", flush=True)
+        check(launched["spmm_grouped"] == 2 and launched["spmm_csr"] == 0
+              and launched["spmm_chunk"] == 0,
+              f"spmm(method={method!r}), grouped: expected 2 grouped launches "
+              "(forward, grad_B) and no other")
+        errs = {}
+        for name, got, want, fwd in (("out", out, out64, True),
+                                     ("grad_B", B.grad, B64.grad, False),
+                                     ("grad_values", d.grad, d64.grad, False)):
+            err = float((got.double() - want).abs().max())
+            scale = float(want.abs().max())
+            errs[name] = err
+            print(f"grouped {method} {name}: max_abs_err={err:.3e} (max |ref| "
+                  f"{scale:.3e})", flush=True)
+            bound = 1e-5 * scale + 1e-6 if fwd else 1e-5 * max(scale, 1.0)
+            check(bool(torch.isfinite(got).all()) and err <= bound,
+                  f"spmm(method={method!r}) grouped {name} disagrees with "
+                  "float64")
+        grp_op[method] = {"launches": launched, "errors": errs}
+    B = torch.randn(n_r, 32, device=dev, generator=gen, requires_grad=True)
+    g = torch.randn(m_r, 32, device=dev, generator=gen)
+    reset_counts()
+    spmm(grp_fwd_only, B).backward(g)
+    torch.cuda.synchronize()
+    fwd_only_launches = counts()
+    t = grp_fwd_only.transpose()
+    want = spmm(t.with_data(t.data.double()), g.double(), method="xla")
+    err = float((B.grad.double() - want).abs().max())
+    print(f"grouped, plan_transpose=False: launches {fwd_only_launches}, "
+          f"grad_B max_abs_err={err:.3e}", flush=True)
+    check(fwd_only_launches["spmm_grouped"] == 1
+          and fwd_only_launches["spmm_csr"] == 1
+          and err <= 1e-5 * max(float(want.abs().max()), 1.0),
+          "grouped without plan_t: expected the grouped kernel forward and "
+          "the CSR kernel for grad_B")
+    grp_op["no_plan_t_launches"] = fwd_only_launches
+    record["grouped_op"] = grp_op
+
+    phase(f"17 GCN train through the grouped kernel, dims {GCN_DIMS}, "
+          f"RCM-reordered, {EPOCHS} epochs")
+    perm_d = torch.from_numpy(sbm_perm).to(dev)
+    inv_d = torch.from_numpy(inverse_permutation(sbm_perm)).to(dev)
+    ds_rcm = GraphDataset(
+        csr=sbm_rcm.to(dev), features=ds.features[perm_d],
+        labels=ds.labels[perm_d],
+        masks={k: v[perm_d] for k, v in ds.masks.items()},
+        num_classes=ds.num_classes, name=f"{ds.name}-rcm")
+    print(f"sbm-pubmed+loops, RCM: {stats_line(plan_stats(grp_adj.plan))}",
+          flush=True)
+
+    def make_gcn_grouped(method):
+        return GCN(GCN_DIMS, dropout_rate=0.5, method=method,
+                   generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev).with_norms(grp_adj)
+
+    unpermuted = {}
+
+    def same_as_original_order(model):
+        """The trained parameters on the original order and phase 6's CSR
+        route give the same logits, un-permuted."""
+        orig = make_gcn("auto")
+        orig.load_state_dict(model.state_dict())
+        orig.eval()
+        with torch.no_grad():
+            got = model(grp_adj, ds_rcm.features)[inv_d]
+            want = orig(adj, ds.features)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"GCN grouped logits, un-permuted, vs the original order: "
+              f"max_abs_err={err:.3e} (max |ref| {scale:.3e})", flush=True)
+        check(err <= 1e-4 * scale, "GCN grouped: un-permuted logits differ "
+              "from the original order's")
+        unpermuted.update(max_abs_err=err, max_ref=scale)
+
+    gcn_grouped_runs = drive(
+        "GCN grouped", make_gcn_grouped, grp_adj,
+        GCN(GCN_DIMS, method="xla").double(), {"spmm_grouped": 4},
+        data=ds_rcm, absent=("spmm_csr", "spmm_chunk"),
+        check_model=same_as_original_order)
+    record["gcn_grouped"] = dict(gcn_grouped_runs,
+                                 unpermuted_vs_original=unpermuted)
+
     phase("15 timings, in the order plain / kernel / kernel / plain")
     hbm = profiling.measure_hbm_bandwidth()
     print(f"copy bandwidth (256 MiB f32, device time): {hbm:.1f} GB/s, "
@@ -1170,8 +1376,8 @@ def main(argv=None):
             check(ok, f"chunk kernel disagrees at {graph} K={K} ({R}, {E})")
             k_dev, p_dev = alternate(gat_time, chunk, plain)
             c_dev, b1_dev = alternate(timing.device_time, chunk, csr_kernel)
-            plan_bytes = (6 * plan.num_chunks + 2 * plan.cut_rows.numel()
-                          + 1) * 4
+            # The bound is the function's (row 9's is the same): the plan's
+            # work list is the kernel's own metadata, not counted.
             row = {"kernel": "spmm_chunk", "shape": f"{graph} K={K} (R, E)="
                    f"({R}, {E})", "nnz": a.nnz, "K": K, "chunks":
                    plan.num_chunks, "cut_rows": plan.cut_rows.numel(),
@@ -1179,8 +1385,8 @@ def main(argv=None):
                    "kernel_device_ms": k_dev + c_dev, "plain_device_ms": p_dev,
                    "spmm_csr_device_ms": b1_dev, "library_ms": lib_ms,
                    "bytes": profiling.spmm_bytes(a.nnz, m, K, n,
-                                                 valued=data is not None)
-                   + plan_bytes, "ops": 2 * a.nnz * K}
+                                                 valued=data is not None),
+                   "ops": 2 * a.nnz * K}
             chunk_timings.append(row)
             print(f"spmm_chunk {row['shape']}: {plan.num_chunks} chunks, "
                   f"{row['cut_rows']} cut rows | max_abs_err {err:.3e} | "
@@ -1189,6 +1395,73 @@ def main(argv=None):
                   f" | spmm_csr {mean(b1_dev):.5f} ms | torch.sparse.mm "
                   f"{lib_ms} ms | {card}", flush=True)
     record["chunk_timings"] = chunk_timings
+
+    # The grouped kernel (row 9) against its plain version, the chunk kernel
+    # at (64, 64) on the same ordering, the CSR kernel and torch.sparse.mm:
+    # at the sweep's rmat15 K=128 (edge factor 16, binary), as generated and
+    # RCM-reordered, at the JAX defaults and at G = 1 (a group is one row),
+    # and at the GCN slice's RCM-reordered sbm K=32 (valued).
+    sweep_rcm = reorder(sweep_csr)[0]
+    grouped_timings = []
+    for graph, host_csr, K, sizes in (
+            ("rmat15-ef16", sweep_csr, 128, (64, 64, 32, 8)),
+            ("rmat15-ef16", sweep_csr, 128, (64, 64, 64, 1)),
+            ("rmat15-ef16-rcm", sweep_rcm, 128, (64, 64, 32, 8)),
+            ("rmat15-ef16-rcm", sweep_rcm, 128, (64, 64, 64, 1)),
+            ("sbm-rcm", sbm_rcm, 32, (64, 64, 32, 8))):
+        a = Adjacency.from_csr(host_csr, device=dev)
+        m, n = a.shape
+        B = torch.randn(n, K, device=dev, generator=gen)
+        data = a.data
+        plan = build_grouped_plan(host_csr, *sizes).to(dev)
+        chunk_plan = build_spmm_plan(host_csr, rows_per_block=64,
+                                     chunk_nnz=64).to(dev)
+        lib = library_csr(host_csr, dev)
+        lib_ms = library_time("torch.sparse.mm",
+                              lambda: torch.sparse.mm(lib, B))
+
+        def grouped():
+            return kgrp.spmm_grouped(plan, data, B, m)
+
+        def plain():
+            return ref.spmm_grouped_chunks(
+                plan.chunk_count, plan.groups, plan.group_count, plan.slots,
+                plan.group_rows, data, B, a.rows, m)
+
+        def chunk():
+            return kpal.spmm_pallas(chunk_plan, data, B, m)
+
+        def csr_kernel():
+            return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, data, B)
+
+        err, ok = bound_check(torch, ref, grouped(), a.csr.indptr,
+                              a.csr.indices, a.rows, data, B)
+        check(ok, f"grouped kernel disagrees at {graph} K={K} {sizes}")
+        k_dev, p_dev = alternate(gat_time, grouped, plain)
+        g_dev, c_dev = alternate(timing.device_time, grouped, chunk)
+        g2_dev, b1_dev = alternate(timing.device_time, grouped, csr_kernel)
+        # The bound is the function's, as for the chunk kernel: the plan's
+        # work list and staged group rows are the kernel's own traffic.
+        J = plan.cut_rows.numel()
+        row = {"kernel": "spmm_grouped", "shape": f"{graph} K={K} (R, E, NG, "
+               f"G)={sizes}", "nnz": a.nnz, "K": K, **plan_stats(plan),
+               "cut_rows": J, "max_abs_err": err,
+               "kernel_device_ms": k_dev + g_dev + g2_dev,
+               "plain_device_ms": p_dev, "spmm_chunk_device_ms": c_dev,
+               "spmm_csr_device_ms": b1_dev, "library_ms": lib_ms,
+               "bytes": profiling.spmm_bytes(a.nnz, m, K, n,
+                                             valued=data is not None),
+               "ops": 2 * a.nnz * K}
+        grouped_timings.append(row)
+        print(f"spmm_grouped {row['shape']}: {stats_line(plan_stats(plan))} | "
+              f"max_abs_err {err:.3e} | device time kernel "
+              f"{mean(row['kernel_device_ms']):.5f} ms | plain "
+              f"{mean(p_dev):.5f} ms | spmm_chunk (64, 64) "
+              f"{mean(c_dev):.5f} ms | spmm_csr {mean(b1_dev):.5f} ms | "
+              f"torch.sparse.mm {lib_ms} ms | bound "
+              f"{profiling.bound(row['bytes'], row['ops'])[0] * 1e3:.5f} ms | "
+              f"{card}", flush=True)
+    record["grouped_timings"] = grouped_timings
 
 
     for name, runs, make, a, lr in (
@@ -1203,6 +1476,16 @@ def main(argv=None):
             r["ms_per_epoch"] = mean(ms)
             print(f"{name} {method}: {mean(ms):.4f} ms/epoch (runs "
                   f"{', '.join(f'{x:.4f}' for x in ms)}) | {card}", flush=True)
+    # The GCN on the grouped route (RCM order) against phase 6's CSR route.
+    gcn_routes = {"csr": [], "grouped": []}
+    for route in ("csr", "grouped", "grouped", "csr"):
+        res = (train(make_gcn, adj, "auto") if route == "csr" else
+               train(make_gcn_grouped, grp_adj, "auto", data=ds_rcm))[1]
+        gcn_routes[route].append(res["mean_epoch_time"] * 1e3)
+    for route, ms in gcn_routes.items():
+        print(f"GCN auto, {route} route: {mean(ms):.4f} ms/epoch (runs "
+              f"{', '.join(f'{x:.4f}' for x in ms)}) | {card}", flush=True)
+    record["gcn_routes_ms_per_epoch"] = gcn_routes
     mh_ms = gat_mh_runs["auto"]["ms_per_epoch_runs"][0]
     print(f"GAT heads={GAT_MH_HEADS} auto: {mh_ms:.4f} ms/epoch | {card}",
           flush=True)
@@ -1261,6 +1544,8 @@ def main(argv=None):
 
     chunk_row = next(r for r in chunk_timings
                      if r["shape"] == "rmat15-ef16 K=128 (R, E)=(64, 64)")
+    grouped_row = grouped_timings[-1]  # the GCN slice's sbm-rcm K=32
+    grouped_launches = gcn_grouped_runs["auto"]["launches"]
     kernels = {"kernels": [
         kernel_entry("spmm_csr", kspmm.SOURCE, kspmm.REPLACES,
                      gcn_runs["auto"]["launches"]["spmm_csr"], slice_err,
@@ -1296,6 +1581,10 @@ def main(argv=None):
                           sweep_launches["spmm_chunk"],
                           chunk_row["max_abs_err"], chunk_row),
              carry_launches=sweep_launches["spmm_chunk_carry"]),
+        dict(kernel_entry("spmm_grouped", kgrp.SOURCE, kgrp.REPLACES,
+                          grouped_launches["spmm_grouped"],
+                          grouped_row["max_abs_err"], grouped_row),
+             carry_launches=grouped_launches["spmm_grouped_carry"]),
     ]}
     record.update(kernels)
     if args.record:

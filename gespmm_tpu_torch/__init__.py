@@ -1,11 +1,13 @@
 """gespmm_tpu_torch — the PyTorch and CUDA port of gespmm_tpu, for NVIDIA Hopper.
 
 Ported so far (the GCN, GraphSAGE and GAT training paths, dot-product
-attention and the SpMM sweep): CSR/CSC/COO containers, .mtx ingest and the
-synthetic graph generators, ``Adjacency`` (with per-row chunk plans) +
-``spmm`` (sum/mean/max/min; tiers auto/tiled/xla/pallas/scatter/dense) with
-transpose-paired autograd Functions over hand-written CUDA kernels (CSR sum
-SpMM; nnz-chunked sum SpMM; max/min SpMM with tie counts and its CSC
+attention, the SpMM sweep and the grouped SpMM on reordered graphs):
+CSR/CSC/COO containers, .mtx ingest, the synthetic graph generators and
+RCM/degree/BFS reordering, ``Adjacency`` (with per-row chunk plans and
+grouped plans) + ``spmm`` (sum/mean/max/min; tiers
+auto/tiled/xla/pallas/scatter/dense) with transpose-paired autograd
+Functions over hand-written CUDA kernels (CSR sum SpMM; nnz-chunked sum
+SpMM; grouped-gather sum SpMM; max/min SpMM with tie counts and its CSC
 backward), ``sddmm``, ``edge_softmax`` and ``additive_attention_logits``
 over an edge segment-reduce kernel, the fused attention ops
 ``gat_attention_aggregate`` and ``dot_attention_aggregate`` (forward, CSR
@@ -15,7 +17,7 @@ GCN, SAGE, GAT and SpMM/SDDMM benchmarks.
 
 Layering mirrors the JAX package:
     sparse/    formats (CSR/CSC/COO of torch tensors), .mtx ingest, the
-               per-row chunk plan
+               per-row chunk plan and the grouped plan, reordering
     csrc/      CUDA C++ kernels for sm_90a
     kernels/   nvcc build + ctypes wrappers (plain version on CPU tensors)
     ops/       spmm and sddmm with their autograd Functions, graph and
@@ -30,6 +32,8 @@ their first launch.
 """
 
 from gespmm_tpu_torch.sparse.formats import COO, CSC, CSR, csr_from_coo, csr_to_csc
+from gespmm_tpu_torch.sparse.partition import GroupedSpmmPlan, build_grouped_plan
+from gespmm_tpu_torch.sparse.reorder import reorder
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 from gespmm_tpu_torch.ops.sddmm import sddmm, sddmm_coo
 from gespmm_tpu_torch.ops.graph import (additive_attention_logits,
@@ -48,6 +52,9 @@ __all__ = [
     "COO",
     "csr_from_coo",
     "csr_to_csc",
+    "reorder",
+    "GroupedSpmmPlan",
+    "build_grouped_plan",
     "spmm",
     "sddmm",
     "sddmm_coo",

@@ -1,0 +1,96 @@
+// The carry pass of the chunked SpMM kernels (spmm_chunk.cu, spmm_grouped.cu)
+// and the helpers they share.
+//
+// Both kernels walk a work list of chunks cut from the CSR edges
+// (gespmm_tpu_torch/sparse/partition.py): a row cut by a chunk boundary leaves
+// one f32 partial sum per chunk in its slot of a scratch buffer, and the carry
+// pass, one warp per cut row, adds the row's slots in chunk order and writes
+// the sum to out.  Every output element is written once, without atomics, so
+// the result is bitwise repeatable.  The plan's row lists (_row_lists) give
+// both kernels the same slots, so one carry serves both.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gespmm {
+
+// The warp-per-item launch shape: 8 warps a block, a grid-stride loop over
+// the items past kMaxBlocksX blocks.
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kMaxBlocksX = 65535;
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+// One warp per item, its lanes on VEC consecutive columns of a 32*VEC-wide K
+// slab; the second grid dimension walks the slabs.
+inline dim3 warp_grid(int items, int K, int vec) {
+  const unsigned blocks = (unsigned)((items + kWarps - 1) / kWarps);
+  return dim3(blocks < kMaxBlocksX ? blocks : kMaxBlocksX,
+              (unsigned)((K + 32 * vec - 1) / (32 * vec)));
+}
+
+// The carry: one warp per cut row, its partials added in chunk order.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+spmm_carry_kernel(int J, int K, const int* __restrict__ cut_rows,
+                  const int* __restrict__ cut_ptr,
+                  const float* __restrict__ partial, T* __restrict__ out) {
+  using F = Pack<float, VEC>;
+  const int lane = threadIdx.x & 31;
+  const int k = (blockIdx.y * 32 + lane) * VEC;
+  if (k >= K) return;  // no shuffles below: idle lanes may leave
+  const int stride = gridDim.x * kWarps;
+  for (int j = blockIdx.x * kWarps + (threadIdx.x >> 5); j < J; j += stride) {
+    float acc[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+    const int end = cut_ptr[j + 1];
+    for (int slot = cut_ptr[j]; slot < end; ++slot) {
+      const F p = *reinterpret_cast<const F*>(partial + (int64_t)slot * K + k);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += p.v[i];
+    }
+    Pack<T, VEC> o;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o.v[i] = from_f32<T>(acc[i]);
+    *reinterpret_cast<Pack<T, VEC>*>(out + (int64_t)cut_rows[j] * K + k) = o;
+  }
+}
+
+// Launches the carry over J >= 1 cut rows on the stream; partial is the
+// (cut_ptr[J], K) f32 scratch buffer, aligned to VEC floats.
+template <typename T, int VEC>
+cudaError_t launch_carry(int J, int K, const int* cut_rows,
+                         const int* cut_ptr, const float* partial, T* out,
+                         cudaStream_t stream) {
+  spmm_carry_kernel<T, VEC><<<warp_grid(J, K, VEC), kThreads, 0, stream>>>(
+      J, K, cut_rows, cut_ptr, partial, out);
+  return cudaGetLastError();
+}
+
+}  // namespace gespmm

@@ -27,8 +27,9 @@
 //     goes to its slot of an f32 scratch buffer instead (head_slot for the
 //     chunk's first row when it began in an earlier chunk, tail_slot for its
 //     last row when it goes on into a later one);
-//   * pass 2 (the carry), one warp per cut row: the row's partials are added
-//     in chunk order and the sum written to out.
+//   * pass 2 (the carry, carry.cuh, shared with spmm_grouped.cu), one warp
+//     per cut row: the row's partials are added in chunk order and the sum
+//     written to out.
 // Every output element is written once, by one warp, without atomics, so the
 // result is bitwise repeatable.  Rows past m are never written (the plan's
 // row lists stop at m - 1).
@@ -46,41 +47,13 @@
 // on the given stream, does not synchronise, and returns cudaGetLastError(),
 // or cudaErrorInvalidValue for arguments it does not take.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "carry.cuh"
 
 namespace {
 
-// The launch shape and the type helpers are those of spmm_csr.cu; each
-// source stays self-contained, as the package ships csrc/*.cu alone.
-constexpr int kThreads = 256;  // 8 warps, 8 chunks in flight per block
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kMaxBlocksX = 65535;  // a grid-stride loop covers the rest
+using namespace gespmm;  // the launch shape, type helpers and carry pass
+
 constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
 
 // Where a finished row's sum goes: its slot of the scratch buffer when the
 // row is cut at this chunk's start (head) or end (tail), else out.
@@ -176,40 +149,6 @@ spmm_chunk_kernel(int C, int K, const int* __restrict__ indptr,
   }
 }
 
-// The carry: one warp per cut row, its partials added in chunk order.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-spmm_carry_kernel(int J, int K, const int* __restrict__ cut_rows,
-                  const int* __restrict__ cut_ptr,
-                  const float* __restrict__ partial, T* __restrict__ out) {
-  using F = Pack<float, VEC>;
-  const int lane = threadIdx.x & 31;
-  const int k = (blockIdx.y * 32 + lane) * VEC;
-  if (k >= K) return;  // no shuffles below: idle lanes may leave
-  const int stride = gridDim.x * kWarps;
-  for (int j = blockIdx.x * kWarps + (threadIdx.x >> 5); j < J; j += stride) {
-    float acc[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-    const int end = cut_ptr[j + 1];
-    for (int slot = cut_ptr[j]; slot < end; ++slot) {
-      const F p = *reinterpret_cast<const F*>(partial + (int64_t)slot * K + k);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] += p.v[i];
-    }
-    Pack<T, VEC> o;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) o.v[i] = from_f32<T>(acc[i]);
-    *reinterpret_cast<Pack<T, VEC>*>(out + (int64_t)cut_rows[j] * K + k) = o;
-  }
-}
-
-dim3 warp_grid(int items, int K, int vec) {
-  const unsigned blocks = (unsigned)((items + kWarps - 1) / kWarps);
-  return dim3(blocks < kMaxBlocksX ? blocks : kMaxBlocksX,
-              (unsigned)((K + 32 * vec - 1) / (32 * vec)));
-}
-
 template <typename T, int VEC>
 cudaError_t launch_vec(int C, int J, int K, const int* indptr,
                        const int* indices, const float* vals,
@@ -234,9 +173,7 @@ cudaError_t launch_vec(int C, int J, int K, const int* indptr,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || J == 0) return err;
-  spmm_carry_kernel<T, VEC><<<warp_grid(J, K, VEC), kThreads, 0, stream>>>(
-      J, K, cut_rows, cut_ptr, partial, out);
-  return cudaGetLastError();
+  return launch_carry<T, VEC>(J, K, cut_rows, cut_ptr, partial, out, stream);
 }
 
 template <typename T>

@@ -24,7 +24,7 @@ from gespmm_tpu_torch.kernels.spmm_csr import (check_operands, lane_vector,
                                                raise_on)
 from gespmm_tpu_torch.ops import reference
 from gespmm_tpu_torch.sparse.formats import expand_indptr
-from gespmm_tpu_torch.sparse.partition import SpmmPlan
+from gespmm_tpu_torch.sparse.partition import WORK_LIST, SpmmPlan
 
 Tensor = torch.Tensor
 
@@ -36,8 +36,6 @@ carry_launches = 0
 
 _ENTRY = {torch.float32: "gespmm_spmm_chunk_f32",
           torch.bfloat16: "gespmm_spmm_chunk_bf16"}
-_WORK_LIST = ("chunk_start", "chunk_count", "row_lo", "row_hi", "head_slot",
-              "tail_slot", "cut_rows", "cut_ptr")
 
 
 def reset_launches() -> None:
@@ -81,7 +79,7 @@ def spmm_chunk_cuda(plan: SpmmPlan, data: Optional[Tensor],
     B's device."""
     global launches, carry_launches
     check_operands(plan.indptr, plan.indices, data, B)
-    for name in _WORK_LIST:
+    for name in WORK_LIST:
         t = getattr(plan, name)
         if t.device != B.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"plan.{name} must be a contiguous int32 tensor on "
@@ -101,7 +99,7 @@ def spmm_chunk_cuda(plan: SpmmPlan, data: Optional[Tensor],
         err = fn(plan.num_chunks, J, K, vec, plan.indptr.data_ptr(),
                  plan.indices.data_ptr(),
                  None if vals is None else vals.data_ptr(),
-                 *(getattr(plan, name).data_ptr() for name in _WORK_LIST),
+                 *(getattr(plan, name).data_ptr() for name in WORK_LIST),
                  B.data_ptr(), out.data_ptr(),
                  None if partial is None else partial.data_ptr(),
                  torch.cuda.current_stream(B.device).cuda_stream)

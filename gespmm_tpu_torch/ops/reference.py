@@ -1,9 +1,10 @@
 """Plain PyTorch SpMM, SDDMM, edge segment reduce, fused GAT and dot-product
-attention, and the chunked SpMM — the reference the CUDA kernels are held to.
+attention, and the chunked and grouped SpMMs — the reference the CUDA kernels
+are held to.
 
 Counterpart of ``gespmm_tpu/ops/reference.py`` (with its scatter and dense
-tiers) and of the math of ``gespmm_tpu/kernels/gat_fused.py`` and
-``spmm_pallas.py``.  These run on any device:
+tiers) and of the math of ``gespmm_tpu/kernels/gat_fused.py``,
+``spmm_pallas.py`` and ``spmm_grouped.py``.  These run on any device:
 the CPU tests use them, the ``method="xla"`` tier runs them on the card, and
 ``chip_smoke.py`` compares the kernels with them (in float64 there).
 
@@ -482,3 +483,42 @@ def spmm_chunks(chunk_start: Tensor, chunk_count: Tensor, indices: Tensor,
     pair_row.scatter_(0, pair, r)  # unused pairs: row 0, a zero partial
     out = torch.zeros((m, B.shape[1]), dtype=contrib.dtype, device=B.device)
     return out.index_add_(0, pair_row, partial).to(B.dtype)
+
+
+def spmm_grouped_chunks(chunk_count: Tensor, groups: Tensor,
+                        group_count: Tensor, slots: Tensor, group_rows: int,
+                        data: Optional[Tensor], B: Tensor, rows: Tensor,
+                        m: int) -> Tensor:
+    """The plain version of the grouped sum kernel: it walks the grouped
+    plan, not the CSR columns.
+
+    Chunk c stages the B rows g·G + [0, G) of each of its groups g =
+    ``groups[c, :group_count[c]]`` (zeros past row n and for the padding
+    groups), its ``chunk_count[c]`` edges (the chunks tile the CSR edges in
+    order) read staged row ``slots[e]`` of their chunk, and the products
+    are summed by row (``rows``, the CSR's per-edge row ids) with one
+    ``index_add_``.  f32 accumulation; B's dtype out.
+    """
+    n, K = B.shape
+    acc = _acc_dtype(B.dtype)
+    out = torch.zeros((m, K), dtype=acc, device=B.device)
+    if slots.shape[0] == 0:
+        return out.to(B.dtype)
+    C, NG = groups.shape
+    G = group_rows
+    dev = B.device
+    staged_rows = (groups.long()[:, :, None] * G
+                   + torch.arange(G, device=dev)).reshape(C, NG * G)
+    in_chunk = (torch.arange(NG, device=dev)[None, :]
+                < group_count.long()[:, None]).repeat_interleave(G, dim=1)
+    valid = (in_chunk & (staged_rows < n)).reshape(-1, 1)
+    staged = B.index_select(0, staged_rows.reshape(-1).clamp(max=n - 1)).to(acc)
+    staged = torch.where(valid, staged, torch.zeros((), dtype=acc, device=dev))
+    # Sized on the host, so that nothing waits for the device.
+    chunk_of_edge = torch.repeat_interleave(
+        torch.arange(C, device=dev), chunk_count.long(),
+        output_size=slots.shape[0])
+    contrib = staged.index_select(0, chunk_of_edge * (NG * G) + slots.long())
+    if data is not None:
+        contrib = contrib * data.to(acc)[:, None]
+    return out.index_add_(0, rows.long(), contrib).to(B.dtype)

@@ -22,8 +22,11 @@ takes (``_METHOD_REDUCES``, as in the JAX package):
   * ``"xla"``: the plain PyTorch version on any device (the explicit
     reference tier, named after the JAX package's tier);
   * ``"pallas"`` (sum/mean): the nnz-chunked kernel over a per-row chunk
-    plan (``Adjacency.from_csr(csr, plan="perrow")``), forward and, over the
+    plan (``Adjacency.from_csr(csr, plan="perrow")``), or the grouped-gather
+    kernel over a grouped plan (``plan="grouped"``), forward and, over the
     transposed plan, grad_B (the CSR kernel where there is no such plan);
+    ``"auto"`` on a grouped plan takes the grouped kernel too (the JAX
+    package's choice on the TPU), and on any other the CSR kernel;
   * ``"scatter"`` (sum/mean): the push formulation, one ``index_add_``;
   * ``"dense"`` (sum/mean): densify and ``torch.matmul``, size-guarded.
 """
@@ -38,11 +41,14 @@ import numpy as np
 import torch
 
 from gespmm_tpu_torch.kernels.spmm_csr import spmm_csr
+from gespmm_tpu_torch.kernels.spmm_grouped import spmm_grouped
 from gespmm_tpu_torch.kernels.spmm_minmax import spmm_minmax, spmm_minmax_vjp
 from gespmm_tpu_torch.kernels.spmm_pallas import spmm_pallas
 from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.sparse.formats import CSC, CSR
-from gespmm_tpu_torch.sparse.partition import SpmmPlan, build_spmm_plan
+from gespmm_tpu_torch.sparse.partition import (GroupedSpmmPlan, SpmmPlan,
+                                                build_grouped_plan,
+                                                build_spmm_plan)
 
 Tensor = torch.Tensor
 
@@ -60,24 +66,23 @@ _METHOD_REDUCES = {
 }
 METHODS = tuple(_METHOD_REDUCES)
 PLANS = (False, True, "auto", "tiled", "perrow", "grouped")
+_BUILDERS = {"perrow": build_spmm_plan, "grouped": build_grouped_plan}
 
 
-def _build_plan(indptr, indices, shape, kind, plan_kwargs) -> Optional[SpmmPlan]:
+def _build_plan(indptr, indices, shape, kind,
+                plan_kwargs) -> Optional[SpmmPlan]:
     """The plan object of ``kind``: None for the tiled kinds (the CSR kernel
-    walks the CSR and needs none), the per-row chunk plan for "perrow".
-    Unknown ``plan_kwargs`` are ignored, as the JAX package filters them by
-    the builder's signature."""
+    walks the CSR and needs none), the per-row chunk plan for "perrow", the
+    grouped plan for "grouped".  Unknown ``plan_kwargs`` are ignored, as the
+    JAX package filters them by the builder's signature."""
     if kind in (True, "auto", "tiled"):
         return None
-    if kind == "perrow":
-        sig = inspect.signature(build_spmm_plan).parameters
-        kw = {k: v for k, v in plan_kwargs.items() if k in sig}
-        return build_spmm_plan(CSR(indptr, indices, None, shape), **kw)
-    if kind == "grouped":
-        raise NotImplementedError(
-            "plan='grouped' (the grouped tensor-core SpMM, kernel row 9) is "
-            "ROADMAP B6: not ported yet; use plan='perrow' or plan=True")
-    raise ValueError(f"unknown plan kind {kind!r}; expected one of {PLANS}")
+    if kind not in _BUILDERS:
+        raise ValueError(f"unknown plan kind {kind!r}; expected one of {PLANS}")
+    build = _BUILDERS[kind]
+    sig = inspect.signature(build).parameters
+    kw = {k: v for k, v in plan_kwargs.items() if k in sig}
+    return build(CSR(indptr, indices, None, shape), **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +92,8 @@ class Adjacency:
     ``perm`` maps CSC edge order -> CSR edge order (``csc.data = data[perm]``);
     ``inv_perm`` is its inverse.  ``rows``/``rows_t`` are the per-nonzero row
     ids of the CSR and of the CSC (the CSR of Aᵀ).  ``plan``/``plan_t`` are
-    the per-row chunk plans of A and Aᵀ (``plan="perrow"``), or None.
+    the chunk plans of A and Aᵀ (``plan="perrow"`` or ``"grouped"``), or
+    None.
     """
 
     csr: CSR
@@ -96,7 +102,7 @@ class Adjacency:
     rows: Tensor
     rows_t: Tensor
     inv_perm: Tensor
-    plan: Optional[SpmmPlan] = None
+    plan: Optional[SpmmPlan] = None  # or its subclass GroupedSpmmPlan
     plan_t: Optional[SpmmPlan] = None
 
     @classmethod
@@ -108,10 +114,12 @@ class Adjacency:
         ``plan``: False (none) | True / "auto" / "tiled" (the CSR kernel's
         tier, which needs no plan object) | "perrow" (the chunk plans of
         ``method="pallas"``, with ``rows_per_block``/``chunk_nnz`` from
-        ``plan_kwargs``) | "grouped" (not ported: raises
-        NotImplementedError).  ``plan_transpose=False`` skips the plan of
-        Aᵀ; grad_B of ``method="pallas"`` then takes the CSR kernel (the
-        JAX package takes its plain tier there).
+        ``plan_kwargs``) | "grouped" (the grouped plans of
+        ``method="pallas"`` and ``"auto"``, with ``rows_per_block``,
+        ``edges_per_chunk``, ``groups_per_chunk``/``group_rows`` from
+        ``plan_kwargs``).  ``plan_transpose=False`` skips the plan of Aᵀ;
+        grad_B then takes the CSR kernel (the JAX package takes its plain
+        tier there).
         """
         device = csr.device if device is None else torch.device(device)
         indptr_h = csr.indptr.cpu().numpy()
@@ -188,6 +196,8 @@ def _forward(method: str, indptr: Tensor, indices: Tensor,
     m = indptr.shape[0] - 1
     # The kernels take a contiguous B; a column slice or a transposed view
     # is a valid operand of the op.
+    if method in ("pallas", "auto") and isinstance(plan, GroupedSpmmPlan):
+        return spmm_grouped(plan, data, B.contiguous(), m)
     if method == "pallas" and plan is not None:
         return spmm_pallas(plan, data, B.contiguous(), m)
     if method == "scatter":
@@ -196,9 +206,9 @@ def _forward(method: str, indptr: Tensor, indices: Tensor,
         return ref.spmm_dense(rows, indices, data, B, m)
     if method == "xla":
         return ref.spmm_rows(rows, indices, data, B, m)
-    # "auto"/"tiled", and "pallas" without a plan for this direction (the
-    # grad_B of an Adjacency built with plan_transpose=False): the CSR
-    # kernel, which needs none.
+    # "auto"/"tiled" without a grouped plan, and "pallas" without a plan for
+    # this direction (the grad_B of an Adjacency built with
+    # plan_transpose=False): the CSR kernel, which needs none.
     return spmm_csr(indptr, indices, data, B.contiguous(), rows=rows)
 
 
@@ -291,7 +301,8 @@ def _check_method(adj: Adjacency, reduce: str, method: str) -> None:
             "'xla'")
     if method == "pallas" and not isinstance(adj.plan, SpmmPlan):
         raise ValueError("method='pallas' needs an Adjacency built with "
-                         "plan='perrow' (Adjacency.from_csr(csr, plan='perrow'))")
+                         "plan='perrow' or 'grouped' "
+                         "(Adjacency.from_csr(csr, plan='perrow'))")
 
 
 def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
@@ -303,9 +314,11 @@ def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
         bare ``CSR`` (the pairing is built on the fly).
       B: dense (n, K) tensor, float32 or bfloat16 on the card.
       reduce: "sum" | "mean" | "max" | "min" (empty rows give 0 under each).
-      method: "auto" | "tiled" (the CUDA kernels on the card) | "xla" (plain)
-        | "pallas" (the chunked kernel; needs ``plan="perrow"``) | "scatter"
-        | "dense" (the last three sum/mean only).
+      method: "auto" | "tiled" (the CUDA kernels on the card; "auto" takes
+        the grouped kernel on a ``plan="grouped"`` adjacency) | "xla"
+        (plain) | "pallas" (the chunked or the grouped kernel; needs
+        ``plan="perrow"`` or ``"grouped"``) | "scatter" | "dense" (the last
+        three sum/mean only).
       mode: "trilo" | "hilo" | "fast" | "highest", validated as in the JAX
         package; every mode accumulates in f32 here, which meets each
         mode's tolerance.

@@ -1,4 +1,5 @@
-"""The per-row chunk plan — port of ``gespmm_tpu/sparse/partition.py::build_spmm_plan``.
+"""The per-row chunk plan and the grouped plan — port of
+``gespmm_tpu/sparse/partition.py::build_spmm_plan`` and ``build_grouped_plan``.
 
 The JAX package cuts a CSR into row blocks of R rows and each block's
 nonzeros into ceil(nnz_b / E) chunks of at most E edges (at least one chunk
@@ -28,21 +29,27 @@ A row cut by a chunk boundary ("cut row") is written by the carry pass:
 [cut_ptr[j], cut_ptr[j + 1]), in chunk order.  Every other row is written
 once, directly, by the one chunk that holds all its edges.  None of it
 depends on the edge values, so one plan serves every value of them.
+
+The grouped plan (``build_grouped_plan``, the work list of
+``csrc/spmm_grouped.cu``) cuts each block greedily instead, into chunks of
+at most E edges and at most NG distinct aligned groups of G B rows, and
+adds each chunk's group ids and each edge's staged slot; its row lists and
+carry slots come from the same helper, ``_row_lists``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 Tensor = torch.Tensor
 
-_ARRAYS = ("indptr", "indices", "chunk_start", "chunk_count", "block_ids",
-           "first", "row_lo", "row_hi", "head_slot", "tail_slot", "cut_rows",
-           "cut_ptr")
+# The work list of both kernels, in the order their entry points take it.
+WORK_LIST = ("chunk_start", "chunk_count", "row_lo", "row_hi", "head_slot",
+             "tail_slot", "cut_rows", "cut_ptr")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +81,58 @@ class SpmmPlan:
         return int(self.chunk_start.shape[0])
 
     def to(self, device) -> "SpmmPlan":
-        return dataclasses.replace(
-            self, **{k: getattr(self, k).to(device) for k in _ARRAYS})
+        """The same plan with every tensor on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), Tensor)})
+
+
+def _int32(a) -> Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+
+def _row_lists(indptr: np.ndarray, R: int, chunk0: np.ndarray,
+               chunk_start: np.ndarray) -> Dict[str, np.ndarray]:
+    """The rows each chunk walks and the carry slots of the rows cut by a
+    chunk boundary (``row_lo``, ``row_hi``, ``head_slot``, ``tail_slot``,
+    ``cut_rows``, ``cut_ptr``), for any cutting of each row block's edges
+    into consecutive chunks: block b owns chunks [chunk0[b], chunk0[b + 1]),
+    at least one, and chunk c starts at CSR edge ``chunk_start[c]``."""
+    m = indptr.shape[0] - 1
+    C = chunk_start.shape[0]
+    rb = np.arange(m) // R
+    lo_c, hi_c = chunk0[rb], chunk0[rb + 1] - 1
+
+    # The chunk holding offset p of row r's block: its last chunk starting
+    # at or before p (the block's last chunk for p at the block's end).
+    def chunk_at(p):
+        return np.clip(np.searchsorted(chunk_start, p, side="right") - 1,
+                       lo_c, hi_c)
+
+    lo_off, hi_off = indptr[:-1], indptr[1:]
+    first_c = chunk_at(lo_off)
+    last_c = chunk_at(np.maximum(hi_off - 1, lo_off))
+    cs = np.arange(C)
+    row_lo = np.searchsorted(last_c, cs, side="left")
+    row_hi = np.searchsorted(first_c, cs, side="right") - 1
+
+    cut = last_c > first_c
+    cut_rows = np.flatnonzero(cut)
+    n_parts = (last_c - first_c + 1)[cut]
+    cut_ptr = np.concatenate([[0], np.cumsum(n_parts)])
+    head_slot = np.full(C, -1, np.int64)
+    tail_slot = np.full(C, -1, np.int64)
+    tail_slot[first_c[cut]] = cut_ptr[:-1]
+    # Cut row j continues into chunks first_c + 1 .. last_c, whose heads are
+    # its slots cut_ptr[j] + 1 .. cut_ptr[j + 1] - 1.
+    n_heads = n_parts - 1
+    j = np.repeat(np.arange(cut_rows.shape[0]), n_heads)
+    step = np.arange(j.shape[0]) - np.repeat(np.cumsum(n_heads) - n_heads,
+                                             n_heads) + 1
+    head_slot[first_c[cut_rows][j] + step] = cut_ptr[j] + step
+    return dict(row_lo=row_lo, row_hi=row_hi, head_slot=head_slot,
+                tail_slot=tail_slot, cut_rows=cut_rows, cut_ptr=cut_ptr)
 
 
 def build_spmm_plan(csr, rows_per_block: int = 128,
@@ -114,43 +171,125 @@ def build_spmm_plan(csr, rows_per_block: int = 128,
     chunk_count = np.minimum(block_ends[block_ids] - chunk_start, E)
     first = (k == 0).astype(np.int32)
 
-    # The chunk holding offset p of row r's block (the last chunk for p at
-    # the block's end): min((p - block_start) // E, chunks - 1).
-    rb = np.arange(m) // R
-
-    def chunk_at(p):
-        return chunk0[rb] + np.minimum((p - block_starts[rb]) // E,
-                                       chunks_per_block[rb] - 1)
-
-    lo_off, hi_off = indptr[:-1], indptr[1:]
-    first_c = chunk_at(lo_off)
-    last_c = chunk_at(np.maximum(hi_off - 1, lo_off))
-    cs = np.arange(C)
-    row_lo = np.searchsorted(last_c, cs, side="left")
-    row_hi = np.searchsorted(first_c, cs, side="right") - 1
-
-    cut = last_c > first_c
-    cut_rows = np.flatnonzero(cut)
-    n_parts = (last_c - first_c + 1)[cut]
-    cut_ptr = np.concatenate([[0], np.cumsum(n_parts)])
-    head_slot = np.full(C, -1, np.int64)
-    tail_slot = np.full(C, -1, np.int64)
-    tail_slot[first_c[cut]] = cut_ptr[:-1]
-    # Cut row j continues into chunks first_c + 1 .. last_c, whose heads are
-    # its slots cut_ptr[j] + 1 .. cut_ptr[j + 1] - 1.
-    n_heads = n_parts - 1
-    j = np.repeat(np.arange(cut_rows.shape[0]), n_heads)
-    step = np.arange(j.shape[0]) - np.repeat(np.cumsum(n_heads) - n_heads,
-                                             n_heads) + 1
-    head_slot[first_c[cut_rows][j] + step] = cut_ptr[j] + step
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+    row_lists = _row_lists(indptr, R, chunk0, chunk_start)
 
     return SpmmPlan(
-        indptr=indptr_t, indices=indices_t, chunk_start=t(chunk_start),
-        chunk_count=t(chunk_count), block_ids=t(block_ids), first=t(first), row_lo=t(row_lo),
-        row_hi=t(row_hi), head_slot=t(head_slot), tail_slot=t(tail_slot),
-        cut_rows=t(cut_rows), cut_ptr=t(cut_ptr), rows_per_block=R,
+        indptr=indptr_t, indices=indices_t, chunk_start=_int32(chunk_start),
+        chunk_count=_int32(chunk_count), block_ids=_int32(block_ids),
+        first=_int32(first),
+        **{k: _int32(v) for k, v in row_lists.items()}, rows_per_block=R,
         chunk_nnz=E, shape=(m, n), nnz=nnz, num_blocks=num_blocks,
-        num_slots=int(cut_ptr[-1]))
+        num_slots=int(row_lists["cut_ptr"][-1]))
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedSpmmPlan(SpmmPlan):
+    """The grouped work list of one sparsity structure: the chunk plan's
+    fields (``chunk_nnz`` is E, the JAX builder's ``edges_per_chunk``), and
+    each chunk's groups and each edge's staged slot (int32 tensors).
+
+    Chunk c holds the CSR edges [chunk_start[c], chunk_start[c] +
+    chunk_count[c]) of block ``block_ids[c]`` and stages the
+    ``group_count[c]`` aligned groups ``groups[c, :group_count[c]]`` (group
+    g is the B rows [g·G, g·G + G)); edge e reads its B row from staged row
+    ``slots[e]`` = pos(group)·G + col % G of its chunk.  ``groups_per_chunk``
+    is the widest chunk's group count (NG shrunk, as in the JAX package),
+    and ``staged_rows`` the B rows all chunks stage, G per group.
+    """
+
+    groups: Tensor
+    group_count: Tensor
+    slots: Tensor
+    groups_per_chunk: int
+    group_rows: int
+    staged_rows: int
+
+    @property
+    def edges_per_chunk(self) -> int:
+        return self.chunk_nnz
+
+    @property
+    def dedup_factor(self) -> float:
+        """Edges served per group slot of the (C, NG) layout (padding
+        included), as the JAX package defines it."""
+        return self.nnz / max(self.num_chunks * self.groups_per_chunk, 1)
+
+
+def build_grouped_plan(csr, rows_per_block: int = 64, edges_per_chunk: int = 64,
+                       groups_per_chunk: int = 32,
+                       group_rows: int = 8) -> GroupedSpmmPlan:
+    """Build the grouped plan of one CSR structure on the host — the JAX
+    package's greedy cutting: each row block of R rows is cut, in CSR
+    order, into chunks of at most E edges and at most NG distinct groups
+    ``col // G``; a block without edges is one chunk of none.  The JAX
+    defaults (R, E, NG, G) = (64, 64, 32, 8).  The plan's tensors are on the
+    CPU; ``GroupedSpmmPlan.to`` moves them.  Raises ValueError on sizes it
+    does not take.
+    """
+    if rows_per_block < 8 or rows_per_block % 8:
+        raise ValueError(f"rows_per_block must be a positive multiple of 8, "
+                         f"got {rows_per_block}")
+    if min(edges_per_chunk, groups_per_chunk, group_rows) < 1:
+        raise ValueError(f"edges_per_chunk, groups_per_chunk and group_rows "
+                         f"must be at least 1, got {edges_per_chunk}, "
+                         f"{groups_per_chunk}, {group_rows}")
+    indptr_t = torch.as_tensor(csr.indptr).cpu().to(torch.int32)
+    indices_t = torch.as_tensor(csr.indices).cpu().to(torch.int32)
+    indptr = indptr_t.numpy().astype(np.int64)
+    m, n = csr.shape
+    nnz = int(indptr[-1])
+    R, E, NG, G = rows_per_block, edges_per_chunk, groups_per_chunk, group_rows
+
+    num_blocks = max((m + R - 1) // R, 1)
+    bounds = indptr[np.minimum(np.arange(num_blocks + 1) * R, m)].tolist()
+    cols = indices_t.tolist()
+    slots = [0] * nnz
+    starts, groups, chunk0 = [], [], [0]
+    for b in range(num_blocks):
+        pos, end = bounds[b], bounds[b + 1]
+        while True:  # one chunk a pass; at least one a block
+            start, gmap = pos, {}
+            stop = min(end, pos + E)
+            while pos < stop:
+                col = cols[pos]
+                gid = col // G
+                k = gmap.get(gid)
+                if k is None:
+                    if len(gmap) == NG:
+                        break
+                    k = gmap[gid] = len(gmap)
+                slots[pos] = k * G + col - gid * G
+                pos += 1
+            starts.append(start)
+            groups.append(list(gmap))
+            if pos >= end:
+                break
+        chunk0.append(len(starts))
+
+    C = len(starts)
+    chunk0 = np.asarray(chunk0, np.int64)
+    chunk_start = np.asarray(starts, np.int64)
+    # Chunks tile [0, nnz) in order, so each ends where the next begins.
+    chunk_count = np.diff(np.append(chunk_start, nnz))
+    block_ids = np.repeat(np.arange(num_blocks), np.diff(chunk0))
+    first = np.zeros(C, np.int64)
+    first[chunk0[:-1]] = 1
+    group_count = np.asarray([len(gl) for gl in groups], np.int64)
+    # NG shrinks to the widest chunk, as in the JAX package.
+    NG = max(int(group_count.max()), 1)
+    group_arr = np.zeros((C, NG), np.int64)
+    for c, gl in enumerate(groups):
+        group_arr[c, :len(gl)] = gl
+    row_lists = _row_lists(indptr, R, chunk0, chunk_start)
+
+    return GroupedSpmmPlan(
+        indptr=indptr_t, indices=indices_t, chunk_start=_int32(chunk_start),
+        chunk_count=_int32(chunk_count), block_ids=_int32(block_ids),
+        first=_int32(first),
+        **{k: _int32(v) for k, v in row_lists.items()},
+        groups=_int32(group_arr), group_count=_int32(group_count),
+        slots=_int32(slots), rows_per_block=R,
+        chunk_nnz=E, groups_per_chunk=NG, group_rows=G, shape=(m, n),
+        nnz=nnz, num_blocks=num_blocks,
+        num_slots=int(row_lists["cut_ptr"][-1]),
+        staged_rows=int(group_count.sum()) * G)

@@ -20,8 +20,8 @@ out, mx and den within 1e-5 * max |ref| + 1e-6 (bf16 out: 8e-3 * max |ref|);
 grad_src, grad_dst and grad_B within 1e-4 * max(|ref|, 1) (a bf16 grad_B:
 8e-3 *), the backward's reference taking s = <g, out> from the kernel's
 stored out, as the op does.  Fused dot-product attention: the same bounds
-for out, mx, den and grad_D1, grad_D2, grad_B.  The nnz-chunked SpMM: the
-sum kernel's bound.
+for out, mx, den and grad_D1, grad_D2, grad_B.  The nnz-chunked and the
+grouped-gather SpMMs: the sum kernel's bound.
 """
 
 import functools
@@ -34,6 +34,7 @@ import torch
 from gespmm_tpu_torch.kernels import edge_reduce as kedge
 from gespmm_tpu_torch.kernels import gat_fused as kgat
 from gespmm_tpu_torch.kernels import spmm_csr as kspmm
+from gespmm_tpu_torch.kernels import spmm_grouped as kgrp
 from gespmm_tpu_torch.kernels import spmm_minmax as kmm
 from gespmm_tpu_torch.kernels import spmm_pallas as kpal
 from gespmm_tpu_torch.models.gat import GAT
@@ -45,7 +46,9 @@ from gespmm_tpu_torch.ops.graph import (add_self_loops,
                                         attention_aggregate, edge_softmax)
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 from gespmm_tpu_torch.sparse.formats import CSR
-from gespmm_tpu_torch.sparse.partition import build_spmm_plan
+from gespmm_tpu_torch.sparse.partition import (build_grouped_plan,
+                                                build_spmm_plan)
+from gespmm_tpu_torch.sparse.reorder import inverse_permutation, reorder
 from gespmm_tpu_torch.train.loop import train_node_classifier
 from gespmm_tpu_torch.utils import timing
 from gespmm_tpu_torch.utils.datasets import rmat_graph, sbm_graph
@@ -930,3 +933,184 @@ def test_dot_empty_work_and_refusals(dev):
     with pytest.raises(TypeError):
         kgat.dot_forward(adj.csr.indptr, adj.csr.indices, randn((m, 4), dev, 1),
                          randn((n, 4), dev, 2), randn((n, 8), dev, 3).double())
+
+
+# --- the grouped-gather SpMM (kernel row 9) -------------------------------
+
+# (R, E, NG, G): the JAX defaults, the small test plan, G = 1, and both
+# extremes of the staged rows NG*G (2 rows; up to 512 rows, which at K=512
+# f32 takes a K tile above 48 KiB of shared memory).
+GROUPED_SIZES = [(64, 64, 32, 8), (8, 16, 8, 8), (64, 64, 64, 1),
+                 (8, 16, 2, 1), (64, 64, 64, 8)]
+
+
+def grouped_kw(sizes):
+    R, E, NG, G = sizes
+    return dict(rows_per_block=R, edges_per_chunk=E, groups_per_chunk=NG,
+                group_rows=G)
+
+
+@pytest.mark.parametrize("sizes", GROUPED_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("K", [1, 3, 32, 33, 128, 130, 512])
+def test_grouped_kernel_matches_plain(dev, K, binary, dtype, sizes):
+    # skewed_csr: n = 2500 is not a multiple of G = 8 (the last group runs
+    # past B), a hub row of 2000 edges over many chunks, empty rows.
+    csr = skewed_csr()
+    data = None if binary else csr.data
+    adj = Adjacency.from_csr(csr.with_data(data), device=dev, plan="grouped",
+                             **grouped_kw(sizes))
+    B = randn((csr.shape[1], K), dev, K, dtype)
+    before = (kgrp.launches, kgrp.carry_launches)
+    out = kgrp.spmm_grouped(adj.plan, adj.data, B, csr.shape[0])
+    again = kgrp.spmm_grouped(adj.plan, adj.data, B, csr.shape[0])
+    torch.cuda.synchronize()
+    assert (kgrp.launches, kgrp.carry_launches) == (before[0] + 2,
+                                                    before[1] + 2)
+    assert out.dtype == dtype and torch.equal(out, again)
+    check_bound(out, adj.csr, B, adj.data)
+    want = ref.spmm_grouped_chunks(
+        adj.plan.chunk_count, adj.plan.groups, adj.plan.group_count,
+        adj.plan.slots, adj.plan.group_rows, adj.data, B, adj.rows,
+        csr.shape[0])
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    assert float((out.float() - want.float()).abs().max()) <= tol * max(
+        float(want.float().abs().max()), 1.0)
+
+
+def test_grouped_kernel_smem_opt_in_tiles(dev):
+    # NG*G up to 512 staged rows: at K=512 f32 the K tile needs more than
+    # the 48 KiB a launch gets without the opt-in.
+    csr = skewed_csr()
+    plan = build_grouped_plan(csr, **grouped_kw((64, 64, 64, 8))).to(dev)
+    S = plan.groups_per_chunk * plan.group_rows
+    header = kgrp.header_bytes(plan.edges_per_chunk, plan.groups_per_chunk)
+    for K, dtype in ((512, torch.float32), (130, torch.float32),
+                     (512, torch.bfloat16)):
+        B = randn((csr.shape[1], K), dev, 5, dtype)
+        kt = kgrp.k_tile(K, kspmm.lane_vector(K, B), S, B.element_size(),
+                         header)
+        assert header + S * kt * B.element_size() > 48 * 1024, (K, dtype, kt)
+        out = kgrp.spmm_grouped(plan, csr.data.to(dev), B, csr.shape[0])
+        torch.cuda.synchronize()
+        check_bound(out, csr.to(dev), B, csr.data.to(dev))
+
+
+def test_grouped_kernel_rows_past_n_and_empty_blocks(dev):
+    # n = 13 with G = 8: the second group's rows 13-15 lie past B, which is
+    # followed in memory by NaN rows the kernel must not read; rows 8-23
+    # have no edges, so with R = 8 two blocks are one chunk of none.
+    rng = np.random.default_rng(9)
+    m, n = 40, 13
+    dense = (rng.random((m, n)) < 0.3) * rng.standard_normal((m, n))
+    dense[8:24] = 0
+    dense[0, n - 1] = 1.5  # the last column, in the group past n
+    indptr = np.r_[0, np.cumsum((dense != 0).sum(1))].astype(np.int32)
+    rows, cols = np.nonzero(dense)
+    csr = CSR(torch.from_numpy(indptr), torch.from_numpy(cols.astype(np.int32)),
+              torch.from_numpy(dense[rows, cols].astype(np.float32)), (m, n))
+    plan = build_grouped_plan(csr, **grouped_kw((8, 16, 8, 8))).to(dev)
+    assert int(plan.groups.max()) * 8 + 8 > n
+    for K in (1, 4, 130):
+        buf = torch.full((n + 16, K), float("nan"), device=dev)
+        buf[:n] = randn((n, K), dev, K)
+        B = buf[:n]
+        out = kgrp.spmm_grouped(plan, csr.data.to(dev), B, m)
+        torch.cuda.synchronize()
+        assert not out[8:24].any()
+        check_bound(out, csr.to(dev), B, csr.data.to(dev))
+
+
+def test_grouped_kernel_is_deterministic(dev):
+    csr, _ = reorder(rmat15())
+    plan = build_grouped_plan(csr).to(dev)
+    B = randn((csr.shape[1], 128), dev, 3)
+    outs = [kgrp.spmm_grouped(plan, None, B, csr.shape[0]) for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    check_bound(outs[0], csr.to(dev), B, None)
+
+
+@pytest.mark.parametrize("method", ["auto", "pallas"])
+def test_grouped_op_launches_and_never_takes_the_plain_version(
+        dev, monkeypatch, method):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "spmm_grouped_chunks", refuse)
+    csr = skewed_csr(seed=3)
+    adj = Adjacency.from_csr(csr, device=dev, plan="grouped")
+    d = adj.data.clone().requires_grad_(True)
+    B = randn((csr.shape[1], 24), dev, 1, requires_grad=True)
+    g = randn((csr.shape[0], 24), dev, 2)
+    kgrp.reset_launches()
+    kspmm.reset_launches()
+    spmm(adj.with_data(d), B, method=method).backward(g)
+    torch.cuda.synchronize()
+    assert (kgrp.launches, kspmm.launches) == (2, 0)  # forward, grad_B
+    adj64 = Adjacency.from_csr(csr)
+    d64 = csr.data.double().requires_grad_(True)
+    B64 = B.detach().cpu().double().requires_grad_(True)
+    spmm(adj64.with_data(d64), B64, method="xla").backward(g.cpu().double())
+    for got, want in ((B.grad, B64.grad), (d.grad, d64.grad)):
+        err = float((got.cpu().double() - want).abs().max())
+        assert err <= 1e-5 * max(float(want.abs().max()), 1.0)
+    with pytest.raises(AssertionError):
+        kgrp.spmm_grouped(adj.plan, adj.data, B.detach().cpu(), adj.shape[0])
+
+
+def test_grouped_without_transposed_plan_launches_the_csr_kernel(dev):
+    adj = Adjacency.from_csr(skewed_csr(), device=dev, plan="grouped",
+                             plan_transpose=False)
+    assert adj.plan_t is None
+    B = randn((adj.shape[1], 16), dev, 1, requires_grad=True)
+    g = randn((adj.shape[0], 16), dev, 2)
+    kgrp.reset_launches()
+    kspmm.reset_launches()
+    spmm(adj, B).backward(g)
+    torch.cuda.synchronize()
+    assert (kgrp.launches, kspmm.launches) == (1, 1)  # forward, grad_B
+    t = adj.transpose()
+    check_bound(B.grad, t.csr, g, t.data)
+
+
+def test_grouped_kernel_refuses_and_empty_work(dev):
+    adj = Adjacency.from_csr(skewed_csr(), device=dev, plan="grouped")
+    m, n = adj.shape
+    B = randn((n, 8), dev, 1)
+    with pytest.raises(ValueError, match="is on cpu"):
+        kgrp.spmm_grouped(adj.plan.to("cpu"), adj.data, B, m)
+    with pytest.raises(TypeError):
+        kgrp.spmm_grouped(adj.plan, adj.data, B.double(), m)
+    empty = CSR(torch.zeros(m + 1, dtype=torch.int32),
+                torch.zeros(0, dtype=torch.int32), None, (m, n))
+    before = kgrp.launches
+    out = kgrp.spmm_grouped(build_grouped_plan(empty).to(dev), None, B, m)
+    assert kgrp.launches == before and not out.any()
+
+
+def test_gcn_trains_on_a_reordered_graph_through_the_grouped_kernel(dev):
+    ds = sbm_graph(n_per_class=300, num_classes=3, p_in=0.02, p_out=0.001,
+                   feat_dim=32, seed=0)
+    csr, perm = reorder(add_self_loops(ds.csr))
+    p = torch.from_numpy(perm)
+    adj = Adjacency.from_csr(csr, device=dev, plan="grouped")
+    x, y = ds.features[p].to(dev), ds.labels[p].to(dev)
+    masks = {k: v[p].to(dev) for k, v in ds.masks.items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = GCN([32, 16, 3], generator=gen, device=dev).with_norms(adj)
+    kgrp.reset_launches()
+    kspmm.reset_launches()
+    res = train_node_classifier(model, adj, x, y, masks, epochs=20)
+    assert kgrp.launches >= 4 * 20 and kspmm.launches == 0
+    loss = res["history"]["loss"]
+    assert loss[-1] < loss[0] and np.all(np.isfinite(loss))
+    assert res["train_acc"] > 1 / 3
+    # The same parameters on the original order give the same logits.
+    model.eval()
+    with torch.no_grad():
+        logits = model(adj, x)[torch.from_numpy(inverse_permutation(perm))]
+        orig = Adjacency.from_csr(add_self_loops(ds.csr), device=dev)
+        model.with_norms(orig)
+        want = model(orig, ds.features.to(dev))
+    assert float((logits - want).abs().max()) <= 1e-4 * float(want.abs().max())

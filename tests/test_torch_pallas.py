@@ -60,12 +60,17 @@ def dense_B(rows, K, seed=1):
     return np.random.default_rng(seed).standard_normal((rows, K)).astype(np.float32)
 
 
-def walk(plan: SpmmPlan, B: np.ndarray):
+def walk(plan: SpmmPlan, B: np.ndarray, b_row=None):
     """The CUDA kernel's walk (csrc/spmm_chunk.cu) in Python: per chunk, its
     rows in order, each row's sum written to out or to its carry slot; then
-    the carry.  Returns (out, writes per row, writes per slot)."""
+    the carry.  Edge e of chunk c reads B row ``b_row(c, e)`` (default: its
+    column; the grouped kernel's walk passes the row its slot stages).
+    Returns (out, writes per row, writes per slot)."""
     ip = plan.indptr.numpy().astype(np.int64)
     ix = plan.indices.numpy()
+    if b_row is None:
+        def b_row(c, e):
+            return ix[e]
     (m, _), K = plan.shape, B.shape[1]
     out = np.full((m, K), np.nan)
     partial = np.full((plan.num_slots, K), np.nan)
@@ -90,7 +95,7 @@ def walk(plan: SpmmPlan, B: np.ndarray):
             while e >= re:
                 flush(r, rs, re, acc)
                 r, rs, re, acc = r + 1, re, ip[r + 2], np.zeros(K)
-            acc = acc + B[ix[e]]
+            acc = acc + B[b_row(c, e)]
         while True:
             flush(r, rs, re, acc)
             r += 1

@@ -193,8 +193,9 @@ def test_shape_and_argument_errors():
     # method="pallas" needs a per-row plan.
     (False, dict(method="pallas"), ValueError, "plan='perrow'"),
     (True, dict(method="pallas"), ValueError, "plan='perrow'"),
-    # The grouped plan (kernel row 9) is not ported yet.
-    ("grouped", dict(method="pallas"), NotImplementedError, "B6"),
+    # The grouped plan (kernel row 9) is sum/mean only, as in the JAX package.
+    ("grouped", dict(method="pallas", reduce="max"), ValueError,
+     "does not support reduce"),
 ])
 def test_not_ported_raise(plan, kw, exc, match):
     j, t = graph(False)
@@ -282,6 +283,17 @@ def test_build_moves_library_into_place_once(tmp_path, monkeypatch):
     assert _build.build("spmm_csr") == lib  # the hash matches: no rebuild
     assert count.read_text() == "x\n"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "carry.cuh"\n')
+    (tmp_path / "carry.cuh").write_text("// v1\n")
+    before = _build.library_path("k")
+    assert _build.library_path("k") == before
+    (tmp_path / "carry.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != before  # an edited header rebuilds
+    assert (_build.PKG_DIR / "csrc" / "carry.cuh").is_file()
 
 
 def test_build_without_nvcc_raises(monkeypatch):
