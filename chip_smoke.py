@@ -5,9 +5,10 @@
 
 Phases, each printed as it goes; any failure exits non-zero:
   1. device: torch.cuda, and the card's name and power limit from nvidia-smi;
-  2. build: nvcc builds the seven libraries of csrc/ (spmm_csr.cu,
+  2. build: nvcc builds the eight libraries of csrc/ (spmm_csr.cu,
      spmm_minmax.cu, edge_reduce.cu, gat_fused.cu, dot_attention.cu,
-     spmm_chunk.cu, spmm_grouped.cu) from this checkout, all at once (timed);
+     spmm_chunk.cu, spmm_grouped.cu, halo_spmm.cu) from this checkout, all
+     at once (timed);
   3. sum kernel vs plain: the CSR SpMM kernel against its plain PyTorch
      version in float64, |out - ref| <= 1e-5 (|A| @ |B|) + 1e-6 (bf16:
      8e-3 (|A| @ |B|)), at the GCN slice's shapes (pubmed-scale SBM graph with
@@ -88,6 +89,31 @@ Phases, each printed as it goes; any failure exits non-zero:
      per epoch, no CSR-kernel launch), with the checks of phase 6; the
      trained parameters on the original order (phase 6's route) give the
      same logits after un-permuting, within 1e-4 x max |ref|;
+ 18. the joint diag+halo SpMM (kernel row 7) vs float64: shard by shard over
+     the halo partitions (parallel/halo.py) of the SBM graph with
+     self-loops and of rmat15 at P in {2, 4, 8}, K in {1, 3, 32, 33, 128,
+     130}, sum/max/min, binary and valued, per-head sums at H in {2, 8}
+     (where H divides K), f32 and bf16, B in multiples of 0.5: a sum within
+     the sum kernel's bound, max/min out and joint ties equal to the plain
+     version's, two launches bitwise equal; the sum backward (row 7 over
+     each transposed block) and row 3's backward with the joint out and ties
+     within 1e-5 (bf16 8e-3) x max |ref| of float64;
+ 19. halo_spmm on the card, P=4 shards in one process, on the SBM graph with
+     self-loops at K=32, each reduce with runtime edge values (multiples of
+     1/4): out, grad_B and grad_vals against the float64 whole-graph spmm;
+     launches: forward 1 row-7 launch a shard, sum/mean backward 2 a shard,
+     max/min backward 2 row-3 launches a shard, method="xla" none;
+     dist_spmm (the all-gather tier) through the CSR kernel; then one
+     make_mesh over a world-size-1 NCCL group: one shard has no round, so
+     the exchange sends nothing, and the result equals the one-process
+     mesh's;
+ 20. sharded training over P=4 shards (parallel/train_step.py): GCN [128,
+     32, 3] on the SBM graph with self-loops, 50 epochs through row 7 (>= 24
+     launches an epoch, no other kernel), loss falling, train accuracy above
+     chance, logits within 1e-4 x max |ref| of a float64 CPU forward;
+     SAGE-pool [128, 16, 3] (no self-loops) and GAT [128, 8, 3] with 2 heads,
+     20 epochs each, with the same checks but the float64 one; then
+     dryrun_multichip(8);
  15. timings, run last: the card's copy bandwidth (utils/profiling.py::
      measure_hbm_bandwidth) beside the published 3.35 TB/s; device time of
      every kernel against its plain version at the
@@ -99,14 +125,22 @@ Phases, each printed as it goes; any failure exits non-zero:
      grouped kernel likewise, and against the chunk kernel at (64, 64) on
      the same ordering, on rmat15 (edge factor 16) as generated and
      RCM-reordered at (64, 64, 32, 8) and (64, 64, 64, 1) and on the
-     RCM-reordered SBM graph at K=32; call times of the sum kernel; GCN,
-     SAGE-pool and GAT ms/epoch for both methods (two runs each, in the
-     order auto, xla, xla, auto); and the GCN on the grouped route against
-     phase 6's CSR route (csr, grouped, grouped, csr).
+     RCM-reordered SBM graph at K=32; row 7 summed over P=4 shards at the
+     SBM graph K=32 and rmat15 K=128 against its plain version, the
+     whole-graph CSR kernel, torch.sparse.mm of each shard's [A_diag |
+     A_halo] over [B_shard; halo table] and its bound, and each shard's
+     launch alone beside its longest row; call times of the sum
+     kernel; GCN, SAGE-pool and GAT ms/epoch for both methods (two runs
+     each, in the order auto, xla, xla, auto); the GCN on the grouped route
+     against phase 6's CSR route (csr, grouped, grouped, csr); and the
+     sharded GCN against phase 6's single-device run (single, sharded,
+     sharded, single), and a train step's device time for both over their
+     ms/epoch (the device's busy share).
 
-Phases run in the order 1-14, 16, 17, 15.  Each path's launches are counted
-from 0 in its own run; the comparison launches of phases 3-5, 8, 11, 13 and
-16 are not counted.  Output: one line per phase, then
+Phases run in the order 1-14, 16-20, 15.  Each path's launches are counted
+from 0 in its own run; the comparison launches of phases 3-5, 8, 11, 13, 16
+and 18 are not counted.  NCCL traffic between ranks is not run: the card
+machine has one card.  Output: one line per phase, then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  With --record, the full record of the run is
 also written to PATH as JSON.
@@ -115,6 +149,7 @@ also written to PATH as JSON.
 import argparse
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -131,7 +166,7 @@ GAT_LR = 5e-3  # the JAX GAT bench's; weight decay 5e-4 as for the others
 SBM_PUBMED = dict(n_per_class=6573, num_classes=3, p_in=0.0006, p_out=0.00002,
                   feat_dim=128, seed=SEED)
 LIBS = ("spmm_csr", "spmm_minmax", "edge_reduce", "gat_fused", "dot_attention",
-        "spmm_chunk", "spmm_grouped")
+        "spmm_chunk", "spmm_grouped", "halo_spmm")
 RMAT_KS = (1, 3, 32, 33, 128, 130, 512)
 MINMAX_RMAT_KS = (1, 3, 32, 33, 128, 130)
 MINMAX_SBM_KS = (128, 16)
@@ -149,6 +184,12 @@ SWEEP_METHODS = ("xla", "tiled", "pallas", "scatter", "dense", "bcoo")
 GROUPED_KS = (1, 3, 32, 33, 128, 130, 512)
 # (R, E, NG, G) of the grouped plan: the JAX defaults and the JAX tests'.
 GROUPED_SIZES = ((64, 64, 32, 8), (8, 16, 8, 8))
+HALO_PARTS = (2, 4, 8)
+HALO_KS = (1, 3, 16, 32, 33, 128, 130)
+HALO_HEADS = (2, 8)
+SHARDS = 4  # the sharded tier's main path: P=4 shards in one process
+SHARDED_EPOCHS = 20  # SAGE-pool and GAT; the GCN runs EPOCHS
+SHARDED_GAT_DIMS, SHARDED_GAT_HEADS = [128, 8, 3], 2
 
 
 class SmokeFailure(Exception):
@@ -312,6 +353,7 @@ def main(argv=None):
     from gespmm_tpu_torch.kernels import _build
     from gespmm_tpu_torch.kernels import edge_reduce as kedge
     from gespmm_tpu_torch.kernels import gat_fused as kgat
+    from gespmm_tpu_torch.kernels import halo_spmm as khalo
     from gespmm_tpu_torch.kernels import spmm_csr as kspmm
     from gespmm_tpu_torch.kernels import spmm_minmax as kmm
     from gespmm_tpu_torch.kernels import spmm_grouped as kgrp
@@ -328,10 +370,25 @@ def main(argv=None):
                                             attention_aggregate, edge_softmax)
     from gespmm_tpu_torch.ops.sddmm import sddmm
     from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
+    from gespmm_tpu_torch.parallel import (build_halo_partition, dist_spmm,
+                                           halo_spmm, make_mesh,
+                                           partition_adjacency)
+    from gespmm_tpu_torch.parallel.dryrun import dryrun_multichip
+    from gespmm_tpu_torch.parallel.halo import (make_exchange,
+                                                split_edge_values)
+    from gespmm_tpu_torch.parallel.mesh import maybe_distributed_init
+    from gespmm_tpu_torch.parallel.train_step import (ShardedGAT,
+                                                      ShardedGCN,
+                                                      ShardedSAGE,
+                                                      build_sharded_gat,
+                                                      build_sharded_gcn,
+                                                      build_sharded_sage)
+    from gespmm_tpu_torch.sparse.formats import expand_indptr
     from gespmm_tpu_torch.sparse.partition import (build_grouped_plan,
                                                     build_spmm_plan)
     from gespmm_tpu_torch.sparse.reorder import inverse_permutation, reorder
-    from gespmm_tpu_torch.train.loop import train_node_classifier
+    from gespmm_tpu_torch.train.loop import (make_train_step,
+                                             train_node_classifier)
     from gespmm_tpu_torch.utils import profiling, timing
     from gespmm_tpu_torch.utils.datasets import (GraphDataset, rmat_graph,
                                                  sbm_graph, synth_graph)
@@ -342,7 +399,7 @@ def main(argv=None):
     record = {}
 
     def reset_counts():
-        for mod in (kspmm, kmm, kedge, kgat, kpal, kgrp):
+        for mod in (kspmm, kmm, kedge, kgat, kpal, kgrp, khalo):
             mod.reset_launches()
 
     def counts():
@@ -358,7 +415,8 @@ def main(argv=None):
                 "spmm_chunk": kpal.launches,
                 "spmm_chunk_carry": kpal.carry_launches,
                 "spmm_grouped": kgrp.launches,
-                "spmm_grouped_carry": kgrp.carry_launches}
+                "spmm_grouped_carry": kgrp.carry_launches,
+                "halo_spmm": khalo.launches}
 
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
@@ -1106,6 +1164,352 @@ def main(argv=None):
     record["gcn_grouped"] = dict(gcn_grouped_runs,
                                  unpermuted_vs_original=unpermuted)
 
+    phase("18 joint diag+halo SpMM (kernel row 7) vs float64")
+
+    def row7_check(hp, p, Bs, halo_p, dv, hv, g_p, reduce):
+        """Row 7 on shard p, twice, and its backward: ({"fwd": err,
+        "bwd": err}, ok, bitwise repeat) against float64 (max/min forward:
+        the plain version exactly)."""
+        blk = hp.blocks(p)
+        bf16 = Bs.dtype == torch.bfloat16
+        args = (blk.d_indptr, blk.d_indices, dv, Bs, blk.h_indptr,
+                blk.h_indices, hv, halo_p, reduce)
+        out, ties = khalo.halo_spmm_rows(*args)
+        again, ties2 = khalo.halo_spmm_rows(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(out, again) and (ties is None
+                                            or torch.equal(ties, ties2))
+        tab = (blk.d_rows, blk.d_indices, blk.h_rows, blk.h_indices)
+        f64 = [None if v is None else v.double() for v in (dv, hv)]
+        if reduce == "sum":
+            absv = [None if v is None else v.abs() for v in f64]
+            exact, _ = ref.halo_spmm_rows(tab[0], tab[1], f64[0], Bs.double(),
+                                          tab[2], tab[3], f64[1],
+                                          halo_p.double(), hp.rpp)
+            mag, _ = ref.halo_spmm_rows(tab[0], tab[1], absv[0],
+                                        Bs.double().abs(), tab[2], tab[3],
+                                        absv[1], halo_p.double().abs(),
+                                        hp.rpp)
+            bound = 8e-3 * mag if bf16 else 1e-5 * mag + 1e-6
+            diff = (out.double() - exact).abs()
+            ok = bool((diff <= bound).all())
+            fwd = float(diff.max()) if diff.numel() else 0.0
+        else:
+            want, want_ties = ref.halo_spmm_rows(tab[0], tab[1], dv, Bs,
+                                                 tab[2], tab[3], hv, halo_p,
+                                                 hp.rpp, reduce)
+            ok = torch.equal(out, want) and torch.equal(ties, want_ties)
+            fwd = float((out.double() - want.double()).abs().max())
+        tol = 8e-3 if bf16 else 1e-5
+        bwd = 0.0
+        for t_indptr, t_rows, t_map, v, table in (
+                (blk.d_t_indptr, blk.d_t_rows, blk.d_t_map, dv, Bs),
+                (blk.h_t_indptr, blk.h_t_rows, blk.h_t_map, hv, halo_p)):
+            tv = None if v is None else v.index_select(0, t_map.long())
+            cols = expand_indptr(t_indptr, t_rows.shape[0])
+            if reduce == "sum":
+                got, _ = khalo.halo_spmm_rows(t_indptr, t_rows, tv, g_p)
+                pairs = [(got, ref.halo_spmm_rows(
+                    cols, t_rows, None if tv is None else tv.double(),
+                    g_p.double(), None, None, None, None,
+                    table.shape[0])[0])]
+            else:
+                got, gv = kmm.spmm_minmax_vjp(t_indptr, t_rows, tv, table,
+                                              out, g_p, ties)
+                gt64 = g_p.double() / torch.clamp(ties, min=1.0).double()
+                want_B, want_v = ref.spmm_minmax_vjp_cols(cols, t_rows, tv,
+                                                          table, out, gt64)
+                pairs = [(got, want_B)] + ([] if want_v is None
+                                           else [(gv, want_v)])
+            torch.cuda.synchronize()
+            for got, want in pairs:
+                if not want.numel():
+                    continue
+                e = float((got.double() - want).abs().max())
+                bwd = max(bwd, e)
+                ok = ok and bool(torch.isfinite(got).all()) and \
+                    e <= tol * float(want.abs().max()) + 1e-6
+        return {"fwd": fwd, "bwd": bwd}, ok, same
+
+    # The SBM graph with self-loops (the GCN's and the GAT's), without them
+    # (the SAGE-pool's), and rmat15; K=16 is the SAGE-pool's layer-1 max and
+    # the 2-head GAT's per-head aggregate.
+    halo_graphs = (("sbm", sbm_host), ("sbm-noloops", ds.csr.to("cpu")),
+                   ("rmat15", rmat_host))
+    halo_err, halo_compared, halo_layouts = 0.0, [], []
+    for graph, host_csr in halo_graphs:
+        vals = torch.randn(host_csr.nnz, device=dev, generator=gen)
+        for P in HALO_PARTS:
+            hp = build_halo_partition(host_csr, P, device=dev)
+            mesh = make_mesh(P, device=dev)
+            layout = {"graph": graph, "P": P, "rounds": list(hp.rounds),
+                      "halo_rows": hp.halo_rows, "rpp": hp.rpp, "cpp": hp.cpp,
+                      "footprint_fraction": hp.footprint_fraction,
+                      "diag_nnz": list(hp.diag_nnz),
+                      "halo_nnz": list(hp.halo_nnz)}
+            halo_layouts.append(layout)
+            print(f"{graph} P={P}: rounds {hp.rounds}, halo rows "
+                  f"{hp.halo_rows}, footprint {hp.footprint_fraction:.4f}, "
+                  f"diag nnz {hp.diag_nnz}, halo nnz {hp.halo_nnz}",
+                  flush=True)
+            dvs, hvs = split_edge_values(hp, vals)
+            head_vals = {H: split_edge_values(hp, torch.randn(
+                host_csr.nnz, H, device=dev, generator=gen))
+                for H in HALO_HEADS}
+            for K in HALO_KS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    B = quantized((P * hp.cpp, K), dtype)
+                    halo = make_exchange(hp, mesh)(B)
+                    g = torch.randn(P * hp.rpp, K, device=dev,
+                                    generator=gen).to(dtype)
+                    variants = [(r, k, (None, None) if k == "binary"
+                                 else (dvs, hvs))
+                                for r in ("sum", "max", "min")
+                                for k in ("binary", "valued")]
+                    variants += [("sum", f"heads{H}", head_vals[H])
+                                 for H in HALO_HEADS if K % H == 0]
+                    label = f"row7 {graph} P={P} K={K} {str(dtype)[6:]}"
+                    worst, all_ok, all_same = {}, True, True
+                    for reduce, values, (dst, hst) in variants:
+                        errs = {"fwd": 0.0, "bwd": 0.0}
+                        for p in range(P):
+                            dv = None if dst is None else dst[p, :hp.diag_nnz[p]]
+                            hv = None if hst is None else hst[p, :hp.halo_nnz[p]]
+                            e, ok, same = row7_check(
+                                hp, p, B[p * hp.cpp:(p + 1) * hp.cpp],
+                                halo[p], dv, hv,
+                                g[p * hp.rpp:(p + 1) * hp.rpp], reduce)
+                            errs = {k: max(errs[k], e[k]) for k in errs}
+                            check(ok, f"row 7 disagrees: {label} {reduce} "
+                                  f"{values} shard {p}: {e}")
+                            check(same, f"row 7 not repeatable: {label} "
+                                  f"{reduce} {values} shard {p}")
+                            all_ok, all_same = all_ok and ok, all_same and same
+                        worst[f"{reduce}-{values}"] = errs
+                        halo_compared.append({"case": f"{label} {reduce} "
+                                              f"{values}", **errs})
+                    if (graph, P, K, dtype) == ("sbm", SHARDS, 32,
+                                                torch.float32):
+                        halo_err = worst["sum-valued"]["fwd"]
+                    print(f"{label}: fwd/bwd max_abs_err " + " ".join(
+                        f"{k}={v['fwd']:.2e}/{v['bwd']:.2e}"
+                        for k, v in worst.items())
+                        + f" {'ok' if all_ok else 'OUT OF BOUND'} | repeat "
+                        f"{'bitwise' if all_same else 'DIFFERS'}", flush=True)
+    record["row7_vs_plain"] = halo_compared
+    record["halo_layouts"] = halo_layouts
+
+    phase(f"19 halo_spmm on the card: P={SHARDS} shards in one process")
+    hp4 = build_halo_partition(sbm_host, SHARDS, device=dev)
+    mesh4 = make_mesh(SHARDS, device=dev)
+    n_s = sbm_host.shape[0]
+    adj64 = Adjacency.from_csr(sbm_host, device=dev)
+    # Values and B in multiples of 1/4 and 1/2: products exact in f32 and
+    # f64, so the float64 reference meets the same max/min ties.
+    op_vals = torch.randint(1, 9, (sbm_host.nnz,), device=dev,
+                            generator=gen) / 4.0
+    op_B = quantized((SHARDS * hp4.cpp, 32), torch.float32)
+    op_g = torch.randn(SHARDS * hp4.rpp, 32, device=dev, generator=gen)
+    op_runs = {}
+    for reduce in ("sum", "mean", "max", "min"):
+        Bl = op_B.clone().requires_grad_(True)
+        vl = op_vals.clone().requires_grad_(True)
+        dv, hv = split_edge_values(hp4, vl)
+        reset_counts()
+        out = halo_spmm(hp4, Bl, mesh4, reduce=reduce, diag_vals=dv,
+                        halo_vals=hv)
+        torch.cuda.synchronize()
+        fwd_launches = counts()
+        out.backward(op_g)
+        torch.cuda.synchronize()
+        launched = counts()
+        B64 = op_B[:n_s].double().requires_grad_(True)
+        v64 = op_vals.double().requires_grad_(True)
+        want = spmm(adj64.with_data(v64), B64, reduce=reduce, method="xla")
+        want.backward(op_g[:n_s].double())
+        errs = {}
+        for name, got, w, fwd in (("out", out.detach()[:n_s], want.detach(),
+                                   True),
+                                  ("grad_B", Bl.grad[:n_s], B64.grad, False),
+                                  ("grad_vals", vl.grad, v64.grad, False)):
+            e = float((got.double() - w).abs().max())
+            scale = float(w.abs().max())
+            bound = 1e-5 * scale + 1e-6 if fwd else 1e-5 * max(scale, 1.0)
+            errs[name] = e
+            check(bool(torch.isfinite(got).all()) and e <= bound,
+                  f"halo_spmm {reduce} {name} disagrees with float64: {e}")
+        bwd_row7 = launched["halo_spmm"] - fwd_launches["halo_spmm"]
+        others = {k: v for k, v in launched.items()
+                  if v and k not in ("halo_spmm", "spmm_minmax_vjp")}
+        print(f"halo_spmm {reduce}: launches forward {fwd_launches['halo_spmm']}"
+              f" row 7, backward {bwd_row7} row 7 + "
+              f"{launched['spmm_minmax_vjp']} row 3 | max_abs_err "
+              + " ".join(f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+        check(fwd_launches["halo_spmm"] == SHARDS,
+              f"halo_spmm {reduce}: expected 1 row-7 launch a shard forward")
+        want_bwd = ((2 * SHARDS, 0) if reduce in ("sum", "mean")
+                    else (0, 2 * SHARDS))
+        check((bwd_row7, launched["spmm_minmax_vjp"]) == want_bwd,
+              f"halo_spmm {reduce}: expected backward launches {want_bwd}")
+        check(not others, f"halo_spmm {reduce} launched {others}")
+        op_runs[reduce] = {"launches_forward": fwd_launches["halo_spmm"],
+                           "launches_backward_row7": bwd_row7,
+                           "launches_backward_row3":
+                               launched["spmm_minmax_vjp"], "errors": errs}
+    reset_counts()
+    Bx = op_B.clone().requires_grad_(True)
+    halo_spmm(hp4, Bx, mesh4, reduce="max", method="xla").sum().backward()
+    torch.cuda.synchronize()
+    xla_launches = counts()
+    check(not any(xla_launches.values()),
+          f"halo_spmm(method='xla') launched {xla_launches}")
+    # The all-gather tier: each slab through ops/spmm.py (the CSR kernel).
+    padj = partition_adjacency(sbm_host, SHARDS, device=dev)
+    reset_counts()
+    d_out = dist_spmm(padj, op_B[:n_s], mesh4)
+    torch.cuda.synchronize()
+    dist_launches = counts()
+    d_want = spmm(adj64.with_data(adj64.data.double()), op_B[:n_s].double(),
+                  method="xla")
+    d_err = float((d_out[:n_s].double() - d_want).abs().max())
+    print(f"dist_spmm: launches {dist_launches['spmm_csr']} CSR kernel, "
+          f"max_abs_err {d_err:.3e}", flush=True)
+    check(dist_launches["spmm_csr"] == SHARDS
+          and d_err <= 1e-5 * float(d_want.abs().max()) + 1e-6,
+          "dist_spmm: expected one CSR-kernel launch a slab, within bound")
+    # One rank, one shard, through torch.distributed (NCCL).
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    group = maybe_distributed_init(f"tcp://localhost:{port}", 1, 0, "nccl")
+    try:
+        hp1 = build_halo_partition(sbm_host, 1, device=dev)
+        B1 = op_B[:n_s].clone().requires_grad_(True)
+        reset_counts()
+        out_nccl = halo_spmm(hp1, B1, make_mesh(1, group=group, device=dev))
+        out_nccl.backward(op_g[:n_s])
+        torch.cuda.synchronize()
+        nccl_launches = counts()["halo_spmm"]
+        B1_one = op_B[:n_s].clone().requires_grad_(True)
+        out_one = halo_spmm(hp1, B1_one, make_mesh(1, device=dev))
+        out_one.backward(op_g[:n_s])
+        same = (torch.equal(out_nccl, out_one)
+                and torch.equal(B1.grad, B1_one.grad))
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"NCCL world size 1: rounds {hp1.rounds} (one shard has no round, "
+          f"so the exchange sends nothing over NCCL); row-7 launches "
+          f"{nccl_launches}; equal to the one-process mesh: {same}",
+          flush=True)
+    check(hp1.rounds == () and nccl_launches == 3 and same,
+          "the world-size-1 NCCL mesh differs from the one-process mesh")
+    record["halo_op"] = {"runs": op_runs, "xla_launches": xla_launches,
+                         "dist_spmm": {"launches": dist_launches,
+                                       "max_abs_err": d_err},
+                         "nccl_world1": {"rounds": list(hp1.rounds),
+                                         "launches": nccl_launches,
+                                         "equal_to_one_process": same}}
+
+    phase(f"20 sharded training over P={SHARDS} shards")
+
+    def sharded_train(build, host_csr, dims, epochs, lr, **kw):
+        """Train through the sharded builder; the run's record, the model
+        and its inputs."""
+        step, (model, opt), prepare, hp = build(
+            host_csr, dims[0], dims[1], dims[2], mesh4, lr=lr, **kw)
+        x, labels, mask = prepare(ds.features, ds.labels, ds.masks["train"])
+        marks, losses = [], []
+        reset_counts()
+        for epoch in range(epochs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(step(model, opt, x, labels, mask)[2])
+            stop.record()
+            if epoch > 3:
+                marks.append((start, stop))
+        torch.cuda.synchronize()
+        launched = counts()
+        losses = torch.stack(losses).tolist()
+        model.eval()
+        with torch.no_grad():
+            logits = model(x)
+        train_acc = float(((logits.argmax(-1) == labels) & mask).sum()
+                          / mask.sum())
+        ms = mean([a.elapsed_time(b) for a, b in marks])
+        return {"loss_first": losses[0], "loss_last": losses[-1],
+                "train_acc": train_acc, "ms_per_epoch_runs": [ms],
+                "launches": launched}, model, x, logits, losses
+
+    def sharded_checks(name, run, losses, epochs, per_epoch):
+        print(f"sharded {name}: loss {run['loss_first']:.4f} -> "
+              f"{run['loss_last']:.4f} | train acc {run['train_acc']:.4f} | "
+              f"{run['ms_per_epoch_runs'][0]:.4f} ms/epoch | launches "
+              f"{run['launches']}", flush=True)
+        check(finite_list(losses) and losses[-1] < losses[0],
+              f"sharded {name}: loss did not fall")
+        check(run["train_acc"] > 1 / 3, f"sharded {name}: accuracy at chance")
+        check(run["launches"]["halo_spmm"] >= per_epoch * epochs,
+              f"sharded {name}: only {run['launches']['halo_spmm']} row-7 "
+              f"launches in {epochs} epochs")
+
+    sharded = {}
+    gcn_s, gcn_model, gcn_x, gcn_logits, losses = sharded_train(
+        build_sharded_gcn, sbm_host, GCN_DIMS, EPOCHS, 1e-2)
+    # Row 7: 2 aggregations x 4 shards forward, 2 x 2 x 4 backward.
+    sharded_checks("GCN", gcn_s, losses, EPOCHS, 6 * SHARDS)
+    check(not any(v for k, v in gcn_s["launches"].items()
+                  if k != "halo_spmm"),
+          f"sharded GCN launched another kernel: {gcn_s['launches']}")
+    cpu_mesh = make_mesh(SHARDS, device="cpu")
+
+    def vs_float64(name, run, model, x, logits, cpu_model):
+        """Hold the trained model's card logits to the same sharded module's
+        float64 forward on the CPU (row 7's and the edge ops' plain
+        versions) from the same parameters."""
+        cpu_model = cpu_model.double()
+        cpu_model.load_state_dict({k: v.cpu().double() for k, v in
+                                   model.state_dict().items()})
+        with torch.no_grad():
+            want = cpu_model(x.cpu().double())
+        err = float((logits.cpu().double() - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"sharded {name} logits vs float64 CPU forward: max_abs_err "
+              f"{err:.3e} (max |ref| {scale:.3e})", flush=True)
+        check(err <= 1e-4 * scale,
+              f"sharded {name} logits disagree with float64")
+        run["logits_vs_float64"] = {"max_abs_err": err, "max_ref": scale}
+
+    # The GCN's float64 forward takes the "xla" tier (no tiled=True), an
+    # implementation apart from row 7's plain version.
+    vs_float64("GCN", gcn_s, gcn_model, gcn_x, gcn_logits, ShardedGCN(
+        build_halo_partition(sbm_host, SHARDS), cpu_mesh, *GCN_DIMS))
+    sharded["gcn"] = gcn_s
+    sage_host = ds.csr.to("cpu")
+    sage_s, sage_model, sage_x, sage_logits, losses = sharded_train(
+        build_sharded_sage, sage_host, SAGE_DIMS, SHARDED_EPOCHS, 1e-2,
+        aggregator="pool")
+    sharded_checks("SAGE-pool", sage_s, losses, SHARDED_EPOCHS, 2 * SHARDS)
+    check(sage_s["launches"]["spmm_minmax_vjp"] >= 4 * SHARDS * SHARDED_EPOCHS,
+          "sharded SAGE-pool: the max backward did not run row 3")
+    vs_float64("SAGE-pool", sage_s, sage_model, sage_x, sage_logits,
+               ShardedSAGE(build_halo_partition(sage_host, SHARDS), cpu_mesh,
+                           *SAGE_DIMS, "pool"))
+    sharded["sage_pool"] = sage_s
+    gat_s, gat_model, gat_x, gat_logits, losses = sharded_train(
+        build_sharded_gat, sbm_host, SHARDED_GAT_DIMS, SHARDED_EPOCHS, GAT_LR,
+        heads=SHARDED_GAT_HEADS)
+    sharded_checks(f"GAT heads={SHARDED_GAT_HEADS}", gat_s, losses,
+                   SHARDED_EPOCHS, 2 * SHARDS)
+    # Per-head values need the tiled tier: on the CPU, row 7's plain version.
+    vs_float64(f"GAT heads={SHARDED_GAT_HEADS}", gat_s, gat_model, gat_x,
+               gat_logits, ShardedGAT(
+                   build_halo_partition(sbm_host, SHARDS, tiled=True),
+                   cpu_mesh, *SHARDED_GAT_DIMS, SHARDED_GAT_HEADS))
+    sharded["gat"] = gat_s
+    sharded["dryrun_multichip_8"] = dryrun_multichip(8, device=dev)
+    record["sharded"] = sharded
+
     phase("15 timings, in the order plain / kernel / kernel / plain")
     hbm = profiling.measure_hbm_bandwidth()
     print(f"copy bandwidth (256 MiB f32, device time): {hbm:.1f} GB/s, "
@@ -1155,7 +1559,13 @@ def main(argv=None):
 
     # Max/min at the SAGE-pool slice's shapes: layer 0 gathers K=128 (the
     # pooled input), layer 1 K=16; relu'd inputs, as the pool layer gives.
-    # Then rmat15 K=128, where the hub row and column set the time.
+    # Then rmat15 K=128, where the hub row and column set the time.  The
+    # plain max/min (and later the plain attention and row 7 over its
+    # shards) is 15-40 launches a call, so 10 calls a group keep the launch
+    # queue from filling behind the spin kernel (see timing.device_time).
+    def few_time(f):
+        return timing.device_time(f, iters=10)
+
     mm_timings = []
     for graph, a, K in [("sbm", sage_adj, K) for K in MINMAX_SBM_KS] + [
             ("rmat15", rmat, 128)]:
@@ -1181,7 +1591,7 @@ def main(argv=None):
 
         for label, kernel, plain in (("spmm_minmax", fwd_kernel, fwd_plain),
                                      ("spmm_minmax_vjp", bwd_kernel, bwd_plain)):
-            k_dev, p_dev = alternate(timing.device_time, kernel, plain)
+            k_dev, p_dev = alternate(few_time, kernel, plain)
             row = {"kernel": label, "shape": f"{graph} K={K}", "nnz": a.nnz,
                    "K": K, "kernel_device_ms": k_dev, "plain_device_ms": p_dev}
             mm_timings.append(row)
@@ -1214,12 +1624,7 @@ def main(argv=None):
 
     # The fused kernels at the GAT slice's layer 0 (K=64) and layer 1 (K=3),
     # at DGL's 8-head layer 0 (K=64, dh=8), and at rmat15 K=64.  The plain
-    # versions walk the CSR edges for every direction.  Each of their calls
-    # is 20-40 launches, so 10 calls a group keep the launch queue from
-    # filling behind the spin kernel (see timing.device_time).
-    def gat_time(f):
-        return timing.device_time(f, iters=10)
-
+    # versions walk the CSR edges for every direction.
     def library_time(name, call, want=None, iters=50):
         """Device ms of one PyTorch call that computes the kernel's function
         (a yardstick the port never calls), or None where the card has no
@@ -1268,7 +1673,7 @@ def main(argv=None):
                  lambda: kgat.gat_backward_cols(a.csc.indptr, a.csc.indices,
                                                 *tables, **kw),
                  lambda: ref.gat_fused_vjp_cols(*edges, *tables, SLOPE, H))):
-            k_dev, p_dev = alternate(gat_time, kernel, plain)
+            k_dev, p_dev = alternate(few_time, kernel, plain)
             row = {"kernel": label, "shape": f"{graph} H={H} dh={dh}",
                    "nnz": a.nnz, "K": H * dh, "kernel_device_ms": k_dev,
                    "plain_device_ms": p_dev}
@@ -1304,7 +1709,7 @@ def main(argv=None):
                  lambda: kgat.dot_backward_cols(a.csc.indptr, a.csc.indices,
                                                 *tabs),
                  lambda: ref.dot_attention_vjp_cols(*edges, *tabs))):
-            k_dev, p_dev = alternate(gat_time, kernel, plain)
+            k_dev, p_dev = alternate(few_time, kernel, plain)
             nnz, H4 = a.nnz, 4 * m
             tables = (m + n) * Ka * 4 + n * K * 4  # D1, D2, B
             nbytes, ops = {
@@ -1374,7 +1779,7 @@ def main(argv=None):
             err, ok = bound_check(torch, ref, chunk(), a.csr.indptr,
                                   a.csr.indices, a.rows, data, B)
             check(ok, f"chunk kernel disagrees at {graph} K={K} ({R}, {E})")
-            k_dev, p_dev = alternate(gat_time, chunk, plain)
+            k_dev, p_dev = alternate(few_time, chunk, plain)
             c_dev, b1_dev = alternate(timing.device_time, chunk, csr_kernel)
             # The bound is the function's (row 9's is the same): the plan's
             # work list is the kernel's own metadata, not counted.
@@ -1437,7 +1842,7 @@ def main(argv=None):
         err, ok = bound_check(torch, ref, grouped(), a.csr.indptr,
                               a.csr.indices, a.rows, data, B)
         check(ok, f"grouped kernel disagrees at {graph} K={K} {sizes}")
-        k_dev, p_dev = alternate(gat_time, grouped, plain)
+        k_dev, p_dev = alternate(few_time, grouped, plain)
         g_dev, c_dev = alternate(timing.device_time, grouped, chunk)
         g2_dev, b1_dev = alternate(timing.device_time, grouped, csr_kernel)
         # The bound is the function's, as for the chunk kernel: the plan's
@@ -1463,6 +1868,104 @@ def main(argv=None):
               f"{card}", flush=True)
     record["grouped_timings"] = grouped_timings
 
+    # Row 7 (halo_spmm), summed over P=4 shards, at the sharded GCN's
+    # layer-0 shape (the SBM graph with self-loops, valued, K=32) and at
+    # rmat15 K=128 (binary, the hub row of degree 3,866 in shard 0):
+    # against its plain version, the whole-graph CSR kernel and
+    # torch.sparse.mm of each shard's [A_diag | A_halo] over [B_shard;
+    # halo table] (the library call; the port never calls it).  The bound
+    # counts both blocks' indptr, indices and values, each table row the
+    # edges reference once and out, over every shard.
+    halo_timings = []
+    for graph, host_csr, K in (("sbm", sbm_host, 32), ("rmat15", rmat_host,
+                                                       128)):
+        hp = build_halo_partition(host_csr, SHARDS, device=dev)
+        mesh = make_mesh(SHARDS, device=dev)
+        a = Adjacency.from_csr(host_csr, device=dev)
+        B = torch.randn(SHARDS * hp.cpp, K, device=dev, generator=gen)
+        halo = make_exchange(hp, mesh)(B)
+        shard_args, libs = [], []
+        for p in range(SHARDS):
+            blk = hp.blocks(p)
+            dv = None if hp.diag_data is None else hp.diag_data[
+                p, :hp.diag_nnz[p]]
+            hv = None if hp.halo_data is None else hp.halo_data[
+                p, :hp.halo_nnz[p]]
+            Bs = B[p * hp.cpp:(p + 1) * hp.cpp]
+            shard_args.append((blk, dv, hv, Bs, halo[p]))
+            # [A_diag | A_halo] as one (rpp, cpp + halo_rows) CSR.
+            rows = torch.cat([blk.d_rows, blk.h_rows]).long()
+            cols = torch.cat([blk.d_indices, blk.h_indices + hp.cpp]).long()
+            v = (torch.ones(rows.shape[0], device=dev) if dv is None
+                 else torch.cat([dv, hv]))
+            lib = torch.sparse_coo_tensor(
+                torch.stack([rows, cols]), v,
+                (hp.rpp, hp.cpp + hp.halo_rows)).coalesce().to_sparse_csr()
+            libs.append((lib, torch.cat([Bs, halo[p]])))
+
+        def row7():
+            return [khalo.halo_spmm_rows(blk.d_indptr, blk.d_indices, dv, Bs,
+                                         blk.h_indptr, blk.h_indices, hv, hb,
+                                         "sum")[0]
+                    for blk, dv, hv, Bs, hb in shard_args][-1]
+
+        def plain():
+            return [ref.halo_spmm_rows(blk.d_rows, blk.d_indices, dv, Bs,
+                                       blk.h_rows, blk.h_indices, hv, hb,
+                                       hp.rpp)[0]
+                    for blk, dv, hv, Bs, hb in shard_args][-1]
+
+        def csr_kernel():
+            return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, a.data,
+                                  B[:a.shape[1]])
+
+        got = torch.cat([khalo.halo_spmm_rows(
+            blk.d_indptr, blk.d_indices, dv, Bs, blk.h_indptr, blk.h_indices,
+            hv, hb)[0] for blk, dv, hv, Bs, hb in shard_args])[:a.shape[0]]
+        err, ok = bound_check(torch, ref, got, a.csr.indptr, a.csr.indices,
+                              a.rows, a.data, B[:a.shape[1]])
+        check(ok, f"row 7 disagrees at {graph} K={K}")
+        lib_ms = library_time(
+            "torch.sparse.mm per shard",
+            lambda: [torch.sparse.mm(L, T) for L, T in libs][-1], iters=20)
+        k_dev, p_dev = alternate(few_time, row7, plain)
+        k2_dev, c_dev = alternate(timing.device_time, row7, csr_kernel)
+        # Each shard's launch alone, beside its longest row (diag + halo
+        # edges): one warp walks that row, so it sets the launch's tail.
+        shard_ms = [timing.device_time(
+            lambda s=s: khalo.halo_spmm_rows(
+                s[0].d_indptr, s[0].d_indices, s[1], s[3], s[0].h_indptr,
+                s[0].h_indices, s[2], s[4])[0]) * 1e3 for s in shard_args]
+        longest = [int((torch.diff(blk.d_indptr) + torch.diff(blk.h_indptr))
+                       .max()) for blk, *_ in shard_args]
+        valued = hp.diag_data is not None
+        # Each shard reads once the table rows its edges reference (its
+        # distinct diag columns and distinct halo rows, not the padded halo
+        # table) and writes out.
+        used = [int(torch.unique(blk.d_indices).numel())
+                + int(torch.unique(blk.h_indices).numel())
+                for blk, *_ in shard_args]
+        nbytes = sum(2 * (hp.rpp + 1) * 4
+                     + (hp.diag_nnz[p] + hp.halo_nnz[p]) * (8 if valued else 4)
+                     + (used[p] + hp.rpp) * K * 4
+                     for p in range(SHARDS))
+        row = {"kernel": "halo_spmm", "shape": f"{graph} P={SHARDS} K={K} "
+               f"{'valued' if valued else 'binary'} sum", "nnz": hp.nnz,
+               "K": K, "halo_rows": hp.halo_rows, "max_abs_err": err,
+               "kernel_device_ms": k_dev + k2_dev, "plain_device_ms": p_dev,
+               "spmm_csr_device_ms": c_dev, "library_ms": lib_ms,
+               "shard_device_ms": shard_ms, "shard_longest_row": longest,
+               "table_rows_read": used, "bytes": nbytes, "ops": 2 * hp.nnz * K}
+        halo_timings.append(row)
+        print(f"halo_spmm {row['shape']} (sum over shards): max_abs_err "
+              f"{err:.3e} | device time kernel "
+              f"{mean(row['kernel_device_ms']):.5f} ms | plain "
+              f"{mean(p_dev):.5f} ms | whole-graph spmm_csr {mean(c_dev):.5f} "
+              f"ms | torch.sparse.mm per shard {lib_ms} ms | bound "
+              f"{profiling.bound(nbytes, row['ops'])[0] * 1e3:.5f} ms | "
+              f"per shard {', '.join(f'{x:.5f}' for x in shard_ms)} ms, "
+              f"longest rows {longest} | {card}", flush=True)
+    record["halo_timings"] = halo_timings
 
     for name, runs, make, a, lr in (
             ("GCN", gcn_runs, make_gcn, adj, 1e-2),
@@ -1486,6 +1989,42 @@ def main(argv=None):
         print(f"GCN auto, {route} route: {mean(ms):.4f} ms/epoch (runs "
               f"{', '.join(f'{x:.4f}' for x in ms)}) | {card}", flush=True)
     record["gcn_routes_ms_per_epoch"] = gcn_routes
+    # The sharded GCN (P=4 shards in one process, row 7) against phase 6's
+    # single-device run.
+    gcn_sharded_ms = {"single": [], "sharded": []}
+    for route in ("single", "sharded", "sharded", "single"):
+        gcn_sharded_ms[route].append(
+            train(make_gcn, adj, "auto")[1]["mean_epoch_time"] * 1e3
+            if route == "single" else sharded_train(
+                build_sharded_gcn, sbm_host, GCN_DIMS, EPOCHS,
+                1e-2)[0]["ms_per_epoch_runs"][0])
+    for route, ms in gcn_sharded_ms.items():
+        print(f"GCN {route} ({'P=4 shards' if route == 'sharded' else 'one'}"
+              f" device): {mean(ms):.4f} ms/epoch (runs "
+              f"{', '.join(f'{x:.4f}' for x in ms)}) | {card}", flush=True)
+    record["gcn_sharded_ms_per_epoch"] = gcn_sharded_ms
+    # The device's share of an epoch: one train step's device time (queued
+    # behind a spin kernel, so without the host's gaps) over its ms/epoch.
+    model = make_gcn("auto")
+    single_step = make_train_step(
+        model, torch.optim.AdamW(model.parameters(), lr=1e-2,
+                                 weight_decay=5e-4),
+        adj, ds.features, ds.labels, ds.masks["train"],
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    step, (smodel, sopt), prepare, _ = build_sharded_gcn(
+        sbm_host, *GCN_DIMS, mesh4, lr=1e-2)
+    sx, slab, smask = prepare(ds.features, ds.labels, ds.masks["train"])
+    busy = {}
+    for route, fn in (("single", single_step),
+                      ("sharded", lambda: step(smodel, sopt, sx, slab,
+                                               smask)[2])):
+        step_ms = timing.device_time(fn, iters=3) * 1e3
+        busy[route] = {"device_ms_per_step": step_ms,
+                       "busy_share": step_ms / mean(gcn_sharded_ms[route])}
+        print(f"GCN {route}: device time a step {step_ms:.4f} ms, busy share "
+              f"of its ms/epoch {busy[route]['busy_share']:.4f} | {card}",
+              flush=True)
+    record["gcn_busy"] = busy
     mh_ms = gat_mh_runs["auto"]["ms_per_epoch_runs"][0]
     print(f"GAT heads={GAT_MH_HEADS} auto: {mh_ms:.4f} ms/epoch | {card}",
           flush=True)
@@ -1585,6 +2124,11 @@ def main(argv=None):
                           grouped_launches["spmm_grouped"],
                           grouped_row["max_abs_err"], grouped_row),
              carry_launches=grouped_launches["spmm_grouped_carry"]),
+        # Launches: the sharded GCN's run (phase 20); error: the main path's
+        # shape (phase 18, sbm P=4 K=32 f32 valued sum).
+        kernel_entry("halo_spmm", khalo.SOURCE, khalo.REPLACES,
+                     sharded["gcn"]["launches"]["halo_spmm"], halo_err,
+                     halo_timings[0]),
     ]}
     record.update(kernels)
     if args.record:

@@ -1,0 +1,37 @@
+// The max/min contribution and its running (extremum, count) fold, shared by
+// the max/min SpMM (spmm_minmax.cu) and the joint diag+halo SpMM
+// (halo_spmm.cu).
+//
+// The backward over the CSC (spmm_minmax.cu) finds the edges that achieve an
+// output again by recomputing each contribution and comparing it with the
+// stored output, so every forward must form a contribution with the same
+// f32 expression: __fmul_rn(val, B) (which nvcc never contracts into an
+// FMA), or B itself for a binary matrix.  Both kernels take it from here, so
+// that the two cannot drift apart; the build does not use --use_fast_math.
+
+#pragma once
+
+#include <math_constants.h>
+
+namespace gespmm {
+
+template <bool HAS_VALS>
+__device__ __forceinline__ float minmax_contrib(float val, float b) {
+  return HAS_VALS ? __fmul_rn(val, b) : b;
+}
+
+// The identity of the running extremum: an empty row keeps it, with count 0.
+template <bool IS_MAX>
+__device__ __forceinline__ float minmax_identity() {
+  return IS_MAX ? -CUDART_INF_F : CUDART_INF_F;
+}
+
+// A strictly better contribution resets the count to 1, an equal one adds 1.
+template <bool IS_MAX>
+__device__ __forceinline__ void minmax_fold(float x, float& best, int& count) {
+  const bool better = IS_MAX ? x > best : x < best;
+  count = better ? 1 : count + (x == best);
+  best = better ? x : best;
+}
+
+}  // namespace gespmm

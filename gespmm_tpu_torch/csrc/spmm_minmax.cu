@@ -30,9 +30,9 @@
 // in registers; each edge gathers two row-space tables, out and gt.
 //
 // The achievement test must find exactly the edges the forward chose, so
-// both kernels form the contribution as the same single f32 product,
-// __fmul_rn(val, B) (which nvcc never contracts into an FMA), or B itself
-// for a binary matrix; the build does not use --use_fast_math.  out is
+// both kernels form the contribution with minmax.cuh's minmax_contrib (one
+// f32 product, __fmul_rn(val, B), or B itself for a binary matrix), the
+// expression the joint diag+halo forward (halo_spmm.cu) uses too.  out is
 // compared as stored (in B's dtype, cast up), as gespmm_tpu's reference VJP
 // does.
 //
@@ -56,8 +56,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
+
+#include "minmax.cuh"
 
 namespace {
 
@@ -121,7 +122,7 @@ spmm_minmax_kernel(int m, int K, const int* __restrict__ indptr,
     int count[VEC];
 #pragma unroll
     for (int t = 0; t < VEC; ++t) {
-      best[t] = IS_MAX ? -CUDART_INF_F : CUDART_INF_F;
+      best[t] = gespmm::minmax_identity<IS_MAX>();
       count[t] = 0;
     }
     for (int base = start; base < end; base += 32) {
@@ -143,11 +144,9 @@ spmm_minmax_kernel(int m, int K, const int* __restrict__ indptr,
           const P p = *reinterpret_cast<const P*>(B + (int64_t)cj * K + k);
 #pragma unroll
           for (int t = 0; t < VEC; ++t) {
-            const float x = HAS_VALS ? __fmul_rn(vj, to_f32(p.v[t]))
-                                     : to_f32(p.v[t]);
-            const bool better = IS_MAX ? x > best[t] : x < best[t];
-            count[t] = better ? 1 : count[t] + (x == best[t]);
-            best[t] = better ? x : best[t];
+            gespmm::minmax_fold<IS_MAX>(
+                gespmm::minmax_contrib<HAS_VALS>(vj, to_f32(p.v[t])), best[t],
+                count[t]);
           }
         }
       }
@@ -215,7 +214,7 @@ spmm_minmax_vjp_kernel(int n, int K, int nnz, const int* __restrict__ colptr,
           const F g = *reinterpret_cast<const F*>(gt + off);
 #pragma unroll
           for (int t = 0; t < VEC; ++t) {
-            const float x = HAS_VALS ? __fmul_rn(vj, b[t]) : b[t];
+            const float x = gespmm::minmax_contrib<HAS_VALS>(vj, b[t]);
             const float w = x == to_f32(o.v[t]) ? g.v[t] : 0.f;
             acc[t] = HAS_VALS ? fmaf(w, vj, acc[t]) : acc[t] + w;
             if (WANT_VALS) part = fmaf(w, b[t], part);

@@ -8,7 +8,7 @@ the JAX package goes through ``params_from_jax``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -54,12 +54,16 @@ def dropout(x: Tensor, rate: float, training: bool,
                                                    device=x.device))
 
 
-def params_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, Tensor]:
+def params_from_jax(params, prefix: str = "") -> Dict[str, Tensor]:
     """A JAX parameter pytree of nested dicts -> a flat ``state_dict``.
 
     ``{"layer_0": {"self": {"w": ...}}}`` becomes ``{"layer_0.self.w": ...}``
-    (f32 tensors), the names the port's modules give their parameters.
+    (f32 tensors), the names the port's modules give their parameters.  The
+    ``(params, opt_state)`` init state of the JAX sharded builders
+    (``gespmm_tpu/parallel/train_step.py``) gives its params' state dict.
     """
+    if isinstance(params, tuple):
+        params = params[0]
     flat = {}
     for key, value in params.items():
         if isinstance(value, Mapping):

@@ -1,12 +1,13 @@
 """Plain PyTorch SpMM, SDDMM, edge segment reduce, fused GAT and dot-product
-attention, and the chunked and grouped SpMMs — the reference the CUDA kernels
-are held to.
+attention, the chunked and grouped SpMMs and the joint diag+halo SpMM of the
+sharded tier — the reference the CUDA kernels are held to.
 
 Counterpart of ``gespmm_tpu/ops/reference.py`` (with its scatter and dense
 tiers) and of the math of ``gespmm_tpu/kernels/gat_fused.py``,
-``spmm_pallas.py`` and ``spmm_grouped.py``.  These run on any device:
-the CPU tests use them, the ``method="xla"`` tier runs them on the card, and
-``chip_smoke.py`` compares the kernels with them (in float64 there).
+``spmm_pallas.py``, ``spmm_grouped.py`` and ``parallel/halo.py``.  These
+run on any device: the CPU tests use them, the ``method="xla"`` tier runs
+them on the card, and ``chip_smoke.py`` compares the kernels with them (in
+float64 there).
 
 Max/min contributions are ``val_e * B[col_e]`` formed as one f32 product
 (one f64 product for f64 inputs), exactly as the kernels form them, so that
@@ -39,12 +40,23 @@ def _contrib(indices: Tensor, data: Optional[Tensor], B: Tensor) -> Tensor:
 
 
 def _minmax_rows(rows: Tensor, contrib: Tensor, m: int, reduce: str) -> Tensor:
-    """Per-row max/min of ``contrib``; rows without an edge stay 0."""
-    out = torch.zeros((m, contrib.shape[1]), dtype=contrib.dtype,
-                      device=contrib.device)
+    """Per-row max/min of ``contrib``; rows without an edge give 0.
+
+    The scatter starts from the reduction's identity (±inf; rows without an
+    edge are masked to 0 after), so that autograd splits a row's gradient
+    among the edges that achieve its extremum only: from a start of 0 with
+    ``include_self=False`` torch counts the start as one more tie of a row
+    whose extremum is 0.  A NaN or ±inf extremum of a row with edges stays.
+    """
+    ident = float("-inf") if reduce == "max" else float("inf")
+    out = torch.full((m, contrib.shape[1]), ident, dtype=contrib.dtype,
+                     device=contrib.device)
     idx = rows.long()[:, None].expand_as(contrib)
-    return out.scatter_reduce_(0, idx, contrib, _SCATTER[reduce],
-                               include_self=False)
+    out.scatter_reduce_(0, idx, contrib, _SCATTER[reduce])
+    has_edge = torch.zeros(m, dtype=torch.bool, device=out.device)
+    has_edge.index_fill_(0, rows.long(), True)
+    return torch.where(has_edge[:, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 def spmm_rows(rows: Tensor, indices: Tensor, data: Optional[Tensor],
@@ -131,6 +143,44 @@ def spmm_minmax_vjp_cols(cols: Tensor, rows: Tensor, data: Optional[Tensor],
     if data is not None and want_values:
         grad_vals = (w * B.index_select(0, cols.long()).to(acc)).sum(-1)
     return grad_B, grad_vals
+
+
+def _head_contrib(indices: Tensor, data: Optional[Tensor], B: Tensor) -> Tensor:
+    """``_contrib`` with per-head values too: (nnz, H) values over a
+    head-blocked B, column k taking head k // (K / H)."""
+    if data is None or data.dim() == 1:
+        return _contrib(indices, data, B)
+    acc = _acc_dtype(B.dtype)
+    v = data.to(acc).repeat_interleave(B.shape[1] // data.shape[1], dim=1)
+    return B.index_select(0, indices.long()).to(acc) * v
+
+
+def halo_spmm_rows(d_rows: Tensor, d_indices: Tensor, d_vals: Optional[Tensor],
+                   B_d: Tensor, h_rows: Optional[Tensor],
+                   h_indices: Optional[Tensor], h_vals: Optional[Tensor],
+                   B_h: Optional[Tensor], m: int, reduce: str = "sum"):
+    """(out, ties): the plain version of the joint diag+halo kernel (row 7).
+
+    The contributions of the diag edges (over ``B_d``) and of the halo
+    edges (over ``B_h``; ``h_rows=None`` leaves that block out) form one
+    stream, reduced by row: a sum, or a max/min with the count of the edges
+    of both blocks that achieve it (f32; None for sum).  Values are None,
+    (nnz,) or per-head (nnz, H).  Accumulates in f32 (f64 for f64 tables);
+    ``out`` takes B_d's dtype; rows without an edge give 0 and 0.
+    """
+    rows, contrib = d_rows, _head_contrib(d_indices, d_vals, B_d)
+    if h_rows is not None:
+        rows = torch.cat([rows, h_rows])
+        contrib = torch.cat([contrib, _head_contrib(h_indices, h_vals, B_h)])
+    if reduce == "sum":
+        out = torch.zeros((m, B_d.shape[1]), dtype=contrib.dtype,
+                          device=B_d.device)
+        return out.index_add_(0, rows.long(), contrib).to(B_d.dtype), None
+    best = _minmax_rows(rows, contrib, m, reduce)
+    hit = (contrib == best.index_select(0, rows.long())).to(torch.float32)
+    ties = torch.zeros((m, B_d.shape[1]), dtype=torch.float32, device=B_d.device)
+    ties.index_add_(0, rows.long(), hit)
+    return best.to(B_d.dtype), ties
 
 
 def sddmm_rows(rows: Tensor, cols: Tensor, D1: Tensor, D2: Tensor) -> Tensor:

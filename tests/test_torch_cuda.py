@@ -21,7 +21,10 @@ grad_src, grad_dst and grad_B within 1e-4 * max(|ref|, 1) (a bf16 grad_B:
 8e-3 *), the backward's reference taking s = <g, out> from the kernel's
 stored out, as the op does.  Fused dot-product attention: the same bounds
 for out, mx, den and grad_D1, grad_D2, grad_B.  The nnz-chunked and the
-grouped-gather SpMMs: the sum kernel's bound.
+grouped-gather SpMMs: the sum kernel's bound.  The joint diag+halo SpMM
+(kernel row 7): a sum within the sum kernel's bound, max/min out and joint
+ties exactly; the sharded op's out and gradients within 1e-5 *
+max(|ref|, 1) of the float64 whole-graph SpMM.
 """
 
 import functools
@@ -33,6 +36,7 @@ import torch
 
 from gespmm_tpu_torch.kernels import edge_reduce as kedge
 from gespmm_tpu_torch.kernels import gat_fused as kgat
+from gespmm_tpu_torch.kernels import halo_spmm as khalo
 from gespmm_tpu_torch.kernels import spmm_csr as kspmm
 from gespmm_tpu_torch.kernels import spmm_grouped as kgrp
 from gespmm_tpu_torch.kernels import spmm_minmax as kmm
@@ -45,6 +49,13 @@ from gespmm_tpu_torch.ops.graph import (add_self_loops,
                                         additive_attention_logits,
                                         attention_aggregate, edge_softmax)
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
+from gespmm_tpu_torch.parallel import (build_halo_partition, halo_spmm,
+                                       make_mesh)
+from gespmm_tpu_torch.parallel.dryrun import dryrun_multichip
+from gespmm_tpu_torch.parallel.halo import make_exchange, split_edge_values
+from gespmm_tpu_torch.parallel.train_step import (build_sharded_gat,
+                                                  build_sharded_gcn,
+                                                  build_sharded_sage)
 from gespmm_tpu_torch.sparse.formats import CSR
 from gespmm_tpu_torch.sparse.partition import (build_grouped_plan,
                                                 build_spmm_plan)
@@ -1114,3 +1125,176 @@ def test_gcn_trains_on_a_reordered_graph_through_the_grouped_kernel(dev):
         model.with_norms(orig)
         want = model(orig, ds.features.to(dev))
     assert float((logits - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# --- the joint diag+halo SpMM (kernel row 7) and the sharded tier ----------
+
+def _square_skewed(n=2000, seed=0):
+    csr = skewed_csr(n, n, seed)
+    return CSR(csr.indptr, csr.indices, csr.data, (n, n))
+
+
+def _halo_setup(csr, parts, K, dtype, dev, seed=0):
+    """(partition, mesh, padded B in multiples of 0.5, halo tables)."""
+    hp = build_halo_partition(csr, parts, device=dev)
+    mesh = make_mesh(parts, device=dev)
+    B = (torch.round(randn((parts * hp.cpp, K), dev, seed) * 2) / 2).to(dtype)
+    return hp, mesh, B, make_exchange(hp, mesh)(B)
+
+
+def _shard_vals(hp, kind, dev, seed):
+    if kind == "binary":
+        return None, None
+    nnz = hp.nnz
+    shape = (nnz,) if kind == "vals" else (nnz, int(kind[5:]))
+    return split_edge_values(hp, randn(shape, dev, seed))
+
+
+HALO_CASES = [(parts, K, reduce, kind, dtype)
+              for parts in (2, 8) for K in (1, 3, 32, 130)
+              for reduce in ("sum", "max", "min")
+              for kind in ("binary", "vals", "heads2")
+              for dtype in (torch.float32, torch.bfloat16)
+              if kind != "heads2" or (reduce == "sum" and K % 2 == 0)]
+
+
+@pytest.mark.parametrize("parts,K,reduce,kind,dtype", HALO_CASES)
+def test_halo_kernel_matches_plain(dev, parts, K, reduce, kind, dtype):
+    """Row 7, shard by shard, against its plain version: a sum within the
+    sum kernel's bound of float64; max/min out and joint ties exactly; two
+    launches bitwise equal."""
+    hp, _, B, halo = _halo_setup(_square_skewed(), parts, K, dtype, dev)
+    dvs, hvs = _shard_vals(hp, kind, dev, 1)
+    for p in range(parts):
+        blk = hp.blocks(p)
+        dv = None if dvs is None else dvs[p, :hp.diag_nnz[p]]
+        hv = None if hvs is None else hvs[p, :hp.halo_nnz[p]]
+        Bs = B[p * hp.cpp:(p + 1) * hp.cpp]
+        args = (blk.d_indptr, blk.d_indices, dv, Bs, blk.h_indptr,
+                blk.h_indices, hv, halo[p], reduce)
+        before = khalo.launches
+        out, ties = khalo.halo_spmm_rows(*args)
+        again = khalo.halo_spmm_rows(*args)
+        torch.cuda.synchronize()
+        assert khalo.launches == before + 2
+        assert torch.equal(out, again[0])
+        tab = (blk.d_rows, blk.d_indices, blk.h_rows, blk.h_indices)
+        if reduce == "sum":
+            assert ties is None
+            f64 = [None if v is None else v.double() for v in (dv, hv)]
+            absv = [None if v is None else v.abs() for v in f64]
+            exact, _ = ref.halo_spmm_rows(tab[0], tab[1], f64[0], Bs.double(),
+                                          tab[2], tab[3], f64[1],
+                                          halo[p].double(), hp.rpp)
+            mag, _ = ref.halo_spmm_rows(tab[0], tab[1], absv[0],
+                                        Bs.double().abs(), tab[2], tab[3],
+                                        absv[1], halo[p].double().abs(),
+                                        hp.rpp)
+            bound = (8e-3 * mag if dtype == torch.bfloat16
+                     else 1e-5 * mag + 1e-6)
+            assert ((out.double() - exact).abs() <= bound).all()
+        else:
+            want, want_ties = ref.halo_spmm_rows(
+                tab[0], tab[1], dv, Bs, tab[2], tab[3], hv, halo[p], hp.rpp,
+                reduce)
+            assert torch.equal(out, want) and torch.equal(ties, want_ties)
+            assert torch.equal(ties, again[1])
+
+
+def _whole_graph_f64(csr, B, vals, g, reduce):
+    """out, grad_B, grad_vals of the whole-graph plain SpMM in float64."""
+    adj = Adjacency.from_csr(csr.to("cpu"))
+    m, n = adj.shape
+    B64 = B.detach()[:n].double().cpu().requires_grad_(True)
+    v64 = vals.detach().double().cpu().requires_grad_(True)
+    out = spmm(adj.with_data(v64), B64, reduce=reduce, method="xla")
+    out.backward(g.double().cpu()[:m])
+    return out.detach(), B64.grad, v64.grad
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean", "max", "min"])
+def test_halo_op_launches_and_never_takes_the_plain_version(dev, monkeypatch,
+                                                           reduce):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "halo_spmm_rows", refuse)
+    monkeypatch.setattr(ref, "spmm_minmax_vjp_cols", refuse)
+    csr = _square_skewed()
+    parts = 4
+    hp = build_halo_partition(csr, parts, device=dev)
+    mesh = make_mesh(parts, device=dev)
+    B = (torch.round(randn((parts * hp.cpp, 16), dev, 3) * 2) / 2)
+    B.requires_grad_(True)
+    # Values in multiples of 1/4: products exact in f32 and f64, so the
+    # float64 reference meets the same ties.
+    vals = (torch.randint(1, 9, (csr.nnz,), device=dev) / 4.0)
+    vals.requires_grad_(True)
+    dv, hv = split_edge_values(hp, vals)
+    g = randn((parts * hp.rpp, 16), dev, 4)
+    khalo.reset_launches()
+    kmm.reset_launches()
+    out = halo_spmm(hp, B, mesh, reduce=reduce, diag_vals=dv, halo_vals=hv)
+    torch.cuda.synchronize()
+    assert khalo.launches == parts
+    out.backward(g)
+    torch.cuda.synchronize()
+    if reduce in ("sum", "mean"):
+        assert (khalo.launches, kmm.vjp_launches) == (3 * parts, 0)
+    else:
+        assert (khalo.launches, kmm.vjp_launches) == (parts, 2 * parts)
+    m = csr.shape[0]
+    want = _whole_graph_f64(csr, B, vals, g, reduce)
+    for got, w in zip((out.detach()[:m], B.grad[:m], vals.grad), want):
+        err = float((got.double().cpu() - w).abs().max())
+        assert err <= 1e-5 * max(float(w.abs().max()), 1.0), err
+    khalo.reset_launches()
+    halo_spmm(hp, B, mesh, reduce=reduce, method="xla")
+    assert khalo.launches == 0
+
+
+def test_halo_kernel_without_rounds_and_refusals(dev):
+    """One shard: no rounds, a zero halo table of 8 rows, a halo block
+    without edges; the op still launches once forward and twice backward.
+    Per-head values with max raise; zero rows launch nothing."""
+    csr = _square_skewed(300)
+    hp = build_halo_partition(csr, 1, device=dev)
+    assert hp.rounds == () and hp.halo_rows == 8 and hp.halo_nnz == (0,)
+    mesh = make_mesh(1, device=dev)
+    B = randn((hp.cpp, 32), dev, 5, requires_grad=True)
+    khalo.reset_launches()
+    out = halo_spmm(hp, B, mesh)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert khalo.launches == 3
+    want = spmm(Adjacency.from_csr(csr.to(dev)), B.detach())
+    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    blk = hp.blocks(0)
+    with pytest.raises(ValueError, match="max/min"):
+        khalo.halo_spmm_rows(blk.d_indptr, blk.d_indices,
+                             torch.ones(hp.diag_nnz[0], 2, device=dev),
+                             B.detach(), reduce="max")
+    z = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = khalo.launches
+    o, t = khalo.halo_spmm_rows(z, z[:0], None, B.detach(), reduce="max")
+    assert o.shape == (0, 32) and t.shape == (0, 32)
+    assert khalo.launches == before
+
+
+def test_sharded_train_steps_on_the_card(dev):
+    """GCN, SAGE-pool and 2-head GAT steps over 4 shards through row 7,
+    and the dry run over 8."""
+    ds = sbm_graph(n_per_class=64, num_classes=3, feat_dim=16, seed=0)
+    csr = add_self_loops(ds.csr)
+    mesh = make_mesh(4, device=dev)
+    for build, kw in ((build_sharded_gcn, {}),
+                      (build_sharded_sage, {"aggregator": "pool"}),
+                      (build_sharded_gat, {"heads": 2})):
+        step, (model, opt), prepare, _ = build(csr, 16, 8, 3, mesh, **kw)
+        x, labels, mask = prepare(ds.features, ds.labels, ds.masks["train"])
+        khalo.reset_launches()
+        losses = [float(step(model, opt, x, labels, mask)[2])
+                  for _ in range(10)]
+        assert losses[-1] < losses[0] and khalo.launches >= 10 * 4 * 2
+    losses = dryrun_multichip(8, device=dev)
+    assert all(np.isfinite(v) for v in losses.values())
