@@ -9,12 +9,17 @@ Phases, each printed as it goes; any failure exits non-zero:
      spmm_minmax.cu, edge_reduce.cu, gat_fused.cu, dot_attention.cu,
      spmm_chunk.cu, spmm_grouped.cu, halo_spmm.cu) from this checkout, all
      at once (timed);
-  3. sum kernel vs plain: the CSR SpMM kernel against its plain PyTorch
+  3. sum kernel vs plain: the CSR SpMM kernel, with its long rows split
+     over warps (the adjacency's split, L = 64), against its plain PyTorch
      version in float64, |out - ref| <= 1e-5 (|A| @ |B|) + 1e-6 (bf16:
-     8e-3 (|A| @ |B|)), at the GCN slice's shapes (pubmed-scale SBM graph with
-     self-loops, K=32 and K=3, over the CSR and the CSC) and on rmat15 (hub
+     8e-3 (|A| @ |B|)), two calls bitwise equal, at the GCN slice's shapes
+     (pubmed-scale SBM graph with self-loops, K=32 and K=3, over the CSR and
+     the CSC; no row longer than L, so no carry launch) and on rmat15 (hub
      rows, empty rows) at K in {1, 3, 32, 33, 128, 130, 512}, valued and
-     binary, f32 and bf16;
+     binary, f32 and bf16, over the CSC at K=128, bf16 B with an f32 out
+     (mode="fast"'s entry) at K in {32, 128}; and on a graph with rows of
+     L - 1, L, L + 1, 2L, 2L + 1 and 10,000 edges at K in {32, 128, 130}, f32,
+     bf16 and bf16 in / f32 out;
   4. max/min kernels vs plain: on the SBM graph without self-loops (the
      SAGE slice's graph) at K in {128, 16} and on rmat15 at K in {1, 3, 32,
      33, 128, 130}, binary and valued in f32, binary in bf16, with B in
@@ -68,25 +73,32 @@ Phases, each printed as it goes; any failure exits non-zero:
      adjacency without the transposed plan, one chunk launch forward and
      one CSR-kernel launch for grad_B;
  14. the sweep, called as functions: bench_graph("rmat15", [32, 128]) over
-     the tiers xla, tiled, pallas, scatter, dense, bcoo, and
-     bench_sddmm_graph("rmat15", [64]), every cell validated against
-     float64 (synth_graph's rmat15 has edge factor 16, unlike the edge
-     factor 8 of the kernel phases); no cell may fail but a printed dense
-     guard; the JSON rows are printed;
+     the tiers xla, tiled, tiled-hilo, tiled-fast, pallas, scatter, dense,
+     bcoo, and bench_sddmm_graph("rmat15", [64]), every cell validated
+     against float64 (tiled-fast against the float64 product of the
+     bf16-rounded B) and timed with device time (synth_graph's rmat15 has
+     edge factor 16, unlike the edge factor 8 of the kernel phases); no cell
+     may fail but a printed dense guard; the JSON rows are printed;
  16. grouped-gather SpMM vs float64: on the SBM graph with self-loops and
      rmat15, each as generated and RCM-reordered, at K in {1, 3, 32, 33,
      128, 130, 512}, valued and binary, f32 and bf16, with the grouped
      plans (R, E, NG, G) = (64, 64, 32, 8) (the JAX defaults) and (8, 16,
      8, 8), within the sum kernel's bound and bitwise repeatable; each
-     plan's chunks, groups and B rows staged per edge are printed; then
+     plan's chunks, groups, B rows whole groups hold and B rows the kernel
+     stages (the rows the edges reference) per edge are printed; then
      spmm(method="pallas") and method="auto" on a grouped adjacency: out,
-     grad_B and grad_values against float64, one grouped launch forward
-     and one for grad_B, none of the CSR kernel; without the transposed
-     plan, one grouped and one CSR-kernel launch;
+     grad_B and grad_values against float64; "pallas" one grouped launch
+     forward and one for grad_B, none of the CSR kernel; "auto" (the rule
+     measured in phase 15) two CSR-kernel launches and no grouped one;
+     "pallas" without the transposed plan, one grouped and one CSR-kernel
+     launch; the auto rule: 2 CSR-kernel launches (forward, grad_B) and no
+     other kernel on rmat15 (with 2 carry launches) at K=128 and K=32 and on
+     the SBM graph at K=128;
  17. GCN train through the grouped kernel: dims [128, 32, 3] on the
      RCM-reordered SBM graph with self-loops (features, labels and masks
-     permuted alongside), plan="grouped", 50 epochs (>= 4 grouped launches
-     per epoch, no CSR-kernel launch), with the checks of phase 6; the
+     permuted alongside), plan="grouped", method="pallas", 50 epochs (>= 4
+     grouped launches per epoch, no CSR-kernel launch), with the checks of
+     phase 6; the
      trained parameters on the original order (phase 6's route) give the
      same logits after un-permuting, within 1e-4 x max |ref|;
  18. the joint diag+halo SpMM (kernel row 7) vs float64: shard by shard over
@@ -120,12 +132,17 @@ Phases, each printed as it goes; any failure exits non-zero:
      slice's shapes and at rmat15, with its bound (the larger of its bytes
      over 3.35 TB/s and its operations over 67 TFLOP/s) and the one PyTorch
      call that computes the same function where there is one (library_ms);
+     the CSR kernel at rmat15 (edge factors 8 and 16) K=128 and sbm K=32,
+     f32 and with bf16 B / f32 out (mode="fast"), against torch.sparse.mm,
+     and its split at L in {32, 64, 128, 256} at both rmat15 K=128 (each L
+     timed twice, in the order 32 ... 256 ... 32);
      the chunk kernel against float64, the CSR kernel and torch.sparse.mm
      at each timed shape (the kernels line's error is its shape's); the
      grouped kernel likewise, and against the chunk kernel at (64, 64) on
      the same ordering, on rmat15 (edge factor 16) as generated and
      RCM-reordered at (64, 64, 32, 8) and (64, 64, 64, 1) and on the
-     RCM-reordered SBM graph at K=32; row 7 summed over P=4 shards at the
+     RCM-reordered SBM graph at K=32, then at 1, 2 and 4 producer warps and
+     the widest K tile 32 ... 256 (the launch shape chosen); row 7 summed over P=4 shards at the
      SBM graph K=32 and rmat15 K=128 against its plain version, the
      whole-graph CSR kernel, torch.sparse.mm of each shard's [A_diag |
      A_halo] over [B_shard; halo table] and its bound, and each shard's
@@ -139,7 +156,9 @@ Phases, each printed as it goes; any failure exits non-zero:
 
 Phases run in the order 1-14, 16-20, 15.  Each path's launches are counted
 from 0 in its own run; the comparison launches of phases 3-5, 8, 11, 13, 16
-and 18 are not counted.  NCCL traffic between ranks is not run: the card
+and 18 are not counted.  The CSR kernel and the chunk and grouped kernels
+count their carry pass apart (spmm_csr_carry, spmm_chunk_carry,
+spmm_grouped_carry).  NCCL traffic between ranks is not run: the card
 machine has one card.  Output: one line per phase, then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  With --record, the full record of the run is
@@ -180,7 +199,9 @@ SLOPE = 0.2
 DOT_SBM_SHAPES = ((64, 64), (16, 3))
 CHUNK_KS = (1, 3, 32, 33, 128, 130, 512)
 CHUNK_SIZES = ((64, 64), (128, 256))  # the sweep's (R, E) and the builder's
-SWEEP_METHODS = ("xla", "tiled", "pallas", "scatter", "dense", "bcoo")
+SWEEP_METHODS = ("xla", "tiled", "tiled-hilo", "tiled-fast", "pallas",
+                 "scatter", "dense", "bcoo")
+SPLIT_SWEEP = (32, 64, 128, 256)  # the CSR kernel's segment lengths timed
 GROUPED_KS = (1, 3, 32, 33, 128, 130, 512)
 # (R, E, NG, G) of the grouped plan: the JAX defaults and the JAX tests'.
 GROUPED_SIZES = ((64, 64, 32, 8), (8, 16, 8, 8))
@@ -338,6 +359,7 @@ def main(argv=None):
     args.add_argument("--record", default="",
                       help="also write the full record of the run here (JSON)")
     args = args.parse_args(argv)
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -383,8 +405,10 @@ def main(argv=None):
                                                       build_sharded_gat,
                                                       build_sharded_gcn,
                                                       build_sharded_sage)
-    from gespmm_tpu_torch.sparse.formats import expand_indptr
-    from gespmm_tpu_torch.sparse.partition import (build_grouped_plan,
+    from gespmm_tpu_torch.sparse.formats import CSR, expand_indptr
+    from gespmm_tpu_torch.sparse.partition import (SPLIT_LEN,
+                                                    build_grouped_plan,
+                                                    build_row_split,
                                                     build_spmm_plan)
     from gespmm_tpu_torch.sparse.reorder import inverse_permutation, reorder
     from gespmm_tpu_torch.train.loop import (make_train_step,
@@ -403,7 +427,9 @@ def main(argv=None):
             mod.reset_launches()
 
     def counts():
-        return {"spmm_csr": kspmm.launches, "spmm_minmax": kmm.launches,
+        return {"spmm_csr": kspmm.launches,
+                "spmm_csr_carry": kspmm.carry_launches,
+                "spmm_minmax": kmm.launches,
                 "spmm_minmax_vjp": kmm.vjp_launches,
                 "edge_segment_reduce": kedge.launches,
                 "gat_fwd": kgat.launches,
@@ -460,34 +486,79 @@ def main(argv=None):
                         "rmat15": [rmat.shape[0], rmat.nnz]}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rmat_vals = torch.randn(rmat.nnz, device=dev, generator=gen)
-    # (label, indptr, indices, rows, data, rows of B, K, dtype, on the
-    # slice's path)
+    # Rows of L - 1, L, L + 1, 2L, 2L + 1 and 10,000 edges among short rows.
+    hub_rng = np.random.default_rng(SEED)
+    L = SPLIT_LEN
+    hub_deg = np.r_[0, L - 1, L, L + 1, hub_rng.integers(0, 5, 40), 10_000,
+                    2 * L, 2 * L + 1, hub_rng.integers(0, 5, 40)]
+    hub_n = 12_000
+    hub_cols = np.concatenate([np.sort(hub_rng.choice(hub_n, d, replace=False))
+                               for d in hub_deg]).astype(np.int32)
+    hub = Adjacency.from_csr(CSR(
+        torch.from_numpy(np.r_[0, np.cumsum(hub_deg)].astype(np.int32)),
+        torch.from_numpy(hub_cols),
+        torch.from_numpy(hub_rng.standard_normal(hub_cols.shape[0]).astype(
+            np.float32)), (hub_deg.shape[0], hub_n)), device=dev)
+    print(f"split at L={L}: sbm+loops {adj.split.num_segments} segments "
+          f"(CSC {adj.split_t.num_segments}); rmat15 {rmat.split.num_long_rows}"
+          f" rows longer than L in {rmat.split.num_segments} segments; the "
+          f"hub graph rows {hub.split.long_rows.tolist()} in "
+          f"{hub.split.num_segments} segments", flush=True)
+    check(adj.split.num_segments == adj.split_t.num_segments == 0,
+          "sbm-pubmed has a row longer than L")
+    # (label, indptr, indices, rows, data, split, rows of B, K, B dtype, out
+    # dtype, on the slice's path)
     n_sbm, n_rmat = adj.shape[0], rmat.shape[0]  # both square
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = []
+    csr_of = {"csr": lambda a: (a.csr.indptr, a.csr.indices, a.rows, a.data,
+                                a.split),
+              "csc": lambda a: (a.csc.indptr, a.csc.indices, a.rows_t,
+                                a.csc.data, a.split_t)}
     for K in (32, 3):
-        cases.append((f"sbm csr K={K}", adj.csr.indptr, adj.csr.indices,
-                      adj.rows, adj.data, n_sbm, K, torch.float32, True))
-        cases.append((f"sbm csc K={K}", adj.csc.indptr, adj.csc.indices,
-                      adj.rows_t, adj.csc.data, n_sbm, K, torch.float32, True))
-        cases.append((f"sbm csr K={K} bf16", adj.csr.indptr, adj.csr.indices,
-                      adj.rows, adj.data, n_sbm, K, torch.bfloat16, False))
+        cases.append((f"sbm csr K={K}", *csr_of["csr"](adj), n_sbm, K, f32,
+                      f32, True))
+        cases.append((f"sbm csc K={K}", *csr_of["csc"](adj), n_sbm, K, f32,
+                      f32, True))
+        cases.append((f"sbm csr K={K} bf16", *csr_of["csr"](adj), n_sbm, K,
+                      bf16, bf16, False))
+    rmat_csr = csr_of["csr"](rmat)[:3]
     for K in RMAT_KS:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (f32, bf16):
             for data in (None, rmat_vals):
                 label = (f"rmat15 K={K} {'binary' if data is None else 'valued'}"
                          f" {str(dtype).split('.')[-1]}")
-                cases.append((label, rmat.csr.indptr, rmat.csr.indices,
-                              rmat.rows, data, n_rmat, K, dtype, False))
+                cases.append((label, *rmat_csr, data, rmat.split, n_rmat, K,
+                              dtype, dtype, False))
+    for K in (32, 128):
+        cases.append((f"rmat15 K={K} valued bf16 in f32 out", *rmat_csr,
+                      rmat_vals, rmat.split, n_rmat, K, bf16, f32, False))
+    cases.append(("rmat15 csc K=128 binary f32", *csr_of["csc"](rmat)[:3],
+                  None, rmat.split_t, n_rmat, 128, f32, f32, False))
+    for K in (32, 128, 130):
+        for dtype, out_dtype in ((f32, f32), (bf16, bf16), (bf16, f32)):
+            cases.append((f"hub K={K} {str(dtype).split('.')[-1]} out "
+                          f"{str(out_dtype).split('.')[-1]}",
+                          *csr_of["csr"](hub), hub_n, K, dtype, out_dtype,
+                          False))
     slice_err = 0.0
     compared = []
-    for label, indptr, indices, rows, data, n_in, K, dtype, on_path in cases:
+    for (label, indptr, indices, rows, data, split, n_in, K, dtype, out_dtype,
+         on_path) in cases:
         B = torch.randn(n_in, K, device=dev, generator=gen).to(dtype)
-        out = kspmm.spmm_csr(indptr, indices, data, B)
+        out = kspmm.spmm_csr(indptr, indices, data, B, split=split,
+                             out_dtype=out_dtype)
+        again = kspmm.spmm_csr(indptr, indices, data, B, split=split,
+                               out_dtype=out_dtype)
         torch.cuda.synchronize()
-        err, ok = bound_check(torch, ref, out, indptr, indices, rows, data, B)
-        print(f"{label}: max_abs_err={err:.3e} {'ok' if ok else 'OUT OF BOUND'}",
-              flush=True)
+        # bf16 in, f32 out: the f32 bound of the f32 sum of the bf16 values.
+        err, ok = bound_check(torch, ref, out, indptr, indices, rows, data,
+                              B if out_dtype == dtype else B.float())
+        same = torch.equal(out, again) and out.dtype == out_dtype
+        print(f"{label}: max_abs_err={err:.3e} {'ok' if ok else 'OUT OF BOUND'}"
+              f" | repeat {'bitwise' if same else 'DIFFERS'}", flush=True)
         check(ok, f"kernel disagrees with the plain version: {label}")
+        check(same, f"kernel not repeatable: {label}")
         if on_path:
             slice_err = max(slice_err, err)
         compared.append({"case": label, "max_abs_err": err})
@@ -609,10 +680,10 @@ def main(argv=None):
 
     def drive(name, make, a, cpu_model, path_kernels, methods=("auto", "xla"),
               epochs=EPOCHS, lr=1e-2, data=None, absent=(), check_model=None):
-        """Train with each method; check the run and the path's launches:
-        at least ``path_kernels[name]`` an epoch of each, none of the
-        kernels named in ``absent``.  ``check_model`` gets the trained
-        model of method "auto"."""
+        """Train with each method; check the run of each kernel method
+        (all but "xla") and its launches: at least ``path_kernels[name]``
+        an epoch of each, none of the kernels named in ``absent``.
+        ``check_model`` gets the trained model of the kernel method."""
         data = ds if data is None else data
         runs = {}
         for method in methods:
@@ -629,7 +700,7 @@ def main(argv=None):
                   "at chance")
             check(all(torch.isfinite(p).all() for p in model.parameters()),
                   f"{name} {method}: non-finite parameters")
-            if method == "auto":
+            if method != "xla":
                 for kname, per_epoch in path_kernels.items():
                     check(launched[kname] >= per_epoch * epochs,
                           f"{name}: only {launched[kname]} {kname} launches in "
@@ -1003,21 +1074,27 @@ def main(argv=None):
 
     def plan_stats(plan):
         """What a grouped plan's staging moves: chunks, NG, the mean groups
-        and edges a chunk, the dedup factor and the B rows staged per
-        edge."""
+        and edges a chunk, the dedup factor, the B rows whole groups hold
+        per edge (what PR 5's kernel and the JAX kernel staged) and the B
+        rows the kernel stages per edge (those the edges reference)."""
         C = plan.num_chunks
+        nnz = max(plan.nnz, 1)
         return {"chunks": C, "NG": plan.groups_per_chunk,
                 "groups_a_chunk": plan.staged_rows / plan.group_rows / C,
                 "edges_a_chunk": plan.nnz / C,
                 "dedup_factor": plan.dedup_factor,
-                "staged_rows_per_edge": plan.staged_rows / max(plan.nnz, 1)}
+                "group_rows_per_edge": plan.staged_rows / nnz,
+                "staged_rows_per_edge": plan.referenced_rows / nnz,
+                "max_refs": plan.max_refs}
 
     def stats_line(st):
         return (f"{st['chunks']} chunks, NG {st['NG']}, "
                 f"{st['groups_a_chunk']:.4f} groups and "
                 f"{st['edges_a_chunk']:.4f} edges a chunk, dedup "
-                f"{st['dedup_factor']:.4f}, {st['staged_rows_per_edge']:.4f} "
-                "B rows staged per edge")
+                f"{st['dedup_factor']:.4f}, B rows per edge "
+                f"{st['group_rows_per_edge']:.4f} in whole groups, "
+                f"{st['staged_rows_per_edge']:.4f} staged (referenced), at "
+                f"most {st['max_refs']} a chunk")
 
     sbm_host = add_self_loops(ds.csr).to("cpu")
     sbm_rcm, sbm_perm = reorder(sbm_host)
@@ -1063,6 +1140,8 @@ def main(argv=None):
     record["grouped_vs_plain"] = grouped_compared
     record["grouped_plans"] = grouped_plans
     # The op on a grouped adjacency: the GCN slice's RCM graph, K=32.
+    # "pallas" takes the grouped kernel, "auto" the CSR kernel (the rule
+    # that phase 15 measures: PERF.md, PR 7).
     grp_adj = Adjacency.from_csr(sbm_rcm, device=dev, plan="grouped")
     grp_fwd_only = Adjacency.from_csr(sbm_rcm, device=dev, plan="grouped",
                                       plan_transpose=False)
@@ -1083,9 +1162,11 @@ def main(argv=None):
         out64.backward(g.double())
         print(f"spmm(method={method!r}) on a grouped adjacency: launches "
               f"{launched}", flush=True)
-        check(launched["spmm_grouped"] == 2 and launched["spmm_csr"] == 0
-              and launched["spmm_chunk"] == 0,
-              f"spmm(method={method!r}), grouped: expected 2 grouped launches "
+        route = "spmm_grouped" if method == "pallas" else "spmm_csr"
+        check(launched[route] == 2 and launched["spmm_chunk"] == 0
+              and sum(v for k, v in launched.items()
+                      if not k.startswith(route)) == 0,
+              f"spmm(method={method!r}), grouped: expected 2 {route} launches "
               "(forward, grad_B) and no other")
         errs = {}
         for name, got, want, fwd in (("out", out, out64, True),
@@ -1104,7 +1185,7 @@ def main(argv=None):
     B = torch.randn(n_r, 32, device=dev, generator=gen, requires_grad=True)
     g = torch.randn(m_r, 32, device=dev, generator=gen)
     reset_counts()
-    spmm(grp_fwd_only, B).backward(g)
+    spmm(grp_fwd_only, B, method="pallas").backward(g)
     torch.cuda.synchronize()
     fwd_only_launches = counts()
     t = grp_fwd_only.transpose()
@@ -1119,6 +1200,31 @@ def main(argv=None):
           "the CSR kernel for grad_B")
     grp_op["no_plan_t_launches"] = fwd_only_launches
     record["grouped_op"] = grp_op
+    # The auto rule (PERF.md, PR 7): the split CSR kernel on every graph,
+    # with its carry where a row is longer than L (rmat15), without on
+    # sbm-pubmed.
+    auto_rule = {}
+    route = "spmm_csr"
+    for graph, a, K in (("rmat15", rmat, 128), ("rmat15", rmat, 32),
+                        ("sbm+loops", adj, 128)):
+        B = torch.randn(a.shape[1], K, device=dev, generator=gen,
+                        requires_grad=True)
+        g = torch.randn(a.shape[0], K, device=dev, generator=gen)
+        reset_counts()
+        out = spmm(a, B)
+        out.backward(g)
+        torch.cuda.synchronize()
+        launched = counts()
+        err, ok = bound_check(torch, ref, out.detach(), a.csr.indptr,
+                              a.csr.indices, a.rows, a.data, B.detach())
+        print(f"auto rule, {graph} K={K}: launches {launched} | max_abs_err "
+              f"{err:.3e}", flush=True)
+        check(ok and launched[route] == 2 and sum(
+            v for k, v in launched.items() if not k.startswith(route)) == 0,
+              f"auto rule at {graph} K={K}: expected 2 {route} launches "
+              "(forward, grad_B) and no other kernel")
+        auto_rule[f"{graph} K={K}"] = {"launches": launched, "max_abs_err": err}
+    record["auto_rule"] = auto_rule
 
     phase(f"17 GCN train through the grouped kernel, dims {GCN_DIMS}, "
           f"RCM-reordered, {EPOCHS} epochs")
@@ -1159,8 +1265,8 @@ def main(argv=None):
     gcn_grouped_runs = drive(
         "GCN grouped", make_gcn_grouped, grp_adj,
         GCN(GCN_DIMS, method="xla").double(), {"spmm_grouped": 4},
-        data=ds_rcm, absent=("spmm_csr", "spmm_chunk"),
-        check_model=same_as_original_order)
+        methods=("pallas", "xla"), data=ds_rcm,
+        absent=("spmm_csr", "spmm_chunk"), check_model=same_as_original_order)
     record["gcn_grouped"] = dict(gcn_grouped_runs,
                                  unpermuted_vs_original=unpermuted)
 
@@ -1521,41 +1627,113 @@ def main(argv=None):
     # so they run back to back on the card.  Call time: CUDA events around
     # groups of calls, which at these sizes is the host's enqueue rate
     # (the wrapper's checks and the launch).
+    def library_time(name, call, want=None, iters=50):
+        """Device ms of one PyTorch call that computes the kernel's function
+        (a yardstick the port never calls), or None where the card has no
+        such call for these operands or its result differs from ``want``."""
+        try:
+            got = call()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:
+            print(f"library call {name}: none on the card for these operands "
+                  f"({str(e).splitlines()[0][:160]})", flush=True)
+            return None
+        if want is not None:
+            err = float((got.double() - want.double()).abs().max())
+            scale = float(want.abs().max())
+            print(f"library call {name}: max_abs_err {err:.3e} against the "
+                  f"kernel (max |out| {scale:.3e})", flush=True)
+            if not err <= 1e-3 * max(scale, 1.0):
+                return None
+        return timing.device_time(call, iters=iters) * 1e3
+
+    # The CSR kernel (row 1) at the GCN slice's shapes, at rmat15 (edge
+    # factor 8) K=128 and at the sweep's rmat15 (edge factor 16) K=128,
+    # with the adjacency's split; "fast": bf16 B (rounded once, outside the
+    # timed call) and f32 out.  torch.sparse.mm at the rmat15 shapes (the
+    # sbm one is timed at the end, with the earlier kernels' library calls).
+    sweep_csr = synth_graph("rmat15", seed=SEED)
+    sweep_adj = Adjacency.from_csr(sweep_csr, device=dev)
     shapes = []
     for K in (32, 3):
-        shapes.append((f"sbm csr K={K}", adj.csr.indptr, adj.csr.indices,
-                       adj.rows, adj.data, adj.shape[1], K))
-        shapes.append((f"sbm csc K={K}", adj.csc.indptr, adj.csc.indices,
-                       adj.rows_t, adj.csc.data, adj.shape[0], K))
-    shapes.append(("rmat15 csr K=128 binary", rmat.csr.indptr, rmat.csr.indices,
-                   rmat.rows, None, rmat.shape[1], 128))
+        shapes.append((f"sbm csr K={K}", adj, "csr", K, f32))
+        shapes.append((f"sbm csc K={K}", adj, "csc", K, f32))
+    shapes.append(("sbm csr K=32 fast", adj, "csr", 32, bf16))
+    for graph, a in (("rmat15", rmat), ("rmat15-ef16", sweep_adj)):
+        shapes.append((f"{graph} csr K=128 binary", a, "csr", 128, f32))
+        shapes.append((f"{graph} csr K=128 binary fast", a, "csr", 128, bf16))
 
     timings = []
-    for label, indptr, indices, rows, data, n_in, K in shapes:
+    for label, a, direction, K, dtype in shapes:
+        indptr, indices, rows, data, split = csr_of[direction](a)
+        m, n_in = indptr.shape[0] - 1, (a.shape[1] if direction == "csr"
+                                        else a.shape[0])
         B = torch.randn(n_in, K, device=dev, generator=gen)
-        m = indptr.shape[0] - 1
+        Bk = B.to(dtype)  # the kernel's operand: B, or B rounded to bf16
 
         def kernel():
-            return kspmm.spmm_csr(indptr, indices, data, B)
+            return kspmm.spmm_csr(indptr, indices, data, Bk, split=split,
+                                  out_dtype=f32)
 
         def plain():
-            return ref.spmm_rows(rows, indices, data, B, m)
+            return ref.spmm_rows(rows, indices, data, Bk.float(), m)
 
+        err, ok = bound_check(torch, ref, kernel(), indptr, indices, rows,
+                              data, Bk.float())
+        check(ok, f"CSR kernel disagrees at {label}")
         k_dev, p_dev = alternate(timing.device_time, kernel, plain)
         k_call, p_call = alternate(lambda f: timing.benchmark(f).mean_s,
                                    kernel, plain)
-        gf = timing.spmm_flops(int(indices.shape[0]), K) / 1e6  # per ms
-        row = {"shape": label, "nnz": int(indices.shape[0]), "K": K,
+        nnz = int(indices.shape[0])
+        gf = timing.spmm_flops(nnz, K) / 1e6  # per ms
+        lib_ms = None
+        if label.startswith("rmat15") and dtype == f32:
+            lib = library_csr(CSR(indptr.cpu(), indices.cpu(), None,
+                                  (m, n_in)), dev)
+            lib_ms = library_time("torch.sparse.mm",
+                                  lambda: torch.sparse.mm(lib, B))
+        row = {"shape": label, "nnz": nnz, "K": K,
+               "segments": split.num_segments, "max_abs_err": err,
                "kernel_device_ms": k_dev, "plain_device_ms": p_dev,
                "kernel_call_ms": k_call, "plain_call_ms": p_call,
-               "kernel_gflops": gf / mean(k_dev), "plain_gflops": gf / mean(p_dev)}
+               "kernel_gflops": gf / mean(k_dev),
+               "plain_gflops": gf / mean(p_dev), "library_ms": lib_ms,
+               # indptr, indices (and values), B in its dtype, out in f32
+               "bytes": ((m + 1) * 4 + nnz * (8 if data is not None else 4)
+                         + n_in * K * Bk.element_size() + m * K * 4),
+               "ops": 2 * nnz * K}
         timings.append(row)
-        print(f"{label}: device time kernel {mean(k_dev):.5f} ms "
-              f"({row['kernel_gflops']:.3f} GFLOP/s) | plain {mean(p_dev):.5f} ms "
-              f"({row['plain_gflops']:.3f} GFLOP/s) | call time kernel "
-              f"{mean(k_call):.5f} ms, plain {mean(p_call):.5f} ms | {card}",
-              flush=True)
+        print(f"{label}: {split.num_segments} segments | max_abs_err "
+              f"{err:.3e} | device time kernel {mean(k_dev):.5f} ms "
+              f"({row['kernel_gflops']:.3f} GFLOP/s) | plain {mean(p_dev):.5f} "
+              f"ms ({row['plain_gflops']:.3f} GFLOP/s) | torch.sparse.mm "
+              f"{lib_ms} ms | bound "
+              f"{profiling.bound(row['bytes'], row['ops'])[0] * 1e3:.5f} ms | "
+              f"call time kernel {mean(k_call):.5f} ms, plain "
+              f"{mean(p_call):.5f} ms | {card}", flush=True)
     record["timings"] = timings
+
+    # The split's segment length L: the CSR kernel at both rmat15 K=128,
+    # each L twice, in the order 32 ... 256 ... 32.
+    split_sweep = []
+    for graph, a in (("rmat15", rmat), ("rmat15-ef16", sweep_adj)):
+        B = torch.randn(a.shape[1], 128, device=dev, generator=gen)
+        splits = {L: build_row_split(a.csr.indptr, L).to(dev)
+                  for L in SPLIT_SWEEP}
+        ms = {L: [] for L in SPLIT_SWEEP}
+        for L in SPLIT_SWEEP + SPLIT_SWEEP[::-1]:
+            ms[L].append(timing.device_time(lambda: kspmm.spmm_csr(
+                a.csr.indptr, a.csr.indices, None, B, split=splits[L])) * 1e3)
+        for L in SPLIT_SWEEP:
+            split_sweep.append({"graph": graph, "L": L, "K": 128,
+                                "long_rows": splits[L].num_long_rows,
+                                "segments": splits[L].num_segments,
+                                "kernel_device_ms": ms[L]})
+            print(f"CSR kernel {graph} K=128 L={L}: {splits[L].num_long_rows} "
+                  f"rows longer than L in {splits[L].num_segments} segments | "
+                  f"device time {', '.join(f'{x:.5f}' for x in ms[L])} ms | "
+                  f"{card}", flush=True)
+    record["split_sweep"] = split_sweep
 
     # Max/min at the SAGE-pool slice's shapes: layer 0 gathers K=128 (the
     # pooled input), layer 1 K=16; relu'd inputs, as the pool layer gives.
@@ -1625,26 +1803,6 @@ def main(argv=None):
     # The fused kernels at the GAT slice's layer 0 (K=64) and layer 1 (K=3),
     # at DGL's 8-head layer 0 (K=64, dh=8), and at rmat15 K=64.  The plain
     # versions walk the CSR edges for every direction.
-    def library_time(name, call, want=None, iters=50):
-        """Device ms of one PyTorch call that computes the kernel's function
-        (a yardstick the port never calls), or None where the card has no
-        such call for these operands or its result differs from ``want``."""
-        try:
-            got = call()
-            torch.cuda.synchronize()
-        except (RuntimeError, NotImplementedError) as e:
-            print(f"library call {name}: none on the card for these operands "
-                  f"({str(e).splitlines()[0][:160]})", flush=True)
-            return None
-        if want is not None:
-            err = float((got.double() - want.double()).abs().max())
-            scale = float(want.abs().max())
-            print(f"library call {name}: max_abs_err {err:.3e} against the "
-                  f"kernel (max |out| {scale:.3e})", flush=True)
-            if not err <= 1e-3 * max(scale, 1.0):
-                return None
-        return timing.card_time(call, iters=iters)[0] * 1e3
-
     gat_timings = []
     for graph, a, H, dh in (("sbm", adj, 1, 64), ("sbm", adj, 1, 3),
                             ("sbm", adj, 8, 8), ("rmat15", rmat, 1, 64)):
@@ -1746,14 +1904,15 @@ def main(argv=None):
 
     # The chunk kernel against the CSR kernel (spmm_csr), its plain version
     # and torch.sparse.mm (cuSPARSE), at the GCN slice's sbm K=32 (valued),
-    # at rmat15 K=128 (edge factor 8, the earlier phases' graph) and at the
-    # sweep's rmat15 (synth_graph, edge factor 16) K=128, both plan sizes.
-    sweep_csr = synth_graph("rmat15", seed=SEED)
-    sweep_adj = Adjacency.from_csr(sweep_csr, device=dev)
+    # at rmat15 (edge factor 8, the earlier phases' graph) and the sweep's
+    # rmat15 (synth_graph, edge factor 16) at K=32 and K=128, both plan
+    # sizes: the numbers of the auto rule.
     chunk_timings = []
     for graph, host_csr, a, K in (
             ("sbm", add_self_loops(ds.csr).to("cpu"), adj, 32),
+            ("rmat15", rmat.csr.to("cpu"), rmat, 32),
             ("rmat15", rmat.csr.to("cpu"), rmat, 128),
+            ("rmat15-ef16", sweep_csr, sweep_adj, 32),
             ("rmat15-ef16", sweep_csr, sweep_adj, 128)):
         m, n = a.shape
         B = torch.randn(n, K, device=dev, generator=gen)
@@ -1773,7 +1932,8 @@ def main(argv=None):
                                        a.csr.indices, data, B, a.rows, m)
 
             def csr_kernel():
-                return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, data, B)
+                return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, data, B,
+                                      split=a.split)
 
             # The error at this row's own shape, against float64.
             err, ok = bound_check(torch, ref, chunk(), a.csr.indptr,
@@ -1837,7 +1997,8 @@ def main(argv=None):
             return kpal.spmm_pallas(chunk_plan, data, B, m)
 
         def csr_kernel():
-            return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, data, B)
+            return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, data, B,
+                                  split=a.split)
 
         err, ok = bound_check(torch, ref, grouped(), a.csr.indptr,
                               a.csr.indices, a.rows, data, B)
@@ -1867,6 +2028,30 @@ def main(argv=None):
               f"{profiling.bound(row['bytes'], row['ops'])[0] * 1e3:.5f} ms | "
               f"{card}", flush=True)
     record["grouped_timings"] = grouped_timings
+
+    # Row 9's launch shape: producer warps a CTA and the widest K tile, at
+    # the sweep's rmat15 K=128 (defaults) and the GCN slice's RCM sbm K=32.
+    launch_sweep = []
+    chosen = (kgrp.PRODUCERS, kgrp.MAX_COLS)
+    for graph, host_csr, K in (("rmat15-ef16", sweep_csr, 128),
+                               ("sbm-rcm", sbm_rcm, 32)):
+        a = Adjacency.from_csr(host_csr, device=dev)
+        plan = build_grouped_plan(host_csr).to(dev)
+        B = torch.randn(a.shape[1], K, device=dev, generator=gen)
+        for producers in (1, 2, 4):
+            for cols in (32, 64, 128, 256):
+                if cols > 32 and cols > K:
+                    continue
+                kgrp.PRODUCERS, kgrp.MAX_COLS = producers, cols
+                ms = timing.device_time(lambda: kgrp.spmm_grouped(
+                    plan, a.data, B, a.shape[0])) * 1e3
+                launch_sweep.append({"graph": graph, "K": K,
+                                     "producers": producers,
+                                     "max_cols": cols, "kernel_device_ms": ms})
+                print(f"spmm_grouped {graph} K={K} producers={producers} "
+                      f"widest tile={cols}: {ms:.5f} ms | {card}", flush=True)
+    kgrp.PRODUCERS, kgrp.MAX_COLS = chosen
+    record["grouped_launch_sweep"] = launch_sweep
 
     # Row 7 (halo_spmm), summed over P=4 shards, at the sharded GCN's
     # layer-0 shape (the SBM graph with self-loops, valued, K=32) and at
@@ -1917,7 +2102,7 @@ def main(argv=None):
 
         def csr_kernel():
             return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, a.data,
-                                  B[:a.shape[1]])
+                                  B[:a.shape[1]], split=a.split)
 
         got = torch.cat([khalo.halo_spmm_rows(
             blk.d_indptr, blk.d_indices, dv, Bs, blk.h_indptr, blk.h_indices,
@@ -1983,10 +2168,10 @@ def main(argv=None):
     gcn_routes = {"csr": [], "grouped": []}
     for route in ("csr", "grouped", "grouped", "csr"):
         res = (train(make_gcn, adj, "auto") if route == "csr" else
-               train(make_gcn_grouped, grp_adj, "auto", data=ds_rcm))[1]
+               train(make_gcn_grouped, grp_adj, "pallas", data=ds_rcm))[1]
         gcn_routes[route].append(res["mean_epoch_time"] * 1e3)
     for route, ms in gcn_routes.items():
-        print(f"GCN auto, {route} route: {mean(ms):.4f} ms/epoch (runs "
+        print(f"GCN, {route} route: {mean(ms):.4f} ms/epoch (runs "
               f"{', '.join(f'{x:.4f}' for x in ms)}) | {card}", flush=True)
     record["gcn_routes_ms_per_epoch"] = gcn_routes
     # The sharded GCN (P=4 shards in one process, row 7) against phase 6's
@@ -2034,7 +2219,8 @@ def main(argv=None):
     lib_sbm = library_csr(adj.csr.to("cpu"), dev)
     timings[0]["library_ms"] = library_time(
         "torch.sparse.mm", lambda: torch.sparse.mm(lib_sbm, B32),
-        want=kspmm.spmm_csr(adj.csr.indptr, adj.csr.indices, adj.data, B32))
+        want=kspmm.spmm_csr(adj.csr.indptr, adj.csr.indices, adj.data, B32,
+                            split=adj.split))
     B128 = torch.relu(torch.randn(sage_adj.shape[1], 128, device=dev,
                                   generator=gen))
     lib_sage = library_csr(sage_adj.csr.to("cpu"), dev)
@@ -2057,8 +2243,6 @@ def main(argv=None):
     idx_s = (m_s + 1) * 4 + nnz_s * 4  # indptr and indices of sbm+loops
     idx_p = (m_s + 1) * 4 + nnz_p * 4  # of sbm (SAGE-pool, binary)
     K, Kp, H = 32, 128, 1
-    timings[0].update(bytes=profiling.spmm_bytes(nnz_s, m_s, K, n_s, True),
-                      ops=2 * nnz_s * K)
     mm_timings[0].update(bytes=idx_p + 3 * m_s * Kp * 4, ops=2 * nnz_p * Kp)
     mm_timings[1].update(bytes=idx_p + 5 * m_s * Kp * 4, ops=3 * nnz_p * Kp)
     seg_timings[0].update(bytes=idx_s + nnz_s * 4 + m_s * 4, ops=nnz_s)
@@ -2081,14 +2265,25 @@ def main(argv=None):
                 "bound_ms": bound_s * 1e3, "bound_by": bound_by,
                 "library_ms": row.get("library_ms"), "shape": row["shape"]}
 
+    def more_shapes(rows):
+        """The kernel's other timed shapes, each with its own error, times
+        and bound."""
+        return [{k: v for k, v in kernel_entry("", "", "", 0,
+                                               r["max_abs_err"], r).items()
+                 if k not in ("name", "route", "source", "replaces",
+                              "launches")} for r in rows]
+
     chunk_row = next(r for r in chunk_timings
                      if r["shape"] == "rmat15-ef16 K=128 (R, E)=(64, 64)")
     grouped_row = grouped_timings[-1]  # the GCN slice's sbm-rcm K=32
-    grouped_launches = gcn_grouped_runs["auto"]["launches"]
+    grouped_launches = gcn_grouped_runs["pallas"]["launches"]
     kernels = {"kernels": [
-        kernel_entry("spmm_csr", kspmm.SOURCE, kspmm.REPLACES,
-                     gcn_runs["auto"]["launches"]["spmm_csr"], slice_err,
-                     timings[0]),
+        dict(kernel_entry("spmm_csr", kspmm.SOURCE, kspmm.REPLACES,
+                          gcn_runs["auto"]["launches"]["spmm_csr"], slice_err,
+                          timings[0]),
+             carry_launches=gcn_runs["auto"]["launches"]["spmm_csr_carry"],
+             more=more_shapes(t for t in timings
+                              if t["shape"].startswith("rmat15"))),
         kernel_entry("spmm_minmax", kmm.SOURCE, kmm.REPLACES,
                      sage_runs["auto"]["launches"]["spmm_minmax"], fwd_err,
                      mm_timings[0]),
@@ -2123,7 +2318,8 @@ def main(argv=None):
         dict(kernel_entry("spmm_grouped", kgrp.SOURCE, kgrp.REPLACES,
                           grouped_launches["spmm_grouped"],
                           grouped_row["max_abs_err"], grouped_row),
-             carry_launches=grouped_launches["spmm_grouped_carry"]),
+             carry_launches=grouped_launches["spmm_grouped_carry"],
+             more=more_shapes(grouped_timings[:-1])),
         # Launches: the sharded GCN's run (phase 20); error: the main path's
         # shape (phase 18, sbm P=4 K=32 f32 valued sum).
         kernel_entry("halo_spmm", khalo.SOURCE, khalo.REPLACES,

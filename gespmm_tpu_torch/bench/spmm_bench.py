@@ -10,18 +10,18 @@ kernel), ``pallas`` (the nnz-chunked kernel over a per-row plan), ``scatter``
 (one ``index_add_``), ``dense`` (densify and matmul, size-guarded), and
 ``bcoo``, the sparse-library yardstick: ``torch.sparse.mm`` on a
 ``torch.sparse_csr_tensor`` (cuSPARSE on the card), under the JAX column
-name; the port never calls it.  ``tiled-hilo`` / ``tiled-fast`` are recorded
-as error cells: their bf16 stream is ROADMAP B1, and every mode runs the
-same f32 kernel, so they would time ``tiled`` again.
+name; the port never calls it.  ``tiled-hilo`` / ``tiled-fast`` are the CSR
+kernel with ``mode="hilo"`` (the f32 kernel) and ``mode="fast"`` (B rounded
+to bf16 once, gathered as bf16, f32 out).
 
 On the card each cell's time is its device time (``utils/timing.py::
-device_time``), or, for the tiers of ``HOST_SYNC_METHODS`` (whose call
-synchronises the host), CUDA events around groups of calls (the cell's
-``timer`` says which); a kernel tier that cannot be device-timed is an
-error cell.  On the CPU (``--device cpu``) the host clock's.  With
-``--validate`` every cell is first held to a float64 scipy golden,
-max |out − golden| / (1 + |golden|) <= tol, else it is recorded as
-``VALIDATION FAILED``.  A width that runs out of device memory is halved
+device_time``; a tier whose call synchronises the host is an error cell).
+On the CPU (``--device cpu``) the host clock's; the cell's ``timer`` says
+which.  With ``--validate`` every cell is first held to a float64 scipy
+golden, max |out − golden| / (1 + |golden|) <= tol, else it is recorded as
+``VALIDATION FAILED``; the golden of ``tiled-fast`` is that of B rounded
+to bf16, as in the JAX sweep (its contract is the exact sum of the rounded
+contributions).  A width that runs out of device memory is halved
 (the reference's max_ncols ladder) and recorded with its width.
 
 Run on the card:
@@ -48,10 +48,6 @@ import torch
 METHODS = ("xla", "tiled", "pallas", "scatter", "dense", "bcoo", "tiled-hilo",
            "tiled-fast")
 SDDMM_METHODS = ("xla", "tiled", "auto")
-# Tiers whose call synchronises the host on the card, so that no queue of
-# calls forms behind a spin kernel: the dense tier (on an H100,
-# device_time raises HostBehind for it at rmat15).
-HOST_SYNC_METHODS = ("dense",)
 
 
 def _append_csv(csv_file: str, row: dict) -> None:
@@ -115,17 +111,16 @@ def _device_name(device: torch.device) -> str:
             else "cpu")
 
 
-def _seconds(fn, device: torch.device, iters: int, method: str):
-    """(seconds per call, timer).  On the card ``utils/timing.py::card_time``:
-    "device" for every tier but those of HOST_SYNC_METHODS, which are timed
-    with "events" (a kernel tier that synchronises the host fails its cell).
-    On the CPU: "host", the median of the host clock."""
+def _seconds(fn, device: torch.device, iters: int):
+    """(seconds per call, timer).  On the card "device":
+    ``utils/timing.py::device_time``, whose ``HostBehind`` fails the cell of
+    a call that synchronises the host.  On the CPU "host", the median of
+    the host clock."""
     from gespmm_tpu_torch.utils import timing
 
     if device.type != "cuda":
         return timing.benchmark(fn, iters=iters).median_s, "host"
-    return timing.card_time(fn, iters=max(10, min(iters // 4, 50)),
-                            host_sync=method in HOST_SYNC_METHODS)
+    return timing.device_time(fn, iters=max(10, min(iters // 4, 50))), "device"
 
 
 def _rel_err(got: torch.Tensor, golden: np.ndarray) -> float:
@@ -184,6 +179,13 @@ def bench_graph(name: str, ks: List[int], iters: int = 200,
     def progress(msg: str) -> None:
         print(f"[bench {name}] {msg}", file=sys.stderr, flush=True)
 
+    def make_golden(B: torch.Tensor, method: str):
+        if not validate:
+            return None
+        if method == "tiled-fast":  # the golden of the bf16-rounded B
+            B = B.to(torch.bfloat16)
+        return golden_A @ B.cpu().double().numpy()
+
     def alloc_B(K: int):
         # OOM-halving allocation (the reference's max_ncols ladder).
         while True:
@@ -199,23 +201,18 @@ def bench_graph(name: str, ks: List[int], iters: int = 200,
     for K_req in ks:
         progress(f"K={K_req}: allocating B")
         B0, K0 = alloc_B(K_req)
-        golden0 = golden_A @ B0.cpu().double().numpy() if validate else None
         for method in methods:
-            K, B, golden = K0, B0, golden0
-            if method in ("tiled-hilo", "tiled-fast"):
-                results[(K_req, method)] = {
-                    "error": f"{method}: the bf16 stream of this mode is "
-                             "ROADMAP B1, not ported; every mode runs the f32 "
-                             "kernel, so this tier would time 'tiled' again"}
-                continue
+            K, B = K0, B0
+            golden = make_golden(B, method)
             adj = adjs[method]
+            tier, _, mode = method.partition("-")
             while True:
                 progress(f"K={K_req} method={method} (width {K})")
                 if method == "bcoo":
                     fn = (lambda _B=B: torch.sparse.mm(lib, _B))
                 else:
-                    fn = (lambda _B=B, _a=adj, _m=method: spmm(_a, _B,
-                                                               method=_m))
+                    fn = (lambda _B=B, _a=adj, _t=tier, _md=mode or "trilo":
+                          spmm(_a, _B, method=_t, mode=_md))
                 try:
                     if golden is not None:
                         err = _rel_err(fn(), golden)
@@ -223,7 +220,7 @@ def bench_graph(name: str, ks: List[int], iters: int = 200,
                             results[(K_req, method)] = {
                                 "error": f"VALIDATION FAILED: err={err:.2e}"}
                             break
-                    t, timer = _seconds(fn, device, iters, method)
+                    t, timer = _seconds(fn, device, iters)
                 except torch.cuda.OutOfMemoryError:
                     torch.cuda.empty_cache()
                     if K == 1:
@@ -233,8 +230,7 @@ def bench_graph(name: str, ks: List[int], iters: int = 200,
                     progress(f"K={K_req} method={method}: out of memory at "
                              f"width {K}, halving")
                     B, K = alloc_B(K // 2)
-                    golden = (golden_A @ B.cpu().double().numpy() if validate
-                              else None)
+                    golden = make_golden(B, method)
                     continue
                 except Exception as e:  # a cell's failure is its record
                     results[(K_req, method)] = {"error": str(e)[:200]}
@@ -294,7 +290,7 @@ def bench_sddmm_graph(name: str, ks: List[int], iters: int = 200,
                         results[(K, method)] = {
                             "error": f"VALIDATION FAILED: err={err:.2e}"}
                         continue
-                t, timer = _seconds(fn, device, iters, method)
+                t, timer = _seconds(fn, device, iters)
             except Exception as e:  # a cell's failure is its record
                 results[(K, method)] = {"error": str(e)[:200]}
                 continue

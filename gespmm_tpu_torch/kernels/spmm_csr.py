@@ -1,12 +1,18 @@
 """Wrapper of the fused CSR SpMM kernel ``csrc/spmm_csr.cu``.
 
 Counterpart of ``gespmm_tpu/kernels/spmm_stream.py::spmm_tiled`` (sum): the
-TPU's gather + Pallas stream-reduce pair becomes one CUDA kernel.  A tensor
-on the CPU goes to the plain version (``ops/reference.py::spmm_rows``); a
-CUDA tensor launches the kernel or raises — there is no fallback.
+TPU's gather + Pallas stream-reduce pair becomes one CUDA kernel.  Rows longer
+than the split's L edges are walked in segments of L by separate warps, and a
+carry pass adds each long row's segments in order (``sparse/partition.py::
+build_row_split``; ``ops/spmm.py::Adjacency`` builds the split of the CSR and
+of the CSC once, on the host).  A tensor on the CPU goes to the plain version
+(``ops/reference.py::spmm_split_rows``, or ``spmm_rows`` without a long row);
+a CUDA tensor launches the kernel or raises — there is no fallback.
 
-``launches`` counts kernel launches (a plain int), so a run can show that
-its SpMMs went through the kernel.
+``launches`` counts the main pass, ``carry_launches`` the carry pass (one
+call is one launch of each, or of the main pass alone when no row is longer
+than L), plain ints, so a run can show that its SpMMs went through the
+kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 from gespmm_tpu_torch.kernels._build import load_library
 from gespmm_tpu_torch.ops import reference
 from gespmm_tpu_torch.sparse.formats import expand_indptr
+from gespmm_tpu_torch.sparse.partition import RowSplit, build_row_split
 
 Tensor = torch.Tensor
 
@@ -27,22 +34,26 @@ SOURCE = "gespmm_tpu_torch/csrc/spmm_csr.cu"
 REPLACES = "gespmm_tpu/kernels/spmm_stream.py:232"
 
 launches = 0
+carry_launches = 0
 
-_ENTRY = {torch.float32: "gespmm_spmm_csr_f32",
-          torch.bfloat16: "gespmm_spmm_csr_bf16"}
+# (B dtype, out dtype) -> entry point.
+_ENTRY = {(torch.float32, torch.float32): "gespmm_spmm_csr_f32",
+          (torch.bfloat16, torch.bfloat16): "gespmm_spmm_csr_bf16",
+          (torch.bfloat16, torch.float32): "gespmm_spmm_csr_bf16_f32"}
+_SPLIT = ("seg_row", "seg_start", "long_rows", "seg_ptr")
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, carry_launches
+    launches = carry_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
+def _entry(b_dtype: torch.dtype, out_dtype: torch.dtype):
     lib = load_library("spmm_csr")
-    fn = getattr(lib, _ENTRY[dtype])
+    fn = getattr(lib, _ENTRY[(b_dtype, out_dtype)])
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, i, i, p, p, p, p, p, p]
+    fn.argtypes = [i] * 6 + [p] * 11
     fn.restype = ctypes.c_int
     lib.gespmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gespmm_cuda_error_string.restype = ctypes.c_char_p
@@ -50,17 +61,33 @@ def _entry(dtype: torch.dtype):
 
 
 def spmm_csr(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
-             B: Tensor, rows: Optional[Tensor] = None) -> Tensor:
+             B: Tensor, rows: Optional[Tensor] = None,
+             split: Optional[RowSplit] = None,
+             out_dtype: Optional[torch.dtype] = None) -> Tensor:
     """out = A @ B for the CSR (indptr, indices, data); ``data=None`` is 1.0.
 
-    Accumulates in f32; the output takes B's dtype.  ``rows`` (the expanded
-    indptr) is used only by the plain version on the CPU.
+    Accumulates in f32; the output takes ``out_dtype``, by default B's
+    (a bf16 B with an f32 out is the bf16 stream of ``mode="fast"``).
+    ``split`` is the structure's row split on B's device
+    (``Adjacency.split``); without one, a CUDA call builds it from a host
+    copy of ``indptr``, which synchronises (set-up, not a timed call).
+    ``rows`` (the expanded indptr) is used only by the plain version on the
+    CPU.
     """
+    out_dtype = B.dtype if out_dtype is None else out_dtype
     if B.device.type == "cpu":
         if rows is None:
             rows = expand_indptr(indptr, indices.shape[0])
-        return reference.spmm_rows(rows, indices, data, B, indptr.shape[0] - 1)
-    return spmm_csr_cuda(indptr, indices, data, B)
+        Bp = B.to(out_dtype)  # bf16 -> f32 is exact
+        m = indptr.shape[0] - 1
+        if split is not None and split.num_segments:
+            return reference.spmm_split_rows(
+                rows, indptr, indices, data, Bp, m, split.seg_row,
+                split.long_rows, split.seg_ptr, split.seg_len)
+        return reference.spmm_rows(rows, indices, data, Bp, m)
+    if split is None:
+        split = build_row_split(indptr).to(B.device)
+    return spmm_csr_cuda(indptr, indices, data, B, split, out_dtype)
 
 
 def lane_vector(K: int, *tensors: Tensor) -> int:
@@ -81,7 +108,7 @@ def check_operands(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
     ``csrc/`` do not take (shared by every wrapper)."""
     if B.device.type != "cuda":
         raise ValueError(f"B must be a CUDA tensor, got device {B.device}")
-    if B.dtype not in _ENTRY:
+    if B.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"B must be float32 or bfloat16, got {B.dtype}")
     if B.dim() != 2 or not B.is_contiguous():
         raise ValueError(f"B must be a contiguous 2-D tensor, got {tuple(B.shape)}")
@@ -126,23 +153,40 @@ def raise_on(err: int, err_str, what: str) -> None:
 
 
 def spmm_csr_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
-                  B: Tensor) -> Tensor:
-    """Launch the kernel on the current stream of B's device."""
-    global launches
+                  B: Tensor, split: RowSplit,
+                  out_dtype: torch.dtype) -> Tensor:
+    """Launch the main pass, then the carry pass when the split has a long
+    row, on the current stream of B's device."""
+    global launches, carry_launches
     check_operands(indptr, indices, data, B)
+    if (B.dtype, out_dtype) not in _ENTRY:
+        raise TypeError(f"no kernel for B {B.dtype} with out {out_dtype}")
+    for name in _SPLIT:
+        t = getattr(split, name)
+        if t.device != B.device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"split.{name} must be a contiguous int32 tensor "
+                             f"on {B.device} (RowSplit.to)")
     m, K = indptr.shape[0] - 1, B.shape[1]
     if m == 0 or K == 0 or indices.shape[0] == 0:
         # A zero-size grid is an invalid launch; the answer is all zeros.
-        return torch.zeros((m, K), dtype=B.dtype, device=B.device)
-    fn, err_str = _entry(B.dtype)
+        return torch.zeros((m, K), dtype=out_dtype, device=B.device)
+    fn, err_str = _entry(B.dtype, out_dtype)
     vals = None if data is None else data.to(torch.float32).contiguous()
-    out = torch.empty((m, K), dtype=B.dtype, device=B.device)
+    out = torch.empty((m, K), dtype=out_dtype, device=B.device)
+    S, J = split.num_segments, split.num_long_rows
+    partial = (torch.empty((S, K), dtype=torch.float32, device=B.device)
+               if S else None)
+    vec = lane_vector(K, B, out, *(() if partial is None else (partial,)))
     with torch.cuda.device(B.device):
-        err = fn(m, K, lane_vector(K, B, out), indptr.data_ptr(),
+        err = fn(m, K, vec, split.seg_len, S, J, indptr.data_ptr(),
                  indices.data_ptr(),
                  None if vals is None else vals.data_ptr(),
+                 *(getattr(split, name).data_ptr() for name in _SPLIT),
                  B.data_ptr(), out.data_ptr(),
+                 None if partial is None else partial.data_ptr(),
                  torch.cuda.current_stream(B.device).cuda_stream)
-    raise_on(err, err_str, f"spmm_csr at m={m} K={K} dtype={B.dtype}")
+    raise_on(err, err_str, f"spmm_csr at m={m} K={K} L={split.seg_len} "
+             f"segments={S} B {B.dtype} out {out_dtype}")
     launches += 1
+    carry_launches += int(J > 0)
     return out

@@ -183,6 +183,38 @@ def halo_spmm_rows(d_rows: Tensor, d_indices: Tensor, d_vals: Optional[Tensor],
     return best.to(B_d.dtype), ties
 
 
+def spmm_split_rows(rows: Tensor, indptr: Tensor, indices: Tensor,
+                    data: Optional[Tensor], B: Tensor, m: int,
+                    seg_row: Tensor, long_rows: Tensor, seg_ptr: Tensor,
+                    seg_len: int) -> Tensor:
+    """The plain version of the split CSR kernel: the rows of at most
+    ``seg_len`` edges summed as in ``spmm_rows``; each longer row's
+    segments of ``seg_len`` consecutive edges summed apart (the split of
+    ``sparse/partition.py::build_row_split``: ``seg_row``, ``long_rows``,
+    ``seg_ptr``), then added into the row in segment order.  f32
+    accumulation (f64 for f64 inputs); B's dtype out.
+    """
+    contrib = _contrib(indices, data, B)
+    dev, nnz, S = B.device, indices.shape[0], seg_row.shape[0]
+    r = rows.long()
+    lr = long_rows.long()
+    is_long = torch.zeros(m, dtype=torch.bool, device=dev).index_fill_(0, lr,
+                                                                       True)
+    first_seg = torch.zeros(m, dtype=torch.long, device=dev).index_copy_(
+        0, lr, seg_ptr[:-1].long())
+    offset = torch.arange(nnz, device=dev) - indptr.long().index_select(0, r)
+    seg = first_seg.index_select(0, r) + torch.div(offset, seg_len,
+                                                   rounding_mode="floor")
+    # One buffer: rows 0..m-1 take the short rows' edges, rows m.. the
+    # segments'; a long row's own buffer row stays 0 and then takes its
+    # segments in order.
+    target = torch.where(is_long.index_select(0, r), m + seg, r)
+    buf = torch.zeros((m + S, B.shape[1]), dtype=contrib.dtype, device=dev)
+    buf.index_add_(0, target, contrib)
+    out = buf[:m].index_add_(0, seg_row.long(), buf[m:])
+    return out.to(B.dtype)
+
+
 def sddmm_rows(rows: Tensor, cols: Tensor, D1: Tensor, D2: Tensor) -> Tensor:
     """out[e] = D1[rows[e]] · D2[cols[e]], accumulated in f32."""
     acc = _acc_dtype(D1.dtype)
@@ -485,7 +517,9 @@ def spmm_scatter(rows: Tensor, indices: Tensor, data: Optional[Tensor],
 def spmm_dense(rows: Tensor, indices: Tensor, data: Optional[Tensor],
                B: Tensor, m: int) -> Tensor:
     """Densify-and-matmul SpMM (``spmm_dense_xla``): A built by one
-    accumulating scatter, then one full-f32 ``torch.matmul``.  Raises
+    ``index_add_`` into its flat view at row·n + col (duplicate (row, col)
+    pairs add up), then one full-f32 ``torch.matmul``.  Nothing waits for
+    the device (``index_put_(accumulate=True)`` did, on the card).  Raises
     ValueError when A would exceed DENSE_BYTES_LIMIT."""
     n = B.shape[0]
     dense_bytes = m * n * 4
@@ -499,7 +533,7 @@ def spmm_dense(rows: Tensor, indices: Tensor, data: Optional[Tensor],
     vals = (torch.ones(indices.shape[0], dtype=acc, device=B.device)
             if data is None else data.to(acc))
     A = torch.zeros((m, n), dtype=acc, device=B.device)
-    A.index_put_((rows.long(), indices.long()), vals, accumulate=True)
+    A.view(-1).index_add_(0, rows.long() * n + indices.long(), vals)
     return torch.matmul(A, B.to(acc)).to(B.dtype)
 
 

@@ -18,15 +18,19 @@ walks the CSC, giving grad_B and grad_values (back to CSR order through
 takes (``_METHOD_REDUCES``, as in the JAX package):
 
   * ``"auto"``/``"tiled"``: the CUDA kernels on a CUDA tensor (the CSR sum
-    kernel, the max/min kernels), their plain versions on a CPU tensor;
+    kernel, the max/min kernels), their plain versions on a CPU tensor.
+    For a sum, ``"auto"`` takes the CSR kernel whatever plan the adjacency
+    holds: with its long rows split over warps it was the fastest of the
+    CSR, chunk and grouped kernels at every shape the card timed but one,
+    where the chunk kernel led by less than the run-to-run spread (PERF.md,
+    PR 7: sbm-pubmed, both rmat15, K = 32 and 128), where the JAX package's
+    ``auto`` took the grouped kernel on the TPU;
   * ``"xla"``: the plain PyTorch version on any device (the explicit
     reference tier, named after the JAX package's tier);
   * ``"pallas"`` (sum/mean): the nnz-chunked kernel over a per-row chunk
     plan (``Adjacency.from_csr(csr, plan="perrow")``), or the grouped-gather
     kernel over a grouped plan (``plan="grouped"``), forward and, over the
     transposed plan, grad_B (the CSR kernel where there is no such plan);
-    ``"auto"`` on a grouped plan takes the grouped kernel too (the JAX
-    package's choice on the TPU), and on any other the CSR kernel;
   * ``"scatter"`` (sum/mean): the push formulation, one ``index_add_``;
   * ``"dense"`` (sum/mean): densify and ``torch.matmul``, size-guarded.
 """
@@ -46,8 +50,10 @@ from gespmm_tpu_torch.kernels.spmm_minmax import spmm_minmax, spmm_minmax_vjp
 from gespmm_tpu_torch.kernels.spmm_pallas import spmm_pallas
 from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.sparse.formats import CSC, CSR
-from gespmm_tpu_torch.sparse.partition import (GroupedSpmmPlan, SpmmPlan,
+from gespmm_tpu_torch.sparse.partition import (GroupedSpmmPlan, RowSplit,
+                                                SpmmPlan,
                                                 build_grouped_plan,
+                                                build_row_split,
                                                 build_spmm_plan)
 
 Tensor = torch.Tensor
@@ -93,7 +99,9 @@ class Adjacency:
     ``inv_perm`` is its inverse.  ``rows``/``rows_t`` are the per-nonzero row
     ids of the CSR and of the CSC (the CSR of Aᵀ).  ``plan``/``plan_t`` are
     the chunk plans of A and Aᵀ (``plan="perrow"`` or ``"grouped"``), or
-    None.
+    None.  ``split``/``split_t`` are the row splits of the CSR and of the CSC
+    (``sparse/partition.py::build_row_split``), the CSR kernel's work lists
+    for rows longer than L, built on the host with the orderings.
     """
 
     csr: CSR
@@ -104,6 +112,8 @@ class Adjacency:
     inv_perm: Tensor
     plan: Optional[SpmmPlan] = None  # or its subclass GroupedSpmmPlan
     plan_t: Optional[SpmmPlan] = None
+    split: Optional[RowSplit] = None
+    split_t: Optional[RowSplit] = None
 
     @classmethod
     def from_csr(cls, csr: CSR, device=None, plan=False, plan_transpose=True,
@@ -115,7 +125,7 @@ class Adjacency:
         tier, which needs no plan object) | "perrow" (the chunk plans of
         ``method="pallas"``, with ``rows_per_block``/``chunk_nnz`` from
         ``plan_kwargs``) | "grouped" (the grouped plans of
-        ``method="pallas"`` and ``"auto"``, with ``rows_per_block``,
+        ``method="pallas"``, with ``rows_per_block``,
         ``edges_per_chunk``, ``groups_per_chunk``/``group_rows`` from
         ``plan_kwargs``).  ``plan_transpose=False`` skips the plan of Aᵀ;
         grad_B then takes the CSR kernel (the JAX package takes its plain
@@ -160,7 +170,9 @@ class Adjacency:
             pt = dataclasses.replace(pt.to(device), indptr=csc.indptr,
                                      indices=csc.indices)
         return cls(csr=csr_d, csc=csc, perm=perm, rows=dev(rows_h),
-                   rows_t=rows_t, inv_perm=dev(inv_perm_h), plan=p, plan_t=pt)
+                   rows_t=rows_t, inv_perm=dev(inv_perm_h), plan=p, plan_t=pt,
+                   split=build_row_split(indptr_h).to(device),
+                   split_t=build_row_split(colptr_h).to(device))
 
     @property
     def shape(self):
@@ -187,16 +199,17 @@ class Adjacency:
             csc=CSC(self.csr.indptr, self.csr.indices, self.csr.data, (n, m)),
             perm=self.inv_perm, rows=self.rows_t, rows_t=self.rows,
             inv_perm=self.perm, plan=self.plan_t, plan_t=self.plan,
+            split=self.split_t, split_t=self.split,
         )
 
 
-def _forward(method: str, indptr: Tensor, indices: Tensor,
+def _forward(method: str, mode: str, indptr: Tensor, indices: Tensor,
              data: Optional[Tensor], B: Tensor, rows: Tensor,
-             plan: Optional[SpmmPlan]) -> Tensor:
+             plan: Optional[SpmmPlan], split: Optional[RowSplit]) -> Tensor:
     m = indptr.shape[0] - 1
     # The kernels take a contiguous B; a column slice or a transposed view
     # is a valid operand of the op.
-    if method in ("pallas", "auto") and isinstance(plan, GroupedSpmmPlan):
+    if method == "pallas" and isinstance(plan, GroupedSpmmPlan):
         return spmm_grouped(plan, data, B.contiguous(), m)
     if method == "pallas" and plan is not None:
         return spmm_pallas(plan, data, B.contiguous(), m)
@@ -206,22 +219,27 @@ def _forward(method: str, indptr: Tensor, indices: Tensor,
         return ref.spmm_dense(rows, indices, data, B, m)
     if method == "xla":
         return ref.spmm_rows(rows, indices, data, B, m)
-    # "auto"/"tiled" without a grouped plan, and "pallas" without a plan for
-    # this direction (the grad_B of an Adjacency built with
-    # plan_transpose=False): the CSR kernel, which needs none.
-    return spmm_csr(indptr, indices, data, B.contiguous(), rows=rows)
+    # "auto"/"tiled", and "pallas" without a plan for this direction (the
+    # grad_B of an Adjacency built with plan_transpose=False): the CSR
+    # kernel, which needs none.  "fast" rounds B to bf16 once: the kernel
+    # gathers half the bytes and accumulates and writes in f32.
+    if mode == "fast" and B.dtype == torch.float32:
+        return spmm_csr(indptr, indices, data, B.to(torch.bfloat16), rows=rows,
+                        split=split, out_dtype=torch.float32)
+    return spmm_csr(indptr, indices, data, B.contiguous(), rows=rows,
+                    split=split)
 
 
 class _SpmmSum(torch.autograd.Function):
     """Sum-SpMM over ``adj``; differentiable in ``data`` and ``B``."""
 
     @staticmethod
-    def forward(ctx, adj: Adjacency, method: str, data: Optional[Tensor],
-                B: Tensor) -> Tensor:
-        ctx.adj, ctx.method = adj, method
-        ctx.save_for_backward(data, B if ctx.needs_input_grad[2] else None)
-        return _forward(method, adj.csr.indptr, adj.csr.indices, data, B,
-                        adj.rows, adj.plan)
+    def forward(ctx, adj: Adjacency, method: str, mode: str,
+                data: Optional[Tensor], B: Tensor) -> Tensor:
+        ctx.adj, ctx.method, ctx.mode = adj, method, mode
+        ctx.save_for_backward(data, B if ctx.needs_input_grad[3] else None)
+        return _forward(method, mode, adj.csr.indptr, adj.csr.indices, data,
+                        B, adj.rows, adj.plan, adj.split)
 
     @staticmethod
     def backward(ctx, g: Tensor):
@@ -229,14 +247,15 @@ class _SpmmSum(torch.autograd.Function):
         data, B = ctx.saved_tensors
         g = g.contiguous()  # autograd often hands in an expanded view
         grad_data = grad_B = None
-        if ctx.needs_input_grad[3]:
+        if ctx.needs_input_grad[4]:
             t_data = None if data is None else data[adj.perm.long()]
-            grad_B = _forward(method, adj.csc.indptr, adj.csc.indices,
-                              t_data, g, adj.rows_t, adj.plan_t)
-        if data is not None and ctx.needs_input_grad[2]:
+            grad_B = _forward(method, ctx.mode, adj.csc.indptr,
+                              adj.csc.indices, t_data, g, adj.rows_t,
+                              adj.plan_t, adj.split_t)
+        if data is not None and ctx.needs_input_grad[3]:
             grad_data = ref.sddmm_rows(adj.rows, adj.csr.indices, g, B)
             grad_data = grad_data.to(data.dtype)
-        return None, None, grad_data, grad_B
+        return None, None, None, grad_data, grad_B
 
 
 class _SpmmMinMax(torch.autograd.Function):
@@ -314,14 +333,19 @@ def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
         bare ``CSR`` (the pairing is built on the fly).
       B: dense (n, K) tensor, float32 or bfloat16 on the card.
       reduce: "sum" | "mean" | "max" | "min" (empty rows give 0 under each).
-      method: "auto" | "tiled" (the CUDA kernels on the card; "auto" takes
-        the grouped kernel on a ``plan="grouped"`` adjacency) | "xla"
-        (plain) | "pallas" (the chunked or the grouped kernel; needs
-        ``plan="perrow"`` or ``"grouped"``) | "scatter" | "dense" (the last
-        three sum/mean only).
-      mode: "trilo" | "hilo" | "fast" | "highest", validated as in the JAX
-        package; every mode accumulates in f32 here, which meets each
-        mode's tolerance.
+      method: "auto" | "tiled" (the CUDA kernels on the card; a sum takes
+        the CSR kernel on any adjacency) | "xla" (plain) | "pallas" (the
+        chunked or the grouped kernel; needs ``plan="perrow"`` or
+        ``"grouped"``) | "scatter" | "dense" (the last three sum/mean only).
+      mode: the precision tier of the CSR kernel's sum, as the JAX
+        package's is of its tiled stream.  "fast" rounds an f32 B to bf16
+        once (one torch op); the kernel gathers the bf16 rows (half the
+        bytes), accumulates in f32 and writes f32, forward and grad_B: the
+        JAX contract of about 4e-3 relative, and with a binary A the JAX
+        fast result (both round the same values).  "trilo", "hilo" and
+        "highest" run the f32 kernel, which meets hilo's ~1e-5: on CUDA
+        cores a hi/lo pair of bf16 values moves the bytes of f32.  Other
+        routes and reductions accumulate in f32 in every mode.
 
     Differentiable in ``B`` and in ``adj``'s edge values (if present).
     """
@@ -343,4 +367,4 @@ def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
         return out / torch.clamp(deg, min=1.0)[:, None]
     if reduce in ("max", "min"):
         return _SpmmMinMax.apply(adj, method, reduce, adj.csr.data, B)
-    return _SpmmSum.apply(adj, method, adj.csr.data, B)
+    return _SpmmSum.apply(adj, method, mode, adj.csr.data, B)

@@ -34,7 +34,13 @@ The grouped plan (``build_grouped_plan``, the work list of
 ``csrc/spmm_grouped.cu``) cuts each block greedily instead, into chunks of
 at most E edges and at most NG distinct aligned groups of G B rows, and
 adds each chunk's group ids and each edge's staged slot; its row lists and
-carry slots come from the same helper, ``_row_lists``.
+carry slots come from the same helper, ``_row_lists``.  It also derives the
+B rows each chunk's edges reference (``ref_ptr``, ``ref_rows``,
+``ref_slot``): the grouped kernel stages only those, not whole groups.
+
+The row split (``build_row_split``, the work list of ``csrc/spmm_csr.cu``)
+cuts each CSR row longer than L edges into segments of L consecutive edges,
+each walked by one warp; the carry pass adds a long row's segments in order.
 """
 
 from __future__ import annotations
@@ -194,15 +200,27 @@ class GroupedSpmmPlan(SpmmPlan):
     g is the B rows [g·G, g·G + G)); edge e reads its B row from staged row
     ``slots[e]`` = pos(group)·G + col % G of its chunk.  ``groups_per_chunk``
     is the widest chunk's group count (NG shrunk, as in the JAX package),
-    and ``staged_rows`` the B rows all chunks stage, G per group.
+    and ``staged_rows`` the B rows whole groups hold, G per group (what the
+    JAX kernel stages).
+
+    The rows the kernel stages are those the chunk's edges reference:
+    chunk c's are ``ref_rows[ref_ptr[c]:ref_ptr[c + 1]]``, its distinct
+    slots in slot order, and edge e reads entry ``ref_slot[e]`` of its
+    chunk's list.  ``referenced_rows`` is their total, ``max_refs`` the
+    most one chunk has.
     """
 
     groups: Tensor
     group_count: Tensor
     slots: Tensor
+    ref_ptr: Tensor
+    ref_rows: Tensor
+    ref_slot: Tensor
     groups_per_chunk: int
     group_rows: int
     staged_rows: int
+    referenced_rows: int
+    max_refs: int
 
     @property
     def edges_per_chunk(self) -> int:
@@ -281,6 +299,8 @@ def build_grouped_plan(csr, rows_per_block: int = 64, edges_per_chunk: int = 64,
     for c, gl in enumerate(groups):
         group_arr[c, :len(gl)] = gl
     row_lists = _row_lists(indptr, R, chunk0, chunk_start)
+    refs = _referenced_rows(group_arr, chunk_count, np.asarray(slots, np.int64),
+                            G)
 
     return GroupedSpmmPlan(
         indptr=indptr_t, indices=indices_t, chunk_start=_int32(chunk_start),
@@ -288,8 +308,86 @@ def build_grouped_plan(csr, rows_per_block: int = 64, edges_per_chunk: int = 64,
         first=_int32(first),
         **{k: _int32(v) for k, v in row_lists.items()},
         groups=_int32(group_arr), group_count=_int32(group_count),
-        slots=_int32(slots), rows_per_block=R,
-        chunk_nnz=E, groups_per_chunk=NG, group_rows=G, shape=(m, n),
-        nnz=nnz, num_blocks=num_blocks,
+        slots=_int32(slots), **{k: _int32(v) for k, v in refs.items()},
+        rows_per_block=R, chunk_nnz=E, groups_per_chunk=NG, group_rows=G,
+        shape=(m, n), nnz=nnz, num_blocks=num_blocks,
         num_slots=int(row_lists["cut_ptr"][-1]),
-        staged_rows=int(group_count.sum()) * G)
+        staged_rows=int(group_count.sum()) * G,
+        referenced_rows=int(refs["ref_ptr"][-1]),
+        max_refs=int(np.diff(refs["ref_ptr"]).max(initial=0)))
+
+
+def _referenced_rows(groups: np.ndarray, chunk_count: np.ndarray,
+                     slots: np.ndarray, G: int) -> Dict[str, np.ndarray]:
+    """The B rows each chunk's edges reference (``ref_ptr``, ``ref_rows``,
+    ``ref_slot``): chunk c's distinct slots in slot order, each as the B
+    row it stages (group·G + slot % G), and each edge's index in its
+    chunk's list."""
+    C, NG = groups.shape
+    chunk = np.repeat(np.arange(C), chunk_count)
+    key = chunk * (NG * G) + slots
+    uniq, inverse = np.unique(key, return_inverse=True)
+    u_chunk, u_slot = uniq // (NG * G), uniq % (NG * G)
+    ref_rows = groups[u_chunk, u_slot // G] * G + u_slot % G
+    ref_ptr = np.searchsorted(u_chunk, np.arange(C + 1), side="left")
+    ref_slot = inverse.reshape(-1) - ref_ptr[chunk]
+    return dict(ref_ptr=ref_ptr, ref_rows=ref_rows, ref_slot=ref_slot)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowSplit:
+    """The long rows of one CSR structure cut into segments (int32 tensors).
+
+    A row of more than ``seg_len`` (L) edges is cut into ceil(deg / L)
+    segments of L consecutive edges (the last one shorter): segment s
+    covers edges [seg_start[s], min(seg_start[s] + L, indptr[seg_row[s] +
+    1])).  Long row j is ``long_rows[j]`` and its segments are
+    [seg_ptr[j], seg_ptr[j + 1]), in edge order; ``long_rows`` and
+    ``seg_ptr`` are the carry pass's ``cut_rows`` and ``cut_ptr``, with one
+    slot a segment.  A structure with no row longer than L has no segment.
+    """
+
+    seg_row: Tensor
+    seg_start: Tensor
+    long_rows: Tensor
+    seg_ptr: Tensor
+    seg_len: int
+
+    @property
+    def num_segments(self) -> int:
+        return int(self.seg_row.shape[0])
+
+    @property
+    def num_long_rows(self) -> int:
+        return int(self.long_rows.shape[0])
+
+    def to(self, device) -> "RowSplit":
+        """The same split with every tensor on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), Tensor)})
+
+
+# The segment length of the CSR kernel's split: the card's sweep of L in
+# {32, 64, 128, 256} at rmat15 K=128 (PERF.md, PR 7).
+SPLIT_LEN = 64
+
+
+def build_row_split(indptr, seg_len: int = SPLIT_LEN) -> RowSplit:
+    """Cut every row of ``indptr`` longer than ``seg_len`` edges into
+    segments of ``seg_len`` (host NumPy; the tensors are on the CPU,
+    ``RowSplit.to`` moves them).  Raises ValueError for seg_len < 1."""
+    if seg_len < 1:
+        raise ValueError(f"seg_len must be at least 1, got {seg_len}")
+    indptr = np.asarray(torch.as_tensor(indptr).cpu(), dtype=np.int64)
+    deg = np.diff(indptr)
+    long_rows = np.flatnonzero(deg > seg_len)
+    n_seg = (deg[long_rows] + seg_len - 1) // seg_len
+    seg_ptr = np.concatenate([[0], np.cumsum(n_seg)]).astype(np.int64)
+    seg_row = np.repeat(long_rows, n_seg)
+    k = np.arange(seg_row.shape[0]) - np.repeat(seg_ptr[:-1], n_seg)
+    seg_start = indptr[seg_row] + k * seg_len
+    return RowSplit(seg_row=_int32(seg_row), seg_start=_int32(seg_start),
+                    long_rows=_int32(long_rows), seg_ptr=_int32(seg_ptr),
+                    seg_len=seg_len)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Tuple
+from typing import Callable
 
 import torch
 
@@ -154,21 +154,6 @@ def device_time(fn: Callable[[], torch.Tensor], iters: int = 50,
     raise HostBehind(f"the host could not enqueue {iters} calls ahead of "
                      f"the device in {attempts} attempts (fewer iters, or a "
                      "call that synchronises?)")
-
-
-def card_time(fn: Callable[[], torch.Tensor], iters: int = 50,
-              host_sync: bool = False) -> Tuple[float, str]:
-    """(seconds per call, timer) of ``fn`` on the card.
-
-    "device": ``device_time``, whose ``HostBehind`` propagates, so that a
-    call that starts to synchronise the host fails rather than being timed
-    another way.  Only a call known to synchronise the host
-    (``host_sync=True``) is timed with "events": the median of CUDA events
-    around groups of calls, which then include the host's gaps.
-    """
-    if host_sync:
-        return benchmark(fn, iters=iters).median_s, "events"
-    return device_time(fn, iters=iters), "device"
 
 
 def spmm_flops(nnz: int, k: int) -> float:

@@ -58,6 +58,7 @@ from gespmm_tpu_torch.parallel.train_step import (build_sharded_gat,
                                                   build_sharded_sage)
 from gespmm_tpu_torch.sparse.formats import CSR
 from gespmm_tpu_torch.sparse.partition import (build_grouped_plan,
+                                                build_row_split,
                                                 build_spmm_plan)
 from gespmm_tpu_torch.sparse.reorder import inverse_permutation, reorder
 from gespmm_tpu_torch.train.loop import train_node_classifier
@@ -130,6 +131,125 @@ def test_kernel_is_deterministic(dev):
     assert torch.equal(a, b)
 
 
+def hub_csr(L, seed=0):
+    """Rows of 0, L - 1, L, L + 1, 2L, 2L + 1 and 10,000 edges among rows of
+    a few edges; n = 12,000."""
+    rng = np.random.default_rng(seed)
+    deg = np.r_[0, L - 1, L, L + 1, rng.integers(0, 5, 20), 10_000, 0,
+                2 * L, 2 * L + 1, rng.integers(0, 5, 20)]
+    n = 12_000
+    cols = np.concatenate([np.sort(rng.choice(n, d, replace=False))
+                           for d in deg])
+    indptr = np.r_[0, np.cumsum(deg)].astype(np.int32)
+    data = rng.standard_normal(cols.shape[0]).astype(np.float32)
+    return CSR(torch.from_numpy(indptr), torch.from_numpy(cols.astype(np.int32)),
+               torch.from_numpy(data), (deg.shape[0], n))
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("K", [1, 32, 33, 128, 130])
+@pytest.mark.parametrize("L", [32, 64, 128, 256])
+def test_split_kernel_at_each_boundary_and_a_hub(dev, L, K, dtype, out_dtype):
+    # A row of L edges is one warp's walk, L + 1 two segments, the hub of
+    # 10,000 edges ceil(10,000 / L) segments added by the carry in order.
+    csr = hub_csr(L)
+    adj = Adjacency.from_csr(csr, device=dev)
+    split = build_row_split(csr.indptr, L).to(dev)
+    assert split.long_rows.tolist() == [3, 24, 26, 27]
+    B = randn((csr.shape[1], K), dev, K, dtype)
+    kspmm.reset_launches()
+    out = kspmm.spmm_csr(adj.csr.indptr, adj.csr.indices, adj.data, B,
+                         split=split, out_dtype=out_dtype)
+    again = kspmm.spmm_csr(adj.csr.indptr, adj.csr.indices, adj.data, B,
+                           split=split, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (kspmm.launches, kspmm.carry_launches) == (2, 2)
+    assert out.dtype == out_dtype and torch.equal(out, again)
+    check_bound(out, adj.csr, B, adj.data)
+    if out_dtype == torch.float32:  # bf16 in, f32 out: no output rounding
+        check_bound(out, adj.csr, B.float(), adj.data)
+    assert not out[0].any()
+
+
+def test_split_kernel_adds_no_launch_without_a_long_row(dev):
+    # sbm-pubmed's rows have at most 16 edges: one launch a call, as before.
+    ds = sbm_graph(n_per_class=2000, num_classes=3, p_in=0.003, p_out=0.0001,
+                   feat_dim=8, seed=0)
+    adj = Adjacency.from_csr(add_self_loops(ds.csr), device=dev)
+    assert adj.split.num_segments == adj.split_t.num_segments == 0
+    B = randn((adj.shape[1], 32), dev, 1, requires_grad=True)
+    kspmm.reset_launches()
+    spmm(adj, B).backward(randn((adj.shape[0], 32), dev, 2))
+    torch.cuda.synchronize()
+    assert (kspmm.launches, kspmm.carry_launches) == (2, 0)
+
+
+@pytest.mark.parametrize("K", [128, 32])
+def test_auto_rule_launches_on_rmat15(dev, K):
+    # Rows and columns longer than L: "auto" takes the split CSR kernel,
+    # forward and grad_B, each with its carry, and no other kernel.
+    adj = Adjacency.from_csr(rmat15(), device=dev)
+    B = randn((adj.shape[1], K), dev, 1, requires_grad=True)
+    g = randn((adj.shape[0], K), dev, 2)
+    kspmm.reset_launches()
+    kpal.reset_launches()
+    kgrp.reset_launches()
+    out = spmm(adj, B)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (kpal.launches, kgrp.launches, kspmm.launches,
+            kspmm.carry_launches) == (0, 0, 2, 2)
+    check_bound(out.detach(), adj.csr, B.detach(), None)
+    t = adj.transpose()
+    check_bound(B.grad, t.csr, g, None)
+
+
+def test_split_kernel_on_rmat15_matches_float64(dev):
+    # The hub row and column of degree 3,866 and 11,708 empty rows, over
+    # the CSR and the CSC; two calls bitwise equal.
+    adj = Adjacency.from_csr(rmat15(), device=dev)
+    for indptr, indices, split, n_in in (
+            (adj.csr.indptr, adj.csr.indices, adj.split, adj.shape[1]),
+            (adj.csc.indptr, adj.csc.indices, adj.split_t, adj.shape[0])):
+        csr = CSR(indptr, indices, None, (indptr.shape[0] - 1, n_in))
+        B = randn((n_in, 128), dev, 4)
+        out = kspmm.spmm_csr(indptr, indices, None, B, split=split)
+        assert torch.equal(out, kspmm.spmm_csr(indptr, indices, None, B,
+                                               split=split))
+        check_bound(out, csr, B, None)
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_mode_fast_on_the_card(dev, binary):
+    # B rounded to bf16 once, gathered as bf16, f32 out, forward and grad_B:
+    # within 8e-3 (|A| @ |B|) of float64, and exactly the kernel over the
+    # rounded B.
+    csr = skewed_csr()
+    adj = Adjacency.from_csr(csr.with_data(None if binary else csr.data),
+                             device=dev)
+    B = randn((csr.shape[1], 64), dev, 1, requires_grad=True)
+    g = randn((csr.shape[0], 64), dev, 2)
+    out = spmm(adj, B, mode="fast")
+    out.backward(g)
+    assert out.dtype == B.grad.dtype == torch.float32
+    Bq = B.detach().to(torch.bfloat16)
+    check_bound(out.detach(), adj.csr, Bq.float(), adj.data)  # f32 sums
+    assert torch.equal(out, kspmm.spmm_csr(adj.csr.indptr, adj.csr.indices,
+                                           adj.data, Bq, split=adj.split,
+                                           out_dtype=torch.float32))
+    t = adj.transpose()
+    assert torch.equal(B.grad, kspmm.spmm_csr(
+        t.csr.indptr, t.csr.indices, t.data, g.to(torch.bfloat16),
+        split=t.split, out_dtype=torch.float32))
+    exact = spmm(adj.with_data(None if binary else adj.data.double()),
+                 B.detach().double(), method="xla")
+    mag = spmm(adj.with_data(None if binary else adj.data.double().abs()),
+               B.detach().double().abs(), method="xla")
+    assert ((out.double() - exact).abs() <= 8e-3 * mag).all()
+
+
 def test_empty_work_returns_zeros_without_launch(dev):
     before = kspmm.launches
     z = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -144,9 +264,11 @@ def test_empty_work_returns_zeros_without_launch(dev):
 def test_device_time_times_the_device_not_the_host(dev):
     csr = skewed_csr().to(dev)
     B = torch.randn(csr.shape[1], 32, device=dev)
+    split = build_row_split(csr.indptr.cpu()).to(dev)  # a bare call syncs
 
     def once():
-        return kspmm.spmm_csr(csr.indptr, csr.indices, csr.data, B)
+        return kspmm.spmm_csr(csr.indptr, csr.indices, csr.data, B,
+                              split=split)
 
     def twice():
         once()
@@ -159,7 +281,7 @@ def test_device_time_times_the_device_not_the_host(dev):
     assert 1.5 * t1 <= t2 <= 2.5 * t1
 
 
-def test_card_time_times_a_host_sync_only_when_told(dev):
+def test_device_time_refuses_a_call_that_syncs_the_host(dev):
     x = torch.randn(1 << 16, device=dev)
 
     def syncing():
@@ -167,11 +289,29 @@ def test_card_time_times_a_host_sync_only_when_told(dev):
         return x
 
     with pytest.raises(timing.HostBehind):
-        timing.card_time(syncing, iters=10)
-    t, timer = timing.card_time(syncing, iters=10, host_sync=True)
-    assert t > 0 and timer == "events"
-    t, timer = timing.card_time(lambda: x * 2, iters=10)
-    assert t > 0 and timer == "device"
+        timing.device_time(syncing, iters=10)
+    assert timing.device_time(lambda: x * 2, iters=10) > 0
+
+
+@pytest.mark.parametrize("method,plan,K", [
+    ("dense", False, 32), ("auto", False, 32), ("auto", False, 128),
+    ("auto", "grouped", 32), ("pallas", "grouped", 32),
+    ("pallas", "perrow", 32)])
+def test_spmm_tiers_never_sync_the_host(dev, method, plan, K):
+    # Forward and backward, with a hub row (the split's carry) and values.
+    adj = Adjacency.from_csr(skewed_csr(), device=dev, plan=plan)
+    d = adj.data.clone().requires_grad_(True)
+    B = randn((adj.shape[1], K), dev, 1, requires_grad=True)
+    g = randn((adj.shape[0], K), dev, 2)
+    spmm(adj.with_data(d), B, method=method)  # first calls load libraries
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = spmm(adj.with_data(d), B, method=method)
+        out.backward(g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check_bound(out.detach(), adj.csr, B.detach(), adj.data)
 
 
 def test_sweep_roofline_on_card(dev, capsys, tmp_path):
@@ -990,22 +1130,46 @@ def test_grouped_kernel_matches_plain(dev, K, binary, dtype, sizes):
         float(want.float().abs().max()), 1.0)
 
 
-def test_grouped_kernel_smem_opt_in_tiles(dev):
-    # NG*G up to 512 staged rows: at K=512 f32 the K tile needs more than
-    # the 48 KiB a launch gets without the opt-in.
+def test_grouped_kernel_smem_opt_in_tiles(dev, monkeypatch):
+    # Up to 64 referenced rows a chunk: with tiles as wide as the kernel
+    # takes (256 columns), at K=512 and K=130 the ring's stages need more
+    # than the 48 KiB a launch gets without the opt-in.
+    monkeypatch.setattr(kgrp, "MAX_COLS", 256)
     csr = skewed_csr()
     plan = build_grouped_plan(csr, **grouped_kw((64, 64, 64, 8))).to(dev)
-    S = plan.groups_per_chunk * plan.group_rows
-    header = kgrp.header_bytes(plan.edges_per_chunk, plan.groups_per_chunk)
+    S = plan.max_refs
+    header = kgrp.header_bytes(plan.edges_per_chunk, plan.rows_per_block)
     for K, dtype in ((512, torch.float32), (130, torch.float32),
                      (512, torch.bfloat16)):
         B = randn((csr.shape[1], K), dev, 5, dtype)
-        kt = kgrp.k_tile(K, kspmm.lane_vector(K, B), S, B.element_size(),
-                         header)
-        assert header + S * kt * B.element_size() > 48 * 1024, (K, dtype, kt)
+        size = B.element_size()
+        unit = kgrp.copy_width(K, size, B) // size
+        kt = kgrp.k_tile(K, max(unit, 1), S, size, header)
+        ns = kgrp.stages(kt, S, size, header)
+        assert ns * kgrp.stage_bytes(header, S, kt, size) > 48 * 1024, (
+            K, dtype, kt, ns)
         out = kgrp.spmm_grouped(plan, csr.data.to(dev), B, csr.shape[0])
         torch.cuda.synchronize()
         check_bound(out, csr.to(dev), B, csr.data.to(dev))
+
+
+@pytest.mark.parametrize("producers", [1, 2, 4])
+@pytest.mark.parametrize("cols", [32, 256])
+def test_grouped_kernel_launch_shapes(dev, monkeypatch, producers, cols):
+    # Every producer-warp count and tile width the kernel takes gives the
+    # same function, bitwise repeatable (f32 and bf16, K=130: tiles of 32
+    # columns, or one of 130).
+    monkeypatch.setattr(kgrp, "PRODUCERS", producers)
+    monkeypatch.setattr(kgrp, "MAX_COLS", cols)
+    csr = skewed_csr()
+    adj = Adjacency.from_csr(csr, device=dev, plan="grouped")
+    for dtype in (torch.float32, torch.bfloat16):
+        B = randn((csr.shape[1], 130), dev, 3, dtype)
+        out = kgrp.spmm_grouped(adj.plan, adj.data, B, csr.shape[0])
+        again = kgrp.spmm_grouped(adj.plan, adj.data, B, csr.shape[0])
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        check_bound(out, adj.csr, B, adj.data)
 
 
 def test_grouped_kernel_rows_past_n_and_empty_blocks(dev):
@@ -1045,10 +1209,13 @@ def test_grouped_kernel_is_deterministic(dev):
 @pytest.mark.parametrize("method", ["auto", "pallas"])
 def test_grouped_op_launches_and_never_takes_the_plain_version(
         dev, monkeypatch, method):
+    # "pallas" takes the grouped kernel; "auto" the CSR kernel, on a grouped
+    # adjacency too (the rule the card measured, PERF.md PR 7).
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(ref, "spmm_grouped_chunks", refuse)
+    monkeypatch.setattr(ref, "spmm_split_rows", refuse)
     csr = skewed_csr(seed=3)
     adj = Adjacency.from_csr(csr, device=dev, plan="grouped")
     d = adj.data.clone().requires_grad_(True)
@@ -1058,7 +1225,9 @@ def test_grouped_op_launches_and_never_takes_the_plain_version(
     kspmm.reset_launches()
     spmm(adj.with_data(d), B, method=method).backward(g)
     torch.cuda.synchronize()
-    assert (kgrp.launches, kspmm.launches) == (2, 0)  # forward, grad_B
+    # forward, grad_B
+    assert (kgrp.launches, kspmm.launches) == {"pallas": (2, 0),
+                                               "auto": (0, 2)}[method]
     adj64 = Adjacency.from_csr(csr)
     d64 = csr.data.double().requires_grad_(True)
     B64 = B.detach().cpu().double().requires_grad_(True)
@@ -1078,7 +1247,7 @@ def test_grouped_without_transposed_plan_launches_the_csr_kernel(dev):
     g = randn((adj.shape[0], 16), dev, 2)
     kgrp.reset_launches()
     kspmm.reset_launches()
-    spmm(adj, B).backward(g)
+    spmm(adj, B, method="pallas").backward(g)
     torch.cuda.synchronize()
     assert (kgrp.launches, kspmm.launches) == (1, 1)  # forward, grad_B
     t = adj.transpose()
@@ -1109,7 +1278,8 @@ def test_gcn_trains_on_a_reordered_graph_through_the_grouped_kernel(dev):
     x, y = ds.features[p].to(dev), ds.labels[p].to(dev)
     masks = {k: v[p].to(dev) for k, v in ds.masks.items()}
     gen = torch.Generator(device=dev).manual_seed(0)
-    model = GCN([32, 16, 3], generator=gen, device=dev).with_norms(adj)
+    model = GCN([32, 16, 3], generator=gen, device=dev,
+                method="pallas").with_norms(adj)
     kgrp.reset_launches()
     kspmm.reset_launches()
     res = train_node_classifier(model, adj, x, y, masks, epochs=20)
@@ -1121,7 +1291,8 @@ def test_gcn_trains_on_a_reordered_graph_through_the_grouped_kernel(dev):
     model.eval()
     with torch.no_grad():
         logits = model(adj, x)[torch.from_numpy(inverse_permutation(perm))]
-        orig = Adjacency.from_csr(add_self_loops(ds.csr), device=dev)
+        orig = Adjacency.from_csr(add_self_loops(ds.csr), device=dev,
+                                  plan="grouped")
         model.with_norms(orig)
         want = model(orig, ds.features.to(dev))
     assert float((logits - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -160,6 +160,30 @@ def test_plan_matches_jax(name):
             assert staged_row(tp, c, int(slots[e])) == cols[e]
 
 
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_referenced_rows_match_a_numpy_recount(name):
+    """The rows the kernel stages: each chunk's distinct columns, in the
+    order of their slots, and every edge's index among them."""
+    make, sizes = GRAPHS[name]
+    tp = build_grouped_plan(to_port(make()[0]), **plan_kw(sizes))
+    cols, slots = tp.indices.numpy(), tp.slots.numpy()
+    starts, counts = tp.chunk_start.numpy(), tp.chunk_count.numpy()
+    ptr, rows = tp.ref_ptr.numpy(), tp.ref_rows.numpy()
+    ref_slot = tp.ref_slot.numpy()
+    assert ptr[0] == 0 and ptr[-1] == tp.referenced_rows == rows.shape[0]
+    for c in range(tp.num_chunks):
+        e = np.arange(starts[c], starts[c] + counts[c])
+        distinct = np.unique(slots[e])  # slot order
+        want = [staged_row(tp, c, int(q)) for q in distinct]
+        np.testing.assert_array_equal(rows[ptr[c]:ptr[c + 1]], want)
+        np.testing.assert_array_equal(ref_slot[e],
+                                      np.searchsorted(distinct, slots[e]))
+        np.testing.assert_array_equal(rows[ptr[c] + ref_slot[e]], cols[e])
+    assert tp.max_refs == np.diff(ptr).max(initial=0) <= sizes[1]
+    # Whole groups stage at least the referenced rows.
+    assert tp.referenced_rows <= tp.staged_rows
+
+
 def test_hub_row_and_empty_block_shapes():
     hub = build_grouped_plan(to_port(hub_csr()[0]), **plan_kw(SMALL))
     j = hub.cut_rows.tolist().index(12)
@@ -259,7 +283,10 @@ def count_calls(monkeypatch, name):
 
 
 @pytest.mark.parametrize("plan,method,grouped,csr", [
-    ("grouped", "auto", [60, 50], []),      # forward over plan, grad_B plan_t
+    # "auto" takes the CSR kernel on every adjacency, a grouped one too
+    # (the rule the card measured, PERF.md PR 7); "pallas" keeps the
+    # grouped kernel: forward over plan, grad_B over plan_t.
+    ("grouped", "auto", [], [60, 50]),
     ("grouped", "pallas", [60, 50], []),
     ("grouped", "tiled", [], [60, 50]),     # "tiled" is the CSR kernel
     ("perrow", "auto", [], [60, 50]),
@@ -267,6 +294,7 @@ def count_calls(monkeypatch, name):
 ])
 def test_auto_on_a_grouped_adjacency_takes_the_grouped_route(
         monkeypatch, plan, method, grouped, csr):
+    """The route each (plan, method) takes, by the wrappers it calls."""
     g_calls = count_calls(monkeypatch, "spmm_grouped")
     c_calls = count_calls(monkeypatch, "spmm_csr")
     jcsr, mat = GRAPHS["random"][0]()
@@ -379,12 +407,19 @@ def test_gcn_on_a_reordered_grouped_graph_matches_jax():
 @pytest.mark.parametrize("K,vec,S,itemsize", [
     (1, 1, 256, 4), (3, 1, 256, 4), (32, 1, 256, 4), (33, 1, 512, 4),
     (128, 4, 256, 4), (130, 2, 512, 4), (512, 4, 512, 4), (512, 4, 512, 2),
-    (512, 4, 2, 4), (4096, 4, 64, 4)])
+    (512, 4, 2, 4), (4096, 4, 64, 4), (128, 4, 64, 4), (32, 4, 64, 4)])
 def test_k_tile_fits_two_ctas_an_sm(K, vec, S, itemsize):
-    header = kg.header_bytes(64, max(S // 8, 1))
+    """Two stages of S staged rows of the tile (a multiple of the copy's
+    ``vec`` columns, at most MAX_COLS) fit the shared memory of two CTAs an
+    SM; the ring then takes a third stage where that fits too."""
+    header = kg.header_bytes(64, 64)
     kt = kg.k_tile(K, vec, S, itemsize, header)
-    assert kt % vec == 0 and 1 <= kt // vec <= kg.MAX_LANES
-    assert header + S * kt * itemsize <= kg.SMEM_TWO_PER_SM
+    assert kt % vec == 0 and 1 <= kt <= kg.MAX_COLS
+    sb = kg.stage_bytes(header, S, kt, itemsize)
+    assert kg.BARRIER_BYTES + 2 * sb <= kg.SMEM_TWO_PER_SM
+    ns = kg.stages(kt, S, itemsize, header)
+    assert ns in (2, 3) and kg.BARRIER_BYTES + ns * sb <= kg.SMEM_TWO_PER_SM
+    assert ns == 3 or kg.BARRIER_BYTES + 3 * sb > kg.SMEM_TWO_PER_SM
     tiles = -(-K // kt)
     assert (tiles - 1) * kt < K <= tiles * kt
     # The tiles are balanced: none is a sliver beside the others.
@@ -392,6 +427,29 @@ def test_k_tile_fits_two_ctas_an_sm(K, vec, S, itemsize):
 
 
 def test_k_tile_refuses_a_staged_tile_beyond_shared_memory():
-    assert kg.k_tile(8, 1, 40_000, 4, 1024) >= 1  # one CTA an SM still fits
+    # Two stages of 25,000 rows fit one CTA an SM (the opt-in), as two.
+    kt = kg.k_tile(8, 1, 25_000, 4, 1024)
+    assert kt >= 1 and kg.stages(kt, 25_000, 4, 1024) == 2
+    assert kg.BARRIER_BYTES + 2 * kg.stage_bytes(1024, 25_000, kt,
+                                                 4) <= kg.SMEM_MAX
     with pytest.raises(ValueError, match="shared memory"):
-        kg.k_tile(8, 1, 100_000, 4, 1024)
+        kg.k_tile(8, 1, 40_000, 4, 1024)
+
+
+def test_main_shapes_stage_three_deep():
+    """At the timed shapes (E = 64 referenced rows at most, R = 64) the ring
+    holds three stages of one 32-column tile (K=128 in four tiles); with a
+    tile as wide as the kernel takes, K=128 f32 is one tile of 128 columns
+    and three stages, K=512 three tiles of 172 columns and two stages."""
+    header = kg.header_bytes(64, 64)
+    for K, KT, NS in ((128, 32, 3), (32, 32, 3), (512, 32, 3), (3, 4, 3)):
+        kt = kg.k_tile(K, 4, 64, 4, header)
+        assert (kt, kg.stages(kt, 64, 4, header)) == (KT, NS)
+    widest = kg.MAX_COLS
+    try:
+        kg.MAX_COLS = 256
+        for K, KT, NS in ((128, 128, 3), (512, 172, 2)):
+            kt = kg.k_tile(K, 4, 64, 4, header)
+            assert (kt, kg.stages(kt, 64, 4, header)) == (KT, NS)
+    finally:
+        kg.MAX_COLS = widest

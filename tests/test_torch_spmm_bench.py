@@ -48,7 +48,8 @@ def test_synth_graph_unknown_name():
 @pytest.fixture(scope="module")
 def cpu_sweep():
     return sb.bench_graph("rmat7", [8, 33], iters=4,
-                          methods=ALL_METHODS + ("tiled-fast",), validate=True,
+                          methods=ALL_METHODS + ("tiled-hilo", "tiled-fast"),
+                          validate=True,
                           device="cpu")
 
 
@@ -57,12 +58,11 @@ def test_bench_graph_row_has_the_jax_columns(cpu_sweep):
     j_row, _ = jbench_graph("rmat7", [8], iters=2, methods=("xla",))
     assert set(j_row) <= set(row)
     for K in (8, 33):
-        for method in ALL_METHODS:
+        for method in ALL_METHODS + ("tiled-hilo", "tiled-fast"):
             assert "error" not in results[(K, method)], results[(K, method)]
             assert results[(K, method)]["ms"] > 0
             assert results[(K, method)]["timer"] == "host"
             assert not np.isnan(row[f"K={K}-{method}-gflops"])
-        assert "ROADMAP B1" in results[(K, "tiled-fast")]["error"]
     assert (row["m"], row["n"], row["device"]) == (128, 128, "cpu")
 
 
