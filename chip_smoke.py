@@ -101,27 +101,34 @@ Phases, each printed as it goes; any failure exits non-zero:
      phase 6; the
      trained parameters on the original order (phase 6's route) give the
      same logits after un-permuting, within 1e-4 x max |ref|;
- 18. the joint diag+halo SpMM (kernel row 7) vs float64: shard by shard over
-     the halo partitions (parallel/halo.py) of the SBM graph with
-     self-loops and of rmat15 at P in {2, 4, 8}, K in {1, 3, 32, 33, 128,
-     130}, sum/max/min, binary and valued, per-head sums at H in {2, 8}
-     (where H divides K), f32 and bf16, B in multiples of 0.5: a sum within
-     the sum kernel's bound, max/min out and joint ties equal to the plain
-     version's, two launches bitwise equal; the sum backward (row 7 over
-     each transposed block) and row 3's backward with the joint out and ties
-     within 1e-5 (bf16 8e-3) x max |ref| of float64;
+ 18. the joint diag+halo SpMM (kernel row 7) vs float64: one launch over
+     all P shards of the halo partitions (parallel/halo.py) of the SBM
+     graph with and without self-loops and of rmat15 at P in {2, 4, 8}, K
+     in {1, 3, 16, 32, 33, 128, 130}, with the partition's split at L = 64
+     (rmat15's hub rows cut into segments, many across the diag/halo
+     boundary; each partition's segment counts printed), and of the SBM
+     graph split at L = 4 (most rows cut, most segments across the
+     boundary) at K in {3, 32, 130}; sum/max/min, binary and valued,
+     per-head sums at H in {2, 8} (where H divides K), f32 and bf16 tables,
+     B in multiples of 0.5: each shard's sum within the sum kernel's bound,
+     max/min out and joint ties equal to the unsplit plain version's, two
+     launches bitwise equal; the sum backward (row 7 over the stacked
+     transposed blocks with their splits) and row 3's backward a shard with
+     the joint out and ties within 1e-5 (bf16 8e-3) x max |ref| of float64;
  19. halo_spmm on the card, P=4 shards in one process, on the SBM graph with
      self-loops at K=32, each reduce with runtime edge values (multiples of
      1/4): out, grad_B and grad_vals against the float64 whole-graph spmm;
-     launches: forward 1 row-7 launch a shard, sum/mean backward 2 a shard,
-     max/min backward 2 row-3 launches a shard, method="xla" none;
+     launches: forward 1 row-7 launch over the 4 shards, sum/mean backward
+     2 (the stacked diag^T and halo^T blocks), max/min backward 2 row-3
+     launches a shard, no carry (no row above L), method="xla" none;
      dist_spmm (the all-gather tier) through the CSR kernel; then one
      make_mesh over a world-size-1 NCCL group: one shard has no round, so
      the exchange sends nothing, and the result equals the one-process
      mesh's;
  20. sharded training over P=4 shards (parallel/train_step.py): GCN [128,
-     32, 3] on the SBM graph with self-loops, 50 epochs through row 7 (>= 24
-     launches an epoch, no other kernel), loss falling, train accuracy above
+     32, 3] on the SBM graph with self-loops, 50 epochs through row 7 (6
+     launches an epoch: one an aggregation, two for its backward; no carry,
+     no other kernel), loss falling, train accuracy above
      chance, logits within 1e-4 x max |ref| of a float64 CPU forward;
      SAGE-pool [128, 16, 3] (no self-loops) and GAT [128, 8, 3] with 2 heads,
      20 epochs each, with the same checks but the float64 one; then
@@ -142,11 +149,15 @@ Phases, each printed as it goes; any failure exits non-zero:
      the same ordering, on rmat15 (edge factor 16) as generated and
      RCM-reordered at (64, 64, 32, 8) and (64, 64, 64, 1) and on the
      RCM-reordered SBM graph at K=32, then at 1, 2 and 4 producer warps and
-     the widest K tile 32 ... 256 (the launch shape chosen); row 7 summed over P=4 shards at the
-     SBM graph K=32 and rmat15 K=128 against its plain version, the
-     whole-graph CSR kernel, torch.sparse.mm of each shard's [A_diag |
-     A_halo] over [B_shard; halo table] and its bound, and each shard's
-     launch alone beside its longest row; call times of the sum
+     the widest K tile 32 ... 256 (the launch shape chosen); row 7, one
+     launch over P=4 shards with the split at L = 64 and 128, at the SBM
+     graph K=32 (sum) and rmat15 K=128 (sum, max with ties, and the sum
+     backward over both transposes) against the first port's launch
+     pattern (one launch a shard, no split), its plain version, the
+     whole-graph kernel (row 1, row 2 for the max), torch.sparse.mm of each
+     shard's [A_diag | A_halo] (its transpose for the backward) and its
+     bound, and each shard's launch alone, unsplit and split, beside its
+     longest row; call times of the sum
      kernel; GCN, SAGE-pool and GAT ms/epoch for both methods (two runs
      each, in the order auto, xla, xla, auto); the GCN on the grouped route
      against phase 6's CSR route (csr, grouped, grouped, csr); and the
@@ -158,7 +169,7 @@ Phases run in the order 1-14, 16-20, 15.  Each path's launches are counted
 from 0 in its own run; the comparison launches of phases 3-5, 8, 11, 13, 16
 and 18 are not counted.  The CSR kernel and the chunk and grouped kernels
 count their carry pass apart (spmm_csr_carry, spmm_chunk_carry,
-spmm_grouped_carry).  NCCL traffic between ranks is not run: the card
+spmm_grouped_carry), and so does row 7 (halo_spmm_carry).  NCCL traffic between ranks is not run: the card
 machine has one card.  Output: one line per phase, then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  With --record, the full record of the run is
@@ -208,6 +219,7 @@ GROUPED_SIZES = ((64, 64, 32, 8), (8, 16, 8, 8))
 HALO_PARTS = (2, 4, 8)
 HALO_KS = (1, 3, 16, 32, 33, 128, 130)
 HALO_HEADS = (2, 8)
+HALO_SPLIT_LENS = (64, 128)  # row 7's segment lengths timed
 SHARDS = 4  # the sharded tier's main path: P=4 shards in one process
 SHARDED_EPOCHS = 20  # SAGE-pool and GAT; the GCN runs EPOCHS
 SHARDED_GAT_DIMS, SHARDED_GAT_HEADS = [128, 8, 3], 2
@@ -442,7 +454,8 @@ def main(argv=None):
                 "spmm_chunk_carry": kpal.carry_launches,
                 "spmm_grouped": kgrp.launches,
                 "spmm_grouped_carry": kgrp.carry_launches,
-                "halo_spmm": khalo.launches}
+                "halo_spmm": khalo.launches,
+                "halo_spmm_carry": khalo.carry_launches}
 
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
@@ -1272,97 +1285,153 @@ def main(argv=None):
 
     phase("18 joint diag+halo SpMM (kernel row 7) vs float64")
 
-    def row7_check(hp, p, Bs, halo_p, dv, hv, g_p, reduce):
-        """Row 7 on shard p, twice, and its backward: ({"fwd": err,
-        "bwd": err}, ok, bitwise repeat) against float64 (max/min forward:
-        the plain version exactly)."""
-        blk = hp.blocks(p)
-        bf16 = Bs.dtype == torch.bfloat16
-        args = (blk.d_indptr, blk.d_indices, dv, Bs, blk.h_indptr,
-                blk.h_indices, hv, halo_p, reduce)
-        out, ties = khalo.halo_spmm_rows(*args)
-        again, ties2 = khalo.halo_spmm_rows(*args)
+    def csc_vals(vals, t_map):
+        """Stacked edge values in each shard's CSC order."""
+        if vals is None:
+            return None
+        idx = t_map.long()
+        if vals.dim() == 3:
+            idx = idx[..., None].expand(-1, -1, vals.shape[2])
+        return torch.gather(vals, 1, idx)
+
+    def row7_check(hp, B, halo, dvs, hvs, g, reduce):
+        """Row 7 over all P shards, one launch with the partition's split,
+        twice, and its backward (the sum: row 7 over the stacked transposes
+        with their splits; max/min: row 3 a shard and block with the joint
+        out and ties): ({"fwd": err, "bwd": err}, ok, bitwise repeat),
+        shard by shard against float64 (max/min forward: the unsplit plain
+        version exactly)."""
+        P = hp.num_parts
+        bf16 = B.dtype == torch.bfloat16
+        args = (hp.diag_indptr, hp.diag_indices, dvs, B, hp.halo_indptr,
+                hp.halo_indices, hvs, halo, reduce)
+        out, ties = khalo.halo_spmm_stacked(*args, split=hp.joint_split)
+        again, ties2 = khalo.halo_spmm_stacked(*args, split=hp.joint_split)
+        grads_t = {}
+        if reduce == "sum":
+            for blk, vals, split in (("diag", dvs, hp.diag_t_split),
+                                     ("halo", hvs, hp.halo_t_split)):
+                grads_t[blk] = khalo.halo_spmm_stacked(
+                    getattr(hp, f"{blk}_t_indptr"),
+                    getattr(hp, f"{blk}_t_rows"),
+                    csc_vals(vals, getattr(hp, f"{blk}_t_map")), g,
+                    split=split)[0]
         torch.cuda.synchronize()
         same = torch.equal(out, again) and (ties is None
                                             or torch.equal(ties, ties2))
-        tab = (blk.d_rows, blk.d_indices, blk.h_rows, blk.h_indices)
-        f64 = [None if v is None else v.double() for v in (dv, hv)]
-        if reduce == "sum":
-            absv = [None if v is None else v.abs() for v in f64]
-            exact, _ = ref.halo_spmm_rows(tab[0], tab[1], f64[0], Bs.double(),
-                                          tab[2], tab[3], f64[1],
-                                          halo_p.double(), hp.rpp)
-            mag, _ = ref.halo_spmm_rows(tab[0], tab[1], absv[0],
-                                        Bs.double().abs(), tab[2], tab[3],
-                                        absv[1], halo_p.double().abs(),
-                                        hp.rpp)
-            bound = 8e-3 * mag if bf16 else 1e-5 * mag + 1e-6
-            diff = (out.double() - exact).abs()
-            ok = bool((diff <= bound).all())
-            fwd = float(diff.max()) if diff.numel() else 0.0
-        else:
-            want, want_ties = ref.halo_spmm_rows(tab[0], tab[1], dv, Bs,
-                                                 tab[2], tab[3], hv, halo_p,
-                                                 hp.rpp, reduce)
-            ok = torch.equal(out, want) and torch.equal(ties, want_ties)
-            fwd = float((out.double() - want.double()).abs().max())
+        ok, fwd, bwd = True, 0.0, 0.0
         tol = 8e-3 if bf16 else 1e-5
-        bwd = 0.0
-        for t_indptr, t_rows, t_map, v, table in (
-                (blk.d_t_indptr, blk.d_t_rows, blk.d_t_map, dv, Bs),
-                (blk.h_t_indptr, blk.h_t_rows, blk.h_t_map, hv, halo_p)):
-            tv = None if v is None else v.index_select(0, t_map.long())
-            cols = expand_indptr(t_indptr, t_rows.shape[0])
+        for p in range(P):
+            blk = hp.blocks(p)
+            dv = None if dvs is None else dvs[p, :hp.diag_nnz[p]]
+            hv = None if hvs is None else hvs[p, :hp.halo_nnz[p]]
+            Bs, rows = B[p * hp.cpp:(p + 1) * hp.cpp], slice(
+                p * hp.rpp, (p + 1) * hp.rpp)
+            out_p, g_p = out[rows], g[rows]
+            tab = (blk.d_rows, blk.d_indices, blk.h_rows, blk.h_indices)
+            f64 = [None if v is None else v.double() for v in (dv, hv)]
             if reduce == "sum":
-                got, _ = khalo.halo_spmm_rows(t_indptr, t_rows, tv, g_p)
-                pairs = [(got, ref.halo_spmm_rows(
-                    cols, t_rows, None if tv is None else tv.double(),
-                    g_p.double(), None, None, None, None,
-                    table.shape[0])[0])]
+                absv = [None if v is None else v.abs() for v in f64]
+                exact, _ = ref.halo_spmm_rows(tab[0], tab[1], f64[0],
+                                              Bs.double(), tab[2], tab[3],
+                                              f64[1], halo[p].double(), hp.rpp)
+                mag, _ = ref.halo_spmm_rows(tab[0], tab[1], absv[0],
+                                            Bs.double().abs(), tab[2], tab[3],
+                                            absv[1], halo[p].double().abs(),
+                                            hp.rpp)
+                bound = 8e-3 * mag if bf16 else 1e-5 * mag + 1e-6
+                diff = (out_p.double() - exact).abs()
+                ok = ok and bool((diff <= bound).all())
+                fwd = max(fwd, float(diff.max()) if diff.numel() else 0.0)
             else:
-                got, gv = kmm.spmm_minmax_vjp(t_indptr, t_rows, tv, table,
-                                              out, g_p, ties)
-                gt64 = g_p.double() / torch.clamp(ties, min=1.0).double()
-                want_B, want_v = ref.spmm_minmax_vjp_cols(cols, t_rows, tv,
-                                                          table, out, gt64)
-                pairs = [(got, want_B)] + ([] if want_v is None
-                                           else [(gv, want_v)])
-            torch.cuda.synchronize()
-            for got, want in pairs:
-                if not want.numel():
-                    continue
-                e = float((got.double() - want).abs().max())
-                bwd = max(bwd, e)
-                ok = ok and bool(torch.isfinite(got).all()) and \
-                    e <= tol * float(want.abs().max()) + 1e-6
+                want, want_ties = ref.halo_spmm_rows(tab[0], tab[1], dv, Bs,
+                                                     tab[2], tab[3], hv,
+                                                     halo[p], hp.rpp, reduce)
+                ok = ok and torch.equal(out_p, want) and torch.equal(
+                    ties[rows], want_ties)
+                fwd = max(fwd, float((out_p.double()
+                                      - want.double()).abs().max()))
+            for name, t_indptr, t_rows, t_map, v, table, n_t in (
+                    ("diag", blk.d_t_indptr, blk.d_t_rows, blk.d_t_map, dv,
+                     Bs, hp.cpp),
+                    ("halo", blk.h_t_indptr, blk.h_t_rows, blk.h_t_map, hv,
+                     halo[p], hp.halo_rows)):
+                tv = None if v is None else v.index_select(0, t_map.long())
+                cols = expand_indptr(t_indptr, t_rows.shape[0])
+                if reduce == "sum":
+                    got = grads_t[name][p * n_t:(p + 1) * n_t]
+                    pairs = [(got, ref.halo_spmm_rows(
+                        cols, t_rows, None if tv is None else tv.double(),
+                        g_p.double(), None, None, None, None, n_t)[0])]
+                else:
+                    got, gv = kmm.spmm_minmax_vjp(t_indptr, t_rows, tv,
+                                                  table, out_p, g_p,
+                                                  ties[rows])
+                    gt64 = g_p.double() / torch.clamp(ties[rows],
+                                                      min=1.0).double()
+                    want_B, want_v = ref.spmm_minmax_vjp_cols(
+                        cols, t_rows, tv, table, out_p, gt64)
+                    pairs = [(got, want_B)] + ([] if want_v is None
+                                               else [(gv, want_v)])
+                torch.cuda.synchronize()
+                for got, want in pairs:
+                    if not want.numel():
+                        continue
+                    e = float((got.double() - want).abs().max())
+                    bwd = max(bwd, e)
+                    ok = ok and bool(torch.isfinite(got).all()) and \
+                        e <= tol * float(want.abs().max()) + 1e-6
         return {"fwd": fwd, "bwd": bwd}, ok, same
 
+    def crossing_segments(hp):
+        """Segments of the joint split that start in the diag block and
+        end in the halo block (host count)."""
+        sp = hp.joint_split.split
+        d_deg = torch.diff(hp.diag_indptr.cpu().long()).reshape(-1)
+        rows, start = sp.seg_row.cpu().long(), sp.seg_start.cpu().long()
+        d_of = d_deg[rows]
+        return int(((start < d_of) & (start + sp.seg_len > d_of)
+                    & (d_of > 0)).sum())
+
     # The SBM graph with self-loops (the GCN's and the GAT's), without them
-    # (the SAGE-pool's), and rmat15; K=16 is the SAGE-pool's layer-1 max and
-    # the 2-head GAT's per-head aggregate.
-    halo_graphs = (("sbm", sbm_host), ("sbm-noloops", ds.csr.to("cpu")),
-                   ("rmat15", rmat_host))
+    # (the SAGE-pool's), rmat15 (hub rows: segments at the default L, many
+    # across the diag/halo boundary), and the SBM graph split at L = 4 (every
+    # row above 4 joint edges cut, most segments across the boundary); K=16
+    # is the SAGE-pool's layer-1 max and the 2-head GAT's per-head aggregate.
+    halo_graphs = (("sbm", sbm_host, SPLIT_LEN, HALO_KS),
+                   ("sbm-noloops", ds.csr.to("cpu"), SPLIT_LEN, HALO_KS),
+                   ("rmat15", rmat_host, SPLIT_LEN, HALO_KS),
+                   ("sbm-L4", sbm_host, 4, (3, 32, 130)))
     halo_err, halo_compared, halo_layouts = 0.0, [], []
-    for graph, host_csr in halo_graphs:
+    for graph, host_csr, seg_len, ks in halo_graphs:
         vals = torch.randn(host_csr.nnz, device=dev, generator=gen)
         for P in HALO_PARTS:
-            hp = build_halo_partition(host_csr, P, device=dev)
+            hp = build_halo_partition(host_csr, P, device=dev,
+                                      seg_len=seg_len)
             mesh = make_mesh(P, device=dev)
+            segs = {name: getattr(hp, f"{name}_split").split.num_segments
+                    for name in ("joint", "diag_t", "halo_t")}
+            crossing = crossing_segments(hp)
             layout = {"graph": graph, "P": P, "rounds": list(hp.rounds),
                       "halo_rows": hp.halo_rows, "rpp": hp.rpp, "cpp": hp.cpp,
                       "footprint_fraction": hp.footprint_fraction,
                       "diag_nnz": list(hp.diag_nnz),
-                      "halo_nnz": list(hp.halo_nnz)}
+                      "halo_nnz": list(hp.halo_nnz), "seg_len": seg_len,
+                      "segments": segs, "crossing_segments": crossing}
             halo_layouts.append(layout)
             print(f"{graph} P={P}: rounds {hp.rounds}, halo rows "
                   f"{hp.halo_rows}, footprint {hp.footprint_fraction:.4f}, "
-                  f"diag nnz {hp.diag_nnz}, halo nnz {hp.halo_nnz}",
-                  flush=True)
+                  f"diag nnz {hp.diag_nnz}, halo nnz {hp.halo_nnz}, L "
+                  f"{seg_len}: segments {segs}, {crossing} across the "
+                  "diag/halo boundary", flush=True)
+            if graph in ("rmat15", "sbm-L4"):
+                check(segs["joint"] > 0 and crossing > 0,
+                      f"{graph} P={P}: no segment across the boundary")
             dvs, hvs = split_edge_values(hp, vals)
             head_vals = {H: split_edge_values(hp, torch.randn(
                 host_csr.nnz, H, device=dev, generator=gen))
                 for H in HALO_HEADS}
-            for K in HALO_KS:
+            for K in ks:
                 for dtype in (torch.float32, torch.bfloat16):
                     B = quantized((P * hp.cpp, K), dtype)
                     halo = make_exchange(hp, mesh)(B)
@@ -1377,20 +1446,13 @@ def main(argv=None):
                     label = f"row7 {graph} P={P} K={K} {str(dtype)[6:]}"
                     worst, all_ok, all_same = {}, True, True
                     for reduce, values, (dst, hst) in variants:
-                        errs = {"fwd": 0.0, "bwd": 0.0}
-                        for p in range(P):
-                            dv = None if dst is None else dst[p, :hp.diag_nnz[p]]
-                            hv = None if hst is None else hst[p, :hp.halo_nnz[p]]
-                            e, ok, same = row7_check(
-                                hp, p, B[p * hp.cpp:(p + 1) * hp.cpp],
-                                halo[p], dv, hv,
-                                g[p * hp.rpp:(p + 1) * hp.rpp], reduce)
-                            errs = {k: max(errs[k], e[k]) for k in errs}
-                            check(ok, f"row 7 disagrees: {label} {reduce} "
-                                  f"{values} shard {p}: {e}")
-                            check(same, f"row 7 not repeatable: {label} "
-                                  f"{reduce} {values} shard {p}")
-                            all_ok, all_same = all_ok and ok, all_same and same
+                        errs, ok, same = row7_check(hp, B, halo, dst, hst, g,
+                                                    reduce)
+                        check(ok, f"row 7 disagrees: {label} {reduce} "
+                              f"{values}: {errs}")
+                        check(same, f"row 7 not repeatable: {label} "
+                              f"{reduce} {values}")
+                        all_ok, all_same = all_ok and ok, all_same and same
                         worst[f"{reduce}-{values}"] = errs
                         halo_compared.append({"case": f"{label} {reduce} "
                                               f"{values}", **errs})
@@ -1449,12 +1511,16 @@ def main(argv=None):
                   if v and k not in ("halo_spmm", "spmm_minmax_vjp")}
         print(f"halo_spmm {reduce}: launches forward {fwd_launches['halo_spmm']}"
               f" row 7, backward {bwd_row7} row 7 + "
-              f"{launched['spmm_minmax_vjp']} row 3 | max_abs_err "
+              f"{launched['spmm_minmax_vjp']} row 3, carries "
+              f"{launched['halo_spmm_carry']} | max_abs_err "
               + " ".join(f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
-        check(fwd_launches["halo_spmm"] == SHARDS,
-              f"halo_spmm {reduce}: expected 1 row-7 launch a shard forward")
-        want_bwd = ((2 * SHARDS, 0) if reduce in ("sum", "mean")
-                    else (0, 2 * SHARDS))
+        # One row-7 launch over the 4 shards forward; the sum backward is
+        # row 7 over the stacked diag^T and halo^T blocks (2 launches), the
+        # max/min backward row 3 over each shard's two transposed blocks.
+        # No row or column of the SBM graph is above L: no carry.
+        check(fwd_launches["halo_spmm"] == 1,
+              f"halo_spmm {reduce}: expected 1 row-7 launch forward")
+        want_bwd = ((2, 0) if reduce in ("sum", "mean") else (0, 2 * SHARDS))
         check((bwd_row7, launched["spmm_minmax_vjp"]) == want_bwd,
               f"halo_spmm {reduce}: expected backward launches {want_bwd}")
         check(not others, f"halo_spmm {reduce} launched {others}")
@@ -1555,17 +1621,22 @@ def main(argv=None):
         check(finite_list(losses) and losses[-1] < losses[0],
               f"sharded {name}: loss did not fall")
         check(run["train_acc"] > 1 / 3, f"sharded {name}: accuracy at chance")
-        check(run["launches"]["halo_spmm"] >= per_epoch * epochs,
-              f"sharded {name}: only {run['launches']['halo_spmm']} row-7 "
-              f"launches in {epochs} epochs")
+        # One row-7 launch an aggregation over the 4 shards, two for a sum
+        # aggregation's backward; no row above L on the SBM graph, so no
+        # carry.
+        check(run["launches"]["halo_spmm"] == per_epoch * epochs
+              and run["launches"]["halo_spmm_carry"] == 0,
+              f"sharded {name}: {run['launches']['halo_spmm']} row-7 "
+              f"launches in {epochs} epochs, expected {per_epoch} an epoch "
+              "and no carry")
 
     sharded = {}
     gcn_s, gcn_model, gcn_x, gcn_logits, losses = sharded_train(
         build_sharded_gcn, sbm_host, GCN_DIMS, EPOCHS, 1e-2)
-    # Row 7: 2 aggregations x 4 shards forward, 2 x 2 x 4 backward.
-    sharded_checks("GCN", gcn_s, losses, EPOCHS, 6 * SHARDS)
+    # Row 7: 2 aggregations forward, 2 x 2 backward.
+    sharded_checks("GCN", gcn_s, losses, EPOCHS, 6)
     check(not any(v for k, v in gcn_s["launches"].items()
-                  if k != "halo_spmm"),
+                  if k not in ("halo_spmm", "halo_spmm_carry")),
           f"sharded GCN launched another kernel: {gcn_s['launches']}")
     cpu_mesh = make_mesh(SHARDS, device="cpu")
 
@@ -1595,7 +1666,8 @@ def main(argv=None):
     sage_s, sage_model, sage_x, sage_logits, losses = sharded_train(
         build_sharded_sage, sage_host, SAGE_DIMS, SHARDED_EPOCHS, 1e-2,
         aggregator="pool")
-    sharded_checks("SAGE-pool", sage_s, losses, SHARDED_EPOCHS, 2 * SHARDS)
+    # Row 7: 2 max aggregations forward; their backward is row 3.
+    sharded_checks("SAGE-pool", sage_s, losses, SHARDED_EPOCHS, 2)
     check(sage_s["launches"]["spmm_minmax_vjp"] >= 4 * SHARDS * SHARDED_EPOCHS,
           "sharded SAGE-pool: the max backward did not run row 3")
     vs_float64("SAGE-pool", sage_s, sage_model, sage_x, sage_logits,
@@ -1605,8 +1677,9 @@ def main(argv=None):
     gat_s, gat_model, gat_x, gat_logits, losses = sharded_train(
         build_sharded_gat, sbm_host, SHARDED_GAT_DIMS, SHARDED_EPOCHS, GAT_LR,
         heads=SHARDED_GAT_HEADS)
+    # Row 7: the per-head aggregation and the mean, forward and backward.
     sharded_checks(f"GAT heads={SHARDED_GAT_HEADS}", gat_s, losses,
-                   SHARDED_EPOCHS, 2 * SHARDS)
+                   SHARDED_EPOCHS, 6)
     # Per-head values need the tiled tier: on the CPU, row 7's plain version.
     vs_float64(f"GAT heads={SHARDED_GAT_HEADS}", gat_s, gat_model, gat_x,
                gat_logits, ShardedGAT(
@@ -2053,103 +2126,240 @@ def main(argv=None):
     kgrp.PRODUCERS, kgrp.MAX_COLS = chosen
     record["grouped_launch_sweep"] = launch_sweep
 
-    # Row 7 (halo_spmm), summed over P=4 shards, at the sharded GCN's
-    # layer-0 shape (the SBM graph with self-loops, valued, K=32) and at
-    # rmat15 K=128 (binary, the hub row of degree 3,866 in shard 0):
-    # against its plain version, the whole-graph CSR kernel and
-    # torch.sparse.mm of each shard's [A_diag | A_halo] over [B_shard;
-    # halo table] (the library call; the port never calls it).  The bound
-    # counts both blocks' indptr, indices and values, each table row the
-    # edges reference once and out, over every shard.
+    # Row 7 (halo_spmm) over P=4 shards: one launch over all shards with
+    # the partition's split (and its carry), at the sharded GCN's layer-0
+    # shape (the SBM graph with self-loops, valued sum, K=32) and at rmat15
+    # K=128 (binary: the hub row of degree 3,866 in shard 0) for the sum,
+    # the max (with ties) and the sum backward over both transposes, each at
+    # L = 64 and 128.  Against the first port's launch pattern (this kernel
+    # given one shard and no split a launch: one launch a shard, hub rows
+    # walked by one warp), its plain version, the whole-graph kernel (row 1;
+    # row 2 for
+    # the max; row 1 over the CSC for the backward) and torch.sparse.mm of
+    # each shard's [A_diag | A_halo] (transposed for the backward) over its
+    # tables (the library call; the port never calls it).  The bound counts
+    # both blocks' indptr, indices and values, each table row the edges
+    # reference once and every output row, over every shard.
     halo_timings = []
-    for graph, host_csr, K in (("sbm", sbm_host, 32), ("rmat15", rmat_host,
-                                                       128)):
-        hp = build_halo_partition(host_csr, SHARDS, device=dev)
-        mesh = make_mesh(SHARDS, device=dev)
-        a = Adjacency.from_csr(host_csr, device=dev)
+
+    def row7_case(graph, hp, a, op, K):
+        """One timed row-7 case: (record row, printed line)."""
         B = torch.randn(SHARDS * hp.cpp, K, device=dev, generator=gen)
-        halo = make_exchange(hp, mesh)(B)
-        shard_args, libs = [], []
+        halo = make_exchange(hp, mesh4_for(hp))(B)
+        g = torch.randn(SHARDS * hp.rpp, K, device=dev, generator=gen)
+        valued = hp.diag_data is not None
+        dvs, hvs = hp.diag_data, hp.halo_data
+        bwd = op == "sum-bwd"
+        reduce = "sum" if bwd else op
+        shards = []
         for p in range(SHARDS):
             blk = hp.blocks(p)
-            dv = None if hp.diag_data is None else hp.diag_data[
-                p, :hp.diag_nnz[p]]
-            hv = None if hp.halo_data is None else hp.halo_data[
-                p, :hp.halo_nnz[p]]
-            Bs = B[p * hp.cpp:(p + 1) * hp.cpp]
-            shard_args.append((blk, dv, hv, Bs, halo[p]))
-            # [A_diag | A_halo] as one (rpp, cpp + halo_rows) CSR.
+            dv = None if dvs is None else dvs[p, :hp.diag_nnz[p]]
+            hv = None if hvs is None else hvs[p, :hp.halo_nnz[p]]
+            shards.append((p, blk, dv, hv, B[p * hp.cpp:(p + 1) * hp.cpp],
+                           halo[p], g[p * hp.rpp:(p + 1) * hp.rpp]))
+        t_vals = {blk: csc_vals(v, getattr(hp, f"{blk}_t_map"))
+                  for blk, v in (("diag", dvs), ("halo", hvs))}
+
+        def t_blocks(p, blk, dv, hv):
+            """Shard p's transposed blocks: (indptr, rows, CSC values,
+            output rows)."""
+            return [(blk.d_t_indptr, blk.d_t_rows,
+                     None if dv is None else dv[blk.d_t_map.long()], hp.cpp),
+                    (blk.h_t_indptr, blk.h_t_rows,
+                     None if hv is None else hv[blk.h_t_map.long()],
+                     hp.halo_rows)]
+
+        if bwd:
+            def new():
+                return [khalo.halo_spmm_stacked(
+                    getattr(hp, f"{blk}_t_indptr"),
+                    getattr(hp, f"{blk}_t_rows"), t_vals[blk], g,
+                    split=getattr(hp, f"{blk}_t_split"))[0]
+                    for blk in ("diag", "halo")][-1]
+
+            def old():
+                return [khalo.halo_spmm_rows(tp, tr, tv, g_p)[0]
+                        for p, blk, dv, hv, Bs, hb, g_p in shards
+                        for tp, tr, tv, _ in t_blocks(p, blk, dv, hv)][-1]
+
+            t_cols = {(p, i): expand_indptr(tp, tr.shape[0])
+                      for p, blk, dv, hv, *_ in shards
+                      for i, (tp, tr, _, _) in enumerate(
+                          t_blocks(p, blk, dv, hv))}
+
+            def plain():
+                return [ref.halo_spmm_rows(t_cols[p, i], tr, tv, g_p, None,
+                                           None, None, None, n_t)[0]
+                        for p, blk, dv, hv, Bs, hb, g_p in shards
+                        for i, (tp, tr, tv, n_t) in enumerate(
+                            t_blocks(p, blk, dv, hv))][-1]
+
+            def whole():
+                return kspmm.spmm_csr(a.csc.indptr, a.csc.indices, a.csc.data,
+                                      g[:a.shape[0]], split=a.split_t)
+        else:
+            def new():
+                return khalo.halo_spmm_stacked(
+                    hp.diag_indptr, hp.diag_indices, dvs, B, hp.halo_indptr,
+                    hp.halo_indices, hvs, halo, reduce,
+                    split=hp.joint_split)[0]
+
+            def old():
+                return [khalo.halo_spmm_rows(
+                    blk.d_indptr, blk.d_indices, dv, Bs, blk.h_indptr,
+                    blk.h_indices, hv, hb, reduce)[0]
+                    for p, blk, dv, hv, Bs, hb, g_p in shards][-1]
+
+            def plain():
+                return [ref.halo_spmm_rows(
+                    blk.d_rows, blk.d_indices, dv, Bs, blk.h_rows,
+                    blk.h_indices, hv, hb, hp.rpp, reduce)[0]
+                    for p, blk, dv, hv, Bs, hb, g_p in shards][-1]
+
+            def whole():
+                if op == "max":
+                    return kmm.spmm_minmax(a.csr.indptr, a.csr.indices,
+                                           a.data, B[:a.shape[1]], "max")[0]
+                return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, a.data,
+                                      B[:a.shape[1]], split=a.split)
+
+        # [A_diag | A_halo] of each shard as one CSR (its transpose for the
+        # backward) and its dense operand.
+        libs = []
+        for p, blk, dv, hv, Bs, hb, g_p in shards:
             rows = torch.cat([blk.d_rows, blk.h_rows]).long()
             cols = torch.cat([blk.d_indices, blk.h_indices + hp.cpp]).long()
             v = (torch.ones(rows.shape[0], device=dev) if dv is None
                  else torch.cat([dv, hv]))
-            lib = torch.sparse_coo_tensor(
-                torch.stack([rows, cols]), v,
-                (hp.rpp, hp.cpp + hp.halo_rows)).coalesce().to_sparse_csr()
-            libs.append((lib, torch.cat([Bs, halo[p]])))
-
-        def row7():
-            return [khalo.halo_spmm_rows(blk.d_indptr, blk.d_indices, dv, Bs,
-                                         blk.h_indptr, blk.h_indices, hv, hb,
-                                         "sum")[0]
-                    for blk, dv, hv, Bs, hb in shard_args][-1]
-
-        def plain():
-            return [ref.halo_spmm_rows(blk.d_rows, blk.d_indices, dv, Bs,
-                                       blk.h_rows, blk.h_indices, hv, hb,
-                                       hp.rpp)[0]
-                    for blk, dv, hv, Bs, hb in shard_args][-1]
-
-        def csr_kernel():
-            return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, a.data,
-                                  B[:a.shape[1]], split=a.split)
-
-        got = torch.cat([khalo.halo_spmm_rows(
-            blk.d_indptr, blk.d_indices, dv, Bs, blk.h_indptr, blk.h_indices,
-            hv, hb)[0] for blk, dv, hv, Bs, hb in shard_args])[:a.shape[0]]
-        err, ok = bound_check(torch, ref, got, a.csr.indptr, a.csr.indices,
-                              a.rows, a.data, B[:a.shape[1]])
-        check(ok, f"row 7 disagrees at {graph} K={K}")
+            shape = (hp.rpp, hp.cpp + hp.halo_rows)
+            if bwd:
+                rows, cols, shape = cols, rows, shape[::-1]
+            lib = torch.sparse_coo_tensor(torch.stack([rows, cols]), v,
+                                          shape).coalesce().to_sparse_csr()
+            libs.append((lib, g_p if bwd else torch.cat([Bs, hb])))
+        kw = {"reduce": "amax"} if op == "max" else {}
         lib_ms = library_time(
-            "torch.sparse.mm per shard",
-            lambda: [torch.sparse.mm(L, T) for L, T in libs][-1], iters=20)
-        k_dev, p_dev = alternate(few_time, row7, plain)
-        k2_dev, c_dev = alternate(timing.device_time, row7, csr_kernel)
-        # Each shard's launch alone, beside its longest row (diag + halo
-        # edges): one warp walks that row, so it sets the launch's tail.
-        shard_ms = [timing.device_time(
-            lambda s=s: khalo.halo_spmm_rows(
-                s[0].d_indptr, s[0].d_indices, s[1], s[3], s[0].h_indptr,
-                s[0].h_indices, s[2], s[4])[0]) * 1e3 for s in shard_args]
-        longest = [int((torch.diff(blk.d_indptr) + torch.diff(blk.h_indptr))
-                       .max()) for blk, *_ in shard_args]
-        valued = hp.diag_data is not None
-        # Each shard reads once the table rows its edges reference (its
-        # distinct diag columns and distinct halo rows, not the padded halo
-        # table) and writes out.
-        used = [int(torch.unique(blk.d_indices).numel())
-                + int(torch.unique(blk.h_indices).numel())
-                for blk, *_ in shard_args]
-        nbytes = sum(2 * (hp.rpp + 1) * 4
-                     + (hp.diag_nnz[p] + hp.halo_nnz[p]) * (8 if valued else 4)
-                     + (used[p] + hp.rpp) * K * 4
-                     for p in range(SHARDS))
+            f"torch.sparse.mm per shard ({op})",
+            lambda: [torch.sparse.mm(L_, T_, **kw) for L_, T_ in libs][-1],
+            iters=20)
+        # Errors: the sum against float64 within the sum kernel's bound, the
+        # max exactly against the plain version (out and ties).
+        if bwd:
+            got = {blk: khalo.halo_spmm_stacked(
+                getattr(hp, f"{blk}_t_indptr"), getattr(hp, f"{blk}_t_rows"),
+                t_vals[blk], g, split=getattr(hp, f"{blk}_t_split"))[0]
+                for blk in ("diag", "halo")}
+            err, ok = 0.0, True
+            for p, blk, dv, hv, *_ in shards:
+                for i, (tp, tr, tv, n_t) in enumerate(t_blocks(p, blk, dv, hv)):
+                    want = ref.halo_spmm_rows(
+                        t_cols[p, i], tr, None if tv is None else tv.double(),
+                        shards[p][6].double(), None, None, None, None, n_t)[0]
+                    part = got["diag" if i == 0 else "halo"][
+                        p * n_t:(p + 1) * n_t]
+                    e = float((part.double() - want).abs().max())
+                    err = max(err, e)
+                    ok = ok and e <= 1e-5 * float(want.abs().max()) + 1e-6
+        elif op == "max":
+            out, ties = khalo.halo_spmm_stacked(
+                hp.diag_indptr, hp.diag_indices, dvs, B, hp.halo_indptr,
+                hp.halo_indices, hvs, halo, "max", split=hp.joint_split)
+            err, ok = 0.0, True
+            for p, blk, dv, hv, Bs, hb, g_p in shards:
+                want, want_ties = ref.halo_spmm_rows(
+                    blk.d_rows, blk.d_indices, dv, Bs, blk.h_rows,
+                    blk.h_indices, hv, hb, hp.rpp, "max")
+                rows = slice(p * hp.rpp, (p + 1) * hp.rpp)
+                err = max(err, float((out[rows] - want).abs().max()))
+                ok = ok and torch.equal(out[rows], want) and torch.equal(
+                    ties[rows], want_ties)
+        else:
+            err, ok = bound_check(torch, ref, new()[:a.shape[0]],
+                                  a.csr.indptr, a.csr.indices, a.rows, a.data,
+                                  B[:a.shape[1]])
+        check(ok, f"row 7 disagrees at {graph} K={K} {op}")
+        khalo.reset_launches()
+        new()
+        per_call = (khalo.launches, khalo.carry_launches)
+        k_dev, p_dev = alternate(few_time, new, plain)
+        k2_dev, o_dev = alternate(timing.device_time, new, old)
+        k3_dev, w_dev = alternate(timing.device_time, new, whole)
+        seg_len = hp.joint_split.split.seg_len
         row = {"kernel": "halo_spmm", "shape": f"{graph} P={SHARDS} K={K} "
-               f"{'valued' if valued else 'binary'} sum", "nnz": hp.nnz,
-               "K": K, "halo_rows": hp.halo_rows, "max_abs_err": err,
-               "kernel_device_ms": k_dev + k2_dev, "plain_device_ms": p_dev,
-               "spmm_csr_device_ms": c_dev, "library_ms": lib_ms,
-               "shard_device_ms": shard_ms, "shard_longest_row": longest,
-               "table_rows_read": used, "bytes": nbytes, "ops": 2 * hp.nnz * K}
-        halo_timings.append(row)
-        print(f"halo_spmm {row['shape']} (sum over shards): max_abs_err "
-              f"{err:.3e} | device time kernel "
-              f"{mean(row['kernel_device_ms']):.5f} ms | plain "
-              f"{mean(p_dev):.5f} ms | whole-graph spmm_csr {mean(c_dev):.5f} "
-              f"ms | torch.sparse.mm per shard {lib_ms} ms | bound "
-              f"{profiling.bound(nbytes, row['ops'])[0] * 1e3:.5f} ms | "
-              f"per shard {', '.join(f'{x:.5f}' for x in shard_ms)} ms, "
-              f"longest rows {longest} | {card}", flush=True)
+               f"{'valued' if valued else 'binary'} {op} L={seg_len}",
+               "seg_len": seg_len,
+               "segments": {blk: getattr(hp, f"{blk}_split").split.num_segments
+                            for blk in ("joint", "diag_t", "halo_t")},
+               "launches_per_call": per_call, "nnz": hp.nnz, "K": K,
+               "halo_rows": hp.halo_rows, "max_abs_err": err,
+               "kernel_device_ms": k_dev + k2_dev + k3_dev,
+               "plain_device_ms": p_dev, "per_shard_device_ms": o_dev,
+               "whole_graph_device_ms": w_dev, "library_ms": lib_ms}
+        if op == "sum":
+            # Each shard's launch alone, unsplit and with its
+            # part of the split, beside its longest row (diag + halo edges).
+            row["shard_unsplit_ms"] = [timing.device_time(
+                lambda s=s: khalo.halo_spmm_rows(
+                    s[1].d_indptr, s[1].d_indices, s[2], s[4], s[1].h_indptr,
+                    s[1].h_indices, s[3], s[5])[0]) * 1e3 for s in shards]
+            row["shard_split_ms"] = [timing.device_time(
+                lambda s=s: khalo.halo_spmm_rows(
+                    s[1].d_indptr, s[1].d_indices, s[2], s[4], s[1].h_indptr,
+                    s[1].h_indices, s[3], s[5], split=hp.joint_split,
+                    shard=s[0])[0]) * 1e3 for s in shards]
+            row["shard_longest_row"] = [
+                int((torch.diff(blk.d_indptr) + torch.diff(blk.h_indptr))
+                    .max()) for _, blk, *_ in shards]
+        # Bytes: each shard reads its indptrs, indices and values, once each
+        # table row its edges reference, and writes every output row (and,
+        # for the max, the ties).
+        nbytes = 0
+        for p, blk, *_ in shards:
+            nnz_p = hp.diag_nnz[p] + hp.halo_nnz[p]
+            edge_bytes = nnz_p * (8 if valued else 4)
+            if bwd:
+                referenced = int(torch.unique(torch.cat(
+                    [blk.d_rows, blk.h_rows])).numel())
+                nbytes += ((hp.cpp + 1 + hp.halo_rows + 1) * 4 + edge_bytes
+                           + (referenced + hp.cpp + hp.halo_rows) * K * 4)
+            else:
+                used = (int(torch.unique(blk.d_indices).numel())
+                        + int(torch.unique(blk.h_indices).numel()))
+                outs = hp.rpp * K * 4 * (2 if op == "max" else 1)
+                nbytes += 2 * (hp.rpp + 1) * 4 + edge_bytes + used * K * 4 \
+                    + outs
+        row.update(bytes=nbytes, ops=2 * hp.nnz * K)
+        bound_ms = profiling.bound(nbytes, row["ops"])[0] * 1e3
+        line = (f"halo_spmm {row['shape']} (all shards): "
+                f"max_abs_err {err:.3e} | launches a call {per_call} | "
+                f"device time kernel {mean(row['kernel_device_ms']):.5f} ms | "
+                f"a launch a shard, unsplit {mean(o_dev):.5f} ms | plain "
+                f"{mean(p_dev):.5f} "
+                f"ms | whole-graph kernel {mean(w_dev):.5f} ms | "
+                f"torch.sparse.mm per shard {lib_ms} ms | bound "
+                f"{bound_ms:.5f} ms | segments {row['segments']}")
+        if op == "sum":
+            line += (f" | per shard, unsplit "
+                     f"{', '.join(f'{x:.5f}' for x in row['shard_unsplit_ms'])}"
+                     f" ms, split {', '.join(f'{x:.5f}' for x in row['shard_split_ms'])}"
+                     f" ms, longest rows {row['shard_longest_row']}")
+        return row, line + f" | {card}"
+
+    def mesh4_for(hp):
+        return make_mesh(hp.num_parts, device=dev)
+
+    for graph, host_csr, K, ops in (("sbm", sbm_host, 32, ("sum",)),
+                                    ("rmat15", rmat_host, 128,
+                                     ("sum", "max", "sum-bwd"))):
+        a = Adjacency.from_csr(host_csr, device=dev)
+        for seg_len in HALO_SPLIT_LENS:
+            hp = build_halo_partition(host_csr, SHARDS, device=dev,
+                                      seg_len=seg_len)
+            for op in ops:
+                row, line = row7_case(graph, hp, a, op, K)
+                halo_timings.append(row)
+                print(line, flush=True)
     record["halo_timings"] = halo_timings
 
     for name, runs, make, a, lr in (
@@ -2321,10 +2531,13 @@ def main(argv=None):
              carry_launches=grouped_launches["spmm_grouped_carry"],
              more=more_shapes(grouped_timings[:-1])),
         # Launches: the sharded GCN's run (phase 20); error: the main path's
-        # shape (phase 18, sbm P=4 K=32 f32 valued sum).
-        kernel_entry("halo_spmm", khalo.SOURCE, khalo.REPLACES,
-                     sharded["gcn"]["launches"]["halo_spmm"], halo_err,
-                     halo_timings[0]),
+        # shape (phase 18, sbm P=4 K=32 f32 valued sum, one launch over the
+        # four shards); times: that shape at L = 64, the other rows in more.
+        dict(kernel_entry("halo_spmm", khalo.SOURCE, khalo.REPLACES,
+                          sharded["gcn"]["launches"]["halo_spmm"], halo_err,
+                          halo_timings[0]),
+             carry_launches=sharded["gcn"]["launches"]["halo_spmm_carry"],
+             more=more_shapes(halo_timings[1:])),
     ]}
     record.update(kernels)
     if args.record:

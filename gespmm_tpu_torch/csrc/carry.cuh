@@ -1,5 +1,5 @@
-// The carry pass of the chunked SpMM kernels (spmm_chunk.cu, spmm_grouped.cu)
-// and the helpers they share.
+// The carry pass of the chunked and split SpMM kernels (spmm_chunk.cu,
+// spmm_grouped.cu, spmm_csr.cu, halo_spmm.cu) and the helpers they share.
 //
 // Both kernels walk a work list of chunks cut from the CSR edges
 // (gespmm_tpu_torch/sparse/partition.py): a row cut by a chunk boundary leaves
@@ -14,6 +14,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "minmax.cuh"
 
 namespace gespmm {
 
@@ -54,10 +56,14 @@ inline dim3 warp_grid(int items, int K, int vec) {
               (unsigned)((K + 32 * vec - 1) / (32 * vec)));
 }
 
-// The carry: one warp per cut row, its partials added in chunk order.
+// The carry: one warp per cut row, its partials added in chunk order.  The
+// lists may be a slice of longer ones (one launch over some of the shards
+// of halo_spmm.cu): cut row j writes out row cut_rows[j] - row0 from the
+// partial slots cut_ptr[j] - slot0 onwards.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-spmm_carry_kernel(int J, int K, const int* __restrict__ cut_rows,
+spmm_carry_kernel(int J, int K, int row0, int slot0,
+                  const int* __restrict__ cut_rows,
                   const int* __restrict__ cut_ptr,
                   const float* __restrict__ partial, T* __restrict__ out) {
   using F = Pack<float, VEC>;
@@ -69,8 +75,8 @@ spmm_carry_kernel(int J, int K, const int* __restrict__ cut_rows,
     float acc[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-    const int end = cut_ptr[j + 1];
-    for (int slot = cut_ptr[j]; slot < end; ++slot) {
+    const int end = cut_ptr[j + 1] - slot0;
+    for (int slot = cut_ptr[j] - slot0; slot < end; ++slot) {
       const F p = *reinterpret_cast<const F*>(partial + (int64_t)slot * K + k);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[i] += p.v[i];
@@ -78,18 +84,75 @@ spmm_carry_kernel(int J, int K, const int* __restrict__ cut_rows,
     Pack<T, VEC> o;
 #pragma unroll
     for (int i = 0; i < VEC; ++i) o.v[i] = from_f32<T>(acc[i]);
-    *reinterpret_cast<Pack<T, VEC>*>(out + (int64_t)cut_rows[j] * K + k) = o;
+    *reinterpret_cast<Pack<T, VEC>*>(
+        out + (int64_t)(cut_rows[j] - row0) * K + k) = o;
   }
 }
 
 // Launches the carry over J >= 1 cut rows on the stream; partial is the
-// (cut_ptr[J], K) f32 scratch buffer, aligned to VEC floats.
+// (cut_ptr[J] - slot0, K) f32 scratch buffer, aligned to VEC floats.
 template <typename T, int VEC>
 cudaError_t launch_carry(int J, int K, const int* cut_rows,
                          const int* cut_ptr, const float* partial, T* out,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int row0 = 0, int slot0 = 0) {
   spmm_carry_kernel<T, VEC><<<warp_grid(J, K, VEC), kThreads, 0, stream>>>(
-      J, K, cut_rows, cut_ptr, partial, out);
+      J, K, row0, slot0, cut_rows, cut_ptr, partial, out);
+  return cudaGetLastError();
+}
+
+// The pair carry of a split max/min row: one warp per cut row folds its
+// segments' (extremum, count) pairs in segment order (minmax_fold_pair) and
+// writes out and the tie count.  A cut row has edges, so nothing is masked.
+template <typename T, int VEC, bool IS_MAX>
+__global__ void __launch_bounds__(kThreads)
+minmax_carry_kernel(int J, int K, int row0, int slot0,
+                    const int* __restrict__ cut_rows,
+                    const int* __restrict__ cut_ptr,
+                    const float* __restrict__ best,
+                    const float* __restrict__ count, T* __restrict__ out,
+                    float* __restrict__ ties) {
+  using F = Pack<float, VEC>;
+  const int lane = threadIdx.x & 31;
+  const int k = (blockIdx.y * 32 + lane) * VEC;
+  if (k >= K) return;
+  const int stride = gridDim.x * kWarps;
+  for (int j = blockIdx.x * kWarps + (threadIdx.x >> 5); j < J; j += stride) {
+    float b[VEC], n[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      b[i] = minmax_identity<IS_MAX>();
+      n[i] = 0.f;
+    }
+    const int end = cut_ptr[j + 1] - slot0;
+    for (int slot = cut_ptr[j] - slot0; slot < end; ++slot) {
+      const int64_t at = (int64_t)slot * K + k;
+      const F x = *reinterpret_cast<const F*>(best + at);
+      const F c = *reinterpret_cast<const F*>(count + at);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        minmax_fold_pair<IS_MAX>(x.v[i], c.v[i], b[i], n[i]);
+    }
+    Pack<T, VEC> o;
+    F t;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      o.v[i] = from_f32<T>(b[i]);
+      t.v[i] = n[i];
+    }
+    const int64_t at = (int64_t)(cut_rows[j] - row0) * K + k;
+    *reinterpret_cast<Pack<T, VEC>*>(out + at) = o;
+    *reinterpret_cast<F*>(ties + at) = t;
+  }
+}
+
+template <typename T, int VEC, bool IS_MAX>
+cudaError_t launch_minmax_carry(int J, int K, const int* cut_rows,
+                                const int* cut_ptr, const float* best,
+                                const float* count, T* out, float* ties,
+                                cudaStream_t stream, int row0, int slot0) {
+  minmax_carry_kernel<T, VEC, IS_MAX>
+      <<<warp_grid(J, K, VEC), kThreads, 0, stream>>>(
+          J, K, row0, slot0, cut_rows, cut_ptr, best, count, out, ties);
   return cudaGetLastError();
 }
 

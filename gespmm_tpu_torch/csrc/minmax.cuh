@@ -1,6 +1,7 @@
 // The max/min contribution and its running (extremum, count) fold, shared by
 // the max/min SpMM (spmm_minmax.cu) and the joint diag+halo SpMM
-// (halo_spmm.cu).
+// (halo_spmm.cu), and the fold of split rows' (extremum, count) pairs
+// (carry.cuh's pair carry).
 //
 // The backward over the CSC (spmm_minmax.cu) finds the edges that achieve an
 // output again by recomputing each contribution and comparing it with the
@@ -31,6 +32,20 @@ template <bool IS_MAX>
 __device__ __forceinline__ void minmax_fold(float x, float& best, int& count) {
   const bool better = IS_MAX ? x > best : x < best;
   count = better ? 1 : count + (x == best);
+  best = better ? x : best;
+}
+
+// Folds a segment's (extremum, count) pair into the running pair, in
+// segment order: a strictly better extremum replaces the pair, an equal one
+// adds its count.  Over a row's segments in order this gives the extremum
+// and the count of minmax_fold over the whole row, bit for bit (the same
+// exact compares; the first achieving segment keeps its extremum, so even
+// the sign of a zero is the one-warp walk's).
+template <bool IS_MAX>
+__device__ __forceinline__ void minmax_fold_pair(float x, float n, float& best,
+                                                 float& count) {
+  const bool better = IS_MAX ? x > best : x < best;
+  count = better ? n : count + (x == best ? n : 0.f);
   best = better ? x : best;
 }
 

@@ -183,6 +183,89 @@ def halo_spmm_rows(d_rows: Tensor, d_indices: Tensor, d_vals: Optional[Tensor],
     return best.to(B_d.dtype), ties
 
 
+def _stacked_edges(indptr: Tensor, indices: Tensor, vals: Optional[Tensor],
+                   table: Tensor):
+    """(stacked row, position in its block row, contribution) of every edge
+    of an (n, m + 1)-stacked block over a table of n equal shard slabs."""
+    n, m = indptr.shape[0], indptr.shape[1] - 1
+    dev, stride = indptr.device, indices.shape[1]
+    ptr = indptr.long()
+    e = torch.arange(stride, device=dev).expand(n, stride)
+    valid = e < ptr[:, -1:]
+    r = torch.clamp(torch.searchsorted(ptr, e.contiguous(), right=True) - 1,
+                    max=m - 1)
+    shard = torch.arange(n, device=dev)[:, None]
+    K = table.shape[-1]
+    tab = table.reshape(-1, K)
+    cols = (indices.long() + shard * (tab.shape[0] // n))[valid]
+    contrib = _head_contrib(cols, None if vals is None else vals[valid], tab)
+    return ((shard * m + r)[valid], (e - ptr.gather(1, r))[valid], contrib)
+
+
+def halo_spmm_split_rows(d_indptr: Tensor, d_indices: Tensor,
+                         d_vals: Optional[Tensor], B_d: Tensor,
+                         h_indptr: Optional[Tensor],
+                         h_indices: Optional[Tensor], h_vals: Optional[Tensor],
+                         B_h: Optional[Tensor], reduce: str, seg_row: Tensor,
+                         long_rows: Tensor, seg_ptr: Tensor, seg_len: int,
+                         row0: int = 0, slot0: int = 0):
+    """(out, ties): the plain version of the stacked, split joint kernel.
+
+    n shards' blocks stacked as ``halo_spmm.cu`` takes them: indptrs
+    (n, m + 1), indices and values (n, stride[, H]), tables of n equal
+    slabs ((n * rows, K) or (n, rows, K)); shard i's row r is out row
+    i * m + r.  A row's joint edge list is its diag edges, then its halo
+    edges (``h_indptr=None`` leaves that block out).  A row of at most
+    ``seg_len`` joint edges is reduced as in ``halo_spmm_rows``; a longer
+    one (``long_rows``, stacked rows from ``row0``) is cut into segments of
+    ``seg_len`` joint positions (``seg_row``, slots ``seg_ptr`` from
+    ``slot0``: ``sparse/partition.py::build_shard_split``), each reduced
+    apart (sum; or max/min with its count), then carried in segment order:
+    the sums added, or the (extremum, count) pairs folded, a better
+    extremum replacing the pair and an equal one adding its count.  f32
+    accumulation (f64 for f64 tables); ``out`` in B_d's dtype, ``ties`` f32
+    (None for sum); rows without an edge give 0 and 0.
+    """
+    n, m = d_indptr.shape[0], d_indptr.shape[1] - 1
+    M, K, dev, S = n * m, B_d.shape[1], B_d.device, seg_row.shape[0]
+    rows, pos, contrib = _stacked_edges(d_indptr, d_indices, d_vals, B_d)
+    deg = (d_indptr[:, 1:] - d_indptr[:, :-1]).reshape(-1).long()
+    if h_indptr is not None:
+        h_rows, h_pos, h_contrib = _stacked_edges(h_indptr, h_indices, h_vals,
+                                                  B_h)
+        rows = torch.cat([rows, h_rows])
+        pos = torch.cat([pos, deg.index_select(0, h_rows) + h_pos])
+        contrib = torch.cat([contrib, h_contrib])
+    lr = long_rows.long() - row0
+    is_long = torch.zeros(M, dtype=torch.bool, device=dev).index_fill_(0, lr,
+                                                                       True)
+    first_seg = torch.zeros(M, dtype=torch.long, device=dev).index_copy_(
+        0, lr, seg_ptr[:-1].long() - slot0)
+    seg = first_seg.index_select(0, rows) + torch.div(pos, seg_len,
+                                                      rounding_mode="floor")
+    # Rows 0..M-1 of the buffers take the short rows' edges, rows M.. the
+    # segments'; a long row's own row stays empty until the carry.
+    target = torch.where(is_long.index_select(0, rows), M + seg, rows)
+    srow = seg_row.long() - row0
+    if reduce == "sum":
+        buf = torch.zeros((M + S, K), dtype=contrib.dtype, device=dev)
+        buf.index_add_(0, target, contrib)
+        return buf[:M].index_add_(0, srow, buf[M:]).to(B_d.dtype), None
+    best = _minmax_rows(target, contrib, M + S, reduce)
+    hit = (contrib == best.index_select(0, target)).to(torch.float32)
+    count = torch.zeros((M + S, K), dtype=torch.float32, device=dev)
+    count.index_add_(0, target, hit)
+    # The pair carry: the extremum over a row's segments, and the counts of
+    # the segments that reach it.
+    joint = _minmax_rows(srow, best[M:], M, reduce)
+    reach = (best[M:] == joint.index_select(0, srow)).to(torch.float32)
+    ties = torch.zeros((M, K), dtype=torch.float32, device=dev)
+    ties.index_add_(0, srow, reach * count[M:])
+    long_col = is_long[:, None]
+    return (torch.where(long_col, joint, best[:M]).to(B_d.dtype),
+            torch.where(long_col, ties, count[:M]))
+
+
 def spmm_split_rows(rows: Tensor, indptr: Tensor, indices: Tensor,
                     data: Optional[Tensor], B: Tensor, m: int,
                     seg_row: Tensor, long_rows: Tensor, seg_ptr: Tensor,

@@ -14,11 +14,13 @@ round's own largest set, 8-aligned), and each shard's two blocks:
   out_p = A_diag @ B_p  (joined with)  A_halo @ halo_p
 
 The arrays equal the JAX package's.  The TPU's per-shard stream plans (their
-sizes came from VMEM) are not ported: on Hopper each block is a CSR that
-kernel row 7 (``kernels/halo_spmm.py``) walks directly, one launch a shard.
-The host pre-pass also builds each block's transpose (a colptr, the row ids
-and the map from CSC order to the block's edge order), which the backward
-walks.
+sizes came from VMEM) are not ported: on Hopper the blocks are stacked CSRs
+that kernel row 7 (``kernels/halo_spmm.py``) walks directly, one launch over
+all the shards a process holds.  The host pre-pass also builds each block's
+transpose (a colptr, the row ids and the map from CSC order to the block's
+edge order), which the backward walks, and the row 7 split of the joint
+blocks and of each transposed block (rows longer than L edges cut into
+segments, ``sparse/partition.py::build_shard_split``).
 
 ``halo_spmm`` takes every reduction: sum/mean, and max/min with JOINT tie
 counts across the two blocks (the gradient splits evenly among all the
@@ -40,6 +42,8 @@ from gespmm_tpu_torch.kernels.spmm_minmax import spmm_minmax_vjp
 from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.parallel.mesh import Mesh
 from gespmm_tpu_torch.sparse.formats import CSR
+from gespmm_tpu_torch.sparse.partition import (SPLIT_LEN, ShardSplit,
+                                                build_shard_split)
 
 Tensor = torch.Tensor
 
@@ -88,8 +92,10 @@ class HaloPartition:
     of each edge), each block's transpose (``*_t_indptr``, ``*_t_rows``,
     ``*_t_map``: CSC order -> edge order), ``halo_gather`` ((P, halo_rows)
     int64: the global B row of each halo-table row, the one-process
-    exchange) and ``merge_index`` (the position of each global edge in the
-    flattened [diag | halo] stacks).
+    exchange), ``merge_index`` (the position of each global edge in the
+    flattened [diag | halo] stacks) and row 7's work lists: ``joint_split``
+    (the rows of [A_diag | A_halo], diag edges first), ``diag_t_split`` and
+    ``halo_t_split`` (the rows of each transpose), split at L = ``seg_len``.
     """
 
     send_idx: Tensor
@@ -121,6 +127,9 @@ class HaloPartition:
     halo_t_map: Tensor
     halo_gather: Tensor
     merge_index: Tensor
+    joint_split: ShardSplit
+    diag_t_split: ShardSplit
+    halo_t_split: ShardSplit
 
     @property
     def num_parts(self) -> int:
@@ -170,10 +179,13 @@ def _transpose_local(indices, rows_out, rows_of_edge):
 
 
 def build_halo_partition(csr: CSR, num_parts: int, *, tiled: bool = True,
-                         device=None) -> HaloPartition:
+                         device=None,
+                         seg_len: int = SPLIT_LEN) -> HaloPartition:
     """Host pre-pass: slab rows, split columns by ownership, compute the
-    ragged per-round halo schedule, remap, and transpose each block; the
-    result lives on ``device`` (default: the device ``csr`` lives on).
+    ragged per-round halo schedule, remap, transpose each block, and cut
+    the rows of more than ``seg_len`` edges of the joint blocks and of the
+    transposes into row 7's segments; the result lives on ``device``
+    (default: the device ``csr`` lives on).
 
     ``tiled=True`` makes ``halo_spmm(method="auto")`` take the kernel tier
     (kernel row 7 on the card), as the JAX package's tiled partitions do;
@@ -317,7 +329,10 @@ def build_halo_partition(csr: CSR, num_parts: int, *, tiled: bool = True,
         halo_row_ids=dev(hrid), diag_t_indptr=dev(dtp),
         diag_t_rows=dev(dtr), diag_t_map=dev(dtm), halo_t_indptr=dev(htp),
         halo_t_rows=dev(htr), halo_t_map=dev(htm),
-        halo_gather=dev(halo_gather), merge_index=dev(merge_index))
+        halo_gather=dev(halo_gather), merge_index=dev(merge_index),
+        joint_split=build_shard_split(dip, hip, seg_len).to(device),
+        diag_t_split=build_shard_split(dtp, None, seg_len).to(device),
+        halo_t_split=build_shard_split(htp, None, seg_len).to(device))
 
 
 def split_edge_values(hp: HaloPartition, vals: Tensor):
@@ -440,7 +455,13 @@ def _gather_dot(rows: Tensor, cols: Tensor, g: Tensor, table: Tensor,
 
 
 def _csc_vals(vals: Optional[Tensor], t_map: Tensor) -> Optional[Tensor]:
-    return None if vals is None else vals.index_select(0, t_map.long())
+    """Stacked (n, stride[, H]) values in each shard's CSC order."""
+    if vals is None:
+        return None
+    idx = t_map.long()
+    if vals.dim() == 3:
+        idx = idx[..., None].expand(-1, -1, vals.shape[2])
+    return torch.gather(vals, 1, idx)
 
 
 def _from_csc(grad_csc: Tensor, t_map: Tensor) -> Tensor:
@@ -448,49 +469,88 @@ def _from_csc(grad_csc: Tensor, t_map: Tensor) -> Tensor:
     return torch.empty_like(grad_csc).index_copy_(0, t_map.long(), grad_csc)
 
 
-class _HaloShard(torch.autograd.Function):
-    """One shard of the kernel tier: kernel row 7 forward; the sum backward
-    is row 7 over each transposed block, the max/min backward row 3 over
-    each transposed block with the joint out and ties."""
+def _stacked_gather_dot(row_ids: Tensor, indices: Tensor, mask: Tensor,
+                        g: Tensor, table: Tensor, heads: int) -> Tensor:
+    """``_gather_dot`` over stacked (n, stride) blocks: shard i's edges take
+    its slabs of ``g`` and ``table``; padded slots give 0."""
+    n, stride = row_ids.shape
+    shard = torch.arange(n, device=g.device)[:, None]
+    table = table.reshape(-1, table.shape[-1])
+    rows = row_ids.long() + shard * (g.shape[0] // n)
+    cols = indices.long() + shard * (table.shape[0] // n)
+    gv = _gather_dot(rows.reshape(-1), cols.reshape(-1), g, table, heads)
+    gv = gv.view(n, stride, heads) if heads > 1 else gv.view(n, stride)
+    return gv * (mask[..., None] if heads > 1 else mask).to(gv.dtype)
+
+
+class _HaloShards(torch.autograd.Function):
+    """The kernel tier over the local shards [lo, hi): row 7 forward, one
+    launch over all of them (and its carry where the joint split has a
+    segment).  The sum backward is row 7 over the stacked diag^T blocks and
+    over the stacked halo^T blocks (two launches, each with its split's
+    carry); the max/min backward row 3 over each shard's transposed blocks
+    with the joint out and ties."""
 
     @staticmethod
-    def forward(ctx, blk: ShardBlocks, reduce: str, dv, hv, B_shard, halo_tbl):
-        out, ties = khalo.halo_spmm_rows(
-            blk.d_indptr, blk.d_indices, dv, B_shard, blk.h_indptr,
-            blk.h_indices, hv, halo_tbl, reduce, d_rows=blk.d_rows,
-            h_rows=blk.h_rows)
-        ctx.blk, ctx.reduce = blk, reduce
-        ctx.save_for_backward(dv, hv, B_shard, halo_tbl, out, ties)
+    def forward(ctx, hp: HaloPartition, lo: int, hi: int, reduce: str, dv,
+                hv, B_local, halo):
+        loc = slice(lo, hi)
+        out, ties = khalo.halo_spmm_stacked(
+            hp.diag_indptr[loc], hp.diag_indices[loc], dv, B_local,
+            hp.halo_indptr[loc], hp.halo_indices[loc], hv, halo, reduce,
+            split=hp.joint_split, first=lo)
+        ctx.hp, ctx.lo, ctx.hi, ctx.reduce = hp, lo, hi, reduce
+        ctx.save_for_backward(dv, hv, B_local, halo, out, ties)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        blk, reduce = ctx.blk, ctx.reduce
-        dv, hv, B_shard, halo_tbl, out, ties = ctx.saved_tensors
+        hp, lo, hi, reduce = ctx.hp, ctx.lo, ctx.hi, ctx.reduce
+        dv, hv, B_local, halo, out, ties = ctx.saved_tensors
         g = g.contiguous()
-        want_vals = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
-        tdv, thv = _csc_vals(dv, blk.d_t_map), _csc_vals(hv, blk.h_t_map)
+        loc = slice(lo, hi)
+        want_vals = ctx.needs_input_grad[4] or ctx.needs_input_grad[5]
         grads = []
-        for t_indptr, t_rows, t_map, vals, tvals, table, rows, cols in (
-                (blk.d_t_indptr, blk.d_t_rows, blk.d_t_map, dv, tdv, B_shard,
-                 blk.d_rows, blk.d_indices),
-                (blk.h_t_indptr, blk.h_t_rows, blk.h_t_map, hv, thv, halo_tbl,
-                 blk.h_rows, blk.h_indices)):
+        for blk, vals, table, split, nnz in (
+                ("diag", dv, B_local, hp.diag_t_split, hp.diag_nnz),
+                ("halo", hv, halo, hp.halo_t_split, hp.halo_nnz)):
+            t_indptr = getattr(hp, f"{blk}_t_indptr")[loc]
+            t_rows = getattr(hp, f"{blk}_t_rows")[loc]
+            t_map = getattr(hp, f"{blk}_t_map")[loc]
+            tvals = _csc_vals(vals, t_map)
+            grad_v = None
             if reduce == "sum":
-                grad_t, _ = khalo.halo_spmm_rows(t_indptr, t_rows, tvals, g)
-                grad_v = None
-                if want_vals and tvals is not None:
-                    heads = 1 if tvals.dim() == 1 else tvals.shape[1]
-                    grad_v = _gather_dot(rows, cols, g, table, heads)
+                grad_t, _ = khalo.halo_spmm_stacked(t_indptr, t_rows, tvals,
+                                                    g, split=split, first=lo)
+                if want_vals and vals is not None:
+                    grad_v = _stacked_gather_dot(
+                        getattr(hp, f"{blk}_row_ids")[loc],
+                        getattr(hp, f"{blk}_indices")[loc],
+                        getattr(hp, f"{blk}_mask")[loc], g, table,
+                        1 if vals.dim() == 2 else vals.shape[2])
             else:
-                grad_t, gv_csc = spmm_minmax_vjp(
-                    t_indptr, t_rows, tvals, table, out, g, ties,
-                    want_values=want_vals)
-                grad_v = None if gv_csc is None else _from_csc(gv_csc, t_map)
-            grads.append((grad_t.to(table.dtype),
+                rpp, slab = hp.rpp, table.reshape(-1, table.shape[-1])
+                rows_t = slab.shape[0] // (hi - lo)
+                parts, gvs = [], []
+                for i, p in enumerate(range(lo, hi)):
+                    k, r = nnz[p], slice(i * rpp, (i + 1) * rpp)
+                    gt, gv_csc = spmm_minmax_vjp(
+                        t_indptr[i], t_rows[i, :k],
+                        None if tvals is None else tvals[i, :k],
+                        slab[i * rows_t:(i + 1) * rows_t], out[r], g[r],
+                        ties[r], want_values=want_vals)
+                    parts.append(gt)
+                    gvs.append(gv_csc if gv_csc is None
+                               else _from_csc(gv_csc, t_map[i, :k]))
+                grad_t = torch.cat(parts)
+                if gvs[0] is not None:
+                    grad_v = vals.new_zeros(vals.shape, dtype=gvs[0].dtype)
+                    for i, gv in enumerate(gvs):
+                        grad_v[i, :gv.shape[0]] = gv
+            grads.append((grad_t.to(table.dtype).view(table.shape),
                           None if grad_v is None else grad_v.to(vals.dtype)))
         (grad_B, grad_dv), (grad_halo, grad_hv) = grads
-        return None, None, grad_dv, grad_hv, grad_B, grad_halo
+        return None, None, None, None, grad_dv, grad_hv, grad_B, grad_halo
 
 
 def _xla_shard(blk: ShardBlocks, base: str, dv, hv, B_shard, halo_tbl,
@@ -575,18 +635,19 @@ def halo_spmm(hp: HaloPartition, B: Tensor, mesh: Mesh, *,
         dvals = None if hp.diag_data is None else hp.diag_data[local]
         hvals = None if hp.halo_data is None else hp.halo_data[local]
     halo = make_exchange(hp, mesh)(B)
-    outs = []
-    for i, p in enumerate(shards):
-        blk = hp.blocks(p)
-        dv = None if dvals is None else dvals[i, :hp.diag_nnz[p]]
-        hv = None if hvals is None else hvals[i, :hp.halo_nnz[p]]
-        B_shard = B[i * cpp: (i + 1) * cpp]
-        if method == "tiled":
-            out = _HaloShard.apply(blk, base, dv, hv, B_shard.contiguous(),
-                                   halo[i])
-        else:
-            out = _xla_shard(blk, base, dv, hv, B_shard, halo[i], rpp)
-        if reduce == "mean":
-            out = out / torch.clamp(hp.deg[p], min=1.0)[:, None].to(out.dtype)
-        outs.append(out)
-    return outs[0] if len(outs) == 1 else torch.cat(outs)
+    lo, hi = shards[0], shards[-1] + 1
+    if method == "tiled":
+        out = _HaloShards.apply(hp, lo, hi, base, dvals, hvals,
+                                B.contiguous(), halo)
+    else:
+        outs = []
+        for i, p in enumerate(shards):
+            dv = None if dvals is None else dvals[i, :hp.diag_nnz[p]]
+            hv = None if hvals is None else hvals[i, :hp.halo_nnz[p]]
+            outs.append(_xla_shard(hp.blocks(p), base, dv, hv,
+                                   B[i * cpp: (i + 1) * cpp], halo[i], rpp))
+        out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    if reduce == "mean":
+        deg = hp.deg[lo:hi].reshape(-1)
+        out = out / torch.clamp(deg, min=1.0)[:, None].to(out.dtype)
+    return out

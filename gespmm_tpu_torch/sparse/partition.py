@@ -41,6 +41,9 @@ B rows each chunk's edges reference (``ref_ptr``, ``ref_rows``,
 The row split (``build_row_split``, the work list of ``csrc/spmm_csr.cu``)
 cuts each CSR row longer than L edges into segments of L consecutive edges,
 each walked by one warp; the carry pass adds a long row's segments in order.
+The stacked split (``build_shard_split``, the work list of
+``csrc/halo_spmm.cu``) applies the same rule to the rows of P stacked shard
+blocks, each row's edges being its diag edges followed by its halo edges.
 """
 
 from __future__ import annotations
@@ -391,3 +394,64 @@ def build_row_split(indptr, seg_len: int = SPLIT_LEN) -> RowSplit:
     return RowSplit(seg_row=_int32(seg_row), seg_start=_int32(seg_start),
                     long_rows=_int32(long_rows), seg_ptr=_int32(seg_ptr),
                     seg_len=seg_len)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSplit:
+    """The row split of P stacked shard blocks (one kernel row-7 launch).
+
+    Shard p's row r is stacked row q = p * ``rows`` + r.  Its joint edge
+    list is its diag edges, then its halo edges (one block only for a
+    transposed block): joint position j < deg_diag is diag edge
+    ``d_indptr[p, r] + j``, any other halo edge ``h_indptr[p, r] + j -
+    deg_diag``.  ``split`` is ``build_row_split``'s rule over the joint
+    degrees of all stacked rows, with ``seg_row``/``long_rows`` stacked rows
+    and ``seg_start`` the segment's first joint position IN ITS ROW.
+    Shard p's segments are [seg_off[p], seg_off[p + 1]) and its long rows
+    [long_off[p], long_off[p + 1]) (host ints), so a launch over shards
+    [lo, hi) takes one slice of each (``local``).
+    """
+
+    split: RowSplit
+    rows: int
+    seg_off: Tuple[int, ...]
+    long_off: Tuple[int, ...]
+
+    @property
+    def num_parts(self) -> int:
+        return len(self.seg_off) - 1
+
+    def local(self, lo: int, hi: int) -> Tuple[RowSplit, int, int]:
+        """(split of shards [lo, hi), row0, slot0): views of the lists; the
+        stacked rows and carry slots they hold start at row0 and slot0."""
+        s0, s1 = self.seg_off[lo], self.seg_off[hi]
+        j0, j1 = self.long_off[lo], self.long_off[hi]
+        rs = self.split
+        return (dataclasses.replace(
+            rs, seg_row=rs.seg_row[s0:s1], seg_start=rs.seg_start[s0:s1],
+            long_rows=rs.long_rows[j0:j1], seg_ptr=rs.seg_ptr[j0:j1 + 1]),
+            lo * self.rows, s0)
+
+    def to(self, device) -> "ShardSplit":
+        return dataclasses.replace(self, split=self.split.to(device))
+
+
+def build_shard_split(d_indptr, h_indptr=None,
+                      seg_len: int = SPLIT_LEN) -> ShardSplit:
+    """The stacked split of (P, rows + 1) indptrs (host NumPy; the tensors
+    are on the CPU).  ``h_indptr=None``: one block (a transposed block)."""
+    d_indptr = np.asarray(d_indptr, dtype=np.int64)
+    deg = np.diff(d_indptr, axis=1)
+    if h_indptr is not None:
+        deg = deg + np.diff(np.asarray(h_indptr, dtype=np.int64), axis=1)
+    P, rows = deg.shape
+    joint = np.concatenate([[0], np.cumsum(deg.reshape(-1))])
+    split = build_row_split(joint, seg_len)
+    seg_row = split.seg_row.numpy()
+    starts = split.seg_start.numpy().astype(np.int64) - joint[seg_row]
+    bounds = np.arange(P + 1) * rows
+    return ShardSplit(
+        split=dataclasses.replace(split, seg_start=_int32(starts)), rows=rows,
+        seg_off=tuple(int(x) for x in np.searchsorted(seg_row, bounds)),
+        long_off=tuple(int(x) for x in np.searchsorted(
+            split.long_rows.numpy(), bounds)))

@@ -22,8 +22,9 @@ grad_src, grad_dst and grad_B within 1e-4 * max(|ref|, 1) (a bf16 grad_B:
 stored out, as the op does.  Fused dot-product attention: the same bounds
 for out, mx, den and grad_D1, grad_D2, grad_B.  The nnz-chunked and the
 grouped-gather SpMMs: the sum kernel's bound.  The joint diag+halo SpMM
-(kernel row 7): a sum within the sum kernel's bound, max/min out and joint
-ties exactly; the sharded op's out and gradients within 1e-5 *
+(kernel row 7), one launch over all shards with long rows split: a sum
+within the sum kernel's bound, max/min out and joint ties exactly (the
+unsplit plain walk's); the sharded op's out and gradients within 1e-5 *
 max(|ref|, 1) of the float64 whole-graph SpMM.
 """
 
@@ -1329,11 +1330,67 @@ HALO_CASES = [(parts, K, reduce, kind, dtype)
               if kind != "heads2" or (reduce == "sum" and K % 2 == 0)]
 
 
+def _halo_vs_plain(out, ties, hp, p, blk, dv, hv, Bs, halo_p, reduce, dtype):
+    """Shard p's rows of row 7 against the unsplit plain version: a sum
+    within the sum kernel's bound of float64; max/min out and joint ties
+    exactly."""
+    tab = (blk.d_rows, blk.d_indices, blk.h_rows, blk.h_indices)
+    if reduce == "sum":
+        assert ties is None
+        f64 = [None if v is None else v.double() for v in (dv, hv)]
+        absv = [None if v is None else v.abs() for v in f64]
+        exact, _ = ref.halo_spmm_rows(tab[0], tab[1], f64[0], Bs.double(),
+                                      tab[2], tab[3], f64[1],
+                                      halo_p.double(), hp.rpp)
+        mag, _ = ref.halo_spmm_rows(tab[0], tab[1], absv[0],
+                                    Bs.double().abs(), tab[2], tab[3],
+                                    absv[1], halo_p.double().abs(), hp.rpp)
+        bound = 8e-3 * mag if dtype == torch.bfloat16 else 1e-5 * mag + 1e-6
+        assert ((out.double() - exact).abs() <= bound).all()
+    else:
+        want, want_ties = ref.halo_spmm_rows(tab[0], tab[1], dv, Bs, tab[2],
+                                             tab[3], hv, halo_p, hp.rpp,
+                                             reduce)
+        assert torch.equal(out, want) and torch.equal(ties, want_ties)
+
+
+@pytest.mark.parametrize("parts,K,reduce,kind,dtype", HALO_CASES)
+def test_halo_stacked_kernel_matches_plain(dev, parts, K, reduce, kind,
+                                           dtype):
+    """One row-7 launch over all shards, rows above L = 8 joint edges split
+    (segments that cross from the diag block into the halo block), and the
+    carry: each shard's rows against the unsplit plain version; two calls
+    bitwise equal."""
+    hp = build_halo_partition(_square_skewed(), parts, device=dev, seg_len=8)
+    mesh = make_mesh(parts, device=dev)
+    B = (torch.round(randn((parts * hp.cpp, K), dev, 0) * 2) / 2).to(dtype)
+    halo = make_exchange(hp, mesh)(B)
+    assert hp.joint_split.split.num_segments > 0
+    dvs, hvs = _shard_vals(hp, kind, dev, 1)
+    args = (hp.diag_indptr, hp.diag_indices, dvs, B, hp.halo_indptr,
+            hp.halo_indices, hvs, halo, reduce)
+    khalo.reset_launches()
+    out, ties = khalo.halo_spmm_stacked(*args, split=hp.joint_split)
+    again = khalo.halo_spmm_stacked(*args, split=hp.joint_split)
+    torch.cuda.synchronize()
+    assert (khalo.launches, khalo.carry_launches) == (2, 2)
+    assert torch.equal(out, again[0])
+    assert ties is None or torch.equal(ties, again[1])
+    for p in range(parts):
+        rows = slice(p * hp.rpp, (p + 1) * hp.rpp)
+        _halo_vs_plain(out[rows], None if ties is None else ties[rows], hp, p,
+                       hp.blocks(p),
+                       None if dvs is None else dvs[p, :hp.diag_nnz[p]],
+                       None if hvs is None else hvs[p, :hp.halo_nnz[p]],
+                       B[p * hp.cpp:(p + 1) * hp.cpp], halo[p], reduce, dtype)
+
+
 @pytest.mark.parametrize("parts,K,reduce,kind,dtype", HALO_CASES)
 def test_halo_kernel_matches_plain(dev, parts, K, reduce, kind, dtype):
-    """Row 7, shard by shard, against its plain version: a sum within the
-    sum kernel's bound of float64; max/min out and joint ties exactly; two
-    launches bitwise equal."""
+    """Row 7, shard by shard (with each shard's part of the split at the
+    default L), against its plain version: a sum within the sum kernel's
+    bound of float64; max/min out and joint ties exactly; two launches
+    bitwise equal."""
     hp, _, B, halo = _halo_setup(_square_skewed(), parts, K, dtype, dev)
     dvs, hvs = _shard_vals(hp, kind, dev, 1)
     for p in range(parts):
@@ -1344,31 +1401,14 @@ def test_halo_kernel_matches_plain(dev, parts, K, reduce, kind, dtype):
         args = (blk.d_indptr, blk.d_indices, dv, Bs, blk.h_indptr,
                 blk.h_indices, hv, halo[p], reduce)
         before = khalo.launches
-        out, ties = khalo.halo_spmm_rows(*args)
-        again = khalo.halo_spmm_rows(*args)
+        out, ties = khalo.halo_spmm_rows(*args, split=hp.joint_split, shard=p)
+        again = khalo.halo_spmm_rows(*args, split=hp.joint_split, shard=p)
         torch.cuda.synchronize()
         assert khalo.launches == before + 2
         assert torch.equal(out, again[0])
-        tab = (blk.d_rows, blk.d_indices, blk.h_rows, blk.h_indices)
-        if reduce == "sum":
-            assert ties is None
-            f64 = [None if v is None else v.double() for v in (dv, hv)]
-            absv = [None if v is None else v.abs() for v in f64]
-            exact, _ = ref.halo_spmm_rows(tab[0], tab[1], f64[0], Bs.double(),
-                                          tab[2], tab[3], f64[1],
-                                          halo[p].double(), hp.rpp)
-            mag, _ = ref.halo_spmm_rows(tab[0], tab[1], absv[0],
-                                        Bs.double().abs(), tab[2], tab[3],
-                                        absv[1], halo[p].double().abs(),
-                                        hp.rpp)
-            bound = (8e-3 * mag if dtype == torch.bfloat16
-                     else 1e-5 * mag + 1e-6)
-            assert ((out.double() - exact).abs() <= bound).all()
-        else:
-            want, want_ties = ref.halo_spmm_rows(
-                tab[0], tab[1], dv, Bs, tab[2], tab[3], hv, halo[p], hp.rpp,
-                reduce)
-            assert torch.equal(out, want) and torch.equal(ties, want_ties)
+        _halo_vs_plain(out, ties, hp, p, blk, dv, hv, Bs, halo[p], reduce,
+                       dtype)
+        if ties is not None:
             assert torch.equal(ties, again[1])
 
 
@@ -1390,6 +1430,7 @@ def test_halo_op_launches_and_never_takes_the_plain_version(dev, monkeypatch,
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(ref, "halo_spmm_rows", refuse)
+    monkeypatch.setattr(ref, "halo_spmm_split_rows", refuse)
     monkeypatch.setattr(ref, "spmm_minmax_vjp_cols", refuse)
     csr = _square_skewed()
     parts = 4
@@ -1407,13 +1448,22 @@ def test_halo_op_launches_and_never_takes_the_plain_version(dev, monkeypatch,
     kmm.reset_launches()
     out = halo_spmm(hp, B, mesh, reduce=reduce, diag_vals=dv, halo_vals=hv)
     torch.cuda.synchronize()
-    assert khalo.launches == parts
+    # Forward: one row-7 launch over the 4 shards, and the carry where the
+    # joint split has a segment (the skewed graph's hub rows).
+    has = [int(s.split.num_segments > 0) for s in (
+        hp.joint_split, hp.diag_t_split, hp.halo_t_split)]
+    assert has[0] == 1
+    assert (khalo.launches, khalo.carry_launches) == (1, has[0])
     out.backward(g)
     torch.cuda.synchronize()
     if reduce in ("sum", "mean"):
-        assert (khalo.launches, kmm.vjp_launches) == (3 * parts, 0)
+        # Backward: row 7 over the stacked diag^T and halo^T blocks, each
+        # with its split's carry.
+        assert (khalo.launches, kmm.vjp_launches) == (3, 0)
+        assert khalo.carry_launches == sum(has)
     else:
-        assert (khalo.launches, kmm.vjp_launches) == (parts, 2 * parts)
+        # Backward: row 3 over each shard's two transposed blocks.
+        assert (khalo.launches, kmm.vjp_launches) == (1, 2 * parts)
     m = csr.shape[0]
     want = _whole_graph_f64(csr, B, vals, g, reduce)
     for got, w in zip((out.detach()[:m], B.grad[:m], vals.grad), want):
@@ -1466,6 +1516,11 @@ def test_sharded_train_steps_on_the_card(dev):
         khalo.reset_launches()
         losses = [float(step(model, opt, x, labels, mask)[2])
                   for _ in range(10)]
-        assert losses[-1] < losses[0] and khalo.launches >= 10 * 4 * 2
+        # Row 7 a step: one launch an aggregation over the 4 shards, and
+        # two for a sum aggregation's backward (GCN and GAT: 2 + 4; SAGE-pool
+        # 2, its max backward on row 3); no row above L, so no carry.
+        per_step = 2 if kw.get("aggregator") == "pool" else 6
+        assert losses[-1] < losses[0]
+        assert (khalo.launches, khalo.carry_launches) == (10 * per_step, 0)
     losses = dryrun_multichip(8, device=dev)
     assert all(np.isfinite(v) for v in losses.values())
