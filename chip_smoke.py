@@ -38,21 +38,27 @@ Phases, each printed as it goes; any failure exits non-zero:
      method="xla" with no launches;
   8. attention kernels vs plain: the edge segment reduce (sum, max) and the
      three fused GAT kernels (forward; backward over the CSR and over the
-     CSC) against their plain versions in float64, on the SBM graph with
-     self-loops (K=H in {1, 8} for the reduce; heads 1 and 8 at K=64 and
-     K=3/24, exact and bound) and on rmat15 (hub and empty rows), f32 and
-     bf16.  Forward within 1e-5 x max |ref| + 1e-6 (bf16 out: 8e-3 x), a
-     max exactly; gradients within 1e-4 x max(|ref|, 1) (bf16 grad_B:
-     8e-3 x);
+     CSC, each with the adjacency's split and its carries) against their
+     plain versions in float64, on the SBM graph with self-loops (K=H in
+     {1, 8} for the reduce; heads 1 and 8 at K=64 and K=3/24), on rmat15
+     (hub and empty rows) and on a graph whose rows and columns have L - 1,
+     L, L + 1, 2L + 1 and 10,000 edges (utils/datasets.py::
+     split_boundary_graph), exact and bound, f32 and bf16.  Forward within
+     1e-5 x max |ref| + 1e-6 (bf16 out: 8e-3 x), a max exactly; gradients
+     within 1e-4 x max(|ref|, 1) (bf16 grad_B: 8e-3 x); the fused kernels'
+     two runs bitwise equal, their carries launched on rmat15 and the
+     boundary graph (1 forward, 1 CSR-backward, 2 CSC-backward a run) and
+     never on the SBM graph;
   9. composed attention chain on the card at layer 0's shapes (K=64):
      additive logits, leaky ReLU, edge_softmax, spmm(with_data(alpha)),
      forward and backward: 5 segment-reduce launches, and the result and
      its gradients held to the fused op and to float64;
  10. GAT train: dims [128, 64, 3], one head, on the SBM graph with
-     self-loops, 50 epochs through the fused kernels (>= 2 forward, 2
-     CSR-backward and 2 CSC-backward launches per epoch) with the same
-     checks as phase 6; method="xla" with no launches; then DGL's
-     multi-head shape, dims [128, 8, 3] with 8 heads, 20 epochs;
+     self-loops, 50 epochs through the fused kernels (2 forward, 2
+     CSR-backward and 2 CSC-backward launches an epoch, 2 more forward for
+     the final evaluation, no carry) with the same checks as phase 6;
+     method="xla" with no launches; then DGL's multi-head shape, dims
+     [128, 8, 3] with 8 heads, 20 epochs, with the same launch counts;
  11. dot-product attention kernels vs float64: forward, backward over the
      CSR and over the CSC, on the SBM graph with self-loops at (Ka, K) in
      {(64, 64), (16, 3)} and on rmat15 at (64, 64), act identity and leaky,
@@ -143,6 +149,10 @@ Phases, each printed as it goes; any failure exits non-zero:
      f32 and with bf16 B / f32 out (mode="fast"), against torch.sparse.mm,
      and its split at L in {32, 64, 128, 256} at both rmat15 K=128 (each L
      timed twice, in the order 32 ... 256 ... 32);
+     the three fused GAT kernels at sbm H=1 dh=64, H=1 dh=3, H=8 dh=8,
+     H=8 dh=3 and rmat15 H=1 dh=64, H=8 dh=3 against their plain versions,
+     with their bounds and row 1 over the same graph at the same K (a
+     yardstick of one gather pass, not the same function);
      the chunk kernel against float64, the CSR kernel and torch.sparse.mm
      at each timed shape (the kernels line's error is its shape's); the
      grouped kernel likewise, and against the chunk kernel at (64, 64) on
@@ -169,7 +179,8 @@ Phases run in the order 1-14, 16-20, 15.  Each path's launches are counted
 from 0 in its own run; the comparison launches of phases 3-5, 8, 11, 13, 16
 and 18 are not counted.  The CSR kernel and the chunk and grouped kernels
 count their carry pass apart (spmm_csr_carry, spmm_chunk_carry,
-spmm_grouped_carry), and so does row 7 (halo_spmm_carry).  NCCL traffic between ranks is not run: the card
+spmm_grouped_carry), and so do row 7 (halo_spmm_carry) and row 5
+(gat_fwd_carry, gat_bwd_rows_carry, gat_bwd_cols_carry).  NCCL traffic between ranks is not run: the card
 machine has one card.  Output: one line per phase, then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  With --record, the full record of the run is
@@ -204,6 +215,13 @@ MINMAX_SBM_KS = (128, 16)
 # (K=3) of the slice, and DGL's 8-head shape at both layers.
 GAT_SBM_SHAPES = ((1, 64), (1, 3), (8, 8), (8, 3))
 GAT_RMAT_SHAPES = ((1, 64), (8, 3))
+# ... on the split-boundary graph: both walker kinds, and a head of 65
+# columns over 64-column slabs.
+GAT_BOUNDARY_SHAPES = ((1, 64), (1, 3), (8, 3), (2, 65))
+# (graph, heads, head width) of row 5's timings: layer 0 and 1 of the
+# slice, DGL's 8-head layers, and both heads on the hub-heavy graph.
+GAT_TIMED = (("sbm", 1, 64), ("sbm", 1, 3), ("sbm", 8, 8), ("sbm", 8, 3),
+             ("rmat15", 1, 64), ("rmat15", 8, 3))
 SLOPE = 0.2
 # (Ka, K) of the dot-attention checks: the (64, 64) main shape, and a narrow
 # K with Ka a multiple of 4 below a lane's vector.
@@ -268,25 +286,33 @@ def bound_check(torch, ref, out, indptr, indices, rows, data, B):
 
 def gat_kernels_vs_float64(torch, ref, kgat, adj, H, dh, max_mode, dtype,
                            gen):
-    """Run the three fused kernels once; {name: (max abs error, bound)}
-    against the float64 plain versions (the backward's s = <g, out> from
-    the kernel's stored out, as the op takes it)."""
+    """Run the three fused kernels twice, with the adjacency's splits;
+    ({name: (max abs error, bound)} against the float64 plain versions (the
+    backward's s = <g, out> from the kernel's stored out, as the op takes
+    it), whether the two runs are bitwise equal)."""
     dev = adj.csr.indptr.device
     m, n = adj.shape
     src = torch.randn(m, H, device=dev, generator=gen)
     dst = torch.randn(n, H, device=dev, generator=gen)
     B = torch.randn(n, H * dh, device=dev, generator=gen).to(dtype)
     g = torch.randn(m, H * dh, device=dev, generator=gen)
-    out, mx, den = kgat.gat_forward(adj.csr.indptr, adj.csr.indices, src, dst,
-                                    B, slope=SLOPE, heads=H, max_mode=max_mode)
-    s_row = ref.gat_row_dot(g, out, H)
-    grad_src = kgat.gat_backward_rows(adj.csr.indptr, adj.csr.indices, src,
-                                      dst, B, g, mx, den, s_row, slope=SLOPE,
-                                      heads=H)
-    grad_dst, grad_B = kgat.gat_backward_cols(
-        adj.csc.indptr, adj.csc.indices, src, dst, B, g, mx, den, s_row,
-        slope=SLOPE, heads=H)
+    kw = dict(slope=SLOPE, heads=H)
+
+    def run():
+        out, mx, den = kgat.gat_forward(adj.csr.indptr, adj.csr.indices, src,
+                                        dst, B, max_mode=max_mode,
+                                        split=adj.split, **kw)
+        tabs = (src, dst, B, g, mx, den, ref.gat_row_dot(g, out, H))
+        grad_src = kgat.gat_backward_rows(adj.csr.indptr, adj.csr.indices,
+                                          *tabs, split=adj.split, **kw)
+        grad_dst, grad_B = kgat.gat_backward_cols(
+            adj.csc.indptr, adj.csc.indices, *tabs, split=adj.split_t, **kw)
+        return out, mx, den, grad_src, grad_dst, grad_B
+
+    first, second = run(), run()
     torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(first, second))
+    out, mx, den, grad_src, grad_dst, grad_B = first
     edges = (adj.rows, adj.csr.indices)
     s64, d64, B64, g64 = src.double(), dst.double(), B.double(), g.double()
     want_out, mx64, den64 = ref.gat_fused_rows(*edges, s64, d64, B64, m, SLOPE,
@@ -308,7 +334,24 @@ def gat_kernels_vs_float64(torch, ref, kgat, adj, H, dh, max_mode, dtype,
         scale = float(want.abs().max())
         bound = tol * scale + 1e-6 if fwd else tol * max(scale, 1.0)
         errs[name] = (float((got.double() - want).abs().max()), bound)
-    return errs
+    return errs, repeat
+
+
+def gat_bytes(kind, m, n, nnz, H, K):
+    """(bytes, operations) of one row-5 kernel call in f32: each input read
+    once and each output written once (the CSR's or, for the CSC backward,
+    the CSC's indptr and indices; src, dst, B; g and the row-side tables
+    backward), and the per-edge work (2K flops a gathered row, the logit,
+    exp and weights a head)."""
+    idx = ((n if kind == "gat_bwd_cols" else m) + 1) * 4 + nnz * 4
+    tabs = (m + n) * H * 4 + n * K * 4
+    if kind == "gat_fwd":  # out, mx, den
+        return idx + tabs + m * K * 4 + 2 * m * H * 4, nnz * (2 * K + 8 * H)
+    if kind == "gat_bwd_rows":  # g, mx, den, s in; grad_src out
+        return idx + tabs + m * K * 4 + 4 * m * H * 4, nnz * (2 * K + 10 * H)
+    # g, mx, den, s in; grad_B, grad_dst out
+    return (idx + tabs + m * K * 4 + 3 * m * H * 4 + n * K * 4 + n * H * 4,
+            nnz * (4 * K + 10 * H))
 
 
 def dot_kernels_vs_float64(torch, ref, kgat, adj, Ka, K, slope, dtype, gen):
@@ -427,7 +470,9 @@ def main(argv=None):
                                              train_node_classifier)
     from gespmm_tpu_torch.utils import profiling, timing
     from gespmm_tpu_torch.utils.datasets import (GraphDataset, rmat_graph,
-                                                 sbm_graph, synth_graph)
+                                                 sbm_graph,
+                                                 split_boundary_graph,
+                                                 synth_graph)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -447,6 +492,9 @@ def main(argv=None):
                 "gat_fwd": kgat.launches,
                 "gat_bwd_rows": kgat.bwd_rows_launches,
                 "gat_bwd_cols": kgat.bwd_cols_launches,
+                "gat_fwd_carry": kgat.carry_launches,
+                "gat_bwd_rows_carry": kgat.bwd_rows_carry_launches,
+                "gat_bwd_cols_carry": kgat.bwd_cols_carry_launches,
                 "dot_fwd": kgat.dot_launches,
                 "dot_bwd_rows": kgat.dot_bwd_rows_launches,
                 "dot_bwd_cols": kgat.dot_bwd_cols_launches,
@@ -794,29 +842,57 @@ def main(argv=None):
                         att_err["edge_segment_reduce"] = max(
                             att_err["edge_segment_reduce"], err)
                     att_compared.append({"case": label, "max_abs_err": err})
-    # The three fused kernels.
-    gat_cases = [("sbm", adj, H, dh, mm, dt) for H, dh in GAT_SBM_SHAPES
-                 for mm in ("exact", "bound")
-                 for dt in (torch.float32, torch.bfloat16)]
-    gat_cases += [("rmat15", rmat, H, dh, "exact", dt) for H, dh in
-                  GAT_RMAT_SHAPES for dt in (torch.float32, torch.bfloat16)]
+    # The three fused kernels, with their splits: none on sbm, hub rows and
+    # columns on rmat15 and the split-boundary graph.
+    bnd = Adjacency.from_csr(split_boundary_graph(SPLIT_LEN, seed=SEED),
+                             device=dev)
+    print(f"split-boundary graph: n={bnd.shape[0]} nnz={bnd.nnz}, long rows "
+          f"{bnd.split.long_rows.tolist()} in {bnd.split.num_segments} "
+          f"segments, long columns {bnd.split_t.long_rows.tolist()} in "
+          f"{bnd.split_t.num_segments}; rmat15 {rmat.split.num_long_rows} "
+          f"long rows in {rmat.split.num_segments} segments, "
+          f"{rmat.split_t.num_long_rows} long columns in "
+          f"{rmat.split_t.num_segments}", flush=True)
+    modes = ("exact", "bound")
+    dtypes = (torch.float32, torch.bfloat16)
+    gat_cases = [(graph, a, H, dh, mm, dt)
+                 for graph, a, shapes in (("sbm", adj, GAT_SBM_SHAPES),
+                                          ("rmat15", rmat, GAT_RMAT_SHAPES),
+                                          ("boundary", bnd,
+                                           GAT_BOUNDARY_SHAPES))
+                 for H, dh in shapes for mm in modes for dt in dtypes]
+    carry_names = ("gat_fwd_carry", "gat_bwd_rows_carry", "gat_bwd_cols_carry")
+    gat_carries = {}
+    gat_err = {}  # (graph, H, dh): each kernel's error, f32 exact
     for graph, a, H, dh, max_mode, dtype in gat_cases:
         label = (f"gat {graph} H={H} dh={dh} {max_mode} "
                  f"{str(dtype).split('.')[-1]}")
-        errs = gat_kernels_vs_float64(torch, ref, kgat, a, H, dh, max_mode,
-                                      dtype, gen)
+        before = counts()
+        errs, repeat = gat_kernels_vs_float64(torch, ref, kgat, a, H, dh,
+                                              max_mode, dtype, gen)
+        after = counts()
+        carries = tuple(after[k] - before[k] for k in carry_names)
+        gat_carries.setdefault(graph, set()).add(carries)
         bad = [k for k, (e, b) in errs.items() if e > b]
         print(f"{label}: " + " ".join(f"{k}={e:.3e}" for k, (e, _) in
                                       errs.items())
+              + f" | carries in two runs {carries} | repeat "
+              + ("bitwise" if repeat else "DIFFERS")
               + (f" OUT OF BOUND: {bad}" if bad else " ok"), flush=True)
         check(not bad, f"fused kernels disagree with float64: {label} {bad}")
-        if (graph, H, dh, max_mode, dtype) == ("sbm", 1, 64, "exact",
-                                                torch.float32):
-            att_err["gat_fwd"] = errs["out"][0]
-            att_err["gat_bwd_rows"] = errs["grad_src"][0]
-            att_err["gat_bwd_cols"] = max(errs["grad_dst"][0],
-                                          errs["grad_B"][0])
-        att_compared.append({"case": label, "errors": errs})
+        check(repeat, f"fused kernels not repeatable: {label}")
+        if (max_mode, dtype) == ("exact", torch.float32):
+            gat_err[(graph, H, dh)] = {
+                "gat_fwd": errs["out"][0], "gat_bwd_rows": errs["grad_src"][0],
+                "gat_bwd_cols": max(errs["grad_dst"][0], errs["grad_B"][0])}
+        att_compared.append({"case": label, "errors": errs,
+                             "carries_in_two_runs": carries, "repeat": repeat})
+    att_err.update(gat_err[("sbm", 1, 64)])
+    check(gat_carries["sbm"] == {(0, 0, 0)},
+          f"a fused kernel launched a carry on sbm: {gat_carries['sbm']}")
+    for graph in ("rmat15", "boundary"):  # 1, 1 and 2 carries a run
+        check(gat_carries[graph] == {(2, 2, 4)},
+              f"fused kernels' carries on {graph}: {gat_carries[graph]}")
     record["attention_vs_plain"] = att_compared
 
     phase("9 composed attention chain on the card (layer 0: K=64)")
@@ -876,6 +952,19 @@ def main(argv=None):
         GAT(GAT_MH_DIMS, method="xla", heads=GAT_MH_HEADS).double(), gat_path,
         methods=("auto",), epochs=GAT_MH_EPOCHS, lr=GAT_LR)
     record["gat_multihead"] = gat_mh_runs
+    # Each epoch: one launch of each fused kernel a layer; the final
+    # evaluation's forward adds one a layer; sbm has no long row: no carry.
+    for name, runs, epochs in (("GAT", gat_runs, EPOCHS),
+                               (f"GAT heads={GAT_MH_HEADS}", gat_mh_runs,
+                                GAT_MH_EPOCHS)):
+        got = runs["auto"]["launches"]
+        want = {"gat_fwd": 2 * epochs + 2, "gat_bwd_rows": 2 * epochs,
+                "gat_bwd_cols": 2 * epochs, "gat_fwd_carry": 0,
+                "gat_bwd_rows_carry": 0, "gat_bwd_cols_carry": 0}
+        print(f"{name}: row-5 launches {[got[k] for k in want]} in {epochs} "
+              f"epochs, expected {list(want.values())}", flush=True)
+        check(all(got[k] == v for k, v in want.items()),
+              f"{name}: row-5 launches {got}")
 
     phase("11 dot-product attention kernels vs float64")
     dot_err = {"dot_fwd": 0.0, "dot_bwd_rows": 0.0, "dot_bwd_cols": 0.0}
@@ -1873,44 +1962,59 @@ def main(argv=None):
               flush=True)
     record["edge_reduce_timings"] = seg_timings
 
-    # The fused kernels at the GAT slice's layer 0 (K=64) and layer 1 (K=3),
-    # at DGL's 8-head layer 0 (K=64, dh=8), and at rmat15 K=64.  The plain
-    # versions walk the CSR edges for every direction.
+    # The fused kernels (row 5) at GAT_TIMED, with the adjacency's splits
+    # (rmat15: hub rows and columns in segments, and the carries), against
+    # their plain versions (which walk every edge in torch ops; 10 calls a
+    # group for both), with row 1 over the same graph at the same K beside them: a
+    # yardstick of one gather pass, not the same function.
     gat_timings = []
-    for graph, a, H, dh in (("sbm", adj, 1, 64), ("sbm", adj, 1, 3),
-                            ("sbm", adj, 8, 8), ("rmat15", rmat, 1, 64)):
+    for graph, H, dh in GAT_TIMED:
+        a = {"sbm": adj, "rmat15": rmat}[graph]
         m, n = a.shape
+        K = H * dh
         src = torch.randn(m, H, device=dev, generator=gen)
         dst = torch.randn(n, H, device=dev, generator=gen)
-        B = torch.randn(n, H * dh, device=dev, generator=gen)
-        g = torch.randn(m, H * dh, device=dev, generator=gen)
+        B = torch.randn(n, K, device=dev, generator=gen)
+        g = torch.randn(m, K, device=dev, generator=gen)
+        kw = dict(slope=SLOPE, heads=H)
         out, mx, den = kgat.gat_forward(a.csr.indptr, a.csr.indices, src, dst,
-                                        B, slope=SLOPE, heads=H)
+                                        B, split=a.split, **kw)
         s_row = ref.gat_row_dot(g, out, H)
         edges = (a.rows, a.csr.indices)
         tables = (src, dst, B, g, mx, den, s_row)
-        kw = dict(slope=SLOPE, heads=H)
+        row1 = timing.device_time(lambda: kspmm.spmm_csr(
+            a.csr.indptr, a.csr.indices, None, B, split=a.split)) * 1e3
         for label, kernel, plain in (
                 ("gat_fwd",
                  lambda: kgat.gat_forward(a.csr.indptr, a.csr.indices, src,
-                                          dst, B, **kw),
+                                          dst, B, split=a.split, **kw),
                  lambda: ref.gat_fused_rows(*edges, src, dst, B, m, SLOPE,
                                             "exact", H)),
                 ("gat_bwd_rows",
                  lambda: kgat.gat_backward_rows(a.csr.indptr, a.csr.indices,
-                                                *tables, **kw),
+                                                *tables, split=a.split, **kw),
                  lambda: ref.gat_fused_vjp_rows(*edges, *tables, m, SLOPE, H)),
                 ("gat_bwd_cols",
                  lambda: kgat.gat_backward_cols(a.csc.indptr, a.csc.indices,
-                                                *tables, **kw),
+                                                *tables, split=a.split_t,
+                                                **kw),
                  lambda: ref.gat_fused_vjp_cols(*edges, *tables, SLOPE, H))):
+            before = counts()
+            kernel()
+            carries = counts()[label + "_carry"] - before[label + "_carry"]
             k_dev, p_dev = alternate(few_time, kernel, plain)
+            nbytes, ops = gat_bytes(label, m, n, a.nnz, H, K)
             row = {"kernel": label, "shape": f"{graph} H={H} dh={dh}",
-                   "nnz": a.nnz, "K": H * dh, "kernel_device_ms": k_dev,
-                   "plain_device_ms": p_dev}
+                   "nnz": a.nnz, "K": K, "kernel_device_ms": k_dev,
+                   "plain_device_ms": p_dev, "row1_ms": row1,
+                   "carry_launches": carries, "bytes": nbytes, "ops": ops,
+                   "max_abs_err": gat_err[(graph, H, dh)][label]}
+            bound_s, bound_by = profiling.bound(nbytes, ops)
             gat_timings.append(row)
             print(f"{label} {graph} H={H} dh={dh}: device time kernel "
-                  f"{mean(k_dev):.5f} ms | plain {mean(p_dev):.5f} ms | {card}",
+                  f"{mean(k_dev):.5f} ms ({carries} carry launches) | plain "
+                  f"{mean(p_dev):.5f} ms | bound {bound_s * 1e3:.5f} ms "
+                  f"({bound_by}) | row 1 at K={K} {row1:.5f} ms | {card}",
                   flush=True)
     record["gat_timings"] = gat_timings
 
@@ -2456,15 +2560,6 @@ def main(argv=None):
     mm_timings[0].update(bytes=idx_p + 3 * m_s * Kp * 4, ops=2 * nnz_p * Kp)
     mm_timings[1].update(bytes=idx_p + 5 * m_s * Kp * 4, ops=3 * nnz_p * Kp)
     seg_timings[0].update(bytes=idx_s + nnz_s * 4 + m_s * 4, ops=nnz_s)
-    Kg = 64  # the GAT slice's layer 0: one head of 64
-    gat_tables = 2 * m_s * H * 4 + n_s * Kg * 4  # src, dst, B
-    gat_timings[0].update(bytes=idx_s + gat_tables + m_s * Kg * 4
-                          + 2 * m_s * H * 4, ops=nnz_s * (2 * Kg + 8 * H))
-    gat_timings[1].update(bytes=idx_s + gat_tables + m_s * Kg * 4
-                          + 4 * m_s * H * 4, ops=nnz_s * (2 * Kg + 10 * H))
-    gat_timings[2].update(bytes=idx_s + gat_tables + m_s * Kg * 4
-                          + 4 * m_s * H * 4 + n_s * Kg * 4,
-                          ops=nnz_s * (4 * Kg + 10 * H))
 
     def kernel_entry(name, source, replaces, launches, err, row):
         bound_s, bound_by = profiling.bound(row["bytes"], row["ops"])
@@ -2478,10 +2573,12 @@ def main(argv=None):
     def more_shapes(rows):
         """The kernel's other timed shapes, each with its own error, times
         and bound."""
-        return [{k: v for k, v in kernel_entry("", "", "", 0,
-                                               r["max_abs_err"], r).items()
-                 if k not in ("name", "route", "source", "replaces",
-                              "launches")} for r in rows]
+        return [{**{k: v for k, v in kernel_entry("", "", "", 0,
+                                                  r["max_abs_err"], r).items()
+                    if k not in ("name", "route", "source", "replaces",
+                                 "launches")},
+                 **{k: r[k] for k in ("row1_ms", "carry_launches") if k in r}}
+                for r in rows]
 
     chunk_row = next(r for r in chunk_timings
                      if r["shape"] == "rmat15-ef16 K=128 (R, E)=(64, 64)")
@@ -2503,15 +2600,19 @@ def main(argv=None):
         kernel_entry("edge_segment_reduce", kedge.SOURCE, kedge.REPLACES,
                      chain_launches["edge_segment_reduce"],
                      att_err["edge_segment_reduce"], seg_timings[0]),
-        kernel_entry("gat_fwd", kgat.SOURCE, kgat.REPLACES,
-                     gat_runs["auto"]["launches"]["gat_fwd"],
-                     att_err["gat_fwd"], gat_timings[0]),
-        kernel_entry("gat_bwd_rows", kgat.SOURCE, kgat.BWD_ROWS_REPLACES,
-                     gat_runs["auto"]["launches"]["gat_bwd_rows"],
-                     att_err["gat_bwd_rows"], gat_timings[1]),
-        kernel_entry("gat_bwd_cols", kgat.SOURCE, kgat.BWD_COLS_REPLACES,
-                     gat_runs["auto"]["launches"]["gat_bwd_cols"],
-                     att_err["gat_bwd_cols"], gat_timings[2]),
+        # Row 5: launches and carries of the GAT's run (phase 10), times at
+        # sbm H=1 dh=64, the other timed shapes in more.
+        *(dict(kernel_entry(name, kgat.SOURCE, replaces,
+                            gat_runs["auto"]["launches"][name],
+                            att_err[name], gat_timings[i]),
+               carry_launches=gat_runs["auto"]["launches"][name + "_carry"],
+               row1_ms=gat_timings[i]["row1_ms"],
+               more=more_shapes(r for r in gat_timings[3:]
+                                if r["kernel"] == name))
+          for i, (name, replaces) in enumerate((
+              ("gat_fwd", kgat.REPLACES),
+              ("gat_bwd_rows", kgat.BWD_ROWS_REPLACES),
+              ("gat_bwd_cols", kgat.BWD_COLS_REPLACES)))),
         kernel_entry("dot_fwd", kgat.DOT_SOURCE, kgat.DOT_REPLACES,
                      dot_launches["dot_fwd"], dot_err["dot_fwd"],
                      dot_timings[0]),

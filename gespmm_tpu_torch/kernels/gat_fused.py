@@ -14,13 +14,20 @@ a ``torch.autograd.Function`` over three hand-written CUDA kernels in
   * ``gat_backward_cols``: (grad_dst, grad_B) over the CSC, replacing the
     pass of ``_gat_bwd`` over ``plan_t``.
 
-The backward recomputes every per-edge factor from the node tables and the
-forward's residuals ``mx`` (the softmax shift) and ``den`` (the clamped
-denominator), with ``s = <g, out>`` per head taken from the STORED ``out``
-as the JAX package takes it.  A tensor on the CPU goes to the plain
-versions (``ops/reference.py``); a CUDA tensor launches the kernels or
-raises — there is no fallback.  ``launches``, ``bwd_rows_launches`` and
-``bwd_cols_launches`` count the launches of each kernel.
+Rows (columns) longer than the split's L edges are walked in segments by
+separate warps, and a carry pass merges each long row's partial states in
+segment order (``Adjacency.split`` for the forward and the CSR backward,
+``Adjacency.split_t`` for the CSC backward).  The backward recomputes every
+per-edge factor from the node tables and the forward's residuals ``mx``
+(the softmax shift) and ``den`` (the clamped denominator), with
+``s = <g, out>`` per head taken from the STORED ``out`` as the JAX package
+takes it.  A tensor on the CPU goes to the plain versions
+(``ops/reference.py``); a CUDA tensor launches the kernels or raises —
+there is no fallback.  ``launches``, ``bwd_rows_launches`` and
+``bwd_cols_launches`` count the launches of each kernel;
+``carry_launches``, ``bwd_rows_carry_launches`` and
+``bwd_cols_carry_launches`` their carry passes (the CSC backward's two
+carries, grad_B and grad_dst, count two).
 
 ``dot_attention_aggregate`` (dot-product attention) is the same for
 
@@ -42,11 +49,13 @@ from typing import Optional, Union
 import torch
 
 from gespmm_tpu_torch.kernels._build import load_library
-from gespmm_tpu_torch.kernels.spmm_csr import (check_operands, check_table,
+from gespmm_tpu_torch.kernels.spmm_csr import (_SPLIT, check_operands,
+                                               check_split, check_table,
                                                lane_vector, raise_on)
 from gespmm_tpu_torch.ops import reference
 from gespmm_tpu_torch.ops.spmm import Adjacency
 from gespmm_tpu_torch.sparse.formats import CSR, expand_indptr
+from gespmm_tpu_torch.sparse.partition import RowSplit, build_row_split
 
 Tensor = torch.Tensor
 
@@ -65,6 +74,9 @@ DOT_BWD_COLS_REPLACES = "gespmm_tpu/kernels/gat_fused.py:430"
 launches = 0
 bwd_rows_launches = 0
 bwd_cols_launches = 0
+carry_launches = 0
+bwd_rows_carry_launches = 0
+bwd_cols_carry_launches = 0
 dot_launches = 0
 dot_bwd_rows_launches = 0
 dot_bwd_cols_launches = 0
@@ -75,8 +87,10 @@ _F32 = torch.float32
 
 def reset_launches() -> None:
     global launches, bwd_rows_launches, bwd_cols_launches
+    global carry_launches, bwd_rows_carry_launches, bwd_cols_carry_launches
     global dot_launches, dot_bwd_rows_launches, dot_bwd_cols_launches
     launches = bwd_rows_launches = bwd_cols_launches = 0
+    carry_launches = bwd_rows_carry_launches = bwd_cols_carry_launches = 0
     dot_launches = dot_bwd_rows_launches = dot_bwd_cols_launches = 0
 
 
@@ -86,9 +100,10 @@ def _entry(kind: str, dtype: torch.dtype):
     lib = load_library("gat_fused")
     fn = getattr(lib, f"gespmm_gat_{kind}_{_SUFFIX[dtype]}")
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    fn.argtypes = {"fwd": [i, i, i, i, i, f] + [p] * 9,
-                   "bwd_rows": [i, i, i, f] + [p] * 11,
-                   "bwd_cols": [i, i, i, i, f] + [p] * 12}[kind]
+    split = [i] * 3 + [p] * 4  # L, S, J and the four lists
+    fn.argtypes = {"fwd": [i] * 6 + [f] + split + [p] * 12,
+                   "bwd_rows": [i] * 5 + [f] + split + [p] * 12,
+                   "bwd_cols": [i] * 5 + [f] + split + [p] * 14}[kind]
     fn.restype = ctypes.c_int
     lib.gespmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gespmm_cuda_error_string.restype = ctypes.c_char_p
@@ -110,19 +125,58 @@ def _heads_of(B: Tensor, heads: int) -> int:
     return heads
 
 
+# --- the walk's launch shape and split ------------------------------------
+
+
+def walk_shape(K: int, heads: int, *tensors: Tensor):
+    """(VEC, SW) of the row-5 kernels: VEC columns a lane, the widest of 4,
+    2 and 1 that divides the head width (a lane's columns lie in one head)
+    and to which every table is aligned; SW lanes a walker, the smallest
+    power of two that covers K/VEC columns, from 4 (eight rows a warp) to
+    32 (one; wider K walks 32·VEC-column slabs)."""
+    dh = K // heads
+    vec = next(v for v in (4, 2, 1) if dh % v == 0 and all(
+        t.data_ptr() % (v * t.element_size()) == 0 for t in tensors))
+    lanes = -(-K // vec)
+    return vec, min(32, max(4, 1 << (lanes - 1).bit_length()))
+
+
+def _split_args(split: RowSplit, device: torch.device):
+    """(L, S, J, seg_row, seg_start, long_rows, seg_ptr pointers) of a row
+    split on ``device``."""
+    check_split(split, device)
+    return (split.seg_len, split.num_segments, split.num_long_rows,
+            *(getattr(split, name).data_ptr() for name in _SPLIT))
+
+
+def _scratch(rows: int, cols: int, device: torch.device) -> Optional[Tensor]:
+    """An f32 (rows, cols) scratch buffer of the segments' partial states, or
+    None without a segment."""
+    return (torch.empty((rows, cols), dtype=_F32, device=device) if rows
+            else None)
+
+
+def _ptr(t: Optional[Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 # --- forward -------------------------------------------------------------
 
 
 def gat_forward(indptr: Tensor, indices: Tensor, src2: Tensor, dst2: Tensor,
                 B: Tensor, *, slope: float = 0.2, heads: int = 1,
-                max_mode: str = "exact", rows: Optional[Tensor] = None):
+                max_mode: str = "exact", rows: Optional[Tensor] = None,
+                split: Optional[RowSplit] = None):
     """(out, mx, den) of the fused forward over the CSR (indptr, indices).
 
     src2 (m, H), dst2 (n, H), B (n, H·dh).  ``out`` takes B's dtype; ``mx``
     and ``den`` (m, H) are f32 (f64 from the plain version for f64 inputs).
     In "bound" mode the shift leaky(src + max_c dst) is computed with torch
     ops and handed to the kernel, as the JAX package computes it outside
-    Pallas.  ``rows`` (the expanded indptr) is used only by the plain version.
+    Pallas.  ``split`` is the CSR's row split on B's device
+    (``Adjacency.split``); without one, a CUDA call builds it from a host
+    copy of ``indptr``, which synchronises.  ``rows`` (the expanded indptr)
+    is used only by the plain version.
     """
     if max_mode not in MAX_MODES:
         raise ValueError(f"max_mode must be exact|bound, got {max_mode!r}")
@@ -135,15 +189,19 @@ def gat_forward(indptr: Tensor, indices: Tensor, src2: Tensor, dst2: Tensor,
     src2, dst2 = _f32(src2), _f32(dst2)
     mx = (reference.gat_bound_shift(src2, dst2, slope) if max_mode == "bound"
           else None)
-    return gat_forward_cuda(indptr, indices, src2, dst2, B, slope, heads, mx)
+    return gat_forward_cuda(indptr, indices, src2, dst2, B, slope, heads, mx,
+                            split)
 
 
 def gat_forward_cuda(indptr: Tensor, indices: Tensor, src2: Tensor,
                      dst2: Tensor, B: Tensor, slope: float, heads: int,
-                     mx: Optional[Tensor] = None):
-    """Launch the forward kernel on the current stream of B's device.  With
-    ``mx`` given (f32 (m, H)) the kernel shifts by it and skips its max pass."""
-    global launches
+                     mx: Optional[Tensor] = None,
+                     split: Optional[RowSplit] = None):
+    """Launch the forward kernel, and its carry when the split has a
+    segment, on the current stream of B's device.  With ``mx`` given (f32
+    (m, H)) the kernel shifts by it and takes no maximum.  ``split`` as in
+    ``gat_forward``."""
+    global launches, carry_launches
     check_operands(indptr, indices, None, B)
     H = _heads_of(B, heads)
     m, (n, K) = indptr.shape[0] - 1, B.shape
@@ -158,19 +216,28 @@ def gat_forward_cuda(indptr: Tensor, indices: Tensor, src2: Tensor,
                 if mx is None else mx,
                 torch.full((m, H), reference.DENOM_EPS, dtype=_F32,
                            device=B.device))
+    if split is None:
+        split = build_row_split(indptr).to(B.device)
     fn, err_str = _entry("fwd", B.dtype)
     out = torch.empty((m, K), dtype=B.dtype, device=B.device)
     den = torch.empty((m, H), dtype=_F32, device=B.device)
     exact = mx is None
     if exact:
         mx = torch.empty((m, H), dtype=_F32, device=B.device)
+    S = split.num_segments
+    pm, pz, pacc = (_scratch(S, H, B.device), _scratch(S, H, B.device),
+                    _scratch(S, K, B.device))
+    vec, sw = walk_shape(K, H, B, out, *(() if pacc is None else (pacc,)))
     with torch.cuda.device(B.device):
-        err = fn(m, K, H, lane_vector(K, B, out), int(exact), float(slope),
-                 indptr.data_ptr(), indices.data_ptr(), src2.data_ptr(),
-                 dst2.data_ptr(), B.data_ptr(), mx.data_ptr(), out.data_ptr(),
-                 den.data_ptr(), _stream(B))
-    raise_on(err, err_str, f"gat forward at m={m} K={K} H={H} dtype={B.dtype}")
+        err = fn(m, K, H, vec, sw, int(exact), float(slope),
+                 *_split_args(split, B.device), indptr.data_ptr(),
+                 indices.data_ptr(), src2.data_ptr(), dst2.data_ptr(),
+                 B.data_ptr(), mx.data_ptr(), out.data_ptr(), den.data_ptr(),
+                 _ptr(pm), _ptr(pz), _ptr(pacc), _stream(B))
+    raise_on(err, err_str, f"gat forward at m={m} K={K} H={H} vec={vec} "
+             f"lanes={sw} segments={S} dtype={B.dtype}")
     launches += 1
+    carry_launches += int(S > 0)
     return out, mx, den
 
 
@@ -180,11 +247,12 @@ def gat_forward_cuda(indptr: Tensor, indices: Tensor, src2: Tensor,
 def gat_backward_rows(indptr: Tensor, indices: Tensor, src2: Tensor,
                       dst2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
                       den: Tensor, s_row: Tensor, *, slope: float = 0.2,
-                      heads: int = 1, rows: Optional[Tensor] = None) -> Tensor:
+                      heads: int = 1, rows: Optional[Tensor] = None,
+                      split: Optional[RowSplit] = None) -> Tensor:
     """grad_src (m, H) = Σ_{e in row r} dpre_e over the CSR, with
     dpre = alpha·(<g[r], B[c]>_h − s[r])·leaky'(pre).  f32 (f64 from the
-    plain version for f64 inputs).  ``rows`` is used only by the plain
-    version."""
+    plain version for f64 inputs).  ``split``: the CSR's row split, as in
+    ``gat_forward``; ``rows`` is used only by the plain version."""
     m = indptr.shape[0] - 1
     if B.device.type == "cpu":
         if rows is None:
@@ -193,7 +261,7 @@ def gat_backward_rows(indptr: Tensor, indices: Tensor, src2: Tensor,
                                             mx, den, s_row, m, slope, heads)
     return gat_backward_rows_cuda(indptr, indices, _f32(src2), _f32(dst2), B,
                                   _f32(g), _f32(mx), _f32(den), _f32(s_row),
-                                  slope, heads)
+                                  slope, heads, split)
 
 
 def _check_bwd_tables(m, n, K, H, B, src2, dst2, g, mx, den, s_row) -> None:
@@ -207,37 +275,50 @@ def _check_bwd_tables(m, n, K, H, B, src2, dst2, g, mx, den, s_row) -> None:
 def gat_backward_rows_cuda(indptr: Tensor, indices: Tensor, src2: Tensor,
                            dst2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
                            den: Tensor, s_row: Tensor, slope: float,
-                           heads: int) -> Tensor:
-    """Launch the backward kernel over the CSR on B's device's stream."""
-    global bwd_rows_launches
+                           heads: int, split: Optional[RowSplit] = None
+                           ) -> Tensor:
+    """Launch the backward kernel over the CSR, and the sum carry of its
+    segments' H-wide partials when the split has one, on B's device's
+    stream."""
+    global bwd_rows_launches, bwd_rows_carry_launches
     check_operands(indptr, indices, None, B)
     H = _heads_of(B, heads)
     m, (n, K) = indptr.shape[0] - 1, B.shape
     _check_bwd_tables(m, n, K, H, B, src2, dst2, g, mx, den, s_row)
     if m == 0 or K == 0 or indices.shape[0] == 0:
         return torch.zeros((m, H), dtype=_F32, device=B.device)
+    if split is None:
+        split = build_row_split(indptr).to(B.device)
     fn, err_str = _entry("bwd_rows", B.dtype)
     grad_src = torch.empty((m, H), dtype=_F32, device=B.device)
+    S = split.num_segments
+    part = _scratch(S, H, B.device)
+    vec, sw = walk_shape(K, H, B, g)
     with torch.cuda.device(B.device):
-        err = fn(m, K, H, float(slope), indptr.data_ptr(), indices.data_ptr(),
-                 src2.data_ptr(), dst2.data_ptr(), B.data_ptr(), g.data_ptr(),
-                 mx.data_ptr(), den.data_ptr(), s_row.data_ptr(),
-                 grad_src.data_ptr(), _stream(B))
+        err = fn(m, K, H, vec, sw, float(slope), *_split_args(split, B.device),
+                 indptr.data_ptr(), indices.data_ptr(), src2.data_ptr(),
+                 dst2.data_ptr(), B.data_ptr(), g.data_ptr(), mx.data_ptr(),
+                 den.data_ptr(), s_row.data_ptr(), grad_src.data_ptr(),
+                 _ptr(part), _stream(B))
     raise_on(err, err_str, f"gat backward (rows) at m={m} K={K} H={H} "
-             f"dtype={B.dtype}")
+             f"vec={vec} lanes={sw} segments={S} dtype={B.dtype}")
     bwd_rows_launches += 1
+    bwd_rows_carry_launches += int(S > 0)
     return grad_src
 
 
 def gat_backward_cols(colptr: Tensor, rows: Tensor, src2: Tensor,
                       dst2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
                       den: Tensor, s_row: Tensor, *, slope: float = 0.2,
-                      heads: int = 1, cols: Optional[Tensor] = None):
+                      heads: int = 1, cols: Optional[Tensor] = None,
+                      split: Optional[RowSplit] = None):
     """(grad_dst (n, H), grad_B (n, K)) over the CSC (colptr, rows):
     grad_dst[c] = Σ_{e in col c} dpre_e and grad_B[c] = Σ_{e in col c}
     alpha_e·g[r_e] per head block.  grad_dst is f32 and grad_B takes B's
     dtype (the plain version returns both in the accumulation dtype).
-    ``cols`` (the expanded colptr) is used only by the plain version."""
+    ``split``: the CSC's column split (``Adjacency.split_t``), as in
+    ``gat_forward``; ``cols`` (the expanded colptr) is used only by the
+    plain version."""
     if B.device.type == "cpu":
         if cols is None:
             cols = expand_indptr(colptr, rows.shape[0])
@@ -245,15 +326,17 @@ def gat_backward_cols(colptr: Tensor, rows: Tensor, src2: Tensor,
                                             den, s_row, slope, heads)
     return gat_backward_cols_cuda(colptr, rows, _f32(src2), _f32(dst2), B,
                                   _f32(g), _f32(mx), _f32(den), _f32(s_row),
-                                  slope, heads)
+                                  slope, heads, split)
 
 
 def gat_backward_cols_cuda(colptr: Tensor, rows: Tensor, src2: Tensor,
                            dst2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
                            den: Tensor, s_row: Tensor, slope: float,
-                           heads: int):
-    """Launch the backward kernel over the CSC on B's device's stream."""
-    global bwd_cols_launches
+                           heads: int, split: Optional[RowSplit] = None):
+    """Launch the backward kernel over the CSC, and the sum carries of its
+    segments' grad_B and grad_dst partials (two launches) when the split has
+    a segment, on B's device's stream."""
+    global bwd_cols_launches, bwd_cols_carry_launches
     check_operands(colptr, rows, None, B)
     H = _heads_of(B, heads)
     n, K = B.shape
@@ -265,18 +348,25 @@ def gat_backward_cols_cuda(colptr: Tensor, rows: Tensor, src2: Tensor,
     if n == 0 or K == 0 or rows.shape[0] == 0:
         return (torch.zeros((n, H), dtype=_F32, device=B.device),
                 torch.zeros((n, K), dtype=B.dtype, device=B.device))
+    if split is None:
+        split = build_row_split(colptr).to(B.device)
     fn, err_str = _entry("bwd_cols", B.dtype)
     grad_dst = torch.empty((n, H), dtype=_F32, device=B.device)
     grad_B = torch.empty((n, K), dtype=B.dtype, device=B.device)
+    S = split.num_segments
+    part_B, part_dst = _scratch(S, K, B.device), _scratch(S, H, B.device)
+    vec, sw = walk_shape(K, H, B, g, grad_B,
+                         *(() if part_B is None else (part_B,)))
     with torch.cuda.device(B.device):
-        err = fn(n, K, H, lane_vector(K, g, grad_B), float(slope),
+        err = fn(n, K, H, vec, sw, float(slope), *_split_args(split, B.device),
                  colptr.data_ptr(), rows.data_ptr(), src2.data_ptr(),
                  dst2.data_ptr(), B.data_ptr(), g.data_ptr(), mx.data_ptr(),
                  den.data_ptr(), s_row.data_ptr(), grad_B.data_ptr(),
-                 grad_dst.data_ptr(), _stream(B))
+                 grad_dst.data_ptr(), _ptr(part_B), _ptr(part_dst), _stream(B))
     raise_on(err, err_str, f"gat backward (cols) at n={n} K={K} H={H} "
-             f"dtype={B.dtype}")
+             f"vec={vec} lanes={sw} segments={S} dtype={B.dtype}")
     bwd_cols_launches += 1
+    bwd_cols_carry_launches += 2 * int(S > 0)
     return grad_dst, grad_B
 
 
@@ -298,7 +388,8 @@ class _GatFused(torch.autograd.Function):
         else:
             out, mx, den = gat_forward(adj.csr.indptr, adj.csr.indices, src2,
                                        dst2, B, slope=slope, heads=heads,
-                                       max_mode=max_mode, rows=adj.rows)
+                                       max_mode=max_mode, rows=adj.rows,
+                                       split=adj.split)
         ctx.adj, ctx.slope, ctx.heads, ctx.plain = adj, slope, heads, plain
         ctx.save_for_backward(src2, dst2, B, out, mx, den)
         return out
@@ -327,11 +418,11 @@ class _GatFused(torch.autograd.Function):
             if want_src:
                 grad_src = gat_backward_rows(
                     adj.csr.indptr, adj.csr.indices, src2, dst2, B, g, mx,
-                    den, s_row, rows=adj.rows, **kw)
+                    den, s_row, rows=adj.rows, split=adj.split, **kw)
             if want_cols:
                 grad_dst, grad_B = gat_backward_cols(
                     adj.csc.indptr, adj.csc.indices, src2, dst2, B, g, mx,
-                    den, s_row, cols=adj.rows_t, **kw)
+                    den, s_row, cols=adj.rows_t, split=adj.split_t, **kw)
         if grad_src is not None:
             grad_src = grad_src.to(src2.dtype)
         if grad_dst is not None:

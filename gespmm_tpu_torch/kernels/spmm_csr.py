@@ -145,6 +145,16 @@ def check_table(name: str, t: Tensor, shape, dtype, device) -> None:
                          f"got {tuple(t.shape)}")
 
 
+def check_split(split: RowSplit, device) -> None:
+    """Raise unless every list of the row split is a contiguous int32
+    tensor on ``device`` (the split kernels of ``csrc/``)."""
+    for name in _SPLIT:
+        t = getattr(split, name)
+        if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"split.{name} must be a contiguous int32 tensor "
+                             f"on {device} (RowSplit.to)")
+
+
 def raise_on(err: int, err_str, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error."""
     if err != 0:
@@ -161,11 +171,7 @@ def spmm_csr_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
     check_operands(indptr, indices, data, B)
     if (B.dtype, out_dtype) not in _ENTRY:
         raise TypeError(f"no kernel for B {B.dtype} with out {out_dtype}")
-    for name in _SPLIT:
-        t = getattr(split, name)
-        if t.device != B.device or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"split.{name} must be a contiguous int32 tensor "
-                             f"on {B.device} (RowSplit.to)")
+    check_split(split, B.device)
     m, K = indptr.shape[0] - 1, B.shape[1]
     if m == 0 or K == 0 or indices.shape[0] == 0:
         # A zero-size grid is an invalid launch; the answer is all zeros.

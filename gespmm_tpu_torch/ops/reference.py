@@ -266,6 +266,27 @@ def halo_spmm_split_rows(d_indptr: Tensor, d_indices: Tensor,
             torch.where(long_col, ties, count[:M]))
 
 
+def split_units(rows: Tensor, indptr: Tensor, m: int, long_rows: Tensor,
+                seg_ptr: Tensor, seg_len: int):
+    """(unit, pos) per edge of a split walk: the unit is the edge's row for
+    rows of at most ``seg_len`` edges and m + its segment for longer rows
+    (the split of ``sparse/partition.py::build_row_split``: ``long_rows``,
+    ``seg_ptr``), pos its place in the unit's walk."""
+    dev, nnz = rows.device, rows.shape[0]
+    r = rows.long()
+    lr = long_rows.long()
+    is_long = torch.zeros(m, dtype=torch.bool, device=dev).index_fill_(0, lr,
+                                                                       True)
+    first_seg = torch.zeros(m, dtype=torch.long, device=dev).index_copy_(
+        0, lr, seg_ptr[:-1].long())
+    offset = torch.arange(nnz, device=dev) - indptr.long().index_select(0, r)
+    long_e = is_long.index_select(0, r)
+    seg = first_seg.index_select(0, r) + torch.div(offset, seg_len,
+                                                   rounding_mode="floor")
+    return (torch.where(long_e, m + seg, r),
+            torch.where(long_e, offset % seg_len, offset))
+
+
 def spmm_split_rows(rows: Tensor, indptr: Tensor, indices: Tensor,
                     data: Optional[Tensor], B: Tensor, m: int,
                     seg_row: Tensor, long_rows: Tensor, seg_ptr: Tensor,
@@ -278,21 +299,12 @@ def spmm_split_rows(rows: Tensor, indptr: Tensor, indices: Tensor,
     accumulation (f64 for f64 inputs); B's dtype out.
     """
     contrib = _contrib(indices, data, B)
-    dev, nnz, S = B.device, indices.shape[0], seg_row.shape[0]
-    r = rows.long()
-    lr = long_rows.long()
-    is_long = torch.zeros(m, dtype=torch.bool, device=dev).index_fill_(0, lr,
-                                                                       True)
-    first_seg = torch.zeros(m, dtype=torch.long, device=dev).index_copy_(
-        0, lr, seg_ptr[:-1].long())
-    offset = torch.arange(nnz, device=dev) - indptr.long().index_select(0, r)
-    seg = first_seg.index_select(0, r) + torch.div(offset, seg_len,
-                                                   rounding_mode="floor")
     # One buffer: rows 0..m-1 take the short rows' edges, rows m.. the
     # segments'; a long row's own buffer row stays 0 and then takes its
     # segments in order.
-    target = torch.where(is_long.index_select(0, r), m + seg, r)
-    buf = torch.zeros((m + S, B.shape[1]), dtype=contrib.dtype, device=dev)
+    target, _ = split_units(rows, indptr, m, long_rows, seg_ptr, seg_len)
+    buf = torch.zeros((m + seg_row.shape[0], B.shape[1]), dtype=contrib.dtype,
+                      device=B.device)
     buf.index_add_(0, target, contrib)
     out = buf[:m].index_add_(0, seg_row.long(), buf[m:])
     return out.to(B.dtype)
@@ -488,6 +500,139 @@ def gat_fused_vjp(rows, cols, src2, dst2, B, out, mx, den, g, m, slope=0.2,
     grad_dst, grad_B = gat_fused_vjp_cols(rows, cols, src2, dst2, B, g, mx, den,
                                           s_row, slope, heads)
     return grad_src, grad_dst, grad_B
+
+
+# The split walks of the fused kernels (csrc/gat_fused.cu), in plain PyTorch:
+# each row (column) of at most seg_len edges is one unit, each segment of a
+# longer one another; a unit's state is merged into its row in segment order,
+# as the carry passes merge them.  The forward takes a unit's edges in batches
+# of ``batch`` (the kernel's walker width) with an online softmax.  Nothing on
+# the card's path calls these: they let the CPU check the carry math.
+
+
+def _unit_rows(m: int, seg_row: Tensor) -> Tensor:
+    """The row (column) of every unit: the rows, then each segment's."""
+    return torch.cat([torch.arange(m, device=seg_row.device), seg_row.long()])
+
+
+def gat_split_rows(rows: Tensor, indptr: Tensor, cols: Tensor, src2: Tensor,
+                   dst2: Tensor, B: Tensor, m: int, seg_row: Tensor,
+                   long_rows: Tensor, seg_ptr: Tensor, seg_len: int,
+                   slope: float = 0.2, max_mode: str = "exact",
+                   heads: int = 1, batch: int = 32):
+    """(out, mx, den) of the forward walk over the row split.
+
+    A unit's batch b shifts its z by the running maximum M_b of batches
+    0..b and scales them by exp(M_b − m_u) to the unit's maximum m_u (the
+    kernel's rescale), so z = exp(max(l − M_b, EXP_FLOOR))·exp(M_b − m_u).
+    A long row takes M = max of its segments' m_u, den = Σ zsum_u·e^(m_u−M)
+    and out likewise.  "bound": the shift of ``gat_bound_shift`` for every
+    unit, no rescale.  Dtypes as ``gat_fused_rows``.
+    """
+    acc = _gat_acc(src2, dst2, B)
+    H = heads
+    nnz, K = cols.shape[0], B.shape[1]
+    dh = K // H
+    S = seg_row.shape[0]
+    unit, pos = split_units(rows, indptr, m, long_rows, seg_ptr, seg_len)
+    s, d = src2.to(acc), dst2.to(acc)
+    r = rows.long()
+    l = leaky(s.index_select(0, r) + d.index_select(0, cols.long()), slope)
+    inf = torch.full((), float("inf"), dtype=acc, device=B.device)
+    if max_mode == "bound":
+        m_unit = gat_bound_shift(s, d, slope).index_select(0, _unit_rows(m, seg_row))
+        z = torch.exp(torch.clamp(l - m_unit.index_select(0, unit),
+                                  min=EXP_FLOOR))
+    else:
+        b = torch.div(pos, batch, rounding_mode="floor")
+        nb = int(b.max()) + 1 if nnz else 1
+        run = torch.full((m + S, nb, H), -inf, dtype=acc, device=B.device)
+        run.view(-1, H).scatter_reduce_(0, (unit * nb + b)[:, None].expand_as(l),
+                                        l, "amax")
+        run = torch.cummax(run, dim=1).values
+        m_unit = run[:, -1]
+        m_b = run[unit, b]
+        z = (torch.exp(torch.clamp(l - m_b, min=EXP_FLOOR))
+             * torch.exp(m_b - m_unit.index_select(0, unit)))
+    zsum = torch.zeros((m + S, H), dtype=acc, device=B.device).index_add_(
+        0, unit, z)
+    gb = B.index_select(0, cols.long()).to(acc).view(nnz, H, dh)
+    part = torch.zeros((m + S, H, dh), dtype=acc, device=B.device).index_add_(
+        0, unit, gb * z[:, :, None])
+    # The carry: a long row's own unit is empty; its segments merge into it.
+    sr = seg_row.long()
+    M = m_unit[:m].clone()
+    if max_mode != "bound":
+        M.scatter_reduce_(0, sr[:, None].expand(S, H), m_unit[m:], "amax")
+    f = torch.exp(m_unit[m:] - M.index_select(0, sr))
+    den = zsum[:m].index_add_(0, sr, zsum[m:] * f)
+    out = part[:m].index_add_(0, sr, part[m:] * f[:, :, None])
+    den = torch.clamp(den, min=DENOM_EPS)
+    out = (out / den[:, :, None]).view(m, K)
+    mx = torch.where(torch.isfinite(M), M, torch.zeros_like(M))
+    return out.to(B.dtype), mx, den
+
+
+def _gat_w(rows, cols, src2, dst2, mx, den, slope, acc):
+    """(alpha, w = alpha·leaky'(pre)) per (edge, head) in ``acc``."""
+    pre, z = _gat_edge_terms(rows, cols, src2.to(acc), dst2.to(acc),
+                             mx.to(acc), slope)
+    alpha = z / torch.clamp(den.to(acc), min=DENOM_EPS).index_select(
+        0, rows.long())
+    return alpha, alpha * dleaky(pre, slope)
+
+
+def gat_split_vjp_rows(rows, indptr, cols, src2, dst2, B, g, mx, den, s_row,
+                       m, seg_row, long_rows, seg_ptr, seg_len, slope=0.2,
+                       heads=1) -> Tensor:
+    """grad_src (m, H) of the backward walk over the row split, in the
+    linear form: a unit's Σ_{k in h} g[r, k]·(Σ_e w_e B[c_e, k]) −
+    s[r, h]·Σ_e w_e, the segments' partials added into their row."""
+    acc = _gat_acc(src2, dst2, B, g)
+    H, nnz, K = heads, cols.shape[0], B.shape[1]
+    dh = K // H
+    S = seg_row.shape[0]
+    _, w = _gat_w(rows, cols, src2, dst2, mx, den, slope, acc)
+    unit, _ = split_units(rows, indptr, m, long_rows, seg_ptr, seg_len)
+    gb = B.index_select(0, cols.long()).to(acc).view(nnz, H, dh)
+    part = torch.zeros((m + S, H, dh), dtype=acc, device=B.device).index_add_(
+        0, unit, gb * w[:, :, None])
+    wsum = torch.zeros((m + S, H), dtype=acc, device=B.device).index_add_(
+        0, unit, w)
+    ur = _unit_rows(m, seg_row)
+    part = ((g.to(acc).index_select(0, ur).view(m + S, H, dh) * part).sum(-1)
+            - s_row.to(acc).index_select(0, ur) * wsum)
+    return part[:m].index_add_(0, seg_row.long(), part[m:])
+
+
+def gat_split_vjp_cols(rows_t, colptr, cols_t, src2, dst2, B, g, mx, den,
+                       s_row, seg_row, long_rows, seg_ptr, seg_len, slope=0.2,
+                       heads=1):
+    """(grad_dst (n, H), grad_B (n, K)) of the backward walk over the column
+    split, in CSC order (``rows_t`` the row of each edge, ``cols_t`` the
+    expanded colptr): a unit's grad_B = Σ_e alpha_e g[r_e] and grad_dst =
+    Σ_{k in h} B[c, k]·(Σ_e w_e g[r_e, k]) − Σ_e w_e s[r_e, h], the
+    segments' partials added into their column."""
+    acc = _gat_acc(src2, dst2, B, g)
+    H, nnz, (n, K) = heads, rows_t.shape[0], B.shape
+    dh = K // H
+    S = seg_row.shape[0]
+    alpha, w = _gat_w(rows_t, cols_t, src2, dst2, mx, den, slope, acc)
+    unit, _ = split_units(cols_t, colptr, n, long_rows, seg_ptr, seg_len)
+    r = rows_t.long()
+    gr = g.to(acc).index_select(0, r).view(nnz, H, dh)
+    part_B = torch.zeros((n + S, H, dh), dtype=acc, device=B.device).index_add_(
+        0, unit, gr * alpha[:, :, None])
+    part_D = torch.zeros((n + S, H, dh), dtype=acc, device=B.device).index_add_(
+        0, unit, gr * w[:, :, None])
+    sw = torch.zeros((n + S, H), dtype=acc, device=B.device).index_add_(
+        0, unit, w * s_row.to(acc).index_select(0, r))
+    uc = _unit_rows(n, seg_row)
+    part_D = (B.to(acc).index_select(0, uc).view(n + S, H, dh) * part_D).sum(-1) - sw
+    sr = seg_row.long()
+    grad_dst = part_D[:n].index_add_(0, sr, part_D[n:])
+    grad_B = part_B[:n].index_add_(0, sr, part_B[n:]).view(n, K)
+    return grad_dst, grad_B
 
 
 # --- fused dot-product attention (kernel row 6) ----------------------------

@@ -184,6 +184,29 @@ def hub_graph(n: int, n_hubs: int = 4, hub_frac: float = 0.25,
     return _coo_to_csr(rows, cols, (n, n))
 
 
+def split_boundary_graph(seg_len: int, hub: int = 10_000, n: int = 12_000,
+                         seed: int = 0) -> CSR:
+    """A binary n x n graph whose rows 0-4, and columns 0-4, have exactly
+    seg_len - 1, seg_len, seg_len + 1, 2·seg_len + 1 and ``hub`` edges (the
+    boundaries of ``sparse/partition.py::build_row_split`` at L = seg_len),
+    among short rows of 0-4 random edges (many of them empty).  The long
+    rows take their columns past row 4 and are mirrored, so row i and column
+    i have the same degree.  Not a counterpart of a JAX generator: it tests
+    the port's split kernels."""
+    if hub > n - 5:
+        raise ValueError(f"hub={hub} needs n > hub + 5, got n={n}")
+    rng = np.random.default_rng(seed)
+    deg = np.array([seg_len - 1, seg_len, seg_len + 1, 2 * seg_len + 1, hub])
+    h = deg.shape[0]
+    long_r = np.repeat(np.arange(h), deg)
+    long_c = np.concatenate([rng.choice(np.arange(h, n), d, replace=False)
+                             for d in deg])
+    short_r = np.repeat(np.arange(h, n), rng.integers(0, 5, n - h))
+    short_c = rng.integers(h, n, short_r.shape[0])
+    return _coo_to_csr(np.concatenate([long_r, long_c, short_r]),
+                       np.concatenate([long_c, long_r, short_c]), (n, n))
+
+
 def synth_graph(name: str, seed: int = 0) -> Optional[CSR]:
     """Resolve a synthetic-corpus name to its generator, as the JAX package:
 

@@ -58,13 +58,15 @@ from gespmm_tpu_torch.parallel.train_step import (build_sharded_gat,
                                                   build_sharded_gcn,
                                                   build_sharded_sage)
 from gespmm_tpu_torch.sparse.formats import CSR
-from gespmm_tpu_torch.sparse.partition import (build_grouped_plan,
+from gespmm_tpu_torch.sparse.partition import (SPLIT_LEN,
+                                                build_grouped_plan,
                                                 build_row_split,
                                                 build_spmm_plan)
 from gespmm_tpu_torch.sparse.reorder import inverse_permutation, reorder
 from gespmm_tpu_torch.train.loop import train_node_classifier
 from gespmm_tpu_torch.utils import timing
-from gespmm_tpu_torch.utils.datasets import rmat_graph, sbm_graph
+from gespmm_tpu_torch.utils.datasets import (rmat_graph, sbm_graph,
+                                             split_boundary_graph)
 
 pytestmark = pytest.mark.cuda
 
@@ -570,14 +572,14 @@ def gat_kernels_vs_float64(adj, H, dh, max_mode, dtype, seed=0):
     B = randn((n, H * dh), dev, seed + 2, dtype)
     g = randn((m, H * dh), dev, seed + 3)
     launched = (kgat.launches, kgat.bwd_rows_launches, kgat.bwd_cols_launches)
-    out, mx, den = kgat.gat_forward(adj.csr.indptr, adj.csr.indices, src, dst,
-                                    B, heads=H, max_mode=max_mode)
+    out, mx, den = kgat.gat_forward(adj.csr.indptr, adj.csr.indices, src,
+                                    dst, B, heads=H, max_mode=max_mode)
     s_row = ref.gat_row_dot(g, out, H)
     grad_src = kgat.gat_backward_rows(adj.csr.indptr, adj.csr.indices, src,
                                       dst, B, g, mx, den, s_row, heads=H)
-    grad_dst, grad_B = kgat.gat_backward_cols(adj.csc.indptr, adj.csc.indices,
-                                              src, dst, B, g, mx, den, s_row,
-                                              heads=H)
+    grad_dst, grad_B = kgat.gat_backward_cols(
+        adj.csc.indptr, adj.csc.indices, src, dst, B, g, mx, den, s_row,
+        heads=H)
     torch.cuda.synchronize()
     assert (kgat.launches, kgat.bwd_rows_launches, kgat.bwd_cols_launches) == \
         tuple(x + 1 for x in launched)
@@ -650,6 +652,93 @@ def test_gat_fused_kernels_on_rmat15(dev, H, dh):
     for name, (err, bound) in gat_kernels_vs_float64(adj, H, dh, "exact",
                                                      torch.float32).items():
         assert err <= bound, (name, err, bound)
+
+
+@functools.lru_cache(maxsize=None)
+def boundary_graph() -> CSR:
+    return split_boundary_graph(SPLIT_LEN)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_mode", ["exact", "bound"])
+@pytest.mark.parametrize("H,dh", [(1, 64), (1, 3), (8, 3), (2, 65)])
+def test_gat_fused_kernels_split_at_each_boundary(dev, H, dh, max_mode, dtype):
+    # Rows and columns of L - 1, L, L + 1, 2L + 1 and 10,000 edges: every
+    # kernel walks segments and launches its carry.
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    assert adj.split.long_rows.tolist() == adj.split_t.long_rows.tolist() == \
+        [2, 3, 4]
+    carries = (kgat.carry_launches, kgat.bwd_rows_carry_launches,
+               kgat.bwd_cols_carry_launches)
+    for name, (err, bound) in gat_kernels_vs_float64(adj, H, dh, max_mode,
+                                                     dtype).items():
+        assert err <= bound, (name, err, bound)
+    assert (kgat.carry_launches, kgat.bwd_rows_carry_launches,
+            kgat.bwd_cols_carry_launches) == (carries[0] + 1, carries[1] + 1,
+                                              carries[2] + 2)
+
+
+# (heads, head width, VEC, SW): walk_shape lands on each of the twelve
+# (VEC, SW) instantiations from (H, dh) alone, with heads straddling lanes
+# and K slabs of 32·VEC columns (one head across slabs at dh 65, 130, 132).
+WALK_CASES = [(1, 1, 1, 4), (1, 3, 1, 4), (1, 5, 1, 8), (3, 3, 1, 16),
+              (8, 3, 1, 32), (2, 65, 1, 32), (1, 2, 2, 4), (1, 10, 2, 8),
+              (3, 6, 2, 16), (1, 62, 2, 32), (2, 130, 2, 32), (1, 4, 4, 4),
+              (2, 4, 4, 4), (1, 32, 4, 8), (3, 8, 4, 8), (1, 64, 4, 16),
+              (4, 12, 4, 16), (1, 128, 4, 32), (2, 132, 4, 32)]
+
+
+@pytest.mark.parametrize("H,dh,vec,lanes", WALK_CASES)
+def test_gat_fused_walk_shapes_match_float64(dev, H, dh, vec, lanes):
+    # Every walker width with every lane vector, as walk_shape picks them,
+    # on a graph with segments.
+    assert kgat.walk_shape(H * dh, H, randn((1, H * dh), dev, 0)) == \
+        (vec, lanes)
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    for mode in ("exact", "bound"):
+        for name, (err, bound) in gat_kernels_vs_float64(
+                adj, H, dh, mode, torch.float32).items():
+            assert err <= bound, (name, err, bound, mode)
+
+
+def test_gat_fused_kernels_with_carries_are_deterministic(dev):
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    m, n = adj.shape
+    for H, dh in ((1, 64), (2, 65), (8, 3)):
+        src, dst = randn((m, H), dev, 1), randn((n, H), dev, 2)
+        B, g = randn((n, H * dh), dev, 3), randn((m, H * dh), dev, 4)
+
+        def run():
+            out, mx, den = kgat.gat_forward(adj.csr.indptr, adj.csr.indices,
+                                            src, dst, B, heads=H,
+                                            split=adj.split)
+            tabs = (src, dst, B, g, mx, den, ref.gat_row_dot(g, out, H))
+            gs = kgat.gat_backward_rows(adj.csr.indptr, adj.csr.indices, *tabs,
+                                        heads=H, split=adj.split)
+            gd, gB = kgat.gat_backward_cols(adj.csc.indptr, adj.csc.indices,
+                                            *tabs, heads=H, split=adj.split_t)
+            return out, mx, den, gs, gd, gB
+
+        for a, b in zip(run(), run()):
+            assert torch.equal(a, b), (H, dh)
+
+
+def test_gat_without_a_long_row_launches_no_carry(dev):
+    ds = sbm_graph(n_per_class=300, num_classes=3, p_in=0.02, p_out=0.001,
+                   feat_dim=32, seed=0).to(dev)
+    adj = Adjacency.from_csr(add_self_loops(ds.csr))
+    assert adj.split.num_segments == adj.split_t.num_segments == 0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = GAT([32, 16, 3], heads=2, generator=gen, device=dev)
+    kgat.reset_launches()
+    train_node_classifier(model, adj, ds.features, ds.labels, ds.masks,
+                          epochs=3)
+    # One launch of each kernel a layer and epoch (the forward once more a
+    # layer for the final evaluation), no carry.
+    assert (kgat.launches, kgat.bwd_rows_launches,
+            kgat.bwd_cols_launches) == (8, 6, 6)
+    assert kgat.carry_launches == kgat.bwd_rows_carry_launches == \
+        kgat.bwd_cols_carry_launches == 0
 
 
 def test_attention_kernels_are_deterministic(dev):
