@@ -22,11 +22,16 @@ Phases, each printed as it goes; any failure exits non-zero:
      bf16 and bf16 in / f32 out;
   4. max/min kernels vs plain: on the SBM graph without self-loops (the
      SAGE slice's graph) at K in {128, 16} and on rmat15 at K in {1, 3, 32,
-     33, 128, 130}, binary and valued in f32, binary in bf16, with B in
-     multiples of 0.5 so that ties are common.  The forward's out and ties
-     equal the plain version's exactly, and an f32 out equals the float64
-     reference rounded to f32.  The backward's grad_B and grad_values are
-     within 1e-5 (bf16: 8e-3) x max |ref| of the float64 plain version;
+     33, 128, 130}, binary and valued in f32, binary in bf16, and on the
+     split-boundary graph (columns of L - 1, L, L + 1, 2L + 1 and 10,000
+     edges) at K in {1, 3, 16, 32, 33, 64, 128, 130}, binary and valued, f32
+     and bf16, with B in multiples of 0.5 so that ties are common.  The
+     forward's out and ties equal the plain version's exactly, and an f32
+     out equals the float64 reference rounded to f32.  The backward (row 3,
+     given g in out's dtype and the CSC's split) runs twice, bitwise equal;
+     its grad_B and grad_values are within 1e-5 (bf16: 8e-3) x max |ref| of
+     the float64 plain version; its carry runs once a call on rmat15 and the
+     boundary graph and never on the SBM graph;
   5. autograd on the card: sum-SpMM grad_B and grad_values against float64;
   6. GCN train: dims [128, 32, 3] on the SBM graph with self-loops, 50 epochs
      through the sum kernel (>= 4 launches per epoch), loss falling, train
@@ -34,8 +39,8 @@ Phases, each printed as it goes; any failure exits non-zero:
      the same run with method="xla" (the plain version, no launches);
   7. SAGE-pool train: dims [128, 16, 3] on the SBM graph without
      self-loops, 50 epochs through the max/min forward and backward kernels
-     (>= 2 launches of each per epoch), with the same checks; then
-     method="xla" with no launches;
+     (>= 2 forward launches per epoch, exactly 2 of row 3 and no carry),
+     with the same checks; then method="xla" with no launches;
   8. attention kernels vs plain: the edge segment reduce (sum, max) and the
      three fused GAT kernels (forward; backward over the CSR and over the
      CSC, each with the adjacency's split and its carries) against their
@@ -119,14 +124,17 @@ Phases, each printed as it goes; any failure exits non-zero:
      B in multiples of 0.5: each shard's sum within the sum kernel's bound,
      max/min out and joint ties equal to the unsplit plain version's, two
      launches bitwise equal; the sum backward (row 7 over the stacked
-     transposed blocks with their splits) and row 3's backward a shard with
-     the joint out and ties within 1e-5 (bf16 8e-3) x max |ref| of float64;
+     transposed blocks with their splits) and row 3's backward (one launch
+     over the same stacked transposes with their splits and the joint out
+     and ties, twice, bitwise equal) within 1e-5 (bf16 8e-3) x max |ref| of
+     float64;
  19. halo_spmm on the card, P=4 shards in one process, on the SBM graph with
      self-loops at K=32, each reduce with runtime edge values (multiples of
      1/4): out, grad_B and grad_vals against the float64 whole-graph spmm;
      launches: forward 1 row-7 launch over the 4 shards, sum/mean backward
      2 (the stacked diag^T and halo^T blocks), max/min backward 2 row-3
-     launches a shard, no carry (no row above L), method="xla" none;
+     launches (the same stacked blocks), no carry (no row above L),
+     method="xla" none;
      dist_spmm (the all-gather tier) through the CSR kernel; then one
      make_mesh over a world-size-1 NCCL group: one shard has no round, so
      the exchange sends nothing, and the result equals the one-process
@@ -136,8 +144,9 @@ Phases, each printed as it goes; any failure exits non-zero:
      launches an epoch: one an aggregation, two for its backward; no carry,
      no other kernel), loss falling, train accuracy above
      chance, logits within 1e-4 x max |ref| of a float64 CPU forward;
-     SAGE-pool [128, 16, 3] (no self-loops) and GAT [128, 8, 3] with 2 heads,
-     20 epochs each, with the same checks but the float64 one; then
+     SAGE-pool [128, 16, 3] (no self-loops; its max backward exactly 4 row-3
+     launches an epoch, no carry) and GAT [128, 8, 3] with 2 heads, 20 epochs
+     each, with the same checks but the float64 one; then
      dryrun_multichip(8);
  15. timings, run last: the card's copy bandwidth (utils/profiling.py::
      measure_hbm_bandwidth) beside the published 3.35 TB/s; device time of
@@ -145,6 +154,8 @@ Phases, each printed as it goes; any failure exits non-zero:
      slice's shapes and at rmat15, with its bound (the larger of its bytes
      over 3.35 TB/s and its operations over 67 TFLOP/s) and the one PyTorch
      call that computes the same function where there is one (library_ms);
+     rows 2 and 3 at sbm K=128, sbm K=16 and rmat15 K=128, row 3 called with
+     g and ties and the CSC's split, each with its bound and error;
      the CSR kernel at rmat15 (edge factors 8 and 16) K=128 and sbm K=32,
      f32 and with bf16 B / f32 out (mode="fast"), against torch.sparse.mm,
      and its split at L in {32, 64, 128, 256} at both rmat15 K=128 (each L
@@ -179,8 +190,9 @@ Phases run in the order 1-14, 16-20, 15.  Each path's launches are counted
 from 0 in its own run; the comparison launches of phases 3-5, 8, 11, 13, 16
 and 18 are not counted.  The CSR kernel and the chunk and grouped kernels
 count their carry pass apart (spmm_csr_carry, spmm_chunk_carry,
-spmm_grouped_carry), and so do row 7 (halo_spmm_carry) and row 5
-(gat_fwd_carry, gat_bwd_rows_carry, gat_bwd_cols_carry).  NCCL traffic between ranks is not run: the card
+spmm_grouped_carry), and so do row 7 (halo_spmm_carry), row 5
+(gat_fwd_carry, gat_bwd_rows_carry, gat_bwd_cols_carry) and row 3
+(spmm_minmax_vjp_carry).  NCCL traffic between ranks is not run: the card
 machine has one card.  Output: one line per phase, then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  With --record, the full record of the run is
@@ -211,6 +223,9 @@ LIBS = ("spmm_csr", "spmm_minmax", "edge_reduce", "gat_fused", "dot_attention",
 RMAT_KS = (1, 3, 32, 33, 128, 130, 512)
 MINMAX_RMAT_KS = (1, 3, 32, 33, 128, 130)
 MINMAX_SBM_KS = (128, 16)
+# Row 3's walker widths (4-lane walkers at K = 1, 3, 16; 8 at 32; 16 at 64)
+# and its K slabs (33, 130) on the split-boundary graph.
+MINMAX_BOUNDARY_KS = (1, 3, 16, 32, 33, 64, 128, 130)
 # (heads, head width) of the fused kernel checks: layer 0 (K=64) and layer 1
 # (K=3) of the slice, and DGL's 8-head shape at both layers.
 GAT_SBM_SHAPES = ((1, 64), (1, 3), (8, 8), (8, 3))
@@ -488,6 +503,7 @@ def main(argv=None):
                 "spmm_csr_carry": kspmm.carry_launches,
                 "spmm_minmax": kmm.launches,
                 "spmm_minmax_vjp": kmm.vjp_launches,
+                "spmm_minmax_vjp_carry": kmm.vjp_carry_launches,
                 "edge_segment_reduce": kedge.launches,
                 "gat_fwd": kgat.launches,
                 "gat_bwd_rows": kgat.bwd_rows_launches,
@@ -632,12 +648,24 @@ def main(argv=None):
         return (torch.round(x * 2) / 2).to(dtype)
 
     sbm_vals = torch.randn(sage_adj.nnz, device=dev, generator=gen)
+    # Row 3's split at its boundaries: columns of L - 1, L, L + 1, 2L + 1 and
+    # 10,000 edges (rows too: the graph is symmetric in its degrees).
+    mm_boundary = Adjacency.from_csr(split_boundary_graph(SPLIT_LEN),
+                                     device=dev)
+    check(mm_boundary.split_t.long_rows.tolist() == [2, 3, 4],
+          "the boundary graph's long columns")
+    boundary_vals = torch.randn(mm_boundary.nnz, device=dev, generator=gen)
+    f32_bf16 = (torch.float32, torch.bfloat16)
     mm_cases = []  # (label, adjacency, CSR values or None, K, dtype, on path)
-    for graph, a, vals, ks in (("sbm", sage_adj, sbm_vals, MINMAX_SBM_KS),
-                               ("rmat15", rmat, rmat_vals, MINMAX_RMAT_KS)):
+    for graph, a, vals, ks, kinds in (
+            ("sbm", sage_adj, sbm_vals, MINMAX_SBM_KS,
+             ((None, f32), (sbm_vals, f32), (None, bf16))),
+            ("rmat15", rmat, rmat_vals, MINMAX_RMAT_KS,
+             ((None, f32), (rmat_vals, f32), (None, bf16))),
+            ("boundary", mm_boundary, boundary_vals, MINMAX_BOUNDARY_KS,
+             [(d, t) for d in (None, boundary_vals) for t in f32_bf16])):
         for K in ks:
-            for data, dtype in ((None, torch.float32), (vals, torch.float32),
-                                (None, torch.bfloat16)):
+            for data, dtype in kinds:
                 kind_s = "binary" if data is None else "valued"
                 mm_cases.append((f"{graph} K={K} {kind_s} "
                                  f"{str(dtype).split('.')[-1]}", a, data, K,
@@ -645,6 +673,7 @@ def main(argv=None):
                                  and dtype == torch.float32))
     fwd_err = bwd_err = 0.0
     mm_compared = []
+    mm_carries = {"sbm": 0, "rmat15": 0, "boundary": 0}
     for label, a, data, K, dtype, on_path in mm_cases:
         m, n = a.shape
         B = quantized((n, K), dtype)
@@ -662,10 +691,19 @@ def main(argv=None):
                                        B.double(), m, reduce=reduce)
                 exact = exact and torch.equal(out, want64.float())
             err = float((out.double() - want.double()).abs().max())
-            g = torch.randn(m, K, device=dev, generator=gen)
+            # g in out's dtype, as autograd hands it in; two runs.
+            g = torch.randn(m, K, device=dev, generator=gen).to(dtype)
+            carries = kmm.vjp_carry_launches
             grad_B, grad_vals = kmm.spmm_minmax_vjp(
-                a.csc.indptr, a.csc.indices, csc_data, B, out, g, ties)
+                a.csc.indptr, a.csc.indices, csc_data, B, out, g, ties,
+                split=a.split_t)
+            again = kmm.spmm_minmax_vjp(
+                a.csc.indptr, a.csc.indices, csc_data, B, out, g, ties,
+                split=a.split_t)
             torch.cuda.synchronize()
+            mm_carries[label.split()[0]] += kmm.vjp_carry_launches - carries
+            repeat = torch.equal(grad_B, again[0]) and (
+                grad_vals is None or torch.equal(grad_vals, again[1]))
             gt64 = g.double() / torch.clamp(ties, min=1.0).double()
             want_B, want_vals = ref.spmm_minmax_vjp_cols(
                 a.rows_t, a.csc.indices, csc_data, B, out, gt64)
@@ -681,17 +719,29 @@ def main(argv=None):
                     e <= tol * max(float(w.abs().max()), 1.0)
             print(f"{label} {reduce}: out/ties {'exact' if exact else 'DIFFER'}"
                   f" (max ties {int(ties.max())}) | grad max_abs_err="
-                  f"{g_err:.3e} {'ok' if grads_ok else 'OUT OF BOUND'}",
-                  flush=True)
+                  f"{g_err:.3e} {'ok' if grads_ok else 'OUT OF BOUND'} | "
+                  f"repeat {'bitwise' if repeat else 'DIFFERS'}", flush=True)
             check(exact, f"forward kernel disagrees with plain: {label} {reduce}")
             check(grads_ok, f"backward kernel disagrees with float64: {label} "
                   f"{reduce}")
+            check(repeat, f"backward kernel not repeatable: {label} {reduce}")
             if on_path and reduce == "max":
                 fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, g_err)
             mm_compared.append({"case": f"{label} {reduce}", "exact": exact,
                                 "grad_max_abs_err": g_err,
                                 "max_ties": int(ties.max())})
+    # Two runs of row 3 a case, each with one carry where the CSC has a
+    # column above L (rmat15's hub columns, the boundary graph's three).
+    print(f"row 3 carries over the two runs of each case: {mm_carries}",
+          flush=True)
+    n_cases = {g: 2 * sum(c[0].startswith(g + " ") for c in mm_cases)
+               for g in mm_carries}
+    check(mm_carries == {"sbm": 0, "rmat15": 2 * n_cases["rmat15"],
+                         "boundary": 2 * n_cases["boundary"]},
+          f"row 3 carries {mm_carries}: expected 2 a case on rmat15 and the "
+          "boundary graph, none on sbm")
     record["minmax_vs_plain"] = mm_compared
+    record["minmax_vjp_carries"] = mm_carries
 
     phase("5 autograd on the card")
     d = adj.data.clone().requires_grad_(True)
@@ -807,7 +857,12 @@ def main(argv=None):
     phase(f"7 SAGE-pool train, dims {SAGE_DIMS}, {EPOCHS} epochs")
     sage_runs = drive("SAGE-pool", make_sage, sage_adj,
                       GraphSAGE(SAGE_DIMS, aggregator="pool", method="xla").double(),
-                      {"spmm_minmax": 2, "spmm_minmax_vjp": 2})
+                      {"spmm_minmax": 2, "spmm_minmax_vjp": 2},
+                      absent=("spmm_minmax_vjp_carry",))
+    # Row 3: one launch a layer and epoch; no column of sbm above L.
+    check(sage_runs["auto"]["launches"]["spmm_minmax_vjp"] == 2 * EPOCHS,
+          f"SAGE-pool: {sage_runs['auto']['launches']['spmm_minmax_vjp']} "
+          f"row-3 launches in {EPOCHS} epochs, expected {2 * EPOCHS}")
     record["sage_pool"] = sage_runs
 
     phase("8 attention kernels vs plain (float64 bound)")
@@ -1386,28 +1441,37 @@ def main(argv=None):
     def row7_check(hp, B, halo, dvs, hvs, g, reduce):
         """Row 7 over all P shards, one launch with the partition's split,
         twice, and its backward (the sum: row 7 over the stacked transposes
-        with their splits; max/min: row 3 a shard and block with the joint
-        out and ties): ({"fwd": err, "bwd": err}, ok, bitwise repeat),
-        shard by shard against float64 (max/min forward: the unsplit plain
-        version exactly)."""
+        with their splits; max/min: row 3 over the same stacked transposes
+        with their splits and the joint out and ties, twice): ({"fwd": err,
+        "bwd": err}, ok, bitwise repeat), shard by shard against float64
+        (max/min forward: the unsplit plain version exactly)."""
         P = hp.num_parts
         bf16 = B.dtype == torch.bfloat16
         args = (hp.diag_indptr, hp.diag_indices, dvs, B, hp.halo_indptr,
                 hp.halo_indices, hvs, halo, reduce)
         out, ties = khalo.halo_spmm_stacked(*args, split=hp.joint_split)
         again, ties2 = khalo.halo_spmm_stacked(*args, split=hp.joint_split)
-        grads_t = {}
-        if reduce == "sum":
-            for blk, vals, split in (("diag", dvs, hp.diag_t_split),
-                                     ("halo", hvs, hp.halo_t_split)):
-                grads_t[blk] = khalo.halo_spmm_stacked(
-                    getattr(hp, f"{blk}_t_indptr"),
-                    getattr(hp, f"{blk}_t_rows"),
-                    csc_vals(vals, getattr(hp, f"{blk}_t_map")), g,
-                    split=split)[0]
+        grads_t, same = {}, True
+        for blk, vals, table, split in (
+                ("diag", dvs, B, hp.diag_t_split),
+                ("halo", hvs, halo.reshape(-1, B.shape[1]), hp.halo_t_split)):
+            t_args = (getattr(hp, f"{blk}_t_indptr"),
+                      getattr(hp, f"{blk}_t_rows"),
+                      csc_vals(vals, getattr(hp, f"{blk}_t_map")))
+            if reduce == "sum":
+                grads_t[blk] = khalo.halo_spmm_stacked(*t_args, g,
+                                                       split=split)[0]
+            else:  # row 3 over all P shards' transposes, one launch, twice
+                grads_t[blk], twice = (
+                    kmm.spmm_minmax_vjp_stacked(*t_args, table, out, g, ties,
+                                                split=split)
+                    for _ in range(2))
+                same = same and all(
+                    a is b or torch.equal(a, b)
+                    for a, b in zip(grads_t[blk], twice))
         torch.cuda.synchronize()
-        same = torch.equal(out, again) and (ties is None
-                                            or torch.equal(ties, ties2))
+        same = same and torch.equal(out, again) and (
+            ties is None or torch.equal(ties, ties2))
         ok, fwd, bwd = True, 0.0, 0.0
         tol = 8e-3 if bf16 else 1e-5
         for p in range(P):
@@ -1453,9 +1517,9 @@ def main(argv=None):
                         cols, t_rows, None if tv is None else tv.double(),
                         g_p.double(), None, None, None, None, n_t)[0])]
                 else:
-                    got, gv = kmm.spmm_minmax_vjp(t_indptr, t_rows, tv,
-                                                  table, out_p, g_p,
-                                                  ties[rows])
+                    got = grads_t[name][0][p * n_t:(p + 1) * n_t]
+                    gv = (None if grads_t[name][1] is None
+                          else grads_t[name][1][p, :t_rows.shape[0]])
                     gt64 = g_p.double() / torch.clamp(ties[rows],
                                                       min=1.0).double()
                     want_B, want_v = ref.spmm_minmax_vjp_cols(
@@ -1605,11 +1669,11 @@ def main(argv=None):
               + " ".join(f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
         # One row-7 launch over the 4 shards forward; the sum backward is
         # row 7 over the stacked diag^T and halo^T blocks (2 launches), the
-        # max/min backward row 3 over each shard's two transposed blocks.
+        # max/min backward row 3 over the same stacked blocks (2 launches).
         # No row or column of the SBM graph is above L: no carry.
         check(fwd_launches["halo_spmm"] == 1,
               f"halo_spmm {reduce}: expected 1 row-7 launch forward")
-        want_bwd = ((2, 0) if reduce in ("sum", "mean") else (0, 2 * SHARDS))
+        want_bwd = ((2, 0) if reduce in ("sum", "mean") else (0, 2))
         check((bwd_row7, launched["spmm_minmax_vjp"]) == want_bwd,
               f"halo_spmm {reduce}: expected backward launches {want_bwd}")
         check(not others, f"halo_spmm {reduce} launched {others}")
@@ -1755,10 +1819,15 @@ def main(argv=None):
     sage_s, sage_model, sage_x, sage_logits, losses = sharded_train(
         build_sharded_sage, sage_host, SAGE_DIMS, SHARDED_EPOCHS, 1e-2,
         aggregator="pool")
-    # Row 7: 2 max aggregations forward; their backward is row 3.
+    # Row 7: 2 max aggregations forward; their backward is row 3, one
+    # launch a layer and transposed block (diag^T, halo^T) over the 4
+    # shards, no carry (no column of the blocks above L).
     sharded_checks("SAGE-pool", sage_s, losses, SHARDED_EPOCHS, 2)
-    check(sage_s["launches"]["spmm_minmax_vjp"] >= 4 * SHARDS * SHARDED_EPOCHS,
-          "sharded SAGE-pool: the max backward did not run row 3")
+    check(sage_s["launches"]["spmm_minmax_vjp"] == 4 * SHARDED_EPOCHS
+          and sage_s["launches"]["spmm_minmax_vjp_carry"] == 0,
+          f"sharded SAGE-pool: {sage_s['launches']['spmm_minmax_vjp']} row-3 "
+          f"launches and {sage_s['launches']['spmm_minmax_vjp_carry']} "
+          f"carries in {SHARDED_EPOCHS} epochs, expected 4 an epoch and none")
     vs_float64("SAGE-pool", sage_s, sage_model, sage_x, sage_logits,
                ShardedSAGE(build_halo_partition(sage_host, SHARDS), cpu_mesh,
                            *SAGE_DIMS, "pool"))
@@ -1903,6 +1972,11 @@ def main(argv=None):
     # plain max/min (and later the plain attention and row 7 over its
     # shards) is 15-40 launches a call, so 10 calls a group keep the launch
     # queue from filling behind the spin kernel (see timing.device_time).
+    # Row 3 is called as the op calls it, with g and ties (the kernel folds
+    # g / max(ties, 1)) and the CSC's split; its plain version takes the
+    # folded table.  Bytes: each input read once, each output written once
+    # (f32, binary): forward indptr, indices, B, out, ties; backward colptr,
+    # rows, B, out, g, ties, grad_B.
     def few_time(f):
         return timing.device_time(f, iters=10)
 
@@ -1922,21 +1996,43 @@ def main(argv=None):
 
         def bwd_kernel():
             return kmm.spmm_minmax_vjp(a.csc.indptr, a.csc.indices, None, B,
-                                       out, g, ties)
+                                       out, g, ties, split=a.split_t)
 
-        def bwd_plain():
+        def bwd_plain(gt=None):
             return ref.spmm_minmax_vjp_cols(
                 a.rows_t, a.csc.indices, None, B, out,
-                g / torch.clamp(ties, min=1.0))
+                g / torch.clamp(ties, min=1.0) if gt is None else gt)
 
-        for label, kernel, plain in (("spmm_minmax", fwd_kernel, fwd_plain),
-                                     ("spmm_minmax_vjp", bwd_kernel, bwd_plain)):
+        def fwd_error():
+            return float((fwd_kernel()[0] - fwd_plain()[0]).abs().max())
+
+        def bwd_error():
+            gt64 = g.double() / torch.clamp(ties, min=1.0).double()
+            return float((bwd_kernel()[0].double()
+                          - bwd_plain(gt64)[0]).abs().max())
+
+        m, n = a.shape
+        idx = (m + 1) * 4 + a.nnz * 4
+        for label, kernel, plain, error, nbytes, ops in (
+                ("spmm_minmax", fwd_kernel, fwd_plain, fwd_error,
+                 idx + (n + 2 * m) * K * 4, 2 * a.nnz * K),
+                ("spmm_minmax_vjp", bwd_kernel, bwd_plain, bwd_error,
+                 idx + (2 * n + 3 * m) * K * 4, 3 * a.nnz * K)):
+            carries = kmm.vjp_carry_launches
+            err = error()
+            carries = kmm.vjp_carry_launches - carries
             k_dev, p_dev = alternate(few_time, kernel, plain)
             row = {"kernel": label, "shape": f"{graph} K={K}", "nnz": a.nnz,
-                   "K": K, "kernel_device_ms": k_dev, "plain_device_ms": p_dev}
+                   "K": K, "kernel_device_ms": k_dev, "plain_device_ms": p_dev,
+                   "bytes": nbytes, "ops": ops, "max_abs_err": err}
+            if label == "spmm_minmax_vjp":
+                row["carry_launches"] = carries
             mm_timings.append(row)
-            print(f"{label} {graph} K={K}: device time kernel {mean(k_dev):.5f} ms"
-                  f" | plain {mean(p_dev):.5f} ms | {card}", flush=True)
+            print(f"{label} {graph} K={K}: max_abs_err {err:.3e} | device "
+                  f"time kernel {mean(k_dev):.5f} ms"
+                  f" | plain {mean(p_dev):.5f} ms | bound "
+                  f"{profiling.bound(nbytes, ops)[0] * 1e3:.5f} ms | carries a "
+                  f"call {carries} | {card}", flush=True)
     record["minmax_timings"] = mm_timings
 
     # Edge segment reduce at the composed chain's K=1 (sum: the normaliser
@@ -2551,14 +2647,9 @@ def main(argv=None):
         want=kedge.edge_segment_reduce(adj.csr.indptr, vals1, "sum"))
 
     # Bytes (each input read once, each output written once) and operations
-    # of the earlier kernels at their kernels-line shapes; f32 throughout.
-    m_s, n_s = adj.shape
-    nnz_s, nnz_p = adj.nnz, sage_adj.nnz
+    # of the segment reduce at its kernels-line shape (sbm+loops K=1, f32).
+    m_s, nnz_s = adj.shape[0], adj.nnz
     idx_s = (m_s + 1) * 4 + nnz_s * 4  # indptr and indices of sbm+loops
-    idx_p = (m_s + 1) * 4 + nnz_p * 4  # of sbm (SAGE-pool, binary)
-    K, Kp, H = 32, 128, 1
-    mm_timings[0].update(bytes=idx_p + 3 * m_s * Kp * 4, ops=2 * nnz_p * Kp)
-    mm_timings[1].update(bytes=idx_p + 5 * m_s * Kp * 4, ops=3 * nnz_p * Kp)
     seg_timings[0].update(bytes=idx_s + nnz_s * 4 + m_s * 4, ops=nnz_s)
 
     def kernel_entry(name, source, replaces, launches, err, row):
@@ -2594,9 +2685,18 @@ def main(argv=None):
         kernel_entry("spmm_minmax", kmm.SOURCE, kmm.REPLACES,
                      sage_runs["auto"]["launches"]["spmm_minmax"], fwd_err,
                      mm_timings[0]),
-        kernel_entry("spmm_minmax_vjp", kmm.SOURCE, kmm.VJP_REPLACES,
-                     sage_runs["auto"]["launches"]["spmm_minmax_vjp"], bwd_err,
-                     mm_timings[1]),
+        # Row 3: launches and carries of SAGE-pool's run (phase 7) and of the
+        # sharded SAGE-pool's (phase 20); times at sbm K=128, the other timed
+        # shapes (sbm K=16, rmat15 K=128) in more.
+        dict(kernel_entry("spmm_minmax_vjp", kmm.SOURCE, kmm.VJP_REPLACES,
+                          sage_runs["auto"]["launches"]["spmm_minmax_vjp"],
+                          bwd_err, mm_timings[1]),
+             carry_launches=sage_runs["auto"]["launches"][
+                 "spmm_minmax_vjp_carry"],
+             sharded_launches=sharded["sage_pool"]["launches"][
+                 "spmm_minmax_vjp"],
+             more=more_shapes(r for r in mm_timings[2:]
+                              if r["kernel"] == "spmm_minmax_vjp")),
         kernel_entry("edge_segment_reduce", kedge.SOURCE, kedge.REPLACES,
                      chain_launches["edge_segment_reduce"],
                      att_err["edge_segment_reduce"], seg_timings[0]),

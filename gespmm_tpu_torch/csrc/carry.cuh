@@ -1,5 +1,6 @@
 // The carry pass of the chunked and split SpMM kernels (spmm_chunk.cu,
-// spmm_grouped.cu, spmm_csr.cu, halo_spmm.cu) and the helpers they share.
+// spmm_grouped.cu, spmm_csr.cu, halo_spmm.cu, spmm_minmax.cu, gat_fused.cu)
+// and the helpers they share.
 //
 // Both kernels walk a work list of chunks cut from the CSR edges
 // (gespmm_tpu_torch/sparse/partition.py): a row cut by a chunk boundary leaves
@@ -46,6 +47,37 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
+};
+
+// A walker: SW consecutive lanes of a warp (SW = 4, 8, 16 or 32), with
+// shuffles over its own lanes only, so that the walkers of one warp may
+// take different trip counts.
+template <int SW>
+struct Sub {
+  int lane;
+  unsigned mask;
+  __device__ Sub()
+      : lane(threadIdx.x & (SW - 1)),
+        mask(SW == 32 ? 0xffffffffu
+                      : ((1u << (SW & 31)) - 1u) << (threadIdx.x & 31 & ~(SW - 1))) {}
+  template <typename V>
+  __device__ V get(V x, int j) const { return __shfl_sync(mask, x, j, SW); }
+  __device__ float down(float x, int d) const {
+    return __shfl_down_sync(mask, x, d, SW);
+  }
+  __device__ float max(float x) const {
+#pragma unroll
+    for (int s = SW / 2; s > 0; s >>= 1)
+      x = fmaxf(x, __shfl_xor_sync(mask, x, s, SW));
+    return x;
+  }
+  // The walker's total, in every lane, by a fixed butterfly.
+  __device__ float sum(float x) const {
+#pragma unroll
+    for (int s = SW / 2; s > 0; s >>= 1) x += __shfl_xor_sync(mask, x, s, SW);
+    return x;
+  }
+  __device__ void sync() const { __syncwarp(mask); }
 };
 
 // One warp per item, its lanes on VEC consecutive columns of a 32*VEC-wide K

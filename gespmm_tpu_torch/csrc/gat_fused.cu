@@ -125,9 +125,9 @@ using gespmm::from_f32;
 using gespmm::kMaxBlocksX;
 using gespmm::kThreads;
 using gespmm::Pack;
+using gespmm::Sub;  // a walker of SW lanes
 using gespmm::to_f32;
 
-constexpr unsigned kFull = 0xffffffffu;
 // gespmm_tpu/kernels/gat_fused.py's _EXP_FLOOR and _DENOM_EPS.
 constexpr float kExpFloor = -80.f;
 constexpr float kDenomEps = 1e-20f;
@@ -147,28 +147,6 @@ __device__ __forceinline__ float attention(float pre, float slope, float mx,
   return expf(fmaxf(leaky(pre, slope) - mx, kExpFloor)) / fmaxf(den, kDenomEps);
 }
 
-// A walker: SW consecutive lanes of a warp.
-template <int SW>
-struct Sub {
-  int lane;
-  unsigned mask;
-  __device__ Sub()
-      : lane(threadIdx.x & (SW - 1)),
-        mask(SW == 32 ? kFull
-                      : ((1u << (SW & 31)) - 1u) << (threadIdx.x & 31 & ~(SW - 1))) {}
-  template <typename V>
-  __device__ V get(V x, int j) const { return __shfl_sync(mask, x, j, SW); }
-  __device__ float down(float x, int d) const {
-    return __shfl_down_sync(mask, x, d, SW);
-  }
-  __device__ float max(float x) const {
-#pragma unroll
-    for (int s = SW / 2; s > 0; s >>= 1)
-      x = fmaxf(x, __shfl_xor_sync(mask, x, s, SW));
-    return x;
-  }
-  __device__ void sync() const { __syncwarp(mask); }
-};
 
 // The lane's place in K slab `slab` of SW*VEC columns: its first column k,
 // the heads h_lo .. h_lo + nh - 1 of the slab, its own head hd (h_lo for a

@@ -1,7 +1,7 @@
 // Max/min CSR SpMM with exact tie counts, and its backward over the CSC, for
 // Hopper (sm_90a).
 //
-// Forward, one warp per CSR row r:
+// Forward (kernel row 2), one warp per CSR row r:
 //
 //     out[r, k]  = max|min_{e in row r} val_e * B[col_e, k]   (0 for an empty row)
 //     ties[r, k] = #{e in row r : val_e * B[col_e, k] == that extremum}   (f32)
@@ -16,91 +16,104 @@
 // registers: a strictly better contribution resets the count to 1, an equal
 // one adds 1.  Nothing is scanned and nothing of the stream reaches memory.
 //
-// Backward, one warp per CSC column c (a row of A^T), for the table
-// gt = g / max(ties, 1) that the caller folds first (spmm_stream.py:989):
+// Backward (kernel row 3), over the CSC (the rows of A^T), from the
+// cotangent g and the forward's out and ties:
 //
-//     w_e[k]       = [val_e * B[c, k] == out[r_e, k]] * gt[r_e, k]
+//     w_e[k]       = [val_e * B[c, k] == out[r_e, k]] * g[r_e, k] / max(ties[r_e, k], 1)
 //     grad_B[c, k] = sum_{e in col c} val_e * w_e[k]
 //     grad_val[e]  = sum_k w_e[k] * B[c, k]            (CSC order)
 //
 // Replaces the weight stream of spmm_minmax_vjp_tiled (spmm_stream.py:920;
 // reduced through _reduce_part at :1014; grad_val is XLA there, :1025).  The
 // TPU recounted ties in a first pass (:974) unless the forward gave them; the
-// forward kernel here always does.  B[c] is loaded once per column and stays
-// in registers; each edge gathers two row-space tables, out and gt.
+// forward kernel here always does.  The JAX design folds g / ties into one
+// row-space table so that a slot gathers one table, not several
+// (:985-992); here the fold happens inside the kernel, per achieving edge,
+// with the IEEE division (__fdiv_rn of g cast to f32 by fmaxf(ties, 1)),
+// bitwise the table that torch's g.float() / clamp(ties, min=1) forms, so
+// no (m, K) f32 table is written and read back before the walk.
 //
 // The achievement test must find exactly the edges the forward chose, so
-// both kernels form the contribution with minmax.cuh's minmax_contrib (one
+// the forwards form a contribution with minmax.cuh's minmax_contrib (one
 // f32 product, __fmul_rn(val, B), or B itself for a binary matrix), the
 // expression the joint diag+halo forward (halo_spmm.cu) uses too.  out is
 // compared as stored (in B's dtype, cast up), as gespmm_tpu's reference VJP
 // does.
 //
 // What bounds them: bytes.  The forward reads one K-wide B row per nonzero
-// as the sum kernel does (spmm_csr.cu), with a compare and a select in
-// place of an FMA.  The backward reads two rows per nonzero (out and gt,
-// about 3x the forward's bytes with B's dtype at bf16).  The layout follows
-// spmm_csr.cu: the row's (index, value) pairs load 32 at a time, one per
-// lane, and are broadcast with __shfl_sync; each lane owns VEC consecutive
-// columns (vector loads), and a second grid dimension walks K slabs of
-// 32 * VEC columns.  Every output element is written once, without atomics.
-// grad_val is reduced across the lanes of a slab with a fixed shuffle tree
-// and across slabs by the caller in slab order, so it is deterministic too.
-// Not here yet: nnz-balanced splitting of hub rows and columns.
+// as the sum kernel does (spmm_csr.cu), with a compare and a select in place
+// of an FMA: the row's (index, value) pairs load 32 at a time, one per lane,
+// and are broadcast with __shfl_sync; each lane owns VEC consecutive columns
+// (vector loads), and a second grid dimension walks K slabs of 32 * VEC
+// columns.  The backward gathers three row-space rows per nonzero (out, g
+// and ties) and reads B once per column.  Its design is that of the split
+// walks of spmm_csr.cu and gat_fused.cu:
+//   * the work items are the segments of the columns longer than L edges
+//     first (the host-built split, sparse/partition.py::build_row_split, or
+//     build_shard_split for stacked shards), then every column.  A column of
+//     at most L edges is walked whole by one walker and written to grad_B; a
+//     longer one is skipped there, and each of its segments is walked by its
+//     own walker, which writes an f32 partial of grad_B to its slot of a
+//     scratch buffer; carry.cuh's sum carry adds a column's partials in
+//     segment order.  The carry is launched only when the launch has a
+//     segment (sbm-pubmed has none: its longest column has 15 edges).
+//     grad_val is per edge, so a segment writes its edges' values itself;
+//   * a walker is SW = 4, 8, 16 or 32 lanes of a warp, the fewest that cover
+//     K / VEC columns (kernels/spmm_csr.py::walk_shape, the rule of the
+//     fused GAT kernels): at K = 16 a 4-lane walker with 16-byte lanes walks
+//     8 columns a warp, at K = 128 one warp walks one column;
+//   * each lane of a walker loads one edge's (row, value) of a round of SW,
+//     broadcast by shuffle; the out, g and ties rows of kBatch = 2 edges are
+//     gathered before any is compared, with no branch around a gather: the
+//     round's last edge loaded again in place of edges past its end, column
+//     0 for lanes past K (an `if (active)` load in an unrolled loop compiled
+//     to a branch around each gather in halo_spmm.cu).  Deeper batches hold
+//     more registers, fewer warps fit an SM, and a short column's chain of
+//     dependent loads (colptr, rows, the rows of out, g and ties) is what
+//     the warps overlap (4 and 8 edges were slower, and so were register
+//     caps: scripts/row3_ab.py --variants, recorded in PERF.md).  B[c] is
+//     loaded once per item and stays in registers;
+//   * g and ties are gathered by every lane, not only where a column
+//     achieves the output: a 16-byte lane of 4 columns at ~4 edges a column
+//     needs them about 2/3 of the time, and the lazy loads' branch cost more
+//     than the sectors they skipped (scripts/row3_ab.py builds that variant;
+//     its times are in PERF.md);
+//   * one launch may cover n stacked shards (the sharded tier's max/min
+//     backward over one transposed block): shard i's colptr row, its edges
+//     at i * stride, its rows of out/g/ties at i * out_rows, its columns'
+//     rows of B and grad_B at i * cols;
+//   * every output element is written once, without atomics: grad_val is
+//     reduced across a walker's lanes with a fixed butterfly and across K
+//     slabs by the caller in slab order, so two calls agree bit for bit.
 //
 // Plain C interface, loaded with ctypes.  The caller picks VEC (1, 2 or 4;
-// K % VEC == 0 and every table aligned to VEC elements), so that it knows
-// the slab count of the grad_val partials.  Each entry point launches on the
-// given stream, does not synchronise, and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments it does not take.
+// K % VEC == 0 and every table aligned to VEC elements) and, for the
+// backward, SW, so that it knows the slab count of the grad_val partials.
+// Each entry point launches on the given stream, does not synchronise, and
+// returns cudaGetLastError(), or cudaErrorInvalidValue for arguments it does
+// not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "carry.cuh"
 #include "minmax.cuh"
 
 namespace {
 
-// The launch shape and the type helpers are those of spmm_csr.cu; each
-// source stays self-contained, as the package ships csrc/*.cu alone.
-constexpr int kThreads = 256;  // 8 warps, 8 rows in flight per block
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kMaxBlocksX = 65535;  // a grid-stride loop covers the rest
+using gespmm::from_f32;
+using gespmm::kMaxBlocksX;
+using gespmm::kThreads;
+using gespmm::kWarps;
+using gespmm::Pack;
+using gespmm::Sub;
+using gespmm::to_f32;
+
 constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// VEC consecutive elements, aligned so that one load/store instruction moves
-// them all (ld.global.v4.f32 for float at VEC=4).
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-// One warp per row over a grid-stride loop in x, one 32*VEC-wide K slab per
-// grid row in y.
-dim3 warp_per_row_grid(int rows, int K, int vec) {
-  const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-  return dim3(blocks < kMaxBlocksX ? blocks : kMaxBlocksX,
-              (unsigned)((K + 32 * vec - 1) / (32 * vec)));
-}
+constexpr int kBatch = 2;  // edges whose rows are gathered before a compare
 
 template <typename T, int VEC, bool HAS_VALS, bool IS_MAX>
 __global__ void __launch_bounds__(kThreads)
@@ -166,72 +179,131 @@ spmm_minmax_kernel(int m, int K, const int* __restrict__ indptr,
   }
 }
 
-template <typename T, int VEC, bool HAS_VALS, bool WANT_VALS>
+// The backward's launch: n >= 1 stacked shards of `cols` columns each.
+// Shard i: colptr row i (cols + 1 entries), rows and vals from i * stride
+// on, rows of out/g/ties from i * out_rows on, rows of B and grad_B from i *
+// cols on (column q = i * cols + c).  The split: segments [0, S) (seg_row:
+// stacked columns from row0 on; seg_start: the first edge, relative to the
+// column's first edge when seg_rel, else absolute) and J long columns
+// (long_rows, seg_ptr: carry slots from slot0 on).
+template <typename T>
+struct Vjp {
+  int n, cols, K, L, S, J, row0, slot0, seg_rel;
+  int64_t stride, out_rows;
+  const int *colptr, *rows;
+  const float* vals;
+  const T *B, *out, *g;
+  const float* ties;
+  const int *seg_row, *seg_start, *long_rows, *seg_ptr;
+  T* grad_B;
+  float *grad_vals, *partial;
+};
+
+// SPLIT: the launch has segments.  Without (S = 0) the kernel is the plain
+// walker-a-column walk, with no segment test to pay for.
+template <typename T, int VEC, int SW, bool HAS_VALS, bool WANT_VALS,
+          bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
-spmm_minmax_vjp_kernel(int n, int K, int nnz, const int* __restrict__ colptr,
-                       const int* __restrict__ rows,
-                       const float* __restrict__ vals,
-                       const T* __restrict__ B, const T* __restrict__ out,
-                       const float* __restrict__ gt, T* __restrict__ grad_B,
-                       float* __restrict__ grad_vals) {
+spmm_minmax_vjp_kernel(const Vjp<T> a) {
   using P = Pack<T, VEC>;
   using F = Pack<float, VEC>;
-  const int lane = threadIdx.x & 31;
-  const int k = (blockIdx.y * 32 + lane) * VEC;
-  const bool active = k < K;
-  const int stride = gridDim.x * kWarps;
-  // This slab's row of the (slabs, nnz) grad_val partials.
-  float* const gv = WANT_VALS ? grad_vals + (int64_t)blockIdx.y * nnz : nullptr;
-  for (int col = blockIdx.x * kWarps + (threadIdx.x >> 5); col < n;
-       col += stride) {
-    const int start = colptr[col];
-    const int end = colptr[col + 1];
-    float b[VEC] = {};
-    float acc[VEC] = {};
-    if (active) {
-      const P p = *reinterpret_cast<const P*>(B + (int64_t)col * K + k);
-#pragma unroll
-      for (int t = 0; t < VEC; ++t) b[t] = to_f32(p.v[t]);
+  constexpr int kPerBlock = kThreads / SW;
+  const Sub<SW> w;
+  const int K = a.K;
+  const int k = (blockIdx.y * SW + w.lane) * VEC;  // first column of this lane
+  const bool active = k < K;  // K % VEC == 0, so k < K covers all VEC
+  const int kk = active ? k : 0;  // a lane past K reads column 0, drops it
+  // This slab's row of the (slabs, n * stride) grad_val partials.
+  float* const gv =
+      WANT_VALS ? a.grad_vals + (int64_t)blockIdx.y * a.n * a.stride : nullptr;
+  const int items = a.S + a.n * a.cols;
+  for (int item = blockIdx.x * kPerBlock + threadIdx.x / SW; item < items;
+       item += gridDim.x * kPerBlock) {
+    const bool seg = SPLIT && item < a.S;
+    const int q = seg ? a.seg_row[item] - a.row0 : item - a.S;
+    const int i = q / a.cols, c = q - i * a.cols;
+    const int* cp = a.colptr + (int64_t)i * (a.cols + 1) + c;
+    const int start = cp[0], end = cp[1];
+    int s = start, t = end;  // the edges this walker walks
+    if (seg) {
+      s = a.seg_start[item] + (a.seg_rel ? start : 0);
+      t = min(s + a.L, end);
+    } else if (SPLIT && end - start > a.L) {
+      continue;  // its segments and the carry write it
     }
-    for (int base = start; base < end; base += 32) {
-      const int e = base + lane;
-      int r = 0;
-      float v = 0.f;
-      if (e < end) {
-        r = __ldg(rows + e);
-        if (HAS_VALS) v = __ldg(vals + e);
-      }
-      const int n_here = min(32, end - base);
-#pragma unroll 2
-      for (int j = 0; j < n_here; ++j) {
-        const int rj = __shfl_sync(kFull, r, j);
-        float vj = 1.f;
-        if (HAS_VALS) vj = __shfl_sync(kFull, v, j);
-        float part = 0.f;
-        if (active) {
-          const int64_t off = (int64_t)rj * K + k;
-          const P o = *reinterpret_cast<const P*>(out + off);
-          const F g = *reinterpret_cast<const F*>(gt + off);
+    const int64_t e0 = (int64_t)i * a.stride;  // shard i's first edge slot
+    const int* __restrict__ r_of = a.rows + e0;
+    const float* __restrict__ v_of = HAS_VALS ? a.vals + e0 : nullptr;
+    const int64_t t0 = (int64_t)i * a.out_rows * K + kk;
+    const T* __restrict__ o_tab = a.out + t0;
+    const T* __restrict__ g_tab = a.g + t0;
+    const float* __restrict__ n_tab = a.ties + t0;
+    float b[VEC], acc[VEC];
+    {
+      const P p = *reinterpret_cast<const P*>(a.B + (int64_t)q * K + kk);
 #pragma unroll
-          for (int t = 0; t < VEC; ++t) {
-            const float x = gespmm::minmax_contrib<HAS_VALS>(vj, b[t]);
-            const float w = x == to_f32(o.v[t]) ? g.v[t] : 0.f;
-            acc[t] = HAS_VALS ? fmaf(w, vj, acc[t]) : acc[t] + w;
-            if (WANT_VALS) part = fmaf(w, b[t], part);
+      for (int u = 0; u < VEC; ++u) {
+        b[u] = to_f32(p.v[u]);
+        acc[u] = 0.f;
+      }
+    }
+    for (int base = s; base < t; base += SW) {
+      // Walker-uniform down to the shuffles: all SW lanes take part.
+      const int e = base + w.lane;
+      const bool live = e < t;
+      const int r = live ? __ldg(r_of + e) : 0;
+      const float v = HAS_VALS && live ? __ldg(v_of + e) : 0.f;
+      const int n_here = min(SW, t - base);
+      for (int u0 = 0; u0 < n_here; u0 += kBatch) {
+        int64_t off[kBatch];
+        float vj[kBatch];
+        P o[kBatch], gg[kBatch];
+        F nn[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int j = min(u0 + u, n_here - 1);  // past the end: the last edge
+          off[u] = (int64_t)w.get(r, j) * K;
+          vj[u] = HAS_VALS ? w.get(v, j) : 1.f;
+          o[u] = *reinterpret_cast<const P*>(o_tab + off[u]);
+          gg[u] = *reinterpret_cast<const P*>(g_tab + off[u]);
+          nn[u] = *reinterpret_cast<const F*>(n_tab + off[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const bool edge = u0 + u < n_here;  // walker-uniform
+          bool hit[VEC];
+#pragma unroll
+          for (int x = 0; x < VEC; ++x)
+            hit[x] = active && edge &&
+                     gespmm::minmax_contrib<HAS_VALS>(vj[u], b[x]) ==
+                         to_f32(o[u].v[x]);
+          float part = 0.f;
+#pragma unroll
+          for (int x = 0; x < VEC; ++x) {
+            const float wt =
+                hit[x] ? __fdiv_rn(to_f32(gg[u].v[x]), fmaxf(nn[u].v[x], 1.f))
+                       : 0.f;
+            acc[x] = HAS_VALS ? fmaf(wt, vj[u], acc[x]) : acc[x] + wt;
+            if (WANT_VALS) part = fmaf(wt, b[x], part);
+          }
+          if (WANT_VALS) {
+            part = w.sum(part);
+            if (w.lane == 0 && edge) gv[e0 + base + u0 + u] = part;
           }
         }
-        if (WANT_VALS) {
-#pragma unroll
-          for (int s = 16; s > 0; s >>= 1) part += __shfl_xor_sync(kFull, part, s);
-          if (lane == 0) gv[base + j] = part;
-        }
       }
     }
-    if (active) {
-      P o;
+    if (!active) continue;
+    if (seg) {
+      F p;
 #pragma unroll
-      for (int t = 0; t < VEC; ++t) o.v[t] = from_f32<T>(acc[t]);
-      *reinterpret_cast<P*>(grad_B + (int64_t)col * K + k) = o;
+      for (int x = 0; x < VEC; ++x) p.v[x] = acc[x];
+      *reinterpret_cast<F*>(a.partial + (int64_t)item * K + k) = p;
+    } else {
+      P p;
+#pragma unroll
+      for (int x = 0; x < VEC; ++x) p.v[x] = from_f32<T>(acc[x]);
+      *reinterpret_cast<P*>(a.grad_B + (int64_t)q * K + k) = p;
     }
   }
 }
@@ -261,7 +333,7 @@ cudaError_t forward_vec(int m, int K, int is_max, const int* indptr,
   if (K % VEC != 0 || !aligned<VEC>(B, sizeof(T)) ||
       !aligned<VEC>(out, sizeof(T)) || !aligned<VEC>(ties, sizeof(float)))
     return cudaErrorInvalidValue;
-  const dim3 grid = warp_per_row_grid(m, K, VEC);
+  const dim3 grid = gespmm::warp_grid(m, K, VEC);
   if (vals != nullptr) {
     launch_fwd<T, VEC, true>(is_max, grid, stream, m, K, indptr, indices, vals,
                              B, out, ties);
@@ -290,47 +362,82 @@ cudaError_t forward(int m, int K, int vec, int is_max, const int* indptr,
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int VEC>
-cudaError_t backward_vec(int n, int K, int nnz, const int* colptr,
-                         const int* rows, const float* vals, const T* B,
-                         const T* out, const float* gt, T* grad_B,
-                         float* grad_vals, cudaStream_t stream) {
-  if (K % VEC != 0 || !aligned<VEC>(B, sizeof(T)) ||
-      !aligned<VEC>(out, sizeof(T)) || !aligned<VEC>(grad_B, sizeof(T)) ||
-      !aligned<VEC>(gt, sizeof(float)) ||
-      (grad_vals != nullptr && vals == nullptr))
-    return cudaErrorInvalidValue;
-  const dim3 grid = warp_per_row_grid(n, K, VEC);
-  if (grad_vals != nullptr) {
-    spmm_minmax_vjp_kernel<T, VEC, true, true><<<grid, kThreads, 0, stream>>>(
-        n, K, nnz, colptr, rows, vals, B, out, gt, grad_B, grad_vals);
-  } else if (vals != nullptr) {
-    spmm_minmax_vjp_kernel<T, VEC, true, false><<<grid, kThreads, 0, stream>>>(
-        n, K, nnz, colptr, rows, vals, B, out, gt, grad_B, nullptr);
-  } else {
-    spmm_minmax_vjp_kernel<T, VEC, false, false><<<grid, kThreads, 0, stream>>>(
-        n, K, nnz, colptr, rows, nullptr, B, out, gt, grad_B, nullptr);
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// Calls fn(Int<VEC>, Int<SW>) for VEC in {1, 2, 4} and SW in {4, 8, 16, 32}.
+template <int VEC, typename Fn>
+cudaError_t dispatch_sw(int sw, Fn&& fn) {
+  switch (sw) {
+    case 32:
+      return fn(Int<VEC>(), Int<32>());
+    case 16:
+      return fn(Int<VEC>(), Int<16>());
+    case 8:
+      return fn(Int<VEC>(), Int<8>());
+    case 4:
+      return fn(Int<VEC>(), Int<4>());
   }
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
+}
+
+template <typename Fn>
+cudaError_t dispatch(int vec, int sw, Fn&& fn) {
+  switch (vec) {
+    case 4:
+      return dispatch_sw<4>(sw, fn);
+    case 2:
+      return dispatch_sw<2>(sw, fn);
+    case 1:
+      return dispatch_sw<1>(sw, fn);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int VEC, int SW, bool HAS_VALS, bool WANT_VALS>
+cudaError_t launch_vjp(const Vjp<T>& a, cudaStream_t stream) {
+  constexpr int kPerBlock = kThreads / SW;
+  const int items = a.S + a.n * a.cols;
+  const unsigned blocks = (unsigned)((items + kPerBlock - 1) / kPerBlock);
+  const dim3 grid(blocks < kMaxBlocksX ? blocks : kMaxBlocksX,
+                  (unsigned)((a.K + SW * VEC - 1) / (SW * VEC)));
+  if (a.S > 0) {
+    spmm_minmax_vjp_kernel<T, VEC, SW, HAS_VALS, WANT_VALS, true>
+        <<<grid, kThreads, 0, stream>>>(a);
+  } else {
+    spmm_minmax_vjp_kernel<T, VEC, SW, HAS_VALS, WANT_VALS, false>
+        <<<grid, kThreads, 0, stream>>>(a);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.J == 0) return err;
+  return gespmm::launch_carry<T, VEC>(a.J, a.K, a.long_rows, a.seg_ptr,
+                                      a.partial, a.grad_B, stream, a.row0,
+                                      a.slot0);
 }
 
 template <typename T>
-cudaError_t backward(int n, int K, int nnz, int vec, const int* colptr,
-                     const int* rows, const float* vals, const T* B,
-                     const T* out, const float* gt, T* grad_B,
-                     float* grad_vals, cudaStream_t stream) {
-  switch (vec) {
-    case 4:
-      return backward_vec<T, 4>(n, K, nnz, colptr, rows, vals, B, out, gt,
-                                grad_B, grad_vals, stream);
-    case 2:
-      return backward_vec<T, 2>(n, K, nnz, colptr, rows, vals, B, out, gt,
-                                grad_B, grad_vals, stream);
-    case 1:
-      return backward_vec<T, 1>(n, K, nnz, colptr, rows, vals, B, out, gt,
-                                grad_B, grad_vals, stream);
-  }
-  return cudaErrorInvalidValue;
+cudaError_t backward(const Vjp<T>& a, int vec, int sw, cudaStream_t stream) {
+  const bool bad =
+      a.n < 1 || a.cols < 1 || a.K < 1 || vec < 1 || a.K % vec != 0 ||
+      a.stride < 0 || a.out_rows < 0 || a.S < 0 || a.J < 0 ||
+      (a.S > 0) != (a.J > 0) ||
+      (a.S > 0 && (a.L < 1 || a.partial == nullptr)) ||
+      (a.grad_vals != nullptr && a.vals == nullptr) ||
+      (uintptr_t)a.B % (vec * sizeof(T)) != 0 ||
+      (uintptr_t)a.out % (vec * sizeof(T)) != 0 ||
+      (uintptr_t)a.g % (vec * sizeof(T)) != 0 ||
+      (uintptr_t)a.grad_B % (vec * sizeof(T)) != 0 ||
+      (uintptr_t)a.ties % (vec * sizeof(float)) != 0 ||
+      (uintptr_t)a.partial % (vec * sizeof(float)) != 0;
+  if (bad) return cudaErrorInvalidValue;
+  return dispatch(vec, sw, [&](auto v, auto s) -> cudaError_t {
+    constexpr int VEC = decltype(v)::value, SW = decltype(s)::value;
+    if (a.grad_vals != nullptr)
+      return launch_vjp<T, VEC, SW, true, true>(a, stream);
+    if (a.vals != nullptr)
+      return launch_vjp<T, VEC, SW, true, false>(a, stream);
+    return launch_vjp<T, VEC, SW, false, false>(a, stream);
+  });
 }
 
 }  // namespace
@@ -354,30 +461,32 @@ extern "C" int gespmm_spmm_minmax_bf16(int m, int K, int vec, int is_max,
       (__nv_bfloat16*)out, ties, (cudaStream_t)stream);
 }
 
-// Backward over the CSC (colptr, rows, vals in CSC order): n >= 1, K >= 1,
-// nnz >= 1.  grad_vals, if not null, is a (ceil(K / (32 vec)), nnz) f32
-// buffer of per-slab partials that the caller sums over slabs; it needs vals.
-extern "C" int gespmm_spmm_minmax_vjp_f32(int n, int K, int nnz, int vec,
-                                          const int* colptr, const int* rows,
-                                          const float* vals, const float* B,
-                                          const float* out, const float* gt,
-                                          float* grad_B, float* grad_vals,
-                                          void* stream) {
-  return (int)backward<float>(n, K, nnz, vec, colptr, rows, vals, B, out, gt,
-                              grad_B, grad_vals, (cudaStream_t)stream);
-}
+// Backward over n >= 1 stacked CSCs of cols >= 1 columns (colptr (n, cols +
+// 1), rows and vals (n, stride), vals in CSC order; n = 1 for one matrix),
+// K >= 1, with the SW-lane walker: out and g (B's dtype) and ties (f32) are
+// (n * out_rows, K), B and grad_B (n * cols, K).  grad_vals, if not null, is
+// a (ceil(K / (SW * vec)), n * stride) f32 buffer of per-slab partials that
+// the caller sums over slabs (slots past a shard's edges are not written);
+// it needs vals.  The split as Vjp documents it; S = J = 0 for none, else
+// partial is the (S, K) f32 scratch buffer.
+#define GESPMM_VJP_ENTRY(NAME, T)                                             \
+  extern "C" int NAME(                                                        \
+      int n, int cols, int K, int vec, int sw, int L, int S, int J, int row0, \
+      int slot0, int seg_rel, int64_t stride, int64_t out_rows,               \
+      const int* colptr, const int* rows, const float* vals, const void* B,   \
+      const void* out, const void* g, const float* ties, const int* seg_row,  \
+      const int* seg_start, const int* long_rows, const int* seg_ptr,         \
+      void* grad_B, float* grad_vals, float* partial, void* stream) {         \
+    const Vjp<T> a{n,        cols,      K,         L,           S,           \
+                   J,        row0,      slot0,     seg_rel,     stride,      \
+                   out_rows, colptr,    rows,      vals,        (const T*)B, \
+                   (const T*)out, (const T*)g, ties, seg_row,   seg_start,   \
+                   long_rows, seg_ptr,  (T*)grad_B, grad_vals,  partial};    \
+    return (int)backward<T>(a, vec, sw, (cudaStream_t)stream);                \
+  }
 
-extern "C" int gespmm_spmm_minmax_vjp_bf16(int n, int K, int nnz, int vec,
-                                           const int* colptr, const int* rows,
-                                           const float* vals, const void* B,
-                                           const void* out, const float* gt,
-                                           void* grad_B, float* grad_vals,
-                                           void* stream) {
-  return (int)backward<__nv_bfloat16>(
-      n, K, nnz, vec, colptr, rows, vals, (const __nv_bfloat16*)B,
-      (const __nv_bfloat16*)out, gt, (__nv_bfloat16*)grad_B, grad_vals,
-      (cudaStream_t)stream);
-}
+GESPMM_VJP_ENTRY(gespmm_spmm_minmax_vjp_f32, float)
+GESPMM_VJP_ENTRY(gespmm_spmm_minmax_vjp_bf16, __nv_bfloat16)
 
 extern "C" const char* gespmm_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

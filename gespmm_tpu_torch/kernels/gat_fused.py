@@ -51,7 +51,8 @@ import torch
 from gespmm_tpu_torch.kernels._build import load_library
 from gespmm_tpu_torch.kernels.spmm_csr import (_SPLIT, check_operands,
                                                check_split, check_table,
-                                               lane_vector, raise_on)
+                                               lane_vector, raise_on,
+                                               walk_shape)
 from gespmm_tpu_torch.ops import reference
 from gespmm_tpu_torch.ops.spmm import Adjacency
 from gespmm_tpu_torch.sparse.formats import CSR, expand_indptr
@@ -125,20 +126,7 @@ def _heads_of(B: Tensor, heads: int) -> int:
     return heads
 
 
-# --- the walk's launch shape and split ------------------------------------
-
-
-def walk_shape(K: int, heads: int, *tensors: Tensor):
-    """(VEC, SW) of the row-5 kernels: VEC columns a lane, the widest of 4,
-    2 and 1 that divides the head width (a lane's columns lie in one head)
-    and to which every table is aligned; SW lanes a walker, the smallest
-    power of two that covers K/VEC columns, from 4 (eight rows a warp) to
-    32 (one; wider K walks 32·VEC-column slabs)."""
-    dh = K // heads
-    vec = next(v for v in (4, 2, 1) if dh % v == 0 and all(
-        t.data_ptr() % (v * t.element_size()) == 0 for t in tensors))
-    lanes = -(-K // vec)
-    return vec, min(32, max(4, 1 << (lanes - 1).bit_length()))
+# --- the walk's split (its launch shape: spmm_csr.py::walk_shape) ---------
 
 
 def _split_args(split: RowSplit, device: torch.device):

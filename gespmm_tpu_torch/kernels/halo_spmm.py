@@ -25,14 +25,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from gespmm_tpu_torch.kernels._build import load_library
 from gespmm_tpu_torch.kernels.spmm_csr import check_table, lane_vector, raise_on
 from gespmm_tpu_torch.ops import reference
-from gespmm_tpu_torch.sparse.partition import RowSplit, ShardSplit
+from gespmm_tpu_torch.sparse.partition import (RowSplit, ShardSplit,
+                                               local_split)
 
 Tensor = torch.Tensor
 
@@ -89,19 +90,6 @@ def _check(reduce: str, d_vals, h_indptr, h_vals, B_d: Tensor) -> int:
     return heads
 
 
-def _local(split: Optional[ShardSplit], first: int, n: int,
-           m: int) -> Tuple[Optional[RowSplit], int, int]:
-    """(the lists of shards [first, first + n), row0, slot0), or None
-    without a split."""
-    if split is None:
-        return None, 0, 0
-    if split.rows != m or not 0 <= first <= first + n <= split.num_parts:
-        raise ValueError(f"the split covers {split.num_parts} shards of "
-                         f"{split.rows} rows, not shards [{first}, "
-                         f"{first + n}) of {m}")
-    return split.local(first, first + n)
-
-
 def halo_spmm_stacked(d_indptr: Tensor, d_indices: Tensor,
                       d_vals: Optional[Tensor], B_d: Tensor,
                       h_indptr: Optional[Tensor] = None,
@@ -125,7 +113,7 @@ def halo_spmm_stacked(d_indptr: Tensor, d_indices: Tensor,
     without it every row is walked by one warp.
     """
     n, m = d_indptr.shape[0], d_indptr.shape[1] - 1
-    rs, row0, slot0 = _local(split, first, n, m)
+    rs, row0, slot0 = local_split(split, first, n, m)
     if B_d.device.type == "cpu":
         empty = torch.zeros(0, dtype=torch.int32)
         return reference.halo_spmm_split_rows(

@@ -102,6 +102,19 @@ def lane_vector(K: int, *tensors: Tensor) -> int:
     return 1
 
 
+def walk_shape(K: int, heads: int, *tensors: Tensor):
+    """(VEC, SW) of the walker kernels (rows 3 and 5): VEC columns a lane, the widest of 4,
+    2 and 1 that divides the head width (a lane's columns lie in one head)
+    and to which every table is aligned; SW lanes a walker, the smallest
+    power of two that covers K/VEC columns, from 4 (eight rows a warp) to
+    32 (one; wider K walks 32·VEC-column slabs)."""
+    dh = K // heads
+    vec = next(v for v in (4, 2, 1) if dh % v == 0 and all(
+        t.data_ptr() % (v * t.element_size()) == 0 for t in tensors))
+    lanes = -(-K // vec)
+    return vec, min(32, max(4, 1 << (lanes - 1).bit_length()))
+
+
 def check_operands(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
                    B: Tensor) -> None:
     """Raise on a sparse operand or a dense ``B`` that the kernels of

@@ -112,6 +112,28 @@ def spmm_max_vjp_edges(rows: Tensor, indices: Tensor, data: Optional[Tensor],
     return g.index_select(0, r).to(acc) * weight
 
 
+def _minmax_vjp_stream(cols: Tensor, rows: Tensor, data: Optional[Tensor],
+                       B: Tensor, out: Tensor, g_over_ties: Tensor):
+    """(w, stream): each CSC edge's weight w_e[k] (the tie share of the
+    output it achieves, else 0) and its grad_B term val_e · w_e[k], in
+    ``g_over_ties``'s accumulation dtype."""
+    contrib = _contrib(cols, data, B)
+    r = rows.long()
+    eq = contrib == out.index_select(0, r).to(contrib.dtype)
+    acc = _acc_dtype(g_over_ties.dtype)
+    w = torch.where(eq, g_over_ties.index_select(0, r).to(acc),
+                    torch.zeros((), dtype=acc, device=B.device))
+    return w, (w if data is None else w * data.to(acc)[:, None])
+
+
+def _minmax_vjp_values(w: Tensor, cols: Tensor, data: Optional[Tensor],
+                       B: Tensor, want_values: bool) -> Optional[Tensor]:
+    """grad_vals[e] = Σ_k w_e[k] · B[c_e, k], or None."""
+    if data is None or not want_values:
+        return None
+    return (w * B.index_select(0, cols.long()).to(w.dtype)).sum(-1)
+
+
 def spmm_minmax_vjp_cols(cols: Tensor, rows: Tensor, data: Optional[Tensor],
                          B: Tensor, out: Tensor, g_over_ties: Tensor,
                          want_values: bool = True):
@@ -130,19 +152,78 @@ def spmm_minmax_vjp_cols(cols: Tensor, rows: Tensor, data: Optional[Tensor],
     kernel's wrapper casts ``grad_B`` to B's dtype.  ``grad_vals`` is in CSC
     order, None unless ``data`` is given and ``want_values``.
     """
-    contrib = _contrib(cols, data, B)
-    r = rows.long()
-    eq = contrib == out.index_select(0, r).to(contrib.dtype)
-    acc = _acc_dtype(g_over_ties.dtype)
-    w = torch.where(eq, g_over_ties.index_select(0, r).to(acc),
-                    torch.zeros((), dtype=acc, device=B.device))
-    stream = w if data is None else w * data.to(acc)[:, None]
-    grad_B = torch.zeros((B.shape[0], B.shape[1]), dtype=acc, device=B.device)
+    w, stream = _minmax_vjp_stream(cols, rows, data, B, out, g_over_ties)
+    grad_B = torch.zeros((B.shape[0], B.shape[1]), dtype=w.dtype,
+                         device=B.device)
     grad_B.index_add_(0, cols.long(), stream)
-    grad_vals = None
-    if data is not None and want_values:
-        grad_vals = (w * B.index_select(0, cols.long()).to(acc)).sum(-1)
-    return grad_B, grad_vals
+    return grad_B, _minmax_vjp_values(w, cols, data, B, want_values)
+
+
+def spmm_minmax_vjp_split_cols(cols: Tensor, colptr: Tensor, rows: Tensor,
+                               data: Optional[Tensor], B: Tensor, out: Tensor,
+                               g_over_ties: Tensor, seg_row: Tensor,
+                               long_rows: Tensor, seg_ptr: Tensor,
+                               seg_len: int, want_values: bool = True):
+    """The plain version of the split max/min backward kernel: the columns
+    of at most ``seg_len`` edges reduced as in ``spmm_minmax_vjp_cols``;
+    each longer column's segments of ``seg_len`` consecutive edges summed
+    apart (the column split of ``sparse/partition.py::build_row_split``:
+    ``seg_row``, ``long_rows``, ``seg_ptr``), then added into the column in
+    segment order, as the kernel's carry adds them.  ``grad_vals`` is per
+    edge, so the split leaves it as ``spmm_minmax_vjp_cols`` gives it.
+    """
+    n = colptr.shape[0] - 1
+    w, stream = _minmax_vjp_stream(cols, rows, data, B, out, g_over_ties)
+    # Rows 0..n-1 of the buffer take the short columns' edges, rows n.. the
+    # segments'; a long column's own row stays 0 and then takes its
+    # segments in order.
+    target, _ = split_units(cols, colptr, n, long_rows, seg_ptr, seg_len)
+    buf = torch.zeros((n + seg_row.shape[0], B.shape[1]), dtype=w.dtype,
+                      device=B.device)
+    buf.index_add_(0, target, stream)
+    grad_B = buf[:n].index_add_(0, seg_row.long(), buf[n:])
+    return grad_B, _minmax_vjp_values(w, cols, data, B, want_values)
+
+
+def spmm_minmax_vjp_split_stacked(t_indptr: Tensor, t_rows: Tensor,
+                                  t_vals: Optional[Tensor], B: Tensor,
+                                  out: Tensor, g_over_ties: Tensor,
+                                  seg_row: Tensor, long_rows: Tensor,
+                                  seg_ptr: Tensor, seg_len: int,
+                                  row0: int = 0, slot0: int = 0,
+                                  want_values: bool = True):
+    """The plain version of the stacked, split max/min backward kernel.
+
+    n shards' CSCs stacked as ``spmm_minmax.cu`` takes them: ``t_indptr``
+    (n, cols + 1), ``t_rows`` and ``t_vals`` (n, stride), padded past each
+    shard's edges; shard i's row ids index its slab of ``out`` and
+    ``g_over_ties`` (n * rows, K), and its column c is B's row i * cols + c.
+    The shards are laid end to end as one CSC of n * cols columns, and
+    ``spmm_minmax_vjp_split_cols`` walks it with the split of those stacked
+    columns (``long_rows``/``seg_row`` from ``row0``, slots ``seg_ptr``
+    from ``slot0``: ``sparse/partition.py::build_shard_split``).
+    ``grad_vals`` comes back (n, stride) in each shard's CSC order, 0 past
+    its edges.
+    """
+    n, stride = t_rows.shape
+    dev = t_rows.device
+    ptr = t_indptr.long()
+    deg = (ptr[:, 1:] - ptr[:, :-1]).reshape(-1)
+    colptr = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                        torch.cumsum(deg, 0)])
+    valid = torch.arange(stride, device=dev)[None, :] < ptr[:, -1:]
+    shard = torch.arange(n, device=dev)[:, None]
+    rows = (t_rows.long() + shard * (out.shape[0] // n))[valid]
+    vals = None if t_vals is None else t_vals[valid]
+    cols = torch.repeat_interleave(torch.arange(deg.shape[0], device=dev), deg)
+    grad_B, gv = spmm_minmax_vjp_split_cols(
+        cols, colptr, rows, vals, B, out, g_over_ties, seg_row.long() - row0,
+        long_rows.long() - row0, seg_ptr.long() - slot0, seg_len, want_values)
+    if gv is None:
+        return grad_B, None
+    full = torch.zeros((n, stride), dtype=gv.dtype, device=dev)
+    full[valid] = gv
+    return grad_B, full
 
 
 def _head_contrib(indices: Tensor, data: Optional[Tensor], B: Tensor) -> Tensor:

@@ -299,7 +299,7 @@ class _SpmmMinMax(torch.autograd.Function):
             t_data = None if data is None else data[adj.perm.long()]
             grad_B, grad_data = spmm_minmax_vjp(
                 adj.csc.indptr, adj.csc.indices, t_data, B, out, g, ties,
-                want_values=want_values, cols=adj.rows_t)
+                want_values=want_values, cols=adj.rows_t, split=adj.split_t)
             if grad_data is not None:  # CSC order -> CSR order
                 grad_data = grad_data[adj.inv_perm.long()]
         if grad_data is not None:

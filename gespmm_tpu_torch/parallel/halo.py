@@ -38,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 from gespmm_tpu_torch.kernels import halo_spmm as khalo
-from gespmm_tpu_torch.kernels.spmm_minmax import spmm_minmax_vjp
+from gespmm_tpu_torch.kernels.spmm_minmax import spmm_minmax_vjp_stacked
 from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.parallel.mesh import Mesh
 from gespmm_tpu_torch.sparse.formats import CSR
@@ -464,9 +464,17 @@ def _csc_vals(vals: Optional[Tensor], t_map: Tensor) -> Optional[Tensor]:
     return torch.gather(vals, 1, idx)
 
 
-def _from_csc(grad_csc: Tensor, t_map: Tensor) -> Tensor:
-    """Values in CSC order back to the block's edge order."""
-    return torch.empty_like(grad_csc).index_copy_(0, t_map.long(), grad_csc)
+def _from_csc(grad_csc: Tensor, t_map: Tensor, mask: Tensor) -> Tensor:
+    """Stacked (n, stride) values in each shard's CSC order back to its
+    edge order.  A shard's edges are a prefix in both orders (``mask``);
+    its padded slots land in a sink slot that is dropped."""
+    n, stride = grad_csc.shape
+    shard = torch.arange(n, device=grad_csc.device)[:, None] * stride
+    dst = torch.where(mask, shard + t_map.long(),
+                      torch.full((), n * stride, device=grad_csc.device))
+    flat = grad_csc.new_zeros(n * stride + 1)
+    flat.index_copy_(0, dst.reshape(-1), grad_csc.reshape(-1))
+    return flat[:-1].view(n, stride)
 
 
 def _stacked_gather_dot(row_ids: Tensor, indices: Tensor, mask: Tensor,
@@ -488,8 +496,8 @@ class _HaloShards(torch.autograd.Function):
     launch over all of them (and its carry where the joint split has a
     segment).  The sum backward is row 7 over the stacked diag^T blocks and
     over the stacked halo^T blocks (two launches, each with its split's
-    carry); the max/min backward row 3 over each shard's transposed blocks
-    with the joint out and ties."""
+    carry); the max/min backward row 3 over the same stacked blocks with
+    the joint out and ties (two launches, each with its split's carry)."""
 
     @staticmethod
     def forward(ctx, hp: HaloPartition, lo: int, hi: int, reduce: str, dv,
@@ -511,9 +519,9 @@ class _HaloShards(torch.autograd.Function):
         loc = slice(lo, hi)
         want_vals = ctx.needs_input_grad[4] or ctx.needs_input_grad[5]
         grads = []
-        for blk, vals, table, split, nnz in (
-                ("diag", dv, B_local, hp.diag_t_split, hp.diag_nnz),
-                ("halo", hv, halo, hp.halo_t_split, hp.halo_nnz)):
+        for blk, vals, table, split in (
+                ("diag", dv, B_local, hp.diag_t_split),
+                ("halo", hv, halo, hp.halo_t_split)):
             t_indptr = getattr(hp, f"{blk}_t_indptr")[loc]
             t_rows = getattr(hp, f"{blk}_t_rows")[loc]
             t_map = getattr(hp, f"{blk}_t_map")[loc]
@@ -529,24 +537,14 @@ class _HaloShards(torch.autograd.Function):
                         getattr(hp, f"{blk}_mask")[loc], g, table,
                         1 if vals.dim() == 2 else vals.shape[2])
             else:
-                rpp, slab = hp.rpp, table.reshape(-1, table.shape[-1])
-                rows_t = slab.shape[0] // (hi - lo)
-                parts, gvs = [], []
-                for i, p in enumerate(range(lo, hi)):
-                    k, r = nnz[p], slice(i * rpp, (i + 1) * rpp)
-                    gt, gv_csc = spmm_minmax_vjp(
-                        t_indptr[i], t_rows[i, :k],
-                        None if tvals is None else tvals[i, :k],
-                        slab[i * rows_t:(i + 1) * rows_t], out[r], g[r],
-                        ties[r], want_values=want_vals)
-                    parts.append(gt)
-                    gvs.append(gv_csc if gv_csc is None
-                               else _from_csc(gv_csc, t_map[i, :k]))
-                grad_t = torch.cat(parts)
-                if gvs[0] is not None:
-                    grad_v = vals.new_zeros(vals.shape, dtype=gvs[0].dtype)
-                    for i, gv in enumerate(gvs):
-                        grad_v[i, :gv.shape[0]] = gv
+                # Row 3, one launch over the shards' stacked transposes.
+                grad_t, gv_csc = spmm_minmax_vjp_stacked(
+                    t_indptr, t_rows, tvals,
+                    table.reshape(-1, table.shape[-1]), out, g, ties,
+                    want_values=want_vals, split=split, first=lo)
+                if gv_csc is not None:
+                    grad_v = _from_csc(gv_csc, t_map,
+                                       getattr(hp, f"{blk}_mask")[loc])
             grads.append((grad_t.to(table.dtype).view(table.shape),
                           None if grad_v is None else grad_v.to(vals.dtype)))
         (grad_B, grad_dv), (grad_halo, grad_hv) = grads

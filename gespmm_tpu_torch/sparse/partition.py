@@ -49,7 +49,7 @@ blocks, each row's edges being its diag edges followed by its halo edges.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -434,6 +434,20 @@ class ShardSplit:
 
     def to(self, device) -> "ShardSplit":
         return dataclasses.replace(self, split=self.split.to(device))
+
+
+def local_split(split: Optional[ShardSplit], first: int, n: int,
+                rows: int) -> Tuple[Optional[RowSplit], int, int]:
+    """(the split lists of shards [first, first + n), row0, slot0) of a
+    launch over n stacked blocks of ``rows`` rows each, or (None, 0, 0)
+    without a split.  Raises ValueError if the split covers other blocks."""
+    if split is None:
+        return None, 0, 0
+    if split.rows != rows or not 0 <= first <= first + n <= split.num_parts:
+        raise ValueError(f"the split covers {split.num_parts} shards of "
+                         f"{split.rows} rows, not shards [{first}, "
+                         f"{first + n}) of {rows}")
+    return split.local(first, first + n)
 
 
 def build_shard_split(d_indptr, h_indptr=None,

@@ -485,12 +485,16 @@ def test_minmax_empty_work_and_refusals(dev):
                              "max")
     adj = Adjacency.from_csr(csr)
     out, ties = kmm.spmm_minmax(adj.csr.indptr, adj.csr.indices, None, B, "max")
-    with pytest.raises(ValueError, match="g_over_ties"):
+    with pytest.raises(ValueError, match="g must be"):
         kmm.spmm_minmax_vjp(adj.csc.indptr, adj.csc.indices, None, B, out,
-                            torch.ones_like(out[:-1]), ties[:-1])
+                            torch.ones_like(out[:-1]), ties)
     with pytest.raises(TypeError, match="out"):
         kmm.spmm_minmax_vjp(adj.csc.indptr, adj.csc.indices, None, B,
                             out.double(), torch.ones_like(out), ties)
+    # g in B's dtype: the kernel folds g / max(ties, 1) itself.
+    with pytest.raises(TypeError, match="g must be"):
+        kmm.spmm_minmax_vjp(adj.csc.indptr, adj.csc.indices, None, B, out,
+                            torch.ones_like(out).double(), ties)
 
 
 @pytest.mark.parametrize("reduce", ["max", "min"])
@@ -521,6 +525,8 @@ def test_sage_pool_training_goes_through_the_kernels(dev):
     res = train_node_classifier(model, adj, ds.features, ds.labels, ds.masks,
                                 epochs=20)
     assert kmm.launches >= 2 * 20 and kmm.vjp_launches >= 2 * 20
+    # No column above L edges: no carry.
+    assert adj.split_t.num_segments == 0 and kmm.vjp_carry_launches == 0
     loss = res["history"]["loss"]
     assert loss[-1] < loss[0] and np.all(np.isfinite(loss))
     assert res["train_acc"] > 1 / 3
@@ -529,6 +535,186 @@ def test_sage_pool_training_goes_through_the_kernels(dev):
     model.method = "xla"
     train_node_classifier(model, adj, ds.features, ds.labels, ds.masks, epochs=3)
     assert kmm.launches == kmm.vjp_launches == 0
+
+
+def minmax_vjp_vs_float64(adj, data, K, dtype, reduce, seed):
+    """Row 3 over the adjacency's CSC with its split, twice: (grad_B,
+    grad_vals) of the first run, whether the two are bitwise equal, and the
+    float64 plain version's (grad_B, grad_vals) beside them."""
+    dev = adj.csr.indptr.device
+    csc_data = None if data is None else data[adj.perm.long()]
+    B = torch.relu(quantized((adj.shape[1], K), dev, seed, dtype))
+    out, ties = kmm.spmm_minmax(adj.csr.indptr, adj.csr.indices, data, B,
+                                reduce)
+    g = randn((adj.shape[0], K), dev, seed + 1, dtype)
+    runs = [kmm.spmm_minmax_vjp(adj.csc.indptr, adj.csc.indices, csc_data, B,
+                                out, g, ties, split=adj.split_t)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(a is b or torch.equal(a, b) for a, b in zip(*runs))
+    gt64 = g.double() / torch.clamp(ties, min=1.0).double()
+    want = ref.spmm_minmax_vjp_cols(adj.rows_t, adj.csc.indices, csc_data, B,
+                                    out, gt64)
+    return runs[0], same, want
+
+
+def assert_minmax_vjp_close(got, want, dtype):
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    for x, w in zip(got, want):
+        if w is None:
+            assert x is None
+            continue
+        assert torch.isfinite(x).all()
+        err = float((x.double() - w).abs().max())
+        assert err <= tol * max(float(w.abs().max()), 1.0), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("binary", [True, False])
+@pytest.mark.parametrize("K", [1, 16, 128, 130])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+def test_minmax_vjp_split_at_each_boundary_and_a_hub(dev, reduce, K, binary,
+                                                     dtype):
+    # Columns of L - 1, L, L + 1, 2L + 1 and 10,000 edges: the long ones are
+    # walked in segments and the carry adds them; two runs bitwise equal.
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    assert adj.split_t.long_rows.tolist() == [2, 3, 4]
+    data = None if binary else randn((adj.nnz,), dev, 7)
+    before = (kmm.vjp_launches, kmm.vjp_carry_launches)
+    got, same, want = minmax_vjp_vs_float64(adj, data, K, dtype, reduce, K)
+    assert (kmm.vjp_launches, kmm.vjp_carry_launches) == (before[0] + 2,
+                                                          before[1] + 2)
+    assert same
+    assert_minmax_vjp_close(got, want, dtype)
+
+
+# (K, VEC, SW): the walker widths walk_shape picks for row 3, every one a
+# narrow walker below K = 128 (4 lanes at K = 1, 3 and 16).
+MINMAX_WALKS = [(1, 1, 4), (3, 1, 4), (16, 4, 4), (32, 4, 8), (33, 1, 32),
+                (64, 4, 16), (128, 4, 32), (130, 2, 32)]
+
+
+@pytest.mark.parametrize("K,vec,lanes", MINMAX_WALKS)
+def test_minmax_vjp_walkers_match_float64(dev, K, vec, lanes):
+    assert kmm.walk_shape(K, 1, randn((1, K), dev, 0)) == (vec, lanes)
+    csr = skewed_csr(seed=5).to(dev)
+    adj = Adjacency.from_csr(csr)
+    for binary in (True, False):
+        for reduce in ("max", "min"):
+            got, same, want = minmax_vjp_vs_float64(
+                adj, None if binary else adj.data, K, torch.float32, reduce,
+                K + 11)
+            assert same
+            assert_minmax_vjp_close(got, want, torch.float32)
+
+
+def test_minmax_vjp_fold_in_the_kernel_equals_the_wrappers_fold(dev):
+    # The kernel divides g by max(ties, 1) per achieving edge: on a binary
+    # graph its grad_B equals, bit for bit, the plain split walk fed the
+    # table g.float() / clamp(ties, min=1) (the same f32 adds in the same
+    # edge and segment order); valued (an FMA a term in the kernel), within
+    # row 3's bound.
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        for data in (None, randn((adj.nnz,), dev, 3)):
+            csc_data = None if data is None else data[adj.perm.long()]
+            B = torch.relu(quantized((adj.shape[1], 16), dev, 4, dtype))
+            out, ties = kmm.spmm_minmax(adj.csr.indptr, adj.csr.indices, data,
+                                        B, "max")
+            g = randn((adj.shape[0], 16), dev, 5, dtype)
+            grad_B, grad_vals = kmm.spmm_minmax_vjp(
+                adj.csc.indptr, adj.csc.indices, csc_data, B, out, g, ties,
+                split=adj.split_t)
+            sp = adj.split_t.to("cpu")
+            cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+            want_B, want_vals = ref.spmm_minmax_vjp_split_cols(
+                adj.rows_t.cpu(), adj.csc.indptr.cpu(), adj.csc.indices.cpu(),
+                cpu(csc_data), B.cpu(), out.cpu(),
+                g.cpu().float() / torch.clamp(ties.cpu(), min=1.0),
+                sp.seg_row, sp.long_rows, sp.seg_ptr, sp.seg_len)
+            if data is None:
+                assert torch.equal(grad_B.cpu(), want_B.to(dtype))
+            else:
+                assert_minmax_vjp_close(
+                    (grad_B.cpu(), grad_vals.cpu()),
+                    (want_B.double(), want_vals.double()), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parts", [2, 4])
+def test_minmax_vjp_stacked_matches_per_shard_plain(dev, parts, dtype):
+    # One launch over all shards' transposed blocks, split at L = 8 (so the
+    # skewed graph's hub columns and many others are cut), against row 3's
+    # float64 plain version a shard at a time; two runs bitwise equal.
+    hp = build_halo_partition(_square_skewed(), parts, device=dev, seg_len=8)
+    mesh = make_mesh(parts, device=dev)
+    B = (torch.round(randn((parts * hp.cpp, 33), dev, 6) * 2) / 2).to(dtype)
+    halo = make_exchange(hp, mesh)(B)
+    dvs, hvs = split_edge_values(hp, randn((hp.nnz,), dev, 7))
+    out, ties = khalo.halo_spmm_stacked(
+        hp.diag_indptr, hp.diag_indices, dvs, B, hp.halo_indptr,
+        hp.halo_indices, hvs, halo, "max", split=hp.joint_split)
+    g = randn((parts * hp.rpp, 33), dev, 8, dtype)
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    for blk, vals, table, split, n_t in (
+            ("diag", dvs, B, hp.diag_t_split, hp.cpp),
+            ("halo", hvs, halo.reshape(-1, 33), hp.halo_t_split,
+             hp.halo_rows)):
+        t_map = getattr(hp, f"{blk}_t_map")
+        tv = torch.gather(vals, 1, t_map.long())
+        args = (getattr(hp, f"{blk}_t_indptr"), getattr(hp, f"{blk}_t_rows"),
+                tv, table, out, g, ties)
+        assert split.split.num_segments > 0
+        before = (kmm.vjp_launches, kmm.vjp_carry_launches)
+        runs = [kmm.spmm_minmax_vjp_stacked(*args, split=split)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert (kmm.vjp_launches, kmm.vjp_carry_launches) == (before[0] + 2,
+                                                              before[1] + 2)
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        grad_B, grad_vals = runs[0]
+        for p in range(parts):
+            k = getattr(hp, f"{blk}_nnz")[p]
+            t_indptr = args[0][p]
+            rows = slice(p * hp.rpp, (p + 1) * hp.rpp)
+            want_B, want_v = ref.spmm_minmax_vjp_cols(
+                torch.repeat_interleave(
+                    torch.arange(n_t, device=dev),
+                    (t_indptr[1:] - t_indptr[:-1]).long()),
+                args[1][p, :k], tv[p, :k], table[p * n_t:(p + 1) * n_t],
+                out[rows], g[rows].double()
+                / torch.clamp(ties[rows], min=1.0).double())
+            for got, w in ((grad_B[p * n_t:(p + 1) * n_t], want_B),
+                           (grad_vals[p, :k], want_v)):
+                err = float((got.double() - w).abs().max())
+                assert err <= tol * max(float(w.abs().max()), 1.0), (blk, p)
+            assert not grad_vals[p, k:].any()
+
+
+def test_minmax_vjp_kernel_refuses_what_it_does_not_take(dev):
+    # The entry point itself: a table not aligned to the lane vector, and
+    # grad_values without values, are cudaErrorInvalidValue (1).
+    fn, _ = kmm._entry("vjp", torch.float32)
+    K, m, n = 8, 4, 3
+    colptr = torch.tensor([0, 1, 2, 2], dtype=torch.int32, device=dev)
+    rows = torch.tensor([0, 3], dtype=torch.int32, device=dev)
+    vals = torch.ones(2, device=dev)
+    tab = lambda r: torch.zeros(r * K + 1, device=dev)  # noqa: E731
+    B, out, g, ties, grad_B = tab(n), tab(m), tab(m), tab(m), tab(n)
+    partials = torch.zeros(4, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(B_ptr, vals_ptr, partials_ptr, vec=4):
+        return fn(1, n, K, vec, 4, 0, 0, 0, 0, 0, 0, 2, m,
+                  colptr.data_ptr(), rows.data_ptr(), vals_ptr, B_ptr,
+                  out.data_ptr(), g.data_ptr(), ties.data_ptr(), None, None,
+                  None, None, grad_B.data_ptr(), partials_ptr, None, stream)
+
+    assert call(B.data_ptr(), vals.data_ptr(), partials.data_ptr()) == 0
+    assert call(B[1:].data_ptr(), vals.data_ptr(), None) == 1
+    assert call(B[1:].data_ptr(), vals.data_ptr(), None, vec=1) == 0
+    assert call(B.data_ptr(), None, partials.data_ptr()) == 1
+    torch.cuda.synchronize()
 
 
 # --- edge segment reduce and fused GAT attention -------------------------
@@ -1551,8 +1737,10 @@ def test_halo_op_launches_and_never_takes_the_plain_version(dev, monkeypatch,
         assert (khalo.launches, kmm.vjp_launches) == (3, 0)
         assert khalo.carry_launches == sum(has)
     else:
-        # Backward: row 3 over each shard's two transposed blocks.
-        assert (khalo.launches, kmm.vjp_launches) == (1, 2 * parts)
+        # Backward: row 3, one launch over the stacked diag^T blocks and one
+        # over the stacked halo^T blocks, each with its split's carry.
+        assert (khalo.launches, kmm.vjp_launches) == (1, 2)
+        assert kmm.vjp_carry_launches == sum(has[1:])
     m = csr.shape[0]
     want = _whole_graph_f64(csr, B, vals, g, reduce)
     for got, w in zip((out.detach()[:m], B.grad[:m], vals.grad), want):
