@@ -26,8 +26,12 @@ Phases, each printed as it goes; any failure exits non-zero:
      split-boundary graph (columns of L - 1, L, L + 1, 2L + 1 and 10,000
      edges) at K in {1, 3, 16, 32, 33, 64, 128, 130}, binary and valued, f32
      and bf16, with B in multiples of 0.5 so that ties are common.  The
-     forward's out and ties equal the plain version's exactly, and an f32
-     out equals the float64 reference rounded to f32.  The backward (row 3,
+     forward (row 2, given the CSR's split: rows above L walked in segments
+     whose (extremum, count) pairs the pair carry folds) runs twice,
+     bitwise equal; its out and ties equal the unsplit plain version's
+     exactly, and an f32 out equals the float64 reference rounded to f32;
+     its carry runs once a call on rmat15 and the boundary graph and never
+     on the SBM graph.  The backward (row 3,
      given g in out's dtype and the CSC's split) runs twice, bitwise equal;
      its grad_B and grad_values are within 1e-5 (bf16: 8e-3) x max |ref| of
      the float64 plain version; its carry runs once a call on rmat15 and the
@@ -39,7 +43,8 @@ Phases, each printed as it goes; any failure exits non-zero:
      the same run with method="xla" (the plain version, no launches);
   7. SAGE-pool train: dims [128, 16, 3] on the SBM graph without
      self-loops, 50 epochs through the max/min forward and backward kernels
-     (>= 2 forward launches per epoch, exactly 2 of row 3 and no carry),
+     (>= 2 forward launches per epoch, exactly 2 of row 3, no carry of
+     either),
      with the same checks; then method="xla" with no launches;
   8. attention kernels vs plain: the edge segment reduce (sum, max) and the
      three fused GAT kernels (forward; backward over the CSR and over the
@@ -77,7 +82,9 @@ Phases, each printed as it goes; any failure exits non-zero:
      kernel) and to float64; exactly 1 launch of each dot kernel, and
      method="xla" none;
  13. nnz-chunked SpMM vs float64: on the SBM graph and rmat15 at K in {1, 3,
-     32, 33, 128, 130, 512}, valued and binary, f32 and bf16, (R, E) in
+     16, 32, 33, 64, 128, 130, 512} (every walker width of the chunk
+     kernel's walk over the plan's pieces), valued and binary, f32 and bf16,
+     (R, E) in
      {(64, 64), (128, 256)}, within the sum kernel's bound and bitwise
      repeatable; spmm(method="pallas") out, grad_B and grad_values against
      float64 (one chunk launch forward, one for grad_B), and, on an
@@ -154,8 +161,10 @@ Phases, each printed as it goes; any failure exits non-zero:
      slice's shapes and at rmat15, with its bound (the larger of its bytes
      over 3.35 TB/s and its operations over 67 TFLOP/s) and the one PyTorch
      call that computes the same function where there is one (library_ms);
-     rows 2 and 3 at sbm K=128, sbm K=16 and rmat15 K=128, row 3 called with
-     g and ties and the CSC's split, each with its bound and error;
+     rows 2 and 3 at sbm K=128, sbm K=16 and rmat15 K=128, row 2 called
+     with the CSR's split, row 3 with g and ties and the CSC's split, each
+     with its bound, error and carries, and row 1 over the same edges at
+     the same K beside them;
      the CSR kernel at rmat15 (edge factors 8 and 16) K=128 and sbm K=32,
      f32 and with bf16 B / f32 out (mode="fast"), against torch.sparse.mm,
      and its split at L in {32, 64, 128, 256} at both rmat15 K=128 (each L
@@ -191,9 +200,10 @@ from 0 in its own run; the comparison launches of phases 3-5, 8, 11, 13, 16
 and 18 are not counted.  The CSR kernel and the chunk and grouped kernels
 count their carry pass apart (spmm_csr_carry, spmm_chunk_carry,
 spmm_grouped_carry), and so do row 7 (halo_spmm_carry), row 5
-(gat_fwd_carry, gat_bwd_rows_carry, gat_bwd_cols_carry) and row 3
-(spmm_minmax_vjp_carry).  NCCL traffic between ranks is not run: the card
-machine has one card.  Output: one line per phase, then
+(gat_fwd_carry, gat_bwd_rows_carry, gat_bwd_cols_carry), row 2
+(spmm_minmax_carry) and row 3 (spmm_minmax_vjp_carry).  NCCL traffic
+between ranks is not run: the card machine has one card.  Output: one line
+per phase, then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  With --record, the full record of the run is
 also written to PATH as JSON.
@@ -241,7 +251,9 @@ SLOPE = 0.2
 # (Ka, K) of the dot-attention checks: the (64, 64) main shape, and a narrow
 # K with Ka a multiple of 4 below a lane's vector.
 DOT_SBM_SHAPES = ((64, 64), (16, 3))
-CHUNK_KS = (1, 3, 32, 33, 128, 130, 512)
+# Every walker of the chunk kernel: 4 lanes at K = 1, 3, 16; 8 at 32; 16 at
+# 64; a warp at 33 and 128 and over K slabs at 130 and 512.
+CHUNK_KS = (1, 3, 16, 32, 33, 64, 128, 130, 512)
 CHUNK_SIZES = ((64, 64), (128, 256))  # the sweep's (R, E) and the builder's
 SWEEP_METHODS = ("xla", "tiled", "tiled-hilo", "tiled-fast", "pallas",
                  "scatter", "dense", "bcoo")
@@ -502,6 +514,7 @@ def main(argv=None):
         return {"spmm_csr": kspmm.launches,
                 "spmm_csr_carry": kspmm.carry_launches,
                 "spmm_minmax": kmm.launches,
+                "spmm_minmax_carry": kmm.carry_launches,
                 "spmm_minmax_vjp": kmm.vjp_launches,
                 "spmm_minmax_vjp_carry": kmm.vjp_carry_launches,
                 "edge_segment_reduce": kedge.launches,
@@ -674,14 +687,27 @@ def main(argv=None):
     fwd_err = bwd_err = 0.0
     mm_compared = []
     mm_carries = {"sbm": 0, "rmat15": 0, "boundary": 0}
+    fwd_carries = dict(mm_carries)
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
     for label, a, data, K, dtype, on_path in mm_cases:
         m, n = a.shape
         B = quantized((n, K), dtype)
         csc_data = None if data is None else data[a.perm.long()]
         for reduce in ("max", "min"):
+            # Row 2 with the CSR's split, twice: rows above L in segments
+            # whose (extremum, count) pairs the pair carry folds.
+            carries = kmm.carry_launches
             out, ties = kmm.spmm_minmax(a.csr.indptr, a.csr.indices, data, B,
-                                        reduce)
+                                        reduce, split=a.split)
+            out2, ties2 = kmm.spmm_minmax(a.csr.indptr, a.csr.indices, data,
+                                          B, reduce, split=a.split)
             torch.cuda.synchronize()
+            fwd_carries[label.split()[0]] += kmm.carry_launches - carries
+            fwd_repeat = (torch.equal(bits(out), bits(out2))
+                          and torch.equal(bits(ties), bits(ties2)))
             want, want_ties = ref.spmm_minmax_rows(a.rows, a.csr.indices, data,
                                                    B, m, reduce)
             exact = torch.equal(out, want) and torch.equal(ties, want_ties)
@@ -718,10 +744,12 @@ def main(argv=None):
                 grads_ok = grads_ok and bool(torch.isfinite(got).all()) and \
                     e <= tol * max(float(w.abs().max()), 1.0)
             print(f"{label} {reduce}: out/ties {'exact' if exact else 'DIFFER'}"
-                  f" (max ties {int(ties.max())}) | grad max_abs_err="
+                  f" (max ties {int(ties.max())}), forward repeat "
+                  f"{'bitwise' if fwd_repeat else 'DIFFERS'} | grad max_abs_err="
                   f"{g_err:.3e} {'ok' if grads_ok else 'OUT OF BOUND'} | "
                   f"repeat {'bitwise' if repeat else 'DIFFERS'}", flush=True)
             check(exact, f"forward kernel disagrees with plain: {label} {reduce}")
+            check(fwd_repeat, f"forward kernel not repeatable: {label} {reduce}")
             check(grads_ok, f"backward kernel disagrees with float64: {label} "
                   f"{reduce}")
             check(repeat, f"backward kernel not repeatable: {label} {reduce}")
@@ -730,17 +758,23 @@ def main(argv=None):
             mm_compared.append({"case": f"{label} {reduce}", "exact": exact,
                                 "grad_max_abs_err": g_err,
                                 "max_ties": int(ties.max())})
-    # Two runs of row 3 a case, each with one carry where the CSC has a
-    # column above L (rmat15's hub columns, the boundary graph's three).
-    print(f"row 3 carries over the two runs of each case: {mm_carries}",
-          flush=True)
+    # Two runs of rows 2 and 3 a case, each with one carry where the CSR has
+    # a row (the CSC a column) above L: rmat15's hubs, the boundary graph's
+    # three; none on sbm.
+    print(f"row 2 carries over the two runs of each case: {fwd_carries}; "
+          f"row 3's: {mm_carries}", flush=True)
     n_cases = {g: 2 * sum(c[0].startswith(g + " ") for c in mm_cases)
                for g in mm_carries}
+    check(fwd_carries == {"sbm": 0, "rmat15": 2 * n_cases["rmat15"],
+                          "boundary": 2 * n_cases["boundary"]},
+          f"row 2 carries {fwd_carries}: expected 2 a case on rmat15 and the "
+          "boundary graph, none on sbm")
     check(mm_carries == {"sbm": 0, "rmat15": 2 * n_cases["rmat15"],
                          "boundary": 2 * n_cases["boundary"]},
           f"row 3 carries {mm_carries}: expected 2 a case on rmat15 and the "
           "boundary graph, none on sbm")
     record["minmax_vs_plain"] = mm_compared
+    record["minmax_carries"] = fwd_carries
     record["minmax_vjp_carries"] = mm_carries
 
     phase("5 autograd on the card")
@@ -858,7 +892,7 @@ def main(argv=None):
     sage_runs = drive("SAGE-pool", make_sage, sage_adj,
                       GraphSAGE(SAGE_DIMS, aggregator="pool", method="xla").double(),
                       {"spmm_minmax": 2, "spmm_minmax_vjp": 2},
-                      absent=("spmm_minmax_vjp_carry",))
+                      absent=("spmm_minmax_carry", "spmm_minmax_vjp_carry"))
     # Row 3: one launch a layer and epoch; no column of sbm above L.
     check(sage_runs["auto"]["launches"]["spmm_minmax_vjp"] == 2 * EPOCHS,
           f"SAGE-pool: {sage_runs['auto']['launches']['spmm_minmax_vjp']} "
@@ -1117,7 +1151,9 @@ def main(argv=None):
             plan = build_spmm_plan(host_csr, rows_per_block=R,
                                    chunk_nnz=E).to(dev)
             print(f"{graph} (R, E)=({R}, {E}): {plan.num_chunks} chunks, "
-                  f"{plan.cut_rows.numel()} cut rows", flush=True)
+                  f"{plan.num_pieces} pieces ({plan.nnz / plan.num_pieces:.2f}"
+                  f" edges a piece), {plan.cut_rows.numel()} cut rows",
+                  flush=True)
             for K in CHUNK_KS:
                 for dtype in (torch.float32, torch.bfloat16):
                     for data in (None, vals):
@@ -1985,10 +2021,16 @@ def main(argv=None):
             ("rmat15", rmat, 128)]:
         B = torch.relu(torch.randn(a.shape[1], K, device=dev, generator=gen))
         g = torch.randn(a.shape[0], K, device=dev, generator=gen)
-        out, ties = kmm.spmm_minmax(a.csr.indptr, a.csr.indices, None, B, "max")
+        out, ties = kmm.spmm_minmax(a.csr.indptr, a.csr.indices, None, B,
+                                    "max", split=a.split)
+        # Row 1 over the same edges at the same K: a yardstick of one gather
+        # pass, not the same function.
+        row1 = timing.device_time(lambda: kspmm.spmm_csr(
+            a.csr.indptr, a.csr.indices, None, B, split=a.split)) * 1e3
 
         def fwd_kernel():
-            return kmm.spmm_minmax(a.csr.indptr, a.csr.indices, None, B, "max")
+            return kmm.spmm_minmax(a.csr.indptr, a.csr.indices, None, B, "max",
+                                   split=a.split)
 
         def fwd_plain():
             return ref.spmm_minmax_rows(a.rows, a.csr.indices, None, B,
@@ -2018,21 +2060,23 @@ def main(argv=None):
                  idx + (n + 2 * m) * K * 4, 2 * a.nnz * K),
                 ("spmm_minmax_vjp", bwd_kernel, bwd_plain, bwd_error,
                  idx + (2 * n + 3 * m) * K * 4, 3 * a.nnz * K)):
-            carries = kmm.vjp_carry_launches
+            carried = {"spmm_minmax": lambda: kmm.carry_launches,
+                       "spmm_minmax_vjp": lambda: kmm.vjp_carry_launches}[label]
+            carries = carried()
             err = error()
-            carries = kmm.vjp_carry_launches - carries
+            carries = carried() - carries
             k_dev, p_dev = alternate(few_time, kernel, plain)
             row = {"kernel": label, "shape": f"{graph} K={K}", "nnz": a.nnz,
                    "K": K, "kernel_device_ms": k_dev, "plain_device_ms": p_dev,
-                   "bytes": nbytes, "ops": ops, "max_abs_err": err}
-            if label == "spmm_minmax_vjp":
-                row["carry_launches"] = carries
+                   "bytes": nbytes, "ops": ops, "max_abs_err": err,
+                   "carry_launches": carries, "row1_ms": row1}
             mm_timings.append(row)
             print(f"{label} {graph} K={K}: max_abs_err {err:.3e} | device "
                   f"time kernel {mean(k_dev):.5f} ms"
                   f" | plain {mean(p_dev):.5f} ms | bound "
-                  f"{profiling.bound(nbytes, ops)[0] * 1e3:.5f} ms | carries a "
-                  f"call {carries} | {card}", flush=True)
+                  f"{profiling.bound(nbytes, ops)[0] * 1e3:.5f} ms | row 1 at "
+                  f"K={K} {row1:.5f} ms | carries a call {carries} | {card}",
+                  flush=True)
     record["minmax_timings"] = mm_timings
 
     # Edge segment reduce at the composed chain's K=1 (sum: the normaliser
@@ -2049,13 +2093,19 @@ def main(argv=None):
             return ref.edge_segment_rows(a.rows, vals, a.shape[0], op)
 
         k_dev, p_dev = alternate(timing.device_time, kernel, plain)
+        # Bytes: indptr, the (nnz, K) f32 values and the (m, K) f32 out (the
+        # kernel reads no column index); one operation an element.
+        m = a.shape[0]
         row = {"kernel": "edge_segment_reduce", "shape": f"{graph} K={K} {op}",
                "nnz": a.nnz, "K": K, "kernel_device_ms": k_dev,
-               "plain_device_ms": p_dev}
+               "plain_device_ms": p_dev,
+               "bytes": (m + 1) * 4 + (a.nnz + m) * K * 4,
+               "ops": a.nnz * K}
         seg_timings.append(row)
         print(f"edge_segment_reduce {graph} K={K} {op}: device time kernel "
-              f"{mean(k_dev):.5f} ms | plain {mean(p_dev):.5f} ms | {card}",
-              flush=True)
+              f"{mean(k_dev):.5f} ms | plain {mean(p_dev):.5f} ms | bound "
+              f"{profiling.bound(row['bytes'], row['ops'])[0] * 1e3:.5f} ms | "
+              f"{card}", flush=True)
     record["edge_reduce_timings"] = seg_timings
 
     # The fused kernels (row 5) at GAT_TIMED, with the adjacency's splits
@@ -2157,7 +2207,8 @@ def main(argv=None):
                    "plain_device_ms": p_dev, "bytes": nbytes, "ops": ops}
             dot_timings.append(row)
             print(f"{label} {graph} Ka={Ka} K={K}: device time kernel "
-                  f"{mean(k_dev):.5f} ms | plain {mean(p_dev):.5f} ms | {card}",
+                  f"{mean(k_dev):.5f} ms | plain {mean(p_dev):.5f} ms | bound "
+                  f"{profiling.bound(nbytes, ops)[0] * 1e3:.5f} ms | {card}",
                   flush=True)
         if graph == "sbm":
             # scaled_dot_product_attention with the adjacency as a dense
@@ -2420,7 +2471,8 @@ def main(argv=None):
             def whole():
                 if op == "max":
                     return kmm.spmm_minmax(a.csr.indptr, a.csr.indices,
-                                           a.data, B[:a.shape[1]], "max")[0]
+                                           a.data, B[:a.shape[1]], "max",
+                                           split=a.split)[0]
                 return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, a.data,
                                       B[:a.shape[1]], split=a.split)
 
@@ -2638,7 +2690,7 @@ def main(argv=None):
         "torch.sparse.mm(reduce='amax')",
         lambda: torch.sparse.mm(lib_sage, B128, reduce="amax"),
         want=kmm.spmm_minmax(sage_adj.csr.indptr, sage_adj.csr.indices, None,
-                             B128, "max")[0])
+                             B128, "max", split=sage_adj.split)[0])
     vals1 = torch.randn(adj.nnz, 1, device=dev, generator=gen)
     lengths = (adj.csr.indptr[1:] - adj.csr.indptr[:-1]).long()
     seg_timings[0]["library_ms"] = library_time(
@@ -2646,11 +2698,6 @@ def main(argv=None):
             vals1, "sum", lengths=lengths, axis=0, unsafe=True),
         want=kedge.edge_segment_reduce(adj.csr.indptr, vals1, "sum"))
 
-    # Bytes (each input read once, each output written once) and operations
-    # of the segment reduce at its kernels-line shape (sbm+loops K=1, f32).
-    m_s, nnz_s = adj.shape[0], adj.nnz
-    idx_s = (m_s + 1) * 4 + nnz_s * 4  # indptr and indices of sbm+loops
-    seg_timings[0].update(bytes=idx_s + nnz_s * 4 + m_s * 4, ops=nnz_s)
 
     def kernel_entry(name, source, replaces, launches, err, row):
         bound_s, bound_by = profiling.bound(row["bytes"], row["ops"])
@@ -2682,9 +2729,15 @@ def main(argv=None):
              carry_launches=gcn_runs["auto"]["launches"]["spmm_csr_carry"],
              more=more_shapes(t for t in timings
                               if t["shape"].startswith("rmat15"))),
-        kernel_entry("spmm_minmax", kmm.SOURCE, kmm.REPLACES,
-                     sage_runs["auto"]["launches"]["spmm_minmax"], fwd_err,
-                     mm_timings[0]),
+        # Row 2: launches and carries of SAGE-pool's run (phase 7); times at
+        # sbm K=128, the other timed shapes (sbm K=16, rmat15 K=128) in more.
+        dict(kernel_entry("spmm_minmax", kmm.SOURCE, kmm.REPLACES,
+                          sage_runs["auto"]["launches"]["spmm_minmax"],
+                          fwd_err, mm_timings[0]),
+             carry_launches=sage_runs["auto"]["launches"]["spmm_minmax_carry"],
+             row1_ms=mm_timings[0]["row1_ms"],
+             more=more_shapes(r for r in mm_timings[2:]
+                              if r["kernel"] == "spmm_minmax")),
         # Row 3: launches and carries of SAGE-pool's run (phase 7) and of the
         # sharded SAGE-pool's (phase 20); times at sbm K=128, the other timed
         # shapes (sbm K=16, rmat15 K=128) in more.
@@ -2725,7 +2778,8 @@ def main(argv=None):
         dict(kernel_entry("spmm_chunk", kpal.SOURCE, kpal.REPLACES,
                           sweep_launches["spmm_chunk"],
                           chunk_row["max_abs_err"], chunk_row),
-             carry_launches=sweep_launches["spmm_chunk_carry"]),
+             carry_launches=sweep_launches["spmm_chunk_carry"],
+             more=more_shapes(r for r in chunk_timings if r is not chunk_row)),
         dict(kernel_entry("spmm_grouped", kgrp.SOURCE, kgrp.REPLACES,
                           grouped_launches["spmm_grouped"],
                           grouped_row["max_abs_err"], grouped_row),

@@ -1,6 +1,7 @@
 // The carry pass of the chunked and split SpMM kernels (spmm_chunk.cu,
 // spmm_grouped.cu, spmm_csr.cu, halo_spmm.cu, spmm_minmax.cu, gat_fused.cu)
-// and the helpers they share.
+// and the helpers they share: the launch shape, type helpers, the walker and
+// its batched edge walk.
 //
 // Both kernels walk a work list of chunks cut from the CSR edges
 // (gespmm_tpu_torch/sparse/partition.py): a row cut by a chunk boundary leaves
@@ -15,6 +16,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "minmax.cuh"
 
@@ -79,6 +82,103 @@ struct Sub {
   }
   __device__ void sync() const { __syncwarp(mask); }
 };
+
+// Walks the edges [s, t) of one item with the walker w, its lanes on the VEC
+// columns from kk (column 0 for a lane past K, whose result the caller
+// drops), calling fold(value, row) for each edge's gathered B row in edge
+// order (value 1.0 without vals); fold is a functor whose operator() is
+// __forceinline__, so that its running state stays in registers.
+// Walker-uniform down to the shuffles: all SW lanes take part.  Each round
+// loads the (index, value) pairs of SW edges, one a lane; the B rows of
+// BATCH edges are gathered before any is folded, with no branch around a
+// gather (past the round's end its last edge is loaded again and not
+// folded), so that a walker keeps BATCH gathers in flight: an `if (active)`
+// load in an unrolled one-edge loop compiles to a branch around each gather,
+// one in flight (halo_spmm.cu, PERF.md).  With TAIL < BATCH a round's edges
+// go in whole batches of BATCH and the rest in batches of TAIL, so that a
+// round's end loads fewer rows past it (the chunk kernel's whole-warp
+// walker).  Used by the chunk kernel (spmm_chunk.cu) and the max/min forward
+// (spmm_minmax.cu).
+template <typename T, int VEC, int SW, int N, bool HAS_VALS, typename Fold>
+__device__ __forceinline__ void gather_fold(const Sub<SW>& w, int u0,
+                                            int n_here, int c, float v,
+                                            const T* __restrict__ col, int K,
+                                            Fold& fold) {
+  using P = Pack<T, VEC>;
+  P p[N];
+  float vj[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int j = min(u0 + u, n_here - 1);  // past the end: the last edge
+    vj[u] = HAS_VALS ? w.get(v, j) : 1.f;
+    p[u] = *reinterpret_cast<const P*>(col + (int64_t)w.get(c, j) * K);
+  }
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    if (u0 + u < n_here) fold(vj[u], p[u]);  // walker-uniform
+  }
+}
+
+template <typename T, int VEC, int SW, int BATCH, bool HAS_VALS,
+          int TAIL = BATCH, typename Fold>
+__device__ __forceinline__ void walk_edges(const Sub<SW>& w, int s, int t,
+                                           int K, int kk,
+                                           const int* __restrict__ indices,
+                                           const float* __restrict__ vals,
+                                           const T* __restrict__ B,
+                                           Fold& fold) {
+  const T* __restrict__ col = B + kk;
+  for (int base = s; base < t; base += SW) {
+    const int e = base + w.lane;
+    const bool live = e < t;
+    const int c = live ? __ldg(indices + e) : 0;
+    const float v = HAS_VALS && live ? __ldg(vals + e) : 1.f;
+    const int n_here = min(SW, t - base);
+    int u0 = 0;
+    if constexpr (TAIL < BATCH) {
+      for (; u0 + BATCH <= n_here; u0 += BATCH)
+        gather_fold<T, VEC, SW, BATCH, HAS_VALS>(w, u0, n_here, c, v, col, K,
+                                                 fold);
+    }
+    for (; u0 < n_here; u0 += TAIL)
+      gather_fold<T, VEC, SW, TAIL, HAS_VALS>(w, u0, n_here, c, v, col, K,
+                                              fold);
+  }
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// Calls fn(Int<VEC>, Int<SW>) for VEC in {1, 2, 4} and SW in {4, 8, 16, 32}:
+// the host side of the walker kernels, from the (VEC, SW) the wrapper picks
+// (kernels/spmm_csr.py::walk_shape).
+template <int VEC, typename Fn>
+cudaError_t dispatch_sw(int sw, Fn&& fn) {
+  switch (sw) {
+    case 32:
+      return fn(Int<VEC>(), Int<32>());
+    case 16:
+      return fn(Int<VEC>(), Int<16>());
+    case 8:
+      return fn(Int<VEC>(), Int<8>());
+    case 4:
+      return fn(Int<VEC>(), Int<4>());
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename Fn>
+cudaError_t dispatch(int vec, int sw, Fn&& fn) {
+  switch (vec) {
+    case 4:
+      return dispatch_sw<4>(sw, fn);
+    case 2:
+      return dispatch_sw<2>(sw, fn);
+    case 1:
+      return dispatch_sw<1>(sw, fn);
+  }
+  return cudaErrorInvalidValue;
+}
 
 // One warp per item, its lanes on VEC consecutive columns of a 32*VEC-wide K
 // slab; the second grid dimension walks the slabs.

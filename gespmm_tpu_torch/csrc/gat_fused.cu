@@ -115,12 +115,11 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "carry.cuh"
 
 namespace {
 
+using gespmm::dispatch;  // (VEC, SW) -> the instantiation
 using gespmm::from_f32;
 using gespmm::kMaxBlocksX;
 using gespmm::kThreads;
@@ -603,38 +602,6 @@ struct Split {
   int L, S, J;
   const int *seg_row, *seg_start, *long_rows, *seg_ptr;
 };
-
-template <int V>
-using Int = std::integral_constant<int, V>;
-
-// Calls fn(Int<VEC>, Int<SW>) for VEC in {1, 2, 4} and SW in {4, 8, 16, 32}.
-template <int VEC, typename Fn>
-cudaError_t dispatch_sw(int sw, Fn&& fn) {
-  switch (sw) {
-    case 32:
-      return fn(Int<VEC>(), Int<32>());
-    case 16:
-      return fn(Int<VEC>(), Int<16>());
-    case 8:
-      return fn(Int<VEC>(), Int<8>());
-    case 4:
-      return fn(Int<VEC>(), Int<4>());
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename Fn>
-cudaError_t dispatch(int vec, int sw, Fn&& fn) {
-  switch (vec) {
-    case 4:
-      return dispatch_sw<4>(sw, fn);
-    case 2:
-      return dispatch_sw<2>(sw, fn);
-    case 1:
-      return dispatch_sw<1>(sw, fn);
-  }
-  return cudaErrorInvalidValue;
-}
 
 // The most heads any K slab of W columns touches.
 int heads_per_slab(int K, int dh, int W) {

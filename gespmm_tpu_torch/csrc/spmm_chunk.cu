@@ -14,221 +14,200 @@
 // chunks of a block added into it.  Every step was the same work whatever the
 // row lengths: a hub row was spread over many equal steps.
 //
-// Here one warp takes one chunk, so the work of a warp is at most E edges
-// whatever the row lengths, and a hub row spreads over many warps.  Blocks
-// and warps run in no order on Hopper, so nothing carries from one chunk to
-// the next; a row cut by a chunk boundary ("cut row") is summed in two passes:
-//   * pass 1, one warp per chunk: the lanes own VEC consecutive columns of a
-//     32*VEC-wide K slab (a second grid dimension walks the slabs); the
-//     chunk's (col, val) pairs are loaded 32 at a time, one per lane, and
-//     broadcast with __shfl_sync; the warp walks its rows in order, keeping
-//     each row's sum in f32 registers.  A row wholly inside the chunk (an
-//     empty row too) is written to out directly; the partial sum of a cut row
-//     goes to its slot of an f32 scratch buffer instead (head_slot for the
-//     chunk's first row when it began in an earlier chunk, tail_slot for its
-//     last row when it goes on into a later one);
+// Blocks and warps run in no order on Hopper, so nothing carries from one
+// chunk to the next; a row cut by a chunk boundary ("cut row") is summed in
+// two passes:
+//   * pass 1, one walker per piece.  A piece is the part of one row that lies
+//     in one chunk (the plan's piece_ptr / piece_row / piece_slot, built on
+//     the host with the plan; an empty row a chunk owns is a piece without
+//     edges, which writes zeros).  So a warp's serial work is at most E
+//     edges whatever the row lengths, a hub row spreads over many walkers,
+//     and the short rows of a chunk are walked side by side instead of one
+//     after the other.  A whole row's sum is written to out; a cut row's
+//     piece writes its f32 partial to its slot of a scratch buffer (the
+//     chunk's head slot when the row began in an earlier chunk, else its
+//     tail slot);
 //   * pass 2 (the carry, carry.cuh, shared with spmm_grouped.cu), one warp
 //     per cut row: the row's partials are added in chunk order and the sum
 //     written to out.
-// Every output element is written once, by one warp, without atomics, so the
-// result is bitwise repeatable.  Rows past m are never written (the plan's
-// row lists stop at m - 1).
+// A piece is summed edge by edge in order, so the result is bitwise that of
+// the first port (one warp a chunk, walking its rows in turn).  Every output
+// element is written once, by one walker, without atomics, so the result is
+// bitwise repeatable.  Rows past m are never written (the pieces stop at row
+// m - 1).
+//
+// The walk (carry.cuh::walk_edges): a walker is SW = 4, 8, 16 or 32 lanes of
+// a warp, the fewest that cover K / VEC columns (kernels/spmm_csr.py::
+// walk_shape: at K = 32 an 8-lane walker of 16-byte lanes, four walkers a
+// warp; at K = 128 one warp); a second grid dimension walks K slabs of
+// SW * VEC columns.  The walker loads one edge's (col, val) a lane, a round of
+// SW, broadcast by shuffle, and gathers the B rows of a batch of edges before
+// it adds any, with no branch around a gather (the round's last edge loaded
+// again past its end, column 0 for lanes past K).  The batch depth follows
+// what the plan's pieces are like (kBatchOf, kTailOf).  The first port walked
+// a chunk's edges with one warp, one gather in flight behind a
+// data-dependent loop that flushed finished rows and an `if (active)` branch.
 //
 // What bounds it: bytes.  Every nonzero gathers one K-wide row of B for 2K
 // flops (0.5 flop per byte in f32), far below the card's ridge point; the
-// scratch traffic is two K-wide f32 rows per chunk boundary.  The chunking
-// bounds each warp's serial walk at E edges, where the one-warp-per-row CSR
-// kernel (spmm_csr.cu) walks a hub row of thousands of edges with one warp.
-// Not here yet: a block per chunk with the edges split over its warps,
-// staging B rows through shared memory with TMA, and wgmma.
+// scratch traffic is two K-wide f32 rows per chunk boundary, the piece lists
+// three ints a piece.
 //
-// Plain C interface, loaded with ctypes.  The caller picks VEC (1, 2 or 4;
-// K % VEC == 0 and B, out aligned to VEC elements).  The entry point launches
-// on the given stream, does not synchronise, and returns cudaGetLastError(),
-// or cudaErrorInvalidValue for arguments it does not take.
+// Plain C interface, loaded with ctypes.  The caller picks (VEC, SW) (VEC in
+// 1, 2, 4 with K % VEC == 0 and B, out and partial aligned to VEC elements;
+// SW in 4, 8, 16, 32).  The entry point launches on the given stream, does
+// not synchronise, and returns cudaGetLastError(), or cudaErrorInvalidValue
+// for arguments it does not take.
 
 #include "carry.cuh"
 
 namespace {
 
-using namespace gespmm;  // the launch shape, type helpers and carry pass
+using namespace gespmm;  // the launch shape, type helpers, walker and carry
 
-constexpr unsigned kFull = 0xffffffffu;
+// Edges whose B rows a walker gathers before it adds any (scripts/row8_ab.py
+// --variants; PERF.md).  A narrower walker takes 4 when the plan's pieces
+// average at least kDeepPiece edges (DEEP; the sweep's rmat15, ~19-25 edges
+// a piece, where 4 beat 2 by 6% at K = 32), else 2 (sbm's ~5-edge pieces,
+// where 4 lost 7-10%: a batch of 4 loads rows past a short piece's end).  A
+// whole-warp walker (K >= 128) takes 4 and the rest of a round one at a time
+// (kTailOf): level with the best fixed depth at both rmat15 chunk sizes,
+// where 1 lost 4% at E = 256 and 4 lost 1% at E = 64.  A narrower walker
+// keeps one depth: a second loop (4, then 2 at a time) lost 16-20% there,
+// its walkers taking different loops.
+constexpr int kDeepPiece = 8;
+template <int SW, bool DEEP>
+constexpr int kBatchOf = SW == 32 || DEEP ? 4 : 2;
+template <int SW, bool DEEP>
+constexpr int kTailOf = SW == 32 ? 1 : kBatchOf<SW, DEEP>;
 
-// Where a finished row's sum goes: its slot of the scratch buffer when the
-// row is cut at this chunk's start (head) or end (tail), else out.
+// The running f32 sums of a lane's VEC columns.
 template <typename T, int VEC>
-__device__ __forceinline__ void flush_row(float (&acc)[VEC], int r, int rs,
-                                          int re, int s, int t, int head,
-                                          int tail, int K, int k, bool active,
-                                          T* __restrict__ out,
-                                          float* __restrict__ partial) {
-  if (active) {
-    if (rs < s || re > t) {
-      Pack<float, VEC> p;
+struct SumFold {
+  float acc[VEC];
+  __device__ __forceinline__ void operator()(float v, const Pack<T, VEC>& b) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) p.v[i] = acc[i];
-      const int slot = rs < s ? head : tail;
-      *reinterpret_cast<Pack<float, VEC>*>(partial + (int64_t)slot * K + k) = p;
+    for (int i = 0; i < VEC; ++i) acc[i] = fmaf(v, to_f32(b.v[i]), acc[i]);
+  }
+};
+
+template <typename T, int VEC, int SW, bool DEEP, bool HAS_VALS>
+__global__ void __launch_bounds__(kThreads)
+spmm_piece_kernel(int P, int K, const int* __restrict__ piece_ptr,
+                  const int* __restrict__ piece_row,
+                  const int* __restrict__ piece_slot,
+                  const int* __restrict__ indices,
+                  const float* __restrict__ vals, const T* __restrict__ B,
+                  T* __restrict__ out, float* __restrict__ partial) {
+  constexpr int kPerBlock = kThreads / SW;
+  const Sub<SW> w;
+  const int k = (blockIdx.y * SW + w.lane) * VEC;  // first column of this lane
+  const bool active = k < K;  // K % VEC == 0, so k < K covers all VEC
+  const int kk = active ? k : 0;  // a lane past K reads column 0, drops it
+  for (int p = blockIdx.x * kPerBlock + threadIdx.x / SW; p < P;
+       p += gridDim.x * kPerBlock) {
+    const int s = piece_ptr[p], t = piece_ptr[p + 1];
+    const int row = piece_row[p], slot = piece_slot[p];
+    SumFold<T, VEC> sum;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) sum.acc[i] = 0.f;
+    walk_edges<T, VEC, SW, kBatchOf<SW, DEEP>, HAS_VALS, kTailOf<SW, DEEP>>(
+        w, s, t, K, kk, indices, vals, B, sum);
+    if (!active) continue;
+    if (slot >= 0) {
+      Pack<float, VEC> o;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o.v[i] = sum.acc[i];
+      *reinterpret_cast<Pack<float, VEC>*>(partial + (int64_t)slot * K + k) = o;
     } else {
       Pack<T, VEC> o;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) o.v[i] = from_f32<T>(acc[i]);
-      *reinterpret_cast<Pack<T, VEC>*>(out + (int64_t)r * K + k) = o;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-}
-
-template <typename T, int VEC, bool HAS_VALS>
-__global__ void __launch_bounds__(kThreads)
-spmm_chunk_kernel(int C, int K, const int* __restrict__ indptr,
-                  const int* __restrict__ indices,
-                  const float* __restrict__ vals,
-                  const int* __restrict__ chunk_start,
-                  const int* __restrict__ chunk_count,
-                  const int* __restrict__ row_lo,
-                  const int* __restrict__ row_hi,
-                  const int* __restrict__ head_slot,
-                  const int* __restrict__ tail_slot, const T* __restrict__ B,
-                  T* __restrict__ out, float* __restrict__ partial) {
-  using P = Pack<T, VEC>;
-  const int lane = threadIdx.x & 31;
-  const int k = (blockIdx.y * 32 + lane) * VEC;  // first column of this lane
-  const bool active = k < K;  // K % VEC == 0, so k < K covers all VEC
-  const int stride = gridDim.x * kWarps;
-  for (int c = blockIdx.x * kWarps + (threadIdx.x >> 5); c < C; c += stride) {
-    // Everything below is warp-uniform down to the shuffles.
-    const int s = chunk_start[c];
-    const int t = s + chunk_count[c];
-    const int head = head_slot[c], tail = tail_slot[c];
-    const int r_hi = row_hi[c];
-    int r = row_lo[c];
-    int rs = indptr[r], re = indptr[r + 1];
-    float acc[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-    for (int base = s; base < t; base += 32) {
-      const int e = base + lane;
-      int col = 0;
-      float v = 0.f;
-      if (e < t) {
-        col = __ldg(indices + e);
-        if (HAS_VALS) v = __ldg(vals + e);
-      }
-      const int n_here = min(32, t - base);
-      for (int j = 0; j < n_here; ++j) {
-        // Finish every row that ends before this edge (empty rows too).
-        while (base + j >= re) {
-          flush_row<T, VEC>(acc, r, rs, re, s, t, head, tail, K, k, active,
-                            out, partial);
-          ++r;
-          rs = re;
-          re = __ldg(indptr + r + 1);
-        }
-        const int cj = __shfl_sync(kFull, col, j);
-        float vj = 1.f;
-        if (HAS_VALS) vj = __shfl_sync(kFull, v, j);
-        if (active) {
-          const P p = *reinterpret_cast<const P*>(B + (int64_t)cj * K + k);
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[i] = fmaf(vj, to_f32(p.v[i]), acc[i]);
-        }
-      }
-    }
-    // The row holding the chunk's last edge, then the empty rows the chunk
-    // owns after it (a block's trailing empty rows, or a chunk without edges).
-    for (;;) {
-      flush_row<T, VEC>(acc, r, rs, re, s, t, head, tail, K, k, active, out,
-                        partial);
-      if (++r > r_hi) break;
-      rs = re;
-      re = __ldg(indptr + r + 1);
+      for (int i = 0; i < VEC; ++i) o.v[i] = from_f32<T>(sum.acc[i]);
+      *reinterpret_cast<Pack<T, VEC>*>(out + (int64_t)row * K + k) = o;
     }
   }
 }
 
-template <typename T, int VEC>
-cudaError_t launch_vec(int C, int J, int K, const int* indptr,
-                       const int* indices, const float* vals,
-                       const int* chunk_start, const int* chunk_count,
-                       const int* row_lo, const int* row_hi,
-                       const int* head_slot, const int* tail_slot,
-                       const int* cut_rows, const int* cut_ptr, const T* B,
-                       T* out, float* partial, cudaStream_t stream) {
-  if (K % VEC != 0 || (uintptr_t)B % (VEC * sizeof(T)) != 0 ||
-      (uintptr_t)out % (VEC * sizeof(T)) != 0 ||
-      (J > 0 && (uintptr_t)partial % (VEC * sizeof(float)) != 0))
-    return cudaErrorInvalidValue;
-  const dim3 grid = warp_grid(C, K, VEC);
+template <typename T, int VEC, int SW, bool DEEP>
+void launch_pieces(int P, int K, const int* indices, const float* vals,
+                   const int* piece_ptr, const int* piece_row,
+                   const int* piece_slot, const T* B, T* out, float* partial,
+                   cudaStream_t stream) {
+  constexpr int kPerBlock = kThreads / SW;
+  const unsigned blocks = (unsigned)((P + kPerBlock - 1) / kPerBlock);
+  const dim3 grid(blocks < kMaxBlocksX ? blocks : kMaxBlocksX,
+                  (unsigned)((K + SW * VEC - 1) / (SW * VEC)));
   if (vals != nullptr) {
-    spmm_chunk_kernel<T, VEC, true><<<grid, kThreads, 0, stream>>>(
-        C, K, indptr, indices, vals, chunk_start, chunk_count, row_lo, row_hi,
-        head_slot, tail_slot, B, out, partial);
+    spmm_piece_kernel<T, VEC, SW, DEEP, true><<<grid, kThreads, 0, stream>>>(
+        P, K, piece_ptr, piece_row, piece_slot, indices, vals, B, out,
+        partial);
   } else {
-    spmm_chunk_kernel<T, VEC, false><<<grid, kThreads, 0, stream>>>(
-        C, K, indptr, indices, nullptr, chunk_start, chunk_count, row_lo,
-        row_hi, head_slot, tail_slot, B, out, partial);
+    spmm_piece_kernel<T, VEC, SW, DEEP, false><<<grid, kThreads, 0, stream>>>(
+        P, K, piece_ptr, piece_row, piece_slot, indices, nullptr, B, out,
+        partial);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || J == 0) return err;
-  return launch_carry<T, VEC>(J, K, cut_rows, cut_ptr, partial, out, stream);
 }
 
 template <typename T>
-cudaError_t launch(int C, int J, int K, int vec, const int* indptr,
+cudaError_t launch(int P, int J, int K, int vec, int sw, int nnz,
                    const int* indices, const float* vals,
-                   const int* chunk_start, const int* chunk_count,
-                   const int* row_lo, const int* row_hi, const int* head_slot,
-                   const int* tail_slot, const int* cut_rows,
+                   const int* piece_ptr, const int* piece_row,
+                   const int* piece_slot, const int* cut_rows,
                    const int* cut_ptr, const T* B, T* out, float* partial,
                    cudaStream_t stream) {
-  switch (vec) {
-    case 4:
-      return launch_vec<T, 4>(C, J, K, indptr, indices, vals, chunk_start,
-                              chunk_count, row_lo, row_hi, head_slot, tail_slot,
-                              cut_rows, cut_ptr, B, out, partial, stream);
-    case 2:
-      return launch_vec<T, 2>(C, J, K, indptr, indices, vals, chunk_start,
-                              chunk_count, row_lo, row_hi, head_slot, tail_slot,
-                              cut_rows, cut_ptr, B, out, partial, stream);
-    case 1:
-      return launch_vec<T, 1>(C, J, K, indptr, indices, vals, chunk_start,
-                              chunk_count, row_lo, row_hi, head_slot, tail_slot,
-                              cut_rows, cut_ptr, B, out, partial, stream);
-  }
-  return cudaErrorInvalidValue;
+  if (P < 1 || K < 1 || J < 0 || vec < 1 || K % vec != 0 ||
+      (uintptr_t)B % (vec * sizeof(T)) != 0 ||
+      (uintptr_t)out % (vec * sizeof(T)) != 0 ||
+      (J > 0 && (partial == nullptr ||
+                 (uintptr_t)partial % (vec * sizeof(float)) != 0)))
+    return cudaErrorInvalidValue;
+  const bool deep = (int64_t)nnz >= (int64_t)kDeepPiece * P;
+  return dispatch(vec, sw, [&](auto v, auto s) -> cudaError_t {
+    constexpr int VEC = decltype(v)::value, SW = decltype(s)::value;
+    auto pieces = [&](auto d) {
+      launch_pieces<T, VEC, SW, decltype(d)::value>(
+          P, K, indices, vals, piece_ptr, piece_row, piece_slot, B, out,
+          partial, stream);
+    };
+    if constexpr (SW < 32) {
+      if (deep) {
+        pieces(std::true_type());
+      } else {
+        pieces(std::false_type());
+      }
+    } else {
+      pieces(std::false_type());  // one depth for a whole warp
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || J == 0) return err;
+    return launch_carry<T, VEC>(J, K, cut_rows, cut_ptr, partial, out, stream);
+  });
 }
 
 }  // namespace
 
-// C >= 1 chunks, K >= 1, m >= 1 (the caller returns early otherwise); J cut
-// rows (pass 2 runs only for J > 0) with partial a (cut_ptr[J], K) f32
-// scratch buffer; vals may be null (implicit 1.0).
+// P >= 1 pieces over nnz edges, K >= 1 (the caller returns early
+// otherwise); J cut rows (pass 2 runs only for J > 0) with partial a
+// (cut_ptr[J], K) f32 scratch buffer; vals may be null (implicit 1.0).
 extern "C" int gespmm_spmm_chunk_f32(
-    int C, int J, int K, int vec, const int* indptr, const int* indices,
-    const float* vals, const int* chunk_start, const int* chunk_count,
-    const int* row_lo, const int* row_hi, const int* head_slot,
-    const int* tail_slot, const int* cut_rows, const int* cut_ptr,
+    int P, int J, int K, int vec, int sw, int nnz, const int* indices,
+    const float* vals, const int* piece_ptr, const int* piece_row,
+    const int* piece_slot, const int* cut_rows, const int* cut_ptr,
     const float* B, float* out, float* partial, void* stream) {
-  return (int)launch<float>(C, J, K, vec, indptr, indices, vals, chunk_start,
-                            chunk_count, row_lo, row_hi, head_slot, tail_slot,
-                            cut_rows, cut_ptr, B, out, partial,
-                            (cudaStream_t)stream);
+  return (int)launch<float>(P, J, K, vec, sw, nnz, indices, vals, piece_ptr,
+                            piece_row, piece_slot, cut_rows, cut_ptr, B, out,
+                            partial, (cudaStream_t)stream);
 }
 
 extern "C" int gespmm_spmm_chunk_bf16(
-    int C, int J, int K, int vec, const int* indptr, const int* indices,
-    const float* vals, const int* chunk_start, const int* chunk_count,
-    const int* row_lo, const int* row_hi, const int* head_slot,
-    const int* tail_slot, const int* cut_rows, const int* cut_ptr,
+    int P, int J, int K, int vec, int sw, int nnz, const int* indices,
+    const float* vals, const int* piece_ptr, const int* piece_row,
+    const int* piece_slot, const int* cut_rows, const int* cut_ptr,
     const void* B, void* out, float* partial, void* stream) {
   return (int)launch<__nv_bfloat16>(
-      C, J, K, vec, indptr, indices, vals, chunk_start, chunk_count, row_lo,
-      row_hi, head_slot, tail_slot, cut_rows, cut_ptr,
-      (const __nv_bfloat16*)B, (__nv_bfloat16*)out, partial,
-      (cudaStream_t)stream);
+      P, J, K, vec, sw, nnz, indices, vals, piece_ptr, piece_row, piece_slot,
+      cut_rows, cut_ptr, (const __nv_bfloat16*)B, (__nv_bfloat16*)out,
+      partial, (cudaStream_t)stream);
 }
 
 extern "C" const char* gespmm_cuda_error_string(int err) {

@@ -1,7 +1,7 @@
 // Max/min CSR SpMM with exact tie counts, and its backward over the CSC, for
 // Hopper (sm_90a).
 //
-// Forward (kernel row 2), one warp per CSR row r:
+// Forward (kernel row 2), over the CSR:
 //
 //     out[r, k]  = max|min_{e in row r} val_e * B[col_e, k]   (0 for an empty row)
 //     ties[r, k] = #{e in row r : val_e * B[col_e, k] == that extremum}   (f32)
@@ -11,10 +11,31 @@
 // _reduce_part (:275) by spmm_tiled(reduce="max"/"min") (:428).  The TPU has
 // no per-row accumulator on its matrix unit, so it scans each chunk of the
 // gathered stream with a segmented shift-scan of (value, count) pairs and
-// scatters each run's last slot through a one-hot matmul.  Here a warp owns a
-// row and each lane keeps a running (extremum, count) pair per column in
+// scatters each run's last slot through a one-hot matmul.  Here a walker owns
+// a row and each lane keeps a running (extremum, count) pair per column in
 // registers: a strictly better contribution resets the count to 1, an equal
 // one adds 1.  Nothing is scanned and nothing of the stream reaches memory.
+// Its design is the backward's below:
+//   * the work items are the segments of the rows longer than L edges first
+//     (the CSR's split, sparse/partition.py::build_row_split), then every
+//     row.  A row of at most L edges is walked whole by one walker and
+//     written to out and ties; a longer one is skipped there, and each of
+//     its segments is walked by its own walker, which writes its (extremum,
+//     count) pair in f32 to its slot of two scratch buffers; carry.cuh's
+//     pair carry (minmax_carry_kernel, minmax.cuh::minmax_fold_pair) folds
+//     a row's pairs in segment order, which gives the one-walker walk's out
+//     and ties bit for bit.  The carry is launched only when the launch has
+//     a segment (sbm-pubmed without self-loops has none: its longest row has
+//     15 edges).  The first port walked every row with one warp, so the
+//     3,866-edge hub of rmat15 was one warp's serial walk;
+//   * the walk is carry.cuh::walk_edges, shared with the chunk kernel: a
+//     walker of SW = 4-32 lanes (walk_shape; at K = 16 a 4-lane walker of
+//     16-byte lanes, eight rows a warp, where one warp a row left half the
+//     lanes idle), the B rows of kFwdBatch = 4 edges gathered before any
+//     compare, with no branch around a gather;
+//   * a launch without segments whose walkers are whole warps (K >= 128)
+//     runs the first port's kernel instead (one warp a row, the edges one at
+//     a time under `#pragma unroll 4`), 1-2% faster there at sbm K=128.
 //
 // Backward (kernel row 3), over the CSC (the rows of A^T), from the
 // cotangent g and the forward's out and ties:
@@ -42,12 +63,11 @@
 //
 // What bounds them: bytes.  The forward reads one K-wide B row per nonzero
 // as the sum kernel does (spmm_csr.cu), with a compare and a select in place
-// of an FMA: the row's (index, value) pairs load 32 at a time, one per lane,
-// and are broadcast with __shfl_sync; each lane owns VEC consecutive columns
-// (vector loads), and a second grid dimension walks K slabs of 32 * VEC
-// columns.  The backward gathers three row-space rows per nonzero (out, g
-// and ties) and reads B once per column.  Its design is that of the split
-// walks of spmm_csr.cu and gat_fused.cu:
+// of an FMA; each lane owns VEC consecutive columns (vector loads), and a
+// second grid dimension walks K slabs of SW * VEC columns.  The backward
+// gathers three row-space rows per nonzero (out, g and ties) and reads B
+// once per column.  Its design is that of the split walks of spmm_csr.cu and
+// gat_fused.cu:
 //   * the work items are the segments of the columns longer than L edges
 //     first (the host-built split, sparse/partition.py::build_row_split, or
 //     build_shard_split for stacked shards), then every column.  A column of
@@ -87,8 +107,8 @@
 //     slabs by the caller in slab order, so two calls agree bit for bit.
 //
 // Plain C interface, loaded with ctypes.  The caller picks VEC (1, 2 or 4;
-// K % VEC == 0 and every table aligned to VEC elements) and, for the
-// backward, SW, so that it knows the slab count of the grad_val partials.
+// K % VEC == 0 and every table aligned to VEC elements) and SW (for the
+// backward, so that it knows the slab count of the grad_val partials).
 // Each entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError(), or cudaErrorInvalidValue for arguments it does
 // not take.
@@ -97,13 +117,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "carry.cuh"
 #include "minmax.cuh"
 
 namespace {
 
+using gespmm::dispatch;  // (VEC, SW) -> the instantiation
 using gespmm::from_f32;
 using gespmm::kMaxBlocksX;
 using gespmm::kThreads;
@@ -112,31 +131,121 @@ using gespmm::Pack;
 using gespmm::Sub;
 using gespmm::to_f32;
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBatch = 2;  // edges whose rows are gathered before a compare
+// ... in the forward, which gathers one table: 4 was the fastest of 1, 2 and 4
+// at sbm K=128 and K=16 and rmat15 K=128 (scripts/row2_ab.py --variants).
+constexpr int kFwdBatch = 4;
 
+// A lane's running (extremum, count) pairs of its VEC columns.
+template <typename T, int VEC, bool HAS_VALS, bool IS_MAX>
+struct MinmaxFold {
+  float best[VEC];
+  int count[VEC];
+  __device__ __forceinline__ void operator()(float v, const Pack<T, VEC>& b) {
+#pragma unroll
+    for (int x = 0; x < VEC; ++x)
+      gespmm::minmax_fold<IS_MAX>(
+          gespmm::minmax_contrib<HAS_VALS>(v, to_f32(b.v[x])), best[x],
+          count[x]);
+  }
+};
+
+// The forward's launch: the CSR of m rows, and its split: segments [0, S)
+// (seg_row, seg_start: the segment's first edge, absolute) of the J rows
+// above L edges (long_rows, seg_ptr: carry slots); best and count are the
+// segments' (S, K) f32 (extremum, count) pairs.
+template <typename T>
+struct Fwd {
+  int m, K, L, S, J;
+  const int *indptr, *indices;
+  const float* vals;
+  const int *seg_row, *seg_start, *long_rows, *seg_ptr;
+  const T* B;
+  T* out;
+  float *ties, *best, *count;
+};
+
+// SPLIT: the launch has segments.  Without (S = 0) the kernel is the plain
+// walker-a-row walk, with no segment test to pay for (the test cost 1.4-2.2%
+// at sbm K=16: scripts/row2_ab.py --variants, "one kernel").
+template <typename T, int VEC, int SW, bool HAS_VALS, bool IS_MAX, bool SPLIT>
+__global__ void __launch_bounds__(kThreads)
+spmm_minmax_kernel(const Fwd<T> a) {
+  using P = Pack<T, VEC>;
+  using F = Pack<float, VEC>;
+  constexpr int kPerBlock = kThreads / SW;
+  const Sub<SW> w;
+  const int K = a.K;
+  const int k = (blockIdx.y * SW + w.lane) * VEC;  // first column of this lane
+  const bool active = k < K;  // K % VEC == 0, so k < K covers all VEC
+  const int kk = active ? k : 0;  // a lane past K reads column 0, drops it
+  const int items = a.S + a.m;
+  for (int item = blockIdx.x * kPerBlock + threadIdx.x / SW; item < items;
+       item += gridDim.x * kPerBlock) {
+    const bool seg = SPLIT && item < a.S;
+    int row, s, t;  // the edges [s, t) of row `row` this walker walks
+    if (seg) {
+      row = a.seg_row[item];
+      s = a.seg_start[item];
+      t = min(s + a.L, a.indptr[row + 1]);
+    } else {
+      row = item - a.S;
+      s = a.indptr[row];
+      t = a.indptr[row + 1];
+      if (SPLIT && t - s > a.L) continue;  // its segments and the carry
+    }
+    MinmaxFold<T, VEC, HAS_VALS, IS_MAX> f;
+#pragma unroll
+    for (int x = 0; x < VEC; ++x) {
+      f.best[x] = gespmm::minmax_identity<IS_MAX>();
+      f.count[x] = 0;
+    }
+    gespmm::walk_edges<T, VEC, SW, kFwdBatch, HAS_VALS>(
+        w, s, t, K, kk, a.indices, a.vals, a.B, f);
+    if (!active) continue;
+    F n;
+#pragma unroll
+    for (int x = 0; x < VEC; ++x) n.v[x] = (float)f.count[x];  // 0 if empty
+    if (seg) {
+      F e;
+#pragma unroll
+      for (int x = 0; x < VEC; ++x) e.v[x] = f.best[x];
+      *reinterpret_cast<F*>(a.best + (int64_t)item * K + k) = e;
+      *reinterpret_cast<F*>(a.count + (int64_t)item * K + k) = n;
+      continue;
+    }
+    P o;
+#pragma unroll
+    for (int x = 0; x < VEC; ++x) o.v[x] = from_f32<T>(t == s ? 0.f : f.best[x]);
+    *reinterpret_cast<P*>(a.out + (int64_t)row * K + k) = o;
+    *reinterpret_cast<F*>(a.ties + (int64_t)row * K + k) = n;
+  }
+}
+
+// The first port's forward, one warp a row and the edges one at a time
+// under `#pragma unroll 4`, kept for a launch of whole-warp walkers (K >=
+// 128) without segments: there it beat the batched walker by 1-2% in six
+// A/B pairs at sbm K=128, and no batch depth, tail or loop of the walker
+// matched it (scripts/row2_ab.py --variants --pairs 3; PERF.md).
 template <typename T, int VEC, bool HAS_VALS, bool IS_MAX>
 __global__ void __launch_bounds__(kThreads)
-spmm_minmax_kernel(int m, int K, const int* __restrict__ indptr,
-                   const int* __restrict__ indices,
-                   const float* __restrict__ vals, const T* __restrict__ B,
-                   T* __restrict__ out, float* __restrict__ ties) {
+spmm_minmax_row_kernel(const Fwd<T> a) {
   using P = Pack<T, VEC>;
   using F = Pack<float, VEC>;
   const int lane = threadIdx.x & 31;
   const int k = (blockIdx.y * 32 + lane) * VEC;  // first column of this lane
-  const bool active = k < K;  // K % VEC == 0, so k < K covers all VEC
+  const bool active = k < a.K;  // K % VEC == 0, so k < K covers all VEC
   const int stride = gridDim.x * kWarps;
-  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < m;
+  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < a.m;
        row += stride) {
-    const int start = indptr[row];
-    const int end = indptr[row + 1];
+    const int start = a.indptr[row];
+    const int end = a.indptr[row + 1];
     float best[VEC];
     int count[VEC];
 #pragma unroll
-    for (int t = 0; t < VEC; ++t) {
-      best[t] = gespmm::minmax_identity<IS_MAX>();
-      count[t] = 0;
+    for (int x = 0; x < VEC; ++x) {
+      best[x] = gespmm::minmax_identity<IS_MAX>();
+      count[x] = 0;
     }
     for (int base = start; base < end; base += 32) {
       // Warp-uniform down to the shuffles: all 32 lanes take part.
@@ -144,22 +253,22 @@ spmm_minmax_kernel(int m, int K, const int* __restrict__ indptr,
       int c = 0;
       float v = 0.f;
       if (e < end) {
-        c = __ldg(indices + e);
-        if (HAS_VALS) v = __ldg(vals + e);
+        c = __ldg(a.indices + e);
+        if (HAS_VALS) v = __ldg(a.vals + e);
       }
       const int n_here = min(32, end - base);
 #pragma unroll 4
       for (int j = 0; j < n_here; ++j) {
-        const int cj = __shfl_sync(kFull, c, j);
+        const int cj = __shfl_sync(0xffffffffu, c, j);
         float vj = 1.f;
-        if (HAS_VALS) vj = __shfl_sync(kFull, v, j);
+        if (HAS_VALS) vj = __shfl_sync(0xffffffffu, v, j);
         if (active) {
-          const P p = *reinterpret_cast<const P*>(B + (int64_t)cj * K + k);
+          const P p = *reinterpret_cast<const P*>(a.B + (int64_t)cj * a.K + k);
 #pragma unroll
-          for (int t = 0; t < VEC; ++t) {
+          for (int x = 0; x < VEC; ++x) {
             gespmm::minmax_fold<IS_MAX>(
-                gespmm::minmax_contrib<HAS_VALS>(vj, to_f32(p.v[t])), best[t],
-                count[t]);
+                gespmm::minmax_contrib<HAS_VALS>(vj, to_f32(p.v[x])), best[x],
+                count[x]);
           }
         }
       }
@@ -169,12 +278,12 @@ spmm_minmax_kernel(int m, int K, const int* __restrict__ indptr,
       P o;
       F n;
 #pragma unroll
-      for (int t = 0; t < VEC; ++t) {
-        o.v[t] = from_f32<T>(empty ? 0.f : best[t]);
-        n.v[t] = (float)count[t];  // 0 for an empty row
+      for (int x = 0; x < VEC; ++x) {
+        o.v[x] = from_f32<T>(empty ? 0.f : best[x]);
+        n.v[x] = (float)count[x];  // 0 for an empty row
       }
-      *reinterpret_cast<P*>(out + (int64_t)row * K + k) = o;
-      *reinterpret_cast<F*>(ties + (int64_t)row * K + k) = n;
+      *reinterpret_cast<P*>(a.out + (int64_t)row * a.K + k) = o;
+      *reinterpret_cast<F*>(a.ties + (int64_t)row * a.K + k) = n;
     }
   }
 }
@@ -308,90 +417,56 @@ spmm_minmax_vjp_kernel(const Vjp<T> a) {
   }
 }
 
-template <int VEC>
-bool aligned(const void* p, size_t item) {
-  return (uintptr_t)p % (VEC * item) == 0;
+// Whether p (null too) is aligned to `bytes`.
+bool aligned(const void* p, size_t bytes) {
+  return (uintptr_t)p % bytes == 0;
 }
 
-template <typename T, int VEC, bool HAS_VALS>
-void launch_fwd(bool is_max, dim3 grid, cudaStream_t stream, int m, int K,
-                const int* indptr, const int* indices, const float* vals,
-                const T* B, T* out, float* ties) {
-  if (is_max) {
-    spmm_minmax_kernel<T, VEC, HAS_VALS, true><<<grid, kThreads, 0, stream>>>(
-        m, K, indptr, indices, vals, B, out, ties);
+template <typename T, int VEC, int SW, bool HAS_VALS, bool IS_MAX>
+cudaError_t launch_fwd(const Fwd<T>& a, cudaStream_t stream) {
+  constexpr int kPerBlock = kThreads / SW;
+  const int items = a.S + a.m;
+  const unsigned blocks = (unsigned)((items + kPerBlock - 1) / kPerBlock);
+  const dim3 grid(blocks < kMaxBlocksX ? blocks : kMaxBlocksX,
+                  (unsigned)((a.K + SW * VEC - 1) / (SW * VEC)));
+  if (a.S > 0) {
+    spmm_minmax_kernel<T, VEC, SW, HAS_VALS, IS_MAX, true>
+        <<<grid, kThreads, 0, stream>>>(a);
+  } else if constexpr (SW == 32) {
+    spmm_minmax_row_kernel<T, VEC, HAS_VALS, IS_MAX>
+        <<<grid, kThreads, 0, stream>>>(a);
   } else {
-    spmm_minmax_kernel<T, VEC, HAS_VALS, false><<<grid, kThreads, 0, stream>>>(
-        m, K, indptr, indices, vals, B, out, ties);
+    spmm_minmax_kernel<T, VEC, SW, HAS_VALS, IS_MAX, false>
+        <<<grid, kThreads, 0, stream>>>(a);
   }
-}
-
-template <typename T, int VEC>
-cudaError_t forward_vec(int m, int K, int is_max, const int* indptr,
-                        const int* indices, const float* vals, const T* B,
-                        T* out, float* ties, cudaStream_t stream) {
-  if (K % VEC != 0 || !aligned<VEC>(B, sizeof(T)) ||
-      !aligned<VEC>(out, sizeof(T)) || !aligned<VEC>(ties, sizeof(float)))
-    return cudaErrorInvalidValue;
-  const dim3 grid = gespmm::warp_grid(m, K, VEC);
-  if (vals != nullptr) {
-    launch_fwd<T, VEC, true>(is_max, grid, stream, m, K, indptr, indices, vals,
-                             B, out, ties);
-  } else {
-    launch_fwd<T, VEC, false>(is_max, grid, stream, m, K, indptr, indices,
-                              nullptr, B, out, ties);
-  }
-  return cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.J == 0) return err;
+  return gespmm::launch_minmax_carry<T, VEC, IS_MAX>(
+      a.J, a.K, a.long_rows, a.seg_ptr, a.best, a.count, a.out, a.ties,
+      stream, 0, 0);
 }
 
 template <typename T>
-cudaError_t forward(int m, int K, int vec, int is_max, const int* indptr,
-                    const int* indices, const float* vals, const T* B, T* out,
-                    float* ties, cudaStream_t stream) {
-  switch (vec) {
-    case 4:
-      return forward_vec<T, 4>(m, K, is_max, indptr, indices, vals, B, out,
-                               ties, stream);
-    case 2:
-      return forward_vec<T, 2>(m, K, is_max, indptr, indices, vals, B, out,
-                               ties, stream);
-    case 1:
-      return forward_vec<T, 1>(m, K, is_max, indptr, indices, vals, B, out,
-                               ties, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <int V>
-using Int = std::integral_constant<int, V>;
-
-// Calls fn(Int<VEC>, Int<SW>) for VEC in {1, 2, 4} and SW in {4, 8, 16, 32}.
-template <int VEC, typename Fn>
-cudaError_t dispatch_sw(int sw, Fn&& fn) {
-  switch (sw) {
-    case 32:
-      return fn(Int<VEC>(), Int<32>());
-    case 16:
-      return fn(Int<VEC>(), Int<16>());
-    case 8:
-      return fn(Int<VEC>(), Int<8>());
-    case 4:
-      return fn(Int<VEC>(), Int<4>());
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename Fn>
-cudaError_t dispatch(int vec, int sw, Fn&& fn) {
-  switch (vec) {
-    case 4:
-      return dispatch_sw<4>(sw, fn);
-    case 2:
-      return dispatch_sw<2>(sw, fn);
-    case 1:
-      return dispatch_sw<1>(sw, fn);
-  }
-  return cudaErrorInvalidValue;
+cudaError_t forward(const Fwd<T>& a, int vec, int sw, int is_max,
+                    cudaStream_t stream) {
+  const bool bad =
+      a.m < 1 || a.K < 1 || vec < 1 || a.K % vec != 0 || a.S < 0 || a.J < 0 ||
+      (a.S > 0) != (a.J > 0) ||
+      (a.S > 0 && (a.L < 1 || a.best == nullptr || a.count == nullptr)) ||
+      !aligned(a.B, vec * sizeof(T)) || !aligned(a.out, vec * sizeof(T)) ||
+      !aligned(a.ties, vec * sizeof(float)) ||
+      !aligned(a.best, vec * sizeof(float)) ||
+      !aligned(a.count, vec * sizeof(float));
+  if (bad) return cudaErrorInvalidValue;
+  return dispatch(vec, sw, [&](auto v, auto s) -> cudaError_t {
+    constexpr int VEC = decltype(v)::value, SW = decltype(s)::value;
+    if (a.vals != nullptr) {
+      return is_max ? launch_fwd<T, VEC, SW, true, true>(a, stream)
+                    : launch_fwd<T, VEC, SW, true, false>(a, stream);
+    }
+    return is_max ? launch_fwd<T, VEC, SW, false, true>(a, stream)
+                  : launch_fwd<T, VEC, SW, false, false>(a, stream);
+  });
 }
 
 template <typename T, int VEC, int SW, bool HAS_VALS, bool WANT_VALS>
@@ -443,23 +518,25 @@ cudaError_t backward(const Vjp<T>& a, int vec, int sw, cudaStream_t stream) {
 }  // namespace
 
 // Forward: m >= 1, K >= 1, nnz >= 1 (the caller returns early otherwise);
-// vals may be null (a binary matrix); is_max is 1 for max, 0 for min.
-extern "C" int gespmm_spmm_minmax_f32(int m, int K, int vec, int is_max,
-                                      const int* indptr, const int* indices,
-                                      const float* vals, const float* B,
-                                      float* out, float* ties, void* stream) {
-  return (int)forward<float>(m, K, vec, is_max, indptr, indices, vals, B, out,
-                             ties, (cudaStream_t)stream);
-}
+// vals may be null (a binary matrix); is_max is 1 for max, 0 for min; the
+// SW-lane walker.  The split as Fwd documents it: L, S segments and J long
+// rows, S = J = 0 for none, else best and count are (S, K) f32 scratch.
+#define GESPMM_FWD_ENTRY(NAME, T)                                             \
+  extern "C" int NAME(int m, int K, int vec, int sw, int is_max, int L,       \
+                      int S, int J, const int* indptr, const int* indices,    \
+                      const float* vals, const int* seg_row,                  \
+                      const int* seg_start, const int* long_rows,             \
+                      const int* seg_ptr, const void* B, void* out,           \
+                      float* ties, float* best, float* count, void* stream) { \
+    const Fwd<T> a{m,         K,         L,        S,          J,             \
+                   indptr,    indices,   vals,     seg_row,    seg_start,     \
+                   long_rows, seg_ptr,   (const T*)B, (T*)out, ties,          \
+                   best,      count};                                         \
+    return (int)forward<T>(a, vec, sw, is_max, (cudaStream_t)stream);         \
+  }
 
-extern "C" int gespmm_spmm_minmax_bf16(int m, int K, int vec, int is_max,
-                                       const int* indptr, const int* indices,
-                                       const float* vals, const void* B,
-                                       void* out, float* ties, void* stream) {
-  return (int)forward<__nv_bfloat16>(
-      m, K, vec, is_max, indptr, indices, vals, (const __nv_bfloat16*)B,
-      (__nv_bfloat16*)out, ties, (cudaStream_t)stream);
-}
+GESPMM_FWD_ENTRY(gespmm_spmm_minmax_f32, float)
+GESPMM_FWD_ENTRY(gespmm_spmm_minmax_bf16, __nv_bfloat16)
 
 // Backward over n >= 1 stacked CSCs of cols >= 1 columns (colptr (n, cols +
 // 1), rows and vals (n, stride), vals in CSC order; n = 1 for one matrix),

@@ -103,11 +103,11 @@ def lane_vector(K: int, *tensors: Tensor) -> int:
 
 
 def walk_shape(K: int, heads: int, *tensors: Tensor):
-    """(VEC, SW) of the walker kernels (rows 3 and 5): VEC columns a lane, the widest of 4,
-    2 and 1 that divides the head width (a lane's columns lie in one head)
-    and to which every table is aligned; SW lanes a walker, the smallest
-    power of two that covers K/VEC columns, from 4 (eight rows a warp) to
-    32 (one; wider K walks 32·VEC-column slabs)."""
+    """(VEC, SW) of the walker kernels (rows 2, 3, 5 and 8): VEC columns a
+    lane, the widest of 4, 2 and 1 that divides the head width (a lane's
+    columns lie in one head) and to which every table is aligned; SW lanes
+    a walker, the smallest power of two that covers K/VEC columns, from 4
+    (eight rows a warp) to 32 (one; wider K walks 32·VEC-column slabs)."""
     dh = K // heads
     vec = next(v for v in (4, 2, 1) if dh % v == 0 and all(
         t.data_ptr() % (v * t.element_size()) == 0 for t in tensors))

@@ -2,19 +2,23 @@
 
 ``spmm_minmax`` is the forward (kernel row 2): ``(out, ties)`` over the CSR,
 counterpart of ``gespmm_tpu/kernels/spmm_stream.py::spmm_tiled(reduce=
-"max"|"min", want_ties=True)``.  ``spmm_minmax_vjp`` is the backward over the
-CSC (kernel row 3), counterpart of ``spmm_minmax_vjp_tiled``: ``grad_B``
-and, for a valued matrix, ``grad_values`` in CSC order, with the gradient
-split evenly among the ``ties`` edges that achieve each output.  Columns
-longer than the split's L edges are walked in segments by separate
-walkers, and a carry pass adds each long column's segments in order.
+"max"|"min", want_ties=True)``.  Rows longer than the split's L edges are
+walked in segments by separate walkers, and a pair carry folds each long
+row's (extremum, count) pairs in segment order.  ``spmm_minmax_vjp`` is the
+backward over the CSC (kernel row 3), counterpart of
+``spmm_minmax_vjp_tiled``: ``grad_B`` and, for a valued matrix,
+``grad_values`` in CSC order, with the gradient split evenly among the
+``ties`` edges that achieve each output.  Columns longer than the split's L
+edges are walked in segments by separate walkers, and a carry pass adds
+each long column's segments in order.
 ``spmm_minmax_vjp_stacked`` is the same kernel over the stacked transposed
 blocks of n shards in one launch (the sharded tier's max/min backward).
 
 A tensor on the CPU goes to the plain version (``ops/reference.py``); a
 CUDA tensor launches the kernel or raises — there is no fallback.
 ``launches`` and ``vjp_launches`` count the launches of each kernel,
-``vjp_carry_launches`` the backward's carry pass.
+``carry_launches`` the forward's pair carry and ``vjp_carry_launches`` the
+backward's carry pass.
 """
 
 from __future__ import annotations
@@ -28,8 +32,7 @@ import torch
 from gespmm_tpu_torch.kernels._build import load_library
 from gespmm_tpu_torch.kernels.spmm_csr import (_SPLIT, check_operands,
                                                check_split, check_table,
-                                               lane_vector, raise_on,
-                                               walk_shape)
+                                               raise_on, walk_shape)
 from gespmm_tpu_torch.ops import reference
 from gespmm_tpu_torch.sparse.formats import expand_indptr
 from gespmm_tpu_torch.sparse.partition import (RowSplit, ShardSplit,
@@ -43,6 +46,7 @@ VJP_REPLACES = "gespmm_tpu/kernels/spmm_stream.py:920"
 REDUCES = ("max", "min")
 
 launches = 0
+carry_launches = 0
 vjp_launches = 0
 vjp_carry_launches = 0
 
@@ -50,8 +54,8 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launches() -> None:
-    global launches, vjp_launches, vjp_carry_launches
-    launches = vjp_launches = vjp_carry_launches = 0
+    global launches, carry_launches, vjp_launches, vjp_carry_launches
+    launches = carry_launches = vjp_launches = vjp_carry_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,7 +65,7 @@ def _entry(kind: str, dtype: torch.dtype):
     name = {"fwd": "gespmm_spmm_minmax", "vjp": "gespmm_spmm_minmax_vjp"}[kind]
     fn = getattr(lib, f"{name}_{_SUFFIX[dtype]}")
     i, w, p = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-    fn.argtypes = ([i] * 4 + [p] * 7 if kind == "fwd"
+    fn.argtypes = ([i] * 8 + [p] * 13 if kind == "fwd"
                    else [i] * 11 + [w] * 2 + [p] * 15)
     fn.restype = ctypes.c_int
     lib.gespmm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -75,28 +79,41 @@ def _check_reduce(reduce: str) -> None:
 
 
 def spmm_minmax(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
-                B: Tensor, reduce: str, rows: Optional[Tensor] = None):
+                B: Tensor, reduce: str, rows: Optional[Tensor] = None,
+                split: Optional[RowSplit] = None):
     """(out, ties) of the max/min SpMM over the CSR (indptr, indices, data).
 
     ``data=None`` means 1.0.  ``out`` takes B's dtype; ``ties`` is f32, the
     count of edges achieving each output.  Empty rows give 0 and 0.
+    ``split`` is the CSR's row split on B's device (``Adjacency.split``):
+    rows above its L edges are walked in segments whose (extremum, count)
+    pairs a carry folds.  Without one, a CUDA call builds it from a host
+    copy of ``indptr``, which synchronises (set-up, not a timed call).
     ``rows`` (the expanded indptr) is used only by the plain version.
     """
     _check_reduce(reduce)
     if B.device.type == "cpu":
         if rows is None:
             rows = expand_indptr(indptr, indices.shape[0])
-        return reference.spmm_minmax_rows(rows, indices, data, B,
-                                          indptr.shape[0] - 1, reduce)
-    return spmm_minmax_cuda(indptr, indices, data, B, reduce)
+        m = indptr.shape[0] - 1
+        if split is not None and split.num_segments:
+            return reference.spmm_minmax_split_rows(
+                rows, indptr, indices, data, B, m, reduce, split.seg_row,
+                split.long_rows, split.seg_ptr, split.seg_len)
+        return reference.spmm_minmax_rows(rows, indices, data, B, m, reduce)
+    if split is None:
+        split = build_row_split(indptr).to(B.device)
+    return spmm_minmax_cuda(indptr, indices, data, B, reduce, split)
 
 
 def spmm_minmax_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
-                     B: Tensor, reduce: str):
-    """Launch the forward kernel on the current stream of B's device."""
-    global launches
+                     B: Tensor, reduce: str, split: RowSplit):
+    """Launch the forward kernel, then the pair carry when the split has a
+    long row, on the current stream of B's device."""
+    global launches, carry_launches
     _check_reduce(reduce)
     check_operands(indptr, indices, data, B)
+    check_split(split, B.device)
     m, K = indptr.shape[0] - 1, B.shape[1]
     if m == 0 or K == 0 or indices.shape[0] == 0:
         # A zero-size grid is an invalid launch; the answer is all zeros.
@@ -106,14 +123,23 @@ def spmm_minmax_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
     vals = None if data is None else data.to(torch.float32).contiguous()
     out = torch.empty((m, K), dtype=B.dtype, device=B.device)
     ties = torch.empty((m, K), dtype=torch.float32, device=B.device)
+    S, J = split.num_segments, split.num_long_rows
+    # The segments' (extremum, count) pairs, f32.
+    pair = [torch.empty((S, K), dtype=torch.float32, device=B.device)
+            for _ in range(2 if S else 0)]
+    vec, sw = walk_shape(K, 1, B, out, ties, *pair)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(B.device):
-        err = fn(m, K, lane_vector(K, B, out, ties), int(reduce == "max"),
-                 indptr.data_ptr(), indices.data_ptr(),
-                 None if vals is None else vals.data_ptr(),
-                 B.data_ptr(), out.data_ptr(), ties.data_ptr(),
+        err = fn(m, K, vec, sw, int(reduce == "max"), split.seg_len, S, J,
+                 ptr(indptr), ptr(indices), ptr(vals),
+                 *(ptr(getattr(split, name)) for name in _SPLIT),
+                 ptr(B), ptr(out), ptr(ties),
+                 *(ptr(t) for t in pair or (None, None)),
                  torch.cuda.current_stream(B.device).cuda_stream)
-    raise_on(err, err_str, f"spmm_minmax at m={m} K={K} dtype={B.dtype}")
+    raise_on(err, err_str, f"spmm_minmax at m={m} K={K} L={split.seg_len} "
+             f"segments={S} dtype={B.dtype}")
     launches += 1
+    carry_launches += int(J > 0)
     return out, ties
 
 

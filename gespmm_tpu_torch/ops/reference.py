@@ -332,18 +332,31 @@ def halo_spmm_split_rows(d_indptr: Tensor, d_indices: Tensor,
         buf = torch.zeros((M + S, K), dtype=contrib.dtype, device=dev)
         buf.index_add_(0, target, contrib)
         return buf[:M].index_add_(0, srow, buf[M:]).to(B_d.dtype), None
+    out, ties = _split_minmax(target, contrib, M, srow, is_long, reduce)
+    return out.to(B_d.dtype), ties
+
+
+def _split_minmax(target: Tensor, contrib: Tensor, M: int, srow: Tensor,
+                  is_long: Tensor, reduce: str):
+    """(extremum, ties) of M rows of a split walk: edge e's contribution
+    goes to unit ``target[e]``, its row, or M + its segment for a long row
+    (``is_long``; segment s belongs to row ``srow[s]``).  Each unit is
+    reduced to an (extremum, count) pair, and a long row's pairs are folded
+    in segment order (the pair carry): a better extremum replaces the pair,
+    an equal one adds its count.  Rows without an edge give 0 and 0."""
+    S, K = srow.shape[0], contrib.shape[1]
     best = _minmax_rows(target, contrib, M + S, reduce)
     hit = (contrib == best.index_select(0, target)).to(torch.float32)
-    count = torch.zeros((M + S, K), dtype=torch.float32, device=dev)
+    count = torch.zeros((M + S, K), dtype=torch.float32, device=contrib.device)
     count.index_add_(0, target, hit)
     # The pair carry: the extremum over a row's segments, and the counts of
     # the segments that reach it.
     joint = _minmax_rows(srow, best[M:], M, reduce)
     reach = (best[M:] == joint.index_select(0, srow)).to(torch.float32)
-    ties = torch.zeros((M, K), dtype=torch.float32, device=dev)
+    ties = torch.zeros((M, K), dtype=torch.float32, device=contrib.device)
     ties.index_add_(0, srow, reach * count[M:])
     long_col = is_long[:, None]
-    return (torch.where(long_col, joint, best[:M]).to(B_d.dtype),
+    return (torch.where(long_col, joint, best[:M]),
             torch.where(long_col, ties, count[:M]))
 
 
@@ -389,6 +402,31 @@ def spmm_split_rows(rows: Tensor, indptr: Tensor, indices: Tensor,
     buf.index_add_(0, target, contrib)
     out = buf[:m].index_add_(0, seg_row.long(), buf[m:])
     return out.to(B.dtype)
+
+
+def spmm_minmax_split_rows(rows: Tensor, indptr: Tensor, indices: Tensor,
+                           data: Optional[Tensor], B: Tensor, m: int,
+                           reduce: str, seg_row: Tensor, long_rows: Tensor,
+                           seg_ptr: Tensor, seg_len: int):
+    """(out, ties): the plain version of the split max/min forward kernel.
+
+    The rows of at most ``seg_len`` edges reduced as in
+    ``spmm_minmax_rows``; each longer row's segments of ``seg_len``
+    consecutive edges (the split of ``sparse/partition.py::
+    build_row_split``: ``seg_row``, ``long_rows``, ``seg_ptr``) reduced
+    apart to an (extremum, count) pair, then the pairs folded in segment
+    order: a better extremum replaces the pair, an equal one adds its
+    count.  That is the unsplit walk's out and ties exactly.  f32
+    contributions (f64 for f64 inputs); ``out`` in B's dtype, ``ties`` f32;
+    empty rows give 0 and 0.
+    """
+    contrib = _contrib(indices, data, B)
+    target, _ = split_units(rows, indptr, m, long_rows, seg_ptr, seg_len)
+    is_long = torch.zeros(m, dtype=torch.bool, device=B.device).index_fill_(
+        0, long_rows.long(), True)
+    out, ties = _split_minmax(target, contrib, m, seg_row.long(), is_long,
+                              reduce)
+    return out.to(B.dtype), ties
 
 
 def sddmm_rows(rows: Tensor, cols: Tensor, D1: Tensor, D2: Tensor) -> Tensor:

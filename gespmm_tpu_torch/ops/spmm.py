@@ -271,7 +271,7 @@ class _SpmmMinMax(torch.autograd.Function):
                                 adj.shape[0], reduce=reduce)
         else:
             out, ties = spmm_minmax(adj.csr.indptr, adj.csr.indices, data, B,
-                                    reduce, rows=adj.rows)
+                                    reduce, rows=adj.rows, split=adj.split)
         ctx.adj, ctx.method = adj, method
         ctx.save_for_backward(data, B, out, ties)
         return out

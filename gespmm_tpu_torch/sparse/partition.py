@@ -30,6 +30,15 @@ A row cut by a chunk boundary ("cut row") is written by the carry pass:
 once, directly, by the one chunk that holds all its edges.  None of it
 depends on the edge values, so one plan serves every value of them.
 
+The chunk kernel walks the plan's pieces: a piece is the part of one row
+that lies in one chunk, i.e. chunk c's row r for every r in [row_lo[c],
+row_hi[c]] (an empty row too, as a piece without edges).  In chunk order,
+then row order, piece p holds the edges [piece_ptr[p], piece_ptr[p + 1])
+(the pieces tile the edges, so ``piece_ptr`` is an indptr over them) of row
+``piece_row[p]`` and writes its sum to that out row (``piece_slot[p]`` =
+-1), or, for a cut row, to its carry slot: ``head_slot`` of its chunk when
+the row began in an earlier chunk, else ``tail_slot``.
+
 The grouped plan (``build_grouped_plan``, the work list of
 ``csrc/spmm_grouped.cu``) cuts each block greedily instead, into chunks of
 at most E edges and at most NG distinct aligned groups of G B rows, and
@@ -56,9 +65,11 @@ import torch
 
 Tensor = torch.Tensor
 
-# The work list of both kernels, in the order their entry points take it.
+# The work list of the grouped kernel, in the order its entry point takes
+# it, and the chunk kernel's: its pieces and the carry's cut rows.
 WORK_LIST = ("chunk_start", "chunk_count", "row_lo", "row_hi", "head_slot",
              "tail_slot", "cut_rows", "cut_ptr")
+PIECE_LIST = ("piece_ptr", "piece_row", "piece_slot", "cut_rows", "cut_ptr")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,10 +95,22 @@ class SpmmPlan:
     nnz: int
     num_blocks: int
     num_slots: int  # rows of the carry pass's partial-sum buffer
+    # The chunk kernel's pieces (``build_spmm_plan`` only; the grouped
+    # kernel walks the row lists).
+    piece_ptr: Optional[Tensor] = dataclasses.field(default=None,
+                                                    kw_only=True)
+    piece_row: Optional[Tensor] = dataclasses.field(default=None,
+                                                    kw_only=True)
+    piece_slot: Optional[Tensor] = dataclasses.field(default=None,
+                                                     kw_only=True)
 
     @property
     def num_chunks(self) -> int:
         return int(self.chunk_start.shape[0])
+
+    @property
+    def num_pieces(self) -> int:
+        return int(self.piece_row.shape[0])
 
     def to(self, device) -> "SpmmPlan":
         """The same plan with every tensor on ``device``."""
@@ -106,8 +129,8 @@ def _row_lists(indptr: np.ndarray, R: int, chunk0: np.ndarray,
     """The rows each chunk walks and the carry slots of the rows cut by a
     chunk boundary (``row_lo``, ``row_hi``, ``head_slot``, ``tail_slot``,
     ``cut_rows``, ``cut_ptr``), for any cutting of each row block's edges
-    into consecutive chunks: block b owns chunks [chunk0[b], chunk0[b + 1]),
-    at least one, and chunk c starts at CSR edge ``chunk_start[c]``."""
+    into consecutive chunks: block b owns chunks [chunk0[b], chunk0[b +
+    1]), at least one, and chunk c starts at CSR edge ``chunk_start[c]``."""
     m = indptr.shape[0] - 1
     C = chunk_start.shape[0]
     rb = np.arange(m) // R
@@ -142,6 +165,36 @@ def _row_lists(indptr: np.ndarray, R: int, chunk0: np.ndarray,
     head_slot[first_c[cut_rows][j] + step] = cut_ptr[j] + step
     return dict(row_lo=row_lo, row_hi=row_hi, head_slot=head_slot,
                 tail_slot=tail_slot, cut_rows=cut_rows, cut_ptr=cut_ptr)
+
+
+def _pieces(indptr: np.ndarray, chunk_start: np.ndarray,
+            lists: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The pieces (``piece_ptr``, ``piece_row``, ``piece_slot``) of chunks
+    that tile the edges, chunk by chunk: chunk c's rows row_lo[c] ..
+    row_hi[c] of ``lists`` (``_row_lists``), each clipped to the chunk's
+    edges.  Consecutive pieces meet (a chunk's rows are consecutive and hold
+    all its edges; chunk c ends where c + 1 begins), so their starts and nnz
+    form an indptr."""
+    row_lo, row_hi = lists["row_lo"], lists["row_hi"]
+    n_pieces = row_hi - row_lo + 1
+    piece_chunk = np.repeat(np.arange(chunk_start.shape[0]), n_pieces)
+    piece_row = row_lo[piece_chunk] + (
+        np.arange(piece_chunk.shape[0])
+        - np.repeat(np.cumsum(n_pieces) - n_pieces, n_pieces))
+    nnz = indptr[-1]
+    chunk_end = np.append(chunk_start[1:], nnz)
+    start = np.clip(indptr[piece_row], chunk_start[piece_chunk],
+                    chunk_end[piece_chunk])
+    end = np.clip(indptr[piece_row + 1], chunk_start[piece_chunk],
+                  chunk_end[piece_chunk])
+    # A cut row's piece writes its chunk's head slot when the row began in
+    # an earlier chunk, else its tail slot; any other piece writes out.
+    piece_slot = np.where(start > indptr[piece_row],
+                          lists["head_slot"][piece_chunk],
+                          np.where(end < indptr[piece_row + 1],
+                                   lists["tail_slot"][piece_chunk], -1))
+    return dict(piece_ptr=np.append(start, nnz), piece_row=piece_row,
+                piece_slot=piece_slot)
 
 
 def build_spmm_plan(csr, rows_per_block: int = 128,
@@ -181,6 +234,7 @@ def build_spmm_plan(csr, rows_per_block: int = 128,
     first = (k == 0).astype(np.int32)
 
     row_lists = _row_lists(indptr, R, chunk0, chunk_start)
+    row_lists.update(_pieces(indptr, chunk_start, row_lists))
 
     return SpmmPlan(
         indptr=indptr_t, indices=indices_t, chunk_start=_int32(chunk_start),

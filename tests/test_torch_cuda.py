@@ -13,6 +13,10 @@ and ties equal the plain version exactly (the same f32 products, selected,
 not summed).  Max/min backward: grad_B and grad_values within 1e-5 of the
 float64 plain version, relative to the largest reference value.
 
+The max/min forward with its row split (long rows' (extremum, count) pairs
+folded by the pair carry): out and ties equal the unsplit plain version
+exactly, an f32 out the float64 extremum rounded to f32.
+
 Edge segment reduce: a max equals the plain version's exactly (selected,
 not summed); a sum is within 1e-5 * (row sum of |vals|) + 1e-6 of float64
 (bf16: 8e-3 *).  Fused GAT attention, against the plain version in float64:
@@ -482,7 +486,7 @@ def test_minmax_empty_work_and_refusals(dev):
         kmm.spmm_minmax(csr.indptr, csr.indices, None, B, "sum")
     with pytest.raises(ValueError, match="contiguous"):
         kmm.spmm_minmax_cuda(csr.indptr, csr.indices, None, B.t().contiguous().t(),
-                             "max")
+                             "max", build_row_split(csr.indptr).to(dev))
     adj = Adjacency.from_csr(csr)
     out, ties = kmm.spmm_minmax(adj.csr.indptr, adj.csr.indices, None, B, "max")
     with pytest.raises(ValueError, match="g must be"):
@@ -525,8 +529,9 @@ def test_sage_pool_training_goes_through_the_kernels(dev):
     res = train_node_classifier(model, adj, ds.features, ds.labels, ds.masks,
                                 epochs=20)
     assert kmm.launches >= 2 * 20 and kmm.vjp_launches >= 2 * 20
-    # No column above L edges: no carry.
-    assert adj.split_t.num_segments == 0 and kmm.vjp_carry_launches == 0
+    # No row or column above L edges: no carry.
+    assert adj.split.num_segments == adj.split_t.num_segments == 0
+    assert kmm.carry_launches == kmm.vjp_carry_launches == 0
     loss = res["history"]["loss"]
     assert loss[-1] < loss[0] and np.all(np.isfinite(loss))
     assert res["train_acc"] > 1 / 3
@@ -718,6 +723,121 @@ def test_minmax_vjp_kernel_refuses_what_it_does_not_take(dev):
 
 
 # --- edge segment reduce and fused GAT attention -------------------------
+
+
+# --- the max/min forward (kernel row 2) with its row split ----------------
+
+
+def minmax_fwd_vs_plain(adj, data, K, dtype, reduce, seed):
+    """Row 2 over the adjacency's CSR with its split, twice: whether out and
+    ties equal the plain version's (and an f32 out the float64 extremum
+    rounded), whether the two runs are bitwise equal, the carries a run."""
+    B = quantized((adj.shape[1], K), adj.csr.indptr.device, seed, dtype)
+    before = (kmm.launches, kmm.carry_launches)
+    runs = [kmm.spmm_minmax(adj.csr.indptr, adj.csr.indices, data, B, reduce,
+                            split=adj.split) for _ in range(2)]
+    torch.cuda.synchronize()
+    launched = (kmm.launches - before[0], kmm.carry_launches - before[1])
+    (out, ties), again = runs
+    same = all(torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16
+                                  else torch.int32))
+               for a, b in zip(runs[0], again))
+    want, want_ties = ref.spmm_minmax_rows(adj.rows, adj.csr.indices, data, B,
+                                           adj.shape[0], reduce)
+    exact = torch.equal(out, want) and torch.equal(ties, want_ties)
+    if dtype == torch.float32:
+        want64 = ref.spmm_rows(adj.rows, adj.csr.indices,
+                               None if data is None else data.double(),
+                               B.double(), adj.shape[0], reduce=reduce)
+        exact = exact and torch.equal(out, want64.float())
+    return exact, same, launched, float(ties.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("binary", [True, False])
+@pytest.mark.parametrize("K", [1, 3, 16, 32, 33, 128, 130])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+def test_minmax_split_at_each_boundary_and_a_hub(dev, reduce, K, binary,
+                                                 dtype):
+    # Rows of L - 1, L, L + 1, 2L + 1 and 10,000 edges: the long ones are
+    # walked in segments and the pair carry folds them.
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    assert adj.split.long_rows.tolist() == [2, 3, 4]
+    data = None if binary else quantized((adj.nnz,), dev, 11)
+    exact, same, launched, max_ties = minmax_fwd_vs_plain(adj, data, K, dtype,
+                                                          reduce, K)
+    assert exact and same and max_ties > 1
+    assert launched == (2, 2)
+
+
+@pytest.mark.parametrize("K", [16, 128])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+def test_minmax_split_on_rmat15(dev, reduce, K):
+    # The hub row of 3,866 edges, 11,708 empty rows.
+    adj = Adjacency.from_csr(rmat15(), device=dev)
+    for data in (None, quantized((adj.nnz,), dev, 12)):
+        exact, same, launched, _ = minmax_fwd_vs_plain(adj, data, K,
+                                                       torch.float32, reduce,
+                                                       K + 1)
+        assert exact and same and launched == (2, 2)
+
+
+# K = 16: the walker built without the segment test; K >= 128 (whole-warp
+# walkers): the first port's kernel, one warp a row.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [16, 128, 130, 512])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+def test_minmax_without_a_long_row_launches_no_carry(dev, reduce, K, dtype):
+    ds = sbm_graph(n_per_class=300, num_classes=3, p_in=0.02, p_out=0.001,
+                   feat_dim=8, seed=0)
+    adj = Adjacency.from_csr(ds.csr, device=dev)
+    assert adj.split.num_segments == 0
+    exact, same, launched, _ = minmax_fwd_vs_plain(adj, None, K, dtype,
+                                                   reduce, 3)
+    assert exact and same and launched == (2, 0)
+
+
+# (K, VEC, SW) of row 2's walkers, as walk_shape picks them (row 3's).
+@pytest.mark.parametrize("K,vec,lanes", MINMAX_WALKS)
+def test_minmax_forward_walkers_match_plain(dev, K, vec, lanes):
+    assert kmm.walk_shape(K, 1, randn((1, K), dev, 0)) == (vec, lanes)
+    adj = Adjacency.from_csr(skewed_csr(seed=6), device=dev)
+    assert adj.split.num_segments > 0  # the hub row of 2,000 edges
+    for data in (None, adj.data):
+        exact, same, launched, _ = minmax_fwd_vs_plain(adj, data, K,
+                                                       torch.float32, "max",
+                                                       K + 2)
+        assert exact and same and launched == (2, 2)
+
+
+@pytest.mark.parametrize("reduce", ["max", "min"])
+def test_minmax_op_never_takes_the_plain_version(dev, monkeypatch, reduce):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("spmm_minmax_rows", "spmm_minmax_split_rows",
+                 "spmm_minmax_vjp_cols", "spmm_minmax_vjp_split_cols"):
+        monkeypatch.setattr(ref, name, refuse)
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    B = torch.relu(quantized((adj.shape[1], 32), dev, 4)).requires_grad_(True)
+    kmm.reset_launches()
+    spmm(adj, B, reduce=reduce).sum().backward()
+    torch.cuda.synchronize()
+    assert (kmm.launches, kmm.carry_launches) == (1, 1)
+    assert (kmm.vjp_launches, kmm.vjp_carry_launches) == (1, 1)
+    with pytest.raises(AssertionError):
+        kmm.spmm_minmax(adj.csr.indptr.cpu(), adj.csr.indices.cpu(), None,
+                        B.detach().cpu(), reduce, split=adj.split)
+
+
+def test_minmax_forward_refuses_a_split_elsewhere(dev):
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    B = torch.randn(adj.shape[1], 8, device=dev)
+    with pytest.raises(ValueError, match="split"):
+        kmm.spmm_minmax(adj.csr.indptr, adj.csr.indices, None, B, "max",
+                        split=adj.split.to("cpu"))
 
 
 def randn(shape, dev, seed, dtype=torch.float32, requires_grad=False):
@@ -1095,7 +1215,7 @@ CHUNK_SIZES = [(64, 64), (128, 256), (8, 3)]
 @pytest.mark.parametrize("R,E", CHUNK_SIZES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("binary", [False, True])
-@pytest.mark.parametrize("K", [1, 3, 33, 130, 512])
+@pytest.mark.parametrize("K", [1, 3, 16, 32, 33, 128, 130, 512])
 def test_chunk_kernel_matches_plain(dev, K, binary, dtype, R, E):
     csr = skewed_csr()
     data = None if binary else csr.data
@@ -1127,7 +1247,7 @@ def straddling_csr(E, hub=10_000):
 
 
 @pytest.mark.parametrize("E", [1, 3, 64, 256])
-@pytest.mark.parametrize("K", [1, 32, 130])
+@pytest.mark.parametrize("K", [1, 16, 32, 128, 130])
 def test_chunk_kernel_hub_row_and_straddling_rows(dev, E, K):
     csr = straddling_csr(E)
     plan = build_spmm_plan(csr, rows_per_block=8, chunk_nnz=E).to(dev)
@@ -1137,6 +1257,25 @@ def test_chunk_kernel_hub_row_and_straddling_rows(dev, E, K):
     out = kpal.spmm_pallas(plan, d, B, csr.shape[0])
     torch.cuda.synchronize()
     check_bound(out, csr.to(dev), B, d)
+
+
+# (K, VEC, SW) of the chunk kernel's walkers, as walk_shape picks them: a
+# walker a piece, 4 lanes at K = 1, 3 and 16, 8 (four a warp) at K = 32.
+# Each width walks long pieces (E = 64, 256) and short ones (E = 3), which a
+# walker narrower than a warp gathers 4 and 2 at a time (csrc/spmm_chunk.cu:
+# 4 where the pieces average at least kDeepPiece = 8 edges).
+@pytest.mark.parametrize("K,vec,lanes", MINMAX_WALKS + [(512, 4, 32)])
+def test_chunk_kernel_walkers_match_plain(dev, K, vec, lanes):
+    assert kpal.walk_shape(K, 1, randn((1, K), dev, 0)) == (vec, lanes)
+    csr = straddling_csr(64)
+    for R, E in ((64, 64), (128, 256), (8, 3)):
+        plan = build_spmm_plan(csr, rows_per_block=R, chunk_nnz=E).to(dev)
+        assert (plan.nnz >= 8 * plan.num_pieces) == (E > 3)
+        for data in (None, csr.data.to(dev)):
+            B = randn((csr.shape[1], K), dev, K)
+            out = kpal.spmm_pallas(plan, data, B, csr.shape[0])
+            torch.cuda.synchronize()
+            check_bound(out, csr.to(dev), B, data)
 
 
 def test_chunk_kernel_is_deterministic(dev):

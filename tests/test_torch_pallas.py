@@ -7,9 +7,10 @@ once per case in a module fixture; JAX's ``spmm(method="pallas")`` itself
 cannot run on the CPU (it launches the TPU kernel), so the port's op is held
 to the JAX kernel forward and over the transposed plan, and to the JAX XLA
 tier.  The port runs on the CPU here, i.e. through the chunk kernel's plain
-version; a pure-Python walk of the kernel's work list checks the plan's row
-lists and carry slots, which only the CUDA kernel reads.  The kernel itself
-is checked in ``tests/test_torch_cuda.py``.
+version; pure-Python walks of the plan's row lists and carry slots (which
+the grouped kernel reads) and of its pieces (each row's part in each chunk,
+which the chunk kernel reads) check what only the CUDA kernels read.  The
+kernel itself is checked in ``tests/test_torch_cuda.py``.
 
 Tolerance: rtol/atol 1e-5 (both sides accumulate in f32, in different
 orders), 1e-4 on the power-law graph (rows of hundreds of edges), as in
@@ -34,7 +35,8 @@ from gespmm_tpu_torch.ops import reference as tref
 from gespmm_tpu_torch.ops.spmm import Adjacency as TAdjacency
 from gespmm_tpu_torch.ops.spmm import spmm as tspmm
 from gespmm_tpu_torch.sparse import formats as tf
-from gespmm_tpu_torch.sparse.partition import SpmmPlan, build_spmm_plan
+from gespmm_tpu_torch.sparse.partition import (SpmmPlan, build_grouped_plan,
+                                                build_spmm_plan)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TOL_POWERLAW = dict(rtol=1e-4, atol=1e-4)
@@ -61,11 +63,12 @@ def dense_B(rows, K, seed=1):
 
 
 def walk(plan: SpmmPlan, B: np.ndarray, b_row=None):
-    """The CUDA kernel's walk (csrc/spmm_chunk.cu) in Python: per chunk, its
-    rows in order, each row's sum written to out or to its carry slot; then
-    the carry.  Edge e of chunk c reads B row ``b_row(c, e)`` (default: its
-    column; the grouped kernel's walk passes the row its slot stages).
-    Returns (out, writes per row, writes per slot)."""
+    """The walk of the plan's row lists (csrc/spmm_grouped.cu's, and the
+    chunk kernel's as first ported) in Python: per chunk, its rows in order,
+    each row's sum written to out or to its carry slot; then the carry.
+    Edge e of chunk c reads B row ``b_row(c, e)`` (default: its column; the
+    grouped kernel's walk passes the row its slot stages).  Returns (out,
+    writes per row, writes per slot)."""
     ip = plan.indptr.numpy().astype(np.int64)
     ix = plan.indices.numpy()
     if b_row is None:
@@ -109,6 +112,32 @@ def walk(plan: SpmmPlan, B: np.ndarray, b_row=None):
     return out, wrow, wslot
 
 
+def piece_walk(plan: SpmmPlan, B: np.ndarray):
+    """The chunk kernel's walk (csrc/spmm_chunk.cu) in Python: each piece's
+    edges summed and written to its out row or its carry slot; then the
+    carry.  Returns (out, writes per row, writes per slot)."""
+    ix = plan.indices.numpy()
+    ptr, prow = plan.piece_ptr.numpy(), plan.piece_row.numpy()
+    pslot = plan.piece_slot.numpy()
+    (m, _), K = plan.shape, B.shape[1]
+    out = np.full((m, K), np.nan)
+    partial = np.full((plan.num_slots, K), np.nan)
+    wrow, wslot = np.zeros(m, int), np.zeros(plan.num_slots, int)
+    for p in range(plan.num_pieces):
+        acc = B[ix[ptr[p]:ptr[p + 1]]].sum(0)
+        if pslot[p] >= 0:
+            partial[pslot[p]] = acc
+            wslot[pslot[p]] += 1
+        else:
+            out[prow[p]] = acc
+            wrow[prow[p]] += 1
+    cut_ptr = plan.cut_ptr.numpy()
+    for j, row in enumerate(plan.cut_rows.numpy()):
+        out[row] = partial[cut_ptr[j]:cut_ptr[j + 1]].sum(0)
+        wrow[row] += 1
+    return out, wrow, wslot
+
+
 @pytest.mark.parametrize("R,E", PLAN_SIZES)
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_plan_matches_jax(name, R, E):
@@ -139,6 +168,72 @@ def test_plan_walk_writes_every_row_once(name, R, E):
                                rtol=1e-12, atol=1e-12)
 
 
+def check_pieces(plan: SpmmPlan):
+    """The pieces tile the CSR edges in chunk order, each inside its row and
+    its chunk; a cut row's pieces write its carry slots in chunk order (the
+    chunk's head slot where the row began earlier, else its tail slot), any
+    other row has one piece, which writes out."""
+    ip = plan.indptr.numpy().astype(np.int64)
+    ptr, prow = plan.piece_ptr.numpy(), plan.piece_row.numpy()
+    pslot = plan.piece_slot.numpy()
+    assert ptr[0] == 0 and ptr[-1] == plan.nnz and (np.diff(ptr) >= 0).all()
+    # Chunk c holds the pieces of its rows row_lo[c] .. row_hi[c], in order.
+    lo, hi = plan.row_lo.numpy(), plan.row_hi.numpy()
+    chunk = np.repeat(np.arange(plan.num_chunks), hi - lo + 1)
+    np.testing.assert_array_equal(
+        prow, np.concatenate([np.arange(a, b + 1) for a, b in zip(lo, hi)]))
+    cs = plan.chunk_start.numpy()[chunk]
+    ce = cs + plan.chunk_count.numpy()[chunk]
+    assert ((ptr[:-1] >= np.maximum(ip[prow], cs))
+            & (ptr[1:] <= np.minimum(ip[prow + 1], ce))).all()
+    head, tail = plan.head_slot.numpy()[chunk], plan.tail_slot.numpy()[chunk]
+    began = ptr[:-1] > ip[prow]
+    goes_on = ptr[1:] < ip[prow + 1]
+    np.testing.assert_array_equal(
+        pslot, np.where(began, head, np.where(goes_on, tail, -1)))
+    cut_ptr = plan.cut_ptr.numpy()
+    for j, row in enumerate(plan.cut_rows.numpy()):
+        np.testing.assert_array_equal(pslot[prow == row],
+                                      np.arange(cut_ptr[j], cut_ptr[j + 1]))
+    whole = ~np.isin(prow, plan.cut_rows.numpy())
+    assert (pslot[whole] == -1).all()
+    assert (np.bincount(prow[whole], minlength=plan.shape[0])[
+        np.setdiff1d(np.arange(plan.shape[0]), plan.cut_rows.numpy())] == 1).all()
+
+
+@pytest.mark.parametrize("R,E", PLAN_SIZES + [(8, 1)])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_pieces_cover_each_edge_once_in_chunk_order(name, R, E):
+    plan = build_spmm_plan(to_port(GRAPHS[name]()[0]), rows_per_block=R,
+                           chunk_nnz=E)
+    check_pieces(plan)
+
+
+@pytest.mark.parametrize("R,E", PLAN_SIZES + [(8, 1)])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_piece_walk_writes_every_row_once(name, R, E):
+    _, mat = GRAPHS[name]()
+    plan = build_spmm_plan(to_port(GRAPHS[name]()[0]), rows_per_block=R,
+                           chunk_nnz=E)
+    B = dense_B(mat.shape[1], 3).astype(np.float64)
+    out, wrow, wslot = piece_walk(plan, B)
+    assert (wrow == 1).all() and (wslot == 1).all()
+    np.testing.assert_allclose(out, (mat != 0).astype(np.float64) @ B,
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_only_the_chunk_plan_carries_pieces(name):
+    # The grouped kernel walks the row lists; its plan builds no pieces.
+    csr = to_port(GRAPHS[name]()[0])
+    plan = build_spmm_plan(csr, rows_per_block=8, chunk_nnz=16).to("cpu")
+    assert plan.piece_ptr is not None and plan.num_pieces > 0
+    grouped = build_grouped_plan(csr, rows_per_block=8,
+                                 edges_per_chunk=16).to("cpu")
+    assert (grouped.piece_ptr, grouped.piece_row, grouped.piece_slot) == (
+        None, None, None)
+
+
 def test_hub_row_spreads_over_chunks():
     # One row of 1,000 edges between short rows: many chunks, one cut row.
     rng = np.random.default_rng(5)
@@ -157,6 +252,15 @@ def test_hub_row_spreads_over_chunks():
     np.testing.assert_allclose(out.numpy(), want.numpy(), **TOL)
     _, wrow, _ = walk(plan, B.double().numpy())
     assert (wrow == 1).all()
+    # The hub's pieces: one a chunk it touches, each at most E edges.
+    check_pieces(plan)
+    hub = plan.piece_row.numpy() == 20
+    j = plan.cut_rows.tolist().index(20)
+    assert hub.sum() == int(plan.cut_ptr[j + 1] - plan.cut_ptr[j]) >= 1000 // 64
+    assert np.diff(plan.piece_ptr.numpy())[hub].max() <= 64
+    got, wrow, _ = piece_walk(plan, B.double().numpy())
+    assert (wrow == 1).all()
+    np.testing.assert_allclose(got, want.double().numpy(), **TOL)
 
 
 @pytest.fixture(scope="module")
