@@ -46,11 +46,15 @@ Phases, each printed as it goes; any failure exits non-zero:
      (>= 2 forward launches per epoch, exactly 2 of row 3, no carry of
      either),
      with the same checks; then method="xla" with no launches;
-  8. attention kernels vs plain: the edge segment reduce (sum, max) and the
+  8. attention kernels vs plain: the edge segment reduce (sum, max, with
+     the adjacency's split: rows above L walked in segments and their carry
+     launched once a call on rmat15 and the boundary graph, never on sbm;
+     two calls bitwise equal) and the
      three fused GAT kernels (forward; backward over the CSR and over the
      CSC, each with the adjacency's split and its carries) against their
      plain versions in float64, on the SBM graph with self-loops (K=H in
-     {1, 8} for the reduce; heads 1 and 8 at K=64 and K=3/24), on rmat15
+     {1, 8} for the reduce, {1, 3, 8} on rmat15 and the boundary graph;
+     heads 1 and 8 at K=64 and K=3/24), on rmat15
      (hub and empty rows) and on a graph whose rows and columns have L - 1,
      L, L + 1, 2L + 1 and 10,000 edges (utils/datasets.py::
      split_boundary_graph), exact and bound, f32 and bf16.  Forward within
@@ -61,8 +65,8 @@ Phases, each printed as it goes; any failure exits non-zero:
      never on the SBM graph;
   9. composed attention chain on the card at layer 0's shapes (K=64):
      additive logits, leaky ReLU, edge_softmax, spmm(with_data(alpha)),
-     forward and backward: 5 segment-reduce launches, and the result and
-     its gradients held to the fused op and to float64;
+     forward and backward: 5 segment-reduce launches and no carry, and the
+     result and its gradients held to the fused op and to float64;
  10. GAT train: dims [128, 64, 3], one head, on the SBM graph with
      self-loops, 50 epochs through the fused kernels (2 forward, 2
      CSR-backward and 2 CSC-backward launches an epoch, 2 more forward for
@@ -70,17 +74,20 @@ Phases, each printed as it goes; any failure exits non-zero:
      method="xla" with no launches; then DGL's multi-head shape, dims
      [128, 8, 3] with 8 heads, 20 epochs, with the same launch counts;
  11. dot-product attention kernels vs float64: forward, backward over the
-     CSR and over the CSC, on the SBM graph with self-loops at (Ka, K) in
-     {(64, 64), (16, 3)} and on rmat15 at (64, 64), act identity and leaky,
+     CSR and over the CSC, each with the adjacency's split, on the SBM graph
+     with self-loops at (Ka, K) in {(64, 64), (16, 3)}, on rmat15 at (64,
+     64) and on the split-boundary graph at (64, 64), (16, 3) and (64, 130)
+     (a K past one slab), act identity and leaky,
      B in f32 and bf16, D1 and D2 drawn with std Ka^-1/4 (unit-variance
      logits).  Forward within 1e-5 x max |ref| + 1e-6 (bf16 out: 8e-3 x);
      gradients within 1e-4 x max(|ref|, 1) (bf16 grad_B: 8e-3 x); two runs
-     of each kernel bitwise equal;
+     of each kernel bitwise equal; carries 1, 1 and 2 a run on rmat15 and
+     the boundary graph, none on sbm;
  12. attention_aggregate on the card at (64, 64): the fused op (auto),
      forward and backward, held to the composed chain on the card (sddmm,
      edge_softmax on the segment-reduce kernel, spmm with_data on the sum
-     kernel) and to float64; exactly 1 launch of each dot kernel, and
-     method="xla" none;
+     kernel) and to float64; exactly 1 launch of each dot kernel and no
+     carry, and method="xla" none;
  13. nnz-chunked SpMM vs float64: on the SBM graph and rmat15 at K in {1, 3,
      16, 32, 33, 64, 128, 130, 512} (every walker width of the chunk
      kernel's walk over the plan's pieces), valued and binary, f32 and bf16,
@@ -169,10 +176,17 @@ Phases, each printed as it goes; any failure exits non-zero:
      f32 and with bf16 B / f32 out (mode="fast"), against torch.sparse.mm,
      and its split at L in {32, 64, 128, 256} at both rmat15 K=128 (each L
      timed twice, in the order 32 ... 256 ... 32);
+     the edge segment reduce (row 4, with the split) at sbm and rmat15 K=1
+     sum and max and K=8 sum, with its carries and torch.segment_reduce
+     (the same op) beside each;
      the three fused GAT kernels at sbm H=1 dh=64, H=1 dh=3, H=8 dh=8,
      H=8 dh=3 and rmat15 H=1 dh=64, H=8 dh=3 against their plain versions,
      with their bounds and row 1 over the same graph at the same K (a
      yardstick of one gather pass, not the same function);
+     the three dot-attention kernels (row 6, with the splits) at sbm and
+     rmat15 Ka=K=64, with their carries, and scaled_dot_product_attention
+     with the adjacency as a dense mask beside the forward (held to the
+     kernel on the rows with an edge);
      the chunk kernel against float64, the CSR kernel and torch.sparse.mm
      at each timed shape (the kernels line's error is its shape's); the
      grouped kernel likewise, and against the chunk kernel at (64, 64) on
@@ -201,7 +215,9 @@ and 18 are not counted.  The CSR kernel and the chunk and grouped kernels
 count their carry pass apart (spmm_csr_carry, spmm_chunk_carry,
 spmm_grouped_carry), and so do row 7 (halo_spmm_carry), row 5
 (gat_fwd_carry, gat_bwd_rows_carry, gat_bwd_cols_carry), row 2
-(spmm_minmax_carry) and row 3 (spmm_minmax_vjp_carry).  NCCL traffic
+(spmm_minmax_carry), row 3 (spmm_minmax_vjp_carry), row 4
+(edge_segment_reduce_carry) and row 6 (dot_fwd_carry, dot_bwd_rows_carry,
+dot_bwd_cols_carry).  NCCL traffic
 between ranks is not run: the card machine has one card.  Output: one line
 per phase, then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
@@ -251,6 +267,8 @@ SLOPE = 0.2
 # (Ka, K) of the dot-attention checks: the (64, 64) main shape, and a narrow
 # K with Ka a multiple of 4 below a lane's vector.
 DOT_SBM_SHAPES = ((64, 64), (16, 3))
+# ... on the split-boundary graph: both, and a K past one 64-column slab.
+DOT_BOUNDARY_SHAPES = ((64, 64), (16, 3), (64, 130))
 # Every walker of the chunk kernel: 4 lanes at K = 1, 3, 16; 8 at 32; 16 at
 # 64; a warp at 33 and 128 and over K slabs at 130 and 512.
 CHUNK_KS = (1, 3, 16, 32, 33, 64, 128, 130, 512)
@@ -382,7 +400,8 @@ def gat_bytes(kind, m, n, nnz, H, K):
 
 
 def dot_kernels_vs_float64(torch, ref, kgat, adj, Ka, K, slope, dtype, gen):
-    """Run the three dot-attention kernels twice; ({name: (max abs error,
+    """Run the three dot-attention kernels twice, with the adjacency's
+    splits; ({name: (max abs error,
     bound)} against the float64 plain versions, whether the two runs are
     bitwise equal).  D1 and D2 have std Ka^-1/4 (unit-variance logits)."""
     dev = adj.csr.indptr.device
@@ -394,12 +413,13 @@ def dot_kernels_vs_float64(torch, ref, kgat, adj, Ka, K, slope, dtype, gen):
 
     def run():
         out, mx, den = kgat.dot_forward(adj.csr.indptr, adj.csr.indices, D1,
-                                        D2, B, slope=slope)
+                                        D2, B, slope=slope, split=adj.split)
         tabs = (D1, D2, B, g, mx, den, ref.dot_row_dot(g, out))
         gD1 = kgat.dot_backward_rows(adj.csr.indptr, adj.csr.indices, *tabs,
-                                     slope=slope)
+                                     slope=slope, split=adj.split)
         gD2, gB = kgat.dot_backward_cols(adj.csc.indptr, adj.csc.indices,
-                                         *tabs, slope=slope)
+                                         *tabs, slope=slope,
+                                         split=adj.split_t)
         return out, mx, den, gD1, gD2, gB
 
     first, second = run(), run()
@@ -518,6 +538,7 @@ def main(argv=None):
                 "spmm_minmax_vjp": kmm.vjp_launches,
                 "spmm_minmax_vjp_carry": kmm.vjp_carry_launches,
                 "edge_segment_reduce": kedge.launches,
+                "edge_segment_reduce_carry": kedge.carry_launches,
                 "gat_fwd": kgat.launches,
                 "gat_bwd_rows": kgat.bwd_rows_launches,
                 "gat_bwd_cols": kgat.bwd_cols_launches,
@@ -527,6 +548,9 @@ def main(argv=None):
                 "dot_fwd": kgat.dot_launches,
                 "dot_bwd_rows": kgat.dot_bwd_rows_launches,
                 "dot_bwd_cols": kgat.dot_bwd_cols_launches,
+                "dot_fwd_carry": kgat.dot_carry_launches,
+                "dot_bwd_rows_carry": kgat.dot_bwd_rows_carry_launches,
+                "dot_bwd_cols_carry": kgat.dot_bwd_cols_carry_launches,
                 "spmm_chunk": kpal.launches,
                 "spmm_chunk_carry": kpal.carry_launches,
                 "spmm_grouped": kgrp.launches,
@@ -903,15 +927,27 @@ def main(argv=None):
     att_err = {"edge_segment_reduce": 0.0, "gat_fwd": 0.0, "gat_bwd_rows": 0.0,
                "gat_bwd_cols": 0.0}
     att_compared = []
-    # Edge segment reduce: K is the head count; the slice runs K=1.
-    for graph, a, ks in (("sbm", adj, (1, 8)), ("rmat15", rmat, (1, 3, 8))):
+    # Edge segment reduce with the adjacency's split: K is the head count;
+    # the slice runs K=1.  Two calls each, bitwise equal; the carry runs once
+    # a call on rmat15 and the split-boundary graph, never on sbm.
+    bnd = Adjacency.from_csr(split_boundary_graph(SPLIT_LEN, seed=SEED),
+                             device=dev)
+    seg_carries = {}
+    for graph, a, ks in (("sbm", adj, (1, 8)), ("rmat15", rmat, (1, 3, 8)),
+                         ("boundary", bnd, (1, 3, 8))):
         m = a.shape[0]
         for K in ks:
             for dtype in (torch.float32, torch.bfloat16):
                 vals = torch.randn(a.nnz, K, device=dev, generator=gen).to(dtype)
                 for op in ("sum", "max"):
-                    out = kedge.edge_segment_reduce(a.csr.indptr, vals, op)
+                    before = kedge.carry_launches
+                    out, again = (kedge.edge_segment_reduce(
+                        a.csr.indptr, vals, op, split=a.split)
+                        for _ in range(2))
                     torch.cuda.synchronize()
+                    carries = kedge.carry_launches - before
+                    seg_carries.setdefault(graph, set()).add(carries)
+                    repeat = torch.equal(out, again)
                     label = (f"edge_segment_reduce {graph} K={K} {op} "
                              f"{str(dtype).split('.')[-1]}")
                     if op == "max":  # selected, not summed: exact
@@ -924,17 +960,25 @@ def main(argv=None):
                         tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
                         err = float((out.double() - want).abs().max())
                         ok = err <= tol * float(want.abs().max()) + 1e-6
-                    print(f"{label}: max_abs_err={err:.3e} "
+                    print(f"{label}: max_abs_err={err:.3e} carries in two "
+                          f"runs {carries} | repeat "
+                          f"{'bitwise' if repeat else 'DIFFERS'} "
                           f"{'ok' if ok else 'OUT OF BOUND'}", flush=True)
                     check(ok, f"kernel disagrees with the plain version: {label}")
+                    check(repeat, f"edge reduce not bitwise repeatable: {label}")
                     if graph == "sbm" and K == 1 and dtype == torch.float32:
                         att_err["edge_segment_reduce"] = max(
                             att_err["edge_segment_reduce"], err)
-                    att_compared.append({"case": label, "max_abs_err": err})
+                    att_compared.append({"case": label, "max_abs_err": err,
+                                         "carries_in_two_runs": carries,
+                                         "repeat": repeat})
+    check(seg_carries["sbm"] == {0},
+          f"the edge reduce launched a carry on sbm: {seg_carries['sbm']}")
+    for graph in ("rmat15", "boundary"):
+        check(seg_carries[graph] == {2},
+              f"edge reduce carries on {graph}: {seg_carries[graph]}")
     # The three fused kernels, with their splits: none on sbm, hub rows and
     # columns on rmat15 and the split-boundary graph.
-    bnd = Adjacency.from_csr(split_boundary_graph(SPLIT_LEN, seed=SEED),
-                             device=dev)
     print(f"split-boundary graph: n={bnd.shape[0]} nnz={bnd.nnz}, long rows "
           f"{bnd.split.long_rows.tolist()} in {bnd.split.num_segments} "
           f"segments, long columns {bnd.split_t.long_rows.tolist()} in "
@@ -1013,6 +1057,8 @@ def main(argv=None):
     print(f"composed chain launches: {chain_launches}", flush=True)
     check(chain_launches["edge_segment_reduce"] == 5,
           "composed chain: expected 2 + 3 segment-reduce launches")
+    check(chain_launches["edge_segment_reduce_carry"] == 0,
+          "composed chain: a segment-reduce carry on sbm")
     check(chain_launches["spmm_csr"] == 2,
           "composed chain: expected 2 spmm_csr launches")
     chain_errs = {}
@@ -1057,20 +1103,30 @@ def main(argv=None):
 
     phase("11 dot-product attention kernels vs float64")
     dot_err = {"dot_fwd": 0.0, "dot_bwd_rows": 0.0, "dot_bwd_cols": 0.0}
+    dot_err_rmat = dict(dot_err)
     dot_compared = []
     dot_cases = [("sbm", adj, Ka, K) for Ka, K in DOT_SBM_SHAPES]
     dot_cases.append(("rmat15", rmat, 64, 64))
+    dot_cases += [("boundary", bnd, Ka, K) for Ka, K in DOT_BOUNDARY_SHAPES]
+    dot_carry_names = ("dot_fwd_carry", "dot_bwd_rows_carry",
+                       "dot_bwd_cols_carry")
+    dot_carries = {}
     for graph, a, Ka, K in dot_cases:
         for slope in (None, SLOPE):
             for dtype in (torch.float32, torch.bfloat16):
                 label = (f"dot {graph} Ka={Ka} K={K} slope={slope} "
                          f"{str(dtype).split('.')[-1]}")
+                before = counts()
                 errs, repeat = dot_kernels_vs_float64(torch, ref, kgat, a, Ka,
                                                       K, slope, dtype, gen)
+                after = counts()
+                carries = tuple(after[k] - before[k] for k in dot_carry_names)
+                dot_carries.setdefault(graph, set()).add(carries)
                 bad = [k for k, (e, b) in errs.items() if e > b]
                 print(f"{label}: " + " ".join(f"{k}={e:.3e}" for k, (e, _) in
                                               errs.items())
-                      + f" | repeat {'bitwise' if repeat else 'DIFFERS'}"
+                      + f" | carries in two runs {carries} | repeat "
+                      + ("bitwise" if repeat else "DIFFERS")
                       + (f" OUT OF BOUND: {bad}" if bad else " ok"), flush=True)
                 check(not bad, f"dot kernels disagree with float64: {label} "
                       f"{bad}")
@@ -1081,7 +1137,19 @@ def main(argv=None):
                                "dot_bwd_rows": errs["grad_D1"][0],
                                "dot_bwd_cols": max(errs["grad_D2"][0],
                                                    errs["grad_B"][0])}
-                dot_compared.append({"case": label, "errors": errs})
+                if (graph, slope, dtype) == ("rmat15", None, torch.float32):
+                    dot_err_rmat = {"dot_fwd": errs["out"][0],
+                                    "dot_bwd_rows": errs["grad_D1"][0],
+                                    "dot_bwd_cols": max(errs["grad_D2"][0],
+                                                        errs["grad_B"][0])}
+                dot_compared.append({"case": label, "errors": errs,
+                                     "carries_in_two_runs": carries,
+                                     "repeat": repeat})
+    check(dot_carries["sbm"] == {(0, 0, 0)},
+          f"a dot kernel launched a carry on sbm: {dot_carries['sbm']}")
+    for graph in ("rmat15", "boundary"):  # 1, 1 and 2 carries a run
+        check(dot_carries[graph] == {(2, 2, 4)},
+              f"dot kernels' carries on {graph}: {dot_carries[graph]}")
     record["dot_vs_plain"] = dot_compared
 
     phase("12 attention_aggregate on the card (Ka=64, K=64)")
@@ -1120,6 +1188,8 @@ def main(argv=None):
     check((dot_launches["dot_fwd"], dot_launches["dot_bwd_rows"],
            dot_launches["dot_bwd_cols"]) == (1, 1, 1),
           "attention_aggregate: expected exactly 1 launch of each dot kernel")
+    check(not any(dot_launches[k] for k in dot_carry_names),
+          f"attention_aggregate launched a dot carry on sbm: {dot_launches}")
     check(not any(xla_dot_launches.values()),
           f"attention_aggregate(method='xla') launched {xla_dot_launches}")
     check(dot_chain_launches["edge_segment_reduce"] == 3
@@ -1894,10 +1964,11 @@ def main(argv=None):
     # so they run back to back on the card.  Call time: CUDA events around
     # groups of calls, which at these sizes is the host's enqueue rate
     # (the wrapper's checks and the launch).
-    def library_time(name, call, want=None, iters=50):
+    def library_time(name, call, want=None, iters=50, live=None):
         """Device ms of one PyTorch call that computes the kernel's function
         (a yardstick the port never calls), or None where the card has no
-        such call for these operands or its result differs from ``want``."""
+        such call for these operands or its result differs from ``want``
+        (on the rows ``live`` only, where given)."""
         try:
             got = call()
             torch.cuda.synchronize()
@@ -1905,6 +1976,8 @@ def main(argv=None):
             print(f"library call {name}: none on the card for these operands "
                   f"({str(e).splitlines()[0][:160]})", flush=True)
             return None
+        if live is not None:
+            got, want = got.index_select(0, live), want.index_select(0, live)
         if want is not None:
             err = float((got.double() - want.double()).abs().max())
             scale = float(want.abs().max())
@@ -2080,32 +2153,50 @@ def main(argv=None):
     record["minmax_timings"] = mm_timings
 
     # Edge segment reduce at the composed chain's K=1 (sum: the normaliser
-    # and the backward; max: the shift) and at 8 heads; then rmat15.
+    # and the backward; max: the shift) and at 8 heads; then rmat15 (its hub
+    # rows split, with the carry); the adjacency's split, as the ops pass it.
+    # torch.segment_reduce with the same op beside each, held to the kernel
+    # on the rows with an edge (an empty row's max is -inf there, 0 here;
+    # rmat15 has 11,708 empty rows, sbm with self-loops none).
     seg_timings = []
     for graph, a, K, op in (("sbm", adj, 1, "sum"), ("sbm", adj, 1, "max"),
-                            ("sbm", adj, 8, "sum"), ("rmat15", rmat, 1, "sum")):
+                            ("sbm", adj, 8, "sum"), ("rmat15", rmat, 1, "sum"),
+                            ("rmat15", rmat, 1, "max"),
+                            ("rmat15", rmat, 8, "sum")):
         vals = torch.randn(a.nnz, K, device=dev, generator=gen)
 
         def kernel():
-            return kedge.edge_segment_reduce(a.csr.indptr, vals, op)
+            return kedge.edge_segment_reduce(a.csr.indptr, vals, op,
+                                             split=a.split)
 
         def plain():
             return ref.edge_segment_rows(a.rows, vals, a.shape[0], op)
 
+        before = kedge.carry_launches
+        got = kernel()
+        carries = kedge.carry_launches - before
         k_dev, p_dev = alternate(timing.device_time, kernel, plain)
-        # Bytes: indptr, the (nnz, K) f32 values and the (m, K) f32 out (the
-        # kernel reads no column index); one operation an element.
         m = a.shape[0]
+        nbytes, ops = profiling.edge_reduce_work(m, a.nnz, K)
+        want = ref.edge_segment_rows(a.rows, vals.double(), m, op)
         row = {"kernel": "edge_segment_reduce", "shape": f"{graph} K={K} {op}",
                "nnz": a.nnz, "K": K, "kernel_device_ms": k_dev,
-               "plain_device_ms": p_dev,
-               "bytes": (m + 1) * 4 + (a.nnz + m) * K * 4,
-               "ops": a.nnz * K}
+               "plain_device_ms": p_dev, "bytes": nbytes, "ops": ops,
+               "carry_launches": carries,
+               "max_abs_err": float((got.double() - want).abs().max())}
+        lengths = (a.csr.indptr[1:] - a.csr.indptr[:-1]).long()
+        row["library_ms"] = library_time(
+            f"torch.segment_reduce {graph} K={K} {op}",
+            lambda: torch.segment_reduce(vals, op, lengths=lengths, axis=0,
+                                         unsafe=True),
+            want=got, live=lengths.nonzero()[:, 0])
         seg_timings.append(row)
         print(f"edge_segment_reduce {graph} K={K} {op}: device time kernel "
-              f"{mean(k_dev):.5f} ms | plain {mean(p_dev):.5f} ms | bound "
-              f"{profiling.bound(row['bytes'], row['ops'])[0] * 1e3:.5f} ms | "
-              f"{card}", flush=True)
+              f"{mean(k_dev):.5f} ms ({carries} carry launches) | plain "
+              f"{mean(p_dev):.5f} ms | bound "
+              f"{profiling.bound(nbytes, ops)[0] * 1e3:.5f} ms | "
+              f"torch.segment_reduce {row.get('library_ms')} ms | {card}",
+              flush=True)
     record["edge_reduce_timings"] = seg_timings
 
     # The fused kernels (row 5) at GAT_TIMED, with the adjacency's splits
@@ -2164,8 +2255,10 @@ def main(argv=None):
                   flush=True)
     record["gat_timings"] = gat_timings
 
-    # Dot-product attention at (Ka, K) = (64, 64) on both graphs; 10 calls a
-    # group, as for the GAT kernels (a plain call is 15-25 launches).
+    # Dot-product attention at (Ka, K) = (64, 64) on both graphs, with the
+    # adjacency's splits (rmat15: hub rows and columns in segments, and the
+    # carries); 10 calls a group, as for the GAT kernels (a plain call is
+    # 15-25 launches).
     dot_timings = []
     for graph, a in (("sbm", adj), ("rmat15", rmat)):
         m, n = a.shape
@@ -2174,56 +2267,64 @@ def main(argv=None):
         D2 = torch.randn(n, Ka, device=dev, generator=gen) * Ka ** -0.25
         B = torch.randn(n, K, device=dev, generator=gen)
         g = torch.randn(m, K, device=dev, generator=gen)
-        out, mx, den = kgat.dot_forward(a.csr.indptr, a.csr.indices, D1, D2, B)
+        out, mx, den = kgat.dot_forward(a.csr.indptr, a.csr.indices, D1, D2, B,
+                                        split=a.split)
         tabs = (D1, D2, B, g, mx, den, ref.dot_row_dot(g, out))
         edges = (a.rows, a.csr.indices)
+        errs = {"sbm": dot_err, "rmat15": dot_err_rmat}[graph]
         for label, kernel, plain in (
                 ("dot_fwd",
                  lambda: kgat.dot_forward(a.csr.indptr, a.csr.indices, D1, D2,
-                                          B),
+                                          B, split=a.split),
                  lambda: ref.dot_attention_rows(*edges, D1, D2, B, m)),
                 ("dot_bwd_rows",
                  lambda: kgat.dot_backward_rows(a.csr.indptr, a.csr.indices,
-                                                *tabs),
+                                                *tabs, split=a.split),
                  lambda: ref.dot_attention_vjp_rows(*edges, *tabs, m)),
                 ("dot_bwd_cols",
                  lambda: kgat.dot_backward_cols(a.csc.indptr, a.csc.indices,
-                                                *tabs),
+                                                *tabs, split=a.split_t),
                  lambda: ref.dot_attention_vjp_cols(*edges, *tabs))):
+            before = counts()
+            kernel()
+            carries = counts()[label + "_carry"] - before[label + "_carry"]
             k_dev, p_dev = alternate(few_time, kernel, plain)
-            nnz, H4 = a.nnz, 4 * m
-            tables = (m + n) * Ka * 4 + n * K * 4  # D1, D2, B
-            nbytes, ops = {
-                "dot_fwd": ((m + 1) * 4 + nnz * 4 + tables + m * K * 4 + 2 * H4,
-                            nnz * (2 * Ka + 2 * K + 6)),
-                "dot_bwd_rows": ((m + 1) * 4 + nnz * 4 + tables + m * K * 4
-                                 + 3 * H4 + m * Ka * 4,
-                                 nnz * (4 * Ka + 2 * K + 10)),
-                "dot_bwd_cols": ((n + 1) * 4 + nnz * 4 + tables + m * K * 4
-                                 + 3 * H4 + n * Ka * 4 + n * K * 4,
-                                 nnz * (4 * Ka + 4 * K + 10))}[label]
+            nbytes, ops = profiling.dot_attention_work(label, m, n, a.nnz, K,
+                                                       Ka)
             row = {"kernel": label, "shape": f"{graph} Ka={Ka} K={K}",
-                   "nnz": nnz, "K": K, "kernel_device_ms": k_dev,
-                   "plain_device_ms": p_dev, "bytes": nbytes, "ops": ops}
+                   "nnz": a.nnz, "K": K, "kernel_device_ms": k_dev,
+                   "plain_device_ms": p_dev, "bytes": nbytes, "ops": ops,
+                   "carry_launches": carries, "max_abs_err": errs[label]}
             dot_timings.append(row)
             print(f"{label} {graph} Ka={Ka} K={K}: device time kernel "
-                  f"{mean(k_dev):.5f} ms | plain {mean(p_dev):.5f} ms | bound "
+                  f"{mean(k_dev):.5f} ms ({carries} carry launches) | plain "
+                  f"{mean(p_dev):.5f} ms | bound "
                   f"{profiling.bound(nbytes, ops)[0] * 1e3:.5f} ms | {card}",
                   flush=True)
-        if graph == "sbm":
-            # scaled_dot_product_attention with the adjacency as a dense
-            # mask computes the same out where no row is empty (self-loops).
-            mask = torch.zeros(m, n, dtype=torch.bool, device=dev)
-            mask[a.rows.long(), a.csr.indices.long()] = True
-            sdpa = library_time(
-                "scaled_dot_product_attention", lambda: torch.nn.functional.
-                scaled_dot_product_attention(D1[None, None], D2[None, None],
-                                             B[None, None],
-                                             attn_mask=mask[None, None],
-                                             scale=1.0)[0, 0],
-                want=out, iters=10)
-            dot_timings[-3]["library_ms"] = sdpa
-            del mask
+        # scaled_dot_product_attention with the adjacency as a dense mask
+        # computes the same out on every row with an edge (an empty row gets
+        # NaN: rmat15 has 11,708), so it is held to the kernel on those rows.
+        # rmat15's mask is 32,768^2 bytes, 1.07 GB.
+        mask = torch.zeros(m, n, dtype=torch.bool, device=dev)
+        mask[a.rows.long(), a.csr.indices.long()] = True
+        live = (a.csr.indptr[1:] > a.csr.indptr[:-1]).nonzero()[:, 0]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                D1[None, None], D2[None, None], B[None, None],
+                attn_mask=mask[None, None], scale=1.0)[0, 0]
+
+        got = sdpa().index_select(0, live)
+        want = out.index_select(0, live)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        lib_ms = (timing.device_time(sdpa, iters=10) * 1e3
+                  if err <= 1e-3 * max(scale, 1.0) else None)
+        print(f"library call scaled_dot_product_attention {graph}: max_abs_err "
+              f"{err:.3e} against the kernel on {live.numel()} rows with an "
+              f"edge (max |out| {scale:.3e}) | {lib_ms} ms", flush=True)
+        dot_timings[-3]["library_ms"] = lib_ms
+        del mask, got
     record["dot_timings"] = dot_timings
 
     # The chunk kernel against the CSR kernel (spmm_csr), its plain version
@@ -2691,13 +2792,6 @@ def main(argv=None):
         lambda: torch.sparse.mm(lib_sage, B128, reduce="amax"),
         want=kmm.spmm_minmax(sage_adj.csr.indptr, sage_adj.csr.indices, None,
                              B128, "max", split=sage_adj.split)[0])
-    vals1 = torch.randn(adj.nnz, 1, device=dev, generator=gen)
-    lengths = (adj.csr.indptr[1:] - adj.csr.indptr[:-1]).long()
-    seg_timings[0]["library_ms"] = library_time(
-        "torch.segment_reduce", lambda: torch.segment_reduce(
-            vals1, "sum", lengths=lengths, axis=0, unsafe=True),
-        want=kedge.edge_segment_reduce(adj.csr.indptr, vals1, "sum"))
-
 
     def kernel_entry(name, source, replaces, launches, err, row):
         bound_s, bound_by = profiling.bound(row["bytes"], row["ops"])
@@ -2750,9 +2844,13 @@ def main(argv=None):
                  "spmm_minmax_vjp"],
              more=more_shapes(r for r in mm_timings[2:]
                               if r["kernel"] == "spmm_minmax_vjp")),
-        kernel_entry("edge_segment_reduce", kedge.SOURCE, kedge.REPLACES,
-                     chain_launches["edge_segment_reduce"],
-                     att_err["edge_segment_reduce"], seg_timings[0]),
+        # Row 4: launches and carries of the composed chain (phase 9), times
+        # at sbm K=1 sum, the other timed shapes in more.
+        dict(kernel_entry("edge_segment_reduce", kedge.SOURCE, kedge.REPLACES,
+                          chain_launches["edge_segment_reduce"],
+                          att_err["edge_segment_reduce"], seg_timings[0]),
+             carry_launches=chain_launches["edge_segment_reduce_carry"],
+             more=more_shapes(seg_timings[1:])),
         # Row 5: launches and carries of the GAT's run (phase 10), times at
         # sbm H=1 dh=64, the other timed shapes in more.
         *(dict(kernel_entry(name, kgat.SOURCE, replaces,
@@ -2766,15 +2864,16 @@ def main(argv=None):
               ("gat_fwd", kgat.REPLACES),
               ("gat_bwd_rows", kgat.BWD_ROWS_REPLACES),
               ("gat_bwd_cols", kgat.BWD_COLS_REPLACES)))),
-        kernel_entry("dot_fwd", kgat.DOT_SOURCE, kgat.DOT_REPLACES,
-                     dot_launches["dot_fwd"], dot_err["dot_fwd"],
-                     dot_timings[0]),
-        kernel_entry("dot_bwd_rows", kgat.DOT_SOURCE,
-                     kgat.DOT_BWD_ROWS_REPLACES, dot_launches["dot_bwd_rows"],
-                     dot_err["dot_bwd_rows"], dot_timings[1]),
-        kernel_entry("dot_bwd_cols", kgat.DOT_SOURCE,
-                     kgat.DOT_BWD_COLS_REPLACES, dot_launches["dot_bwd_cols"],
-                     dot_err["dot_bwd_cols"], dot_timings[2]),
+        # Row 6: launches and carries of attention_aggregate's run (phase
+        # 12), times at sbm Ka=K=64, rmat15 in more.
+        *(dict(kernel_entry(name, kgat.DOT_SOURCE, replaces,
+                            dot_launches[name], dot_err[name], dot_timings[i]),
+               carry_launches=dot_launches[name + "_carry"],
+               more=more_shapes([dot_timings[i + 3]]))
+          for i, (name, replaces) in enumerate((
+              ("dot_fwd", kgat.DOT_REPLACES),
+              ("dot_bwd_rows", kgat.DOT_BWD_ROWS_REPLACES),
+              ("dot_bwd_cols", kgat.DOT_BWD_COLS_REPLACES)))),
         dict(kernel_entry("spmm_chunk", kpal.SOURCE, kpal.REPLACES,
                           sweep_launches["spmm_chunk"],
                           chunk_row["max_abs_err"], chunk_row),

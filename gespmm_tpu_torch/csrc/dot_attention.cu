@@ -23,100 +23,105 @@
 // then a Ka-wide pass over the plan (:401-428) and a (K+Ka)-wide pass over
 // the transposed plan (:430-463) backward, each fed by XLA gathers of
 // combined node tables into slot order and writing its per-slot stream to
-// device memory in between.  Here each direction is one kernel, and every
-// per-edge quantity (pre, z, alpha, u, dpre) lives in registers only.
+// device memory in between.  Here each direction is one kernel (plus a carry
+// pass where a row or column is long), and every per-edge quantity (pre, z,
+// alpha, u, dpre) lives in registers only.
 //
-// What bounds them: bytes and latency.  Per edge the forward reads one
+// What bounds them: bytes and latency.  Per edge the forward gathers one
 // Ka-wide row of D2 and one K-wide row of B for about 2(Ka + K) flops and one
-// exp; the backward reads the same rows again per direction, plus a K-wide
-// row of g: far below the card's ridge point.  The design:
-//   * forward, one warp per CSR row, as one pass with an online softmax: the
-//     row's edges go 32 at a time, one per lane; a lane computes its edge's
-//     logit (the Ka-wide dot, serially), the warp takes the batch max with a
-//     fixed xor-shuffle tree, rescales its running sums by exp(old max - new
-//     max), and then aggregates the batch with the lanes over columns (VEC
-//     consecutive each, vector loads of B), each edge's column id and weight
-//     broadcast with __shfl_sync.  Each logit is computed once and each B row
-//     read once, where the two-pass shape of gat_fused.cu walks every row
-//     twice.  mx is the exact row max of act(pre); for a row of at most 32
-//     edges z is exp(max(l - mx, -80)) exactly, for a longer one the
+// exp; the backward over the CSR gathers the same two rows, the backward over
+// the CSC one Ka-wide row of D1 and one K-wide row of g: far below the card's
+// ridge point.  The design is the split walk of gat_fused.cu (row 5):
+//   * the work items are the segments of the rows (columns) above L edges
+//     first, then every row (column) (attention.cuh).  A row of at most L
+//     edges is walked whole by its own walker and written out; a segment
+//     writes a partial state to its slot of a scratch buffer, and a carry
+//     pass merges a long row's slots in segment order: the softmax carry
+//     forward (m, zsum, acc), carry.cuh's sum carry for grad_D1 backward and
+//     two sum carries (grad_B, grad_D2) over the CSC.  No carry is launched
+//     when the split has no segment (sbm-pubmed);
+//   * a walker is SW = 4-32 lanes of a warp with VEC columns a lane
+//     (kernels/gat_fused.py::dot_walk_shape: VEC divides K and Ka, SW*VEC
+//     covers the wider of them): at Ka = K = 64 two 16-lane walkers a warp
+//     with 16-byte lanes;
+//   * walker-wide dots: a lane holds its VEC columns of the item's own rows
+//     (D1[r], and g[r] over the CSR; D2[c] and B[c] over the CSC), gathers
+//     the same columns of the other side's rows for each edge and takes a
+//     partial dot, which the walker's xor-shuffle tree finishes.  So over the
+//     CSR the D2 row gathered for pre is the row that grad_D1 accumulates,
+//     and over the CSC one walk gives grad_D2 and grad_B with each D1 and g
+//     row gathered once;
+//   * each walker gathers the rows of a batch of edges (4 forward, 2
+//     backward) before any is folded, with no branch around a gather: past a
+//     round's end the last edge is loaded again and not folded (a load
+//     behind `if (active)` in an unrolled one-edge loop compiles to a branch
+//     around each gather, halo_spmm.cu's lesson);
+//   * the forward is one pass with an online softmax over rounds of SW edges:
+//     the round's logits first (lane j keeps edge j's), its maximum by a
+//     shuffle tree, the running sums rescaled by exp(m_old - m_new), then the
+//     round's B rows folded, the first batch of them gathered before the
+//     logits.  A row of at most SW edges has its exact maximum in its first
+//     round, so z is exp(max(l - mx, -80)) exactly; for a longer one the
 //     product of the rescalings (equal up to rounding, and to the floor,
 //     which only changes weights below 1.8e-35 against a denominator >= 1);
-//   * backward over the CSR, one warp per row: each lane recomputes pre,
-//     alpha and the K-wide dot u for its own edge serially (a lane owns whole
-//     edges, so no cross-lane sum is needed for a dot of any width); then the
-//     lanes go over Ka columns and each edge's dpre and column id are
-//     broadcast;
-//   * backward over the CSC, one warp per column: as the CSR backward, with
-//     alpha recomputed from the row-side tables mx and den at the edge's row;
-//     the second grid dimension walks the K slabs of grad_B (alpha * g rows;
-//     u is not needed there) and then the Ka slabs of grad_D2;
-//   * the three kernels compute pre with the same serial dot in the same
-//     order, so they agree on it bitwise; every output element is written
-//     once, without atomics, so each kernel is bitwise repeatable;
-//   * expf, not __expf (the build does not use --use_fast_math), so the
+//   * the three kernels compute pre with one function (edge_dots and the
+//     walker's tree, or lane_dot at VEC = 1: the same lane columns, the same
+//     fma order, the same shuffles; fmaf is symmetric in its factors, so
+//     holding D2 and gathering D1 gives the same bits), so the backward's
+//     alpha meets the forward's mx and den bit for bit when the three
+//     launches take one (VEC, SW) (kernels/gat_fused.py::dot_walk_shape picks
+//     it from K, Ka and D1, D2, B for all three; a g that is not aligned to
+//     that VEC is copied before the backward launches);
+//   * every output element is written once, without atomics, so each kernel
+//     is bitwise repeatable; expf, not __expf (no --use_fast_math), so the
 //     float64 comparisons keep their margins.
-// Not here yet: several short rows per warp, an nnz-balanced split of hub
-// rows and columns (the chunk list of spmm_chunk.cu), and tensor-core dots.
+// At VEC = 1 (K or Ka odd) each lane takes its own edge's dots serially
+// instead (the first port's arithmetic) inside the same split walk, and over
+// the CSR the D2 rows are gathered a second time to accumulate grad_D1: a
+// walker-wide dot of 1-column lanes spends a shuffle tree on every edge for
+// a few bytes a lane, and lost to it at (Ka, K) = (16, 3) (PERF.md, section 6).
+// scripts/row6_ab.py rebuilds this source with each of these choices (the
+// dots, the batch depths, the forward's register bound) changed.
 //
-// Plain C interface, loaded with ctypes.  The caller picks each VEC (1, 2 or
-// 4; the width % VEC == 0 and every table of that width aligned to VEC
-// elements) and vec4 (Ka % 4 == 0 and D1, D2 aligned to 4 floats).  Each
-// entry point launches on the given stream, does not synchronise, and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for arguments it does not
-// take.
+// Plain C interface, loaded with ctypes.  Each entry point launches on the
+// given stream, does not synchronise, and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments it does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
+#include "attention.cuh"
+
 namespace {
 
-// The launch shape and the type helpers are those of gat_fused.cu; each
-// source stays self-contained, as the package ships csrc/*.cu alone.
-constexpr int kThreads = 256;  // 8 warps, 8 rows in flight per block
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kMaxBlocksX = 65535;  // a grid-stride loop covers the rest
-constexpr unsigned kFull = 0xffffffffu;
-// gespmm_tpu/kernels/gat_fused.py's _EXP_FLOOR and _DENOM_EPS.
-constexpr float kExpFloor = -80.f;
-constexpr float kDenomEps = 1e-20f;
+using gespmm::dispatch;  // (VEC, SW) -> the instantiation
+using gespmm::from_f32;
+using gespmm::item_edges;
+using gespmm::item_grid;
+using gespmm::Item;
+using gespmm::kDenomEps;
+using gespmm::kExpFloor;
+using gespmm::kThreads;
+using gespmm::Pack;
+using gespmm::Split;
+using gespmm::Sub;
+using gespmm::to_f32;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(kFull, x, s);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, s));
-  return x;
-}
+// Edges whose rows a walker gathers before it folds any, a kernel each.
+constexpr int kFwdBatch = 4;
+constexpr int kRowsBatch = 2;
+constexpr int kColsBatch = 2;
+// Blocks of kThreads an SM that the forward's registers must allow: three
+// (at most 80 registers) was faster at sbm and rmat15, where a bound slowed
+// the CSR backward (PERF.md, section 6).
+constexpr int kFwdMinBlocks = 3;
+// Lane-serial dots at VEC = 1, walker-wide dots elsewhere.
+template <int VEC>
+constexpr bool kLaneDots = VEC == 1;
 
 __device__ __forceinline__ float act(float x, int leaky, float slope) {
   return (leaky && x < 0.f) ? slope * x : x;
@@ -126,36 +131,6 @@ __device__ __forceinline__ float dact(float x, int leaky, float slope) {
   return (leaky && x < 0.f) ? slope : 1.f;
 }
 
-// pre = a . b over Ka floats, serially in index order (the same sum in all
-// three kernels), with 16-byte loads when vec4.
-__device__ __forceinline__ float row_dot(const float* __restrict__ a,
-                                         const float* __restrict__ b, int Ka,
-                                         int vec4) {
-  float acc = 0.f;
-  if (vec4) {
-    for (int i = 0; i < Ka; i += 4) {
-      const float4 x = __ldg(reinterpret_cast<const float4*>(a + i));
-      const float4 y = __ldg(reinterpret_cast<const float4*>(b + i));
-      acc = fmaf(x.x, y.x, acc);
-      acc = fmaf(x.y, y.y, acc);
-      acc = fmaf(x.z, y.z, acc);
-      acc = fmaf(x.w, y.w, acc);
-    }
-  } else {
-    for (int i = 0; i < Ka; ++i) acc = fmaf(__ldg(a + i), __ldg(b + i), acc);
-  }
-  return acc;
-}
-
-// u = g_row . b_row over K, serially.
-template <typename T>
-__device__ __forceinline__ float g_dot(const float* __restrict__ g_row,
-                                       const T* __restrict__ b_row, int K) {
-  float u = 0.f;
-  for (int i = 0; i < K; ++i) u = fmaf(__ldg(g_row + i), to_f32(b_row[i]), u);
-  return u;
-}
-
 // alpha = z / den from the row-side tables.
 __device__ __forceinline__ float attention(float pre, int leaky, float slope,
                                            float mx, float den) {
@@ -163,447 +138,631 @@ __device__ __forceinline__ float attention(float pre, int leaky, float slope,
          fmaxf(den, kDenomEps);
 }
 
-dim3 warp_per_item_grid(int items, int slabs) {
-  const unsigned blocks = (unsigned)((items + kWarps - 1) / kWarps);
-  return dim3(blocks < kMaxBlocksX ? blocks : kMaxBlocksX, (unsigned)slabs);
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load(const T* __restrict__ p) {
+  return *reinterpret_cast<const Pack<T, VEC>*>(p);
 }
 
-int slabs_of(int width, int vec) { return (width + 32 * vec - 1) / (32 * vec); }
+// The lane's first column in slab `slab` of SW*VEC columns of a table
+// `width` wide (column 0 past the width, where `on` is false).
+template <int VEC, int SW>
+struct Col {
+  int kk;
+  bool on;
+  __device__ Col(int slab, int width, int lane) {
+    const int k = (slab * SW + lane) * VEC;
+    on = k < width;
+    kk = on ? k : 0;
+  }
+};
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-dot_fwd_kernel(int m, int K, int Ka, int leaky, float slope, int vec4,
+// p[u] += x . y[u] over the lane's VEC columns, in column order.
+template <typename TA, typename TB, int VEC, int N>
+__device__ __forceinline__ void add_dots(const Pack<TA, VEC>& x,
+                                         const Pack<TB, VEC> (&y)[N], bool on,
+                                         float (&p)[N]) {
+  if (!on) return;
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+#pragma unroll
+    for (int t = 0; t < VEC; ++t)
+      p[u] = fmaf(to_f32(x.v[t]), to_f32(y[u].v[t]), p[u]);
+}
+
+template <typename T, int VEC, int N>
+__device__ __forceinline__ void gather(const T* (&rows)[N], int kk,
+                                       Pack<T, VEC> (&y)[N]) {
+#pragma unroll
+  for (int u = 0; u < N; ++u) y[u] = load<T, VEC>(rows[u] + kk);
+}
+
+// The lane's partial of a . rows[u] from slab 0's gathered columns y0 (held
+// x0) and the other slabs of the width, gathered here: the slabs in order,
+// each the lane's VEC columns in order.  With the walker's tree (sums) after
+// it, this is the dot of every kernel here (see the header).
+template <typename TA, typename TB, int VEC, int SW, int N>
+__device__ __forceinline__ void edge_dots(int lane, int width,
+                                          const TA* __restrict__ a,
+                                          const Pack<TA, VEC>& x0,
+                                          const TB* (&rows)[N],
+                                          const Pack<TB, VEC> (&y0)[N],
+                                          float (&p)[N]) {
+#pragma unroll
+  for (int u = 0; u < N; ++u) p[u] = 0.f;
+  add_dots(x0, y0, Col<VEC, SW>(0, width, lane).on, p);
+  const int nslab = (width + SW * VEC - 1) / (SW * VEC);
+  for (int slab = 1; slab < nslab; ++slab) {
+    const Col<VEC, SW> cl(slab, width, lane);
+    Pack<TB, VEC> y[N];
+    gather(rows, cl.kk, y);
+    add_dots(load<TA, VEC>(a + cl.kk), y, cl.on, p);
+  }
+}
+
+// The walker's totals of N partials, in every lane: Sub::sum's butterfly.
+template <int SW, int N>
+__device__ __forceinline__ void sums(const Sub<SW>& w, float (&p)[N]) {
+#pragma unroll
+  for (int s = SW / 2; s > 0; s >>= 1)
+#pragma unroll
+    for (int u = 0; u < N; ++u) p[u] += __shfl_xor_sync(w.mask, p[u], s, SW);
+}
+
+// One lane's serial dot of two rows `width` wide (the lane-dots variant).
+template <typename TA, typename TB, int VEC>
+__device__ __forceinline__ float lane_dot(const TA* __restrict__ a,
+                                          const TB* __restrict__ b,
+                                          int width) {
+  float acc = 0.f;
+  for (int i = 0; i < width; i += VEC) {
+    const Pack<TA, VEC> x = load<TA, VEC>(a + i);
+    const Pack<TB, VEC> y = load<TB, VEC>(b + i);
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) acc = fmaf(to_f32(x.v[t]), to_f32(y.v[t]), acc);
+  }
+  return acc;
+}
+
+// The row pointers of the edges u0 .. u0 + N - 1 of a round (its last edge
+// in place of those past its end), from the lanes' edge indices c.
+template <typename T, int SW, int N>
+__device__ __forceinline__ void batch_rows(const Sub<SW>& w, int c, int u0,
+                                           int n_here, const T* table,
+                                           int width, const T* (&rows)[N]) {
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+    rows[u] = table + (int64_t)w.get(c, min(u0 + u, n_here - 1)) * width;
+}
+
+template <typename T, int VEC, int SW>
+__global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
+dot_fwd_kernel(int m, int S, int K, int Ka, int L, int leaky, float slope,
                const int* __restrict__ indptr, const int* __restrict__ indices,
-               const float* __restrict__ D1, const float* __restrict__ D2,
-               const T* __restrict__ B, T* __restrict__ out,
-               float* __restrict__ mx, float* __restrict__ den) {
+               const int* __restrict__ seg_row,
+               const int* __restrict__ seg_start, const float* __restrict__ D1,
+               const float* __restrict__ D2, const T* __restrict__ B,
+               T* __restrict__ out, float* __restrict__ mx,
+               float* __restrict__ den, float* __restrict__ pm,
+               float* __restrict__ pz, float* __restrict__ pacc) {
   using P = Pack<T, VEC>;
-  const int lane = threadIdx.x & 31;
-  const int k = (blockIdx.y * 32 + lane) * VEC;
-  const bool active = k < K;  // K % VEC == 0, so k < K covers all VEC
-  const int stride = gridDim.x * kWarps;
-  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < m;
-       row += stride) {
-    const int start = indptr[row];
-    const int end = indptr[row + 1];
-    const float* d1 = D1 + (int64_t)row * Ka;
-    float run_max = -CUDART_INF_F, zsum = 0.f, acc[VEC];
+  using F = Pack<float, VEC>;
+  constexpr int kPerBlock = kThreads / SW;
+  const Sub<SW> w;
+  const int nslab = (K + SW * VEC - 1) / (SW * VEC);
+  for (int item = blockIdx.x * kPerBlock + threadIdx.x / SW; item < S + m;
+       item += gridDim.x * kPerBlock) {
+    Item it;
+    if (!item_edges(item, S, L, indptr, seg_row, seg_start, it)) continue;
+    const float* __restrict__ d1 = D1 + (int64_t)it.row * Ka;
+    const Col<VEC, SW> ca(0, Ka, w.lane);
+    const F x0 = load<float, VEC>(d1 + ca.kk);
+    for (int slab = 0; slab < nslab; ++slab) {
+      const Col<VEC, SW> cl(slab, K, w.lane);
+      float m_run = -CUDART_INF_F, zsum = 0.f, acc[VEC];
 #pragma unroll
-    for (int t = 0; t < VEC; ++t) acc[t] = 0.f;
-    for (int base = start; base < end; base += 32) {
-      // Warp-uniform down to the shuffles: all 32 lanes take part.
-      const int e = base + lane;
-      const bool valid = e < end;
-      const int c = valid ? __ldg(indices + e) : 0;
-      const float l =
-          valid ? act(row_dot(d1, D2 + (int64_t)c * Ka, Ka, vec4), leaky, slope)
-                : -CUDART_INF_F;
-      const float new_max = fmaxf(run_max, warp_max(l));
-      const float scale = expf(run_max - new_max);  // 0 on the first batch
-      const float z = valid ? expf(fmaxf(l - new_max, kExpFloor)) : 0.f;
-      zsum = fmaf(zsum, scale, warp_sum(z));
+      for (int t = 0; t < VEC; ++t) acc[t] = 0.f;
+      for (int base = it.s; base < it.t; base += SW) {
+        // Walker-uniform down to the shuffles: all SW lanes take part.
+        const int e = base + w.lane;
+        const bool live = e < it.t;
+        const int c = live ? __ldg(indices + e) : 0;
+        const int n_here = min(SW, it.t - base);
+        const T* brows[kFwdBatch];
+        P p[kFwdBatch];
+        batch_rows(w, c, 0, n_here, B + cl.kk, K, brows);
+        gather(brows, 0, p);  // overlaps the logits' gathers
+        // The round's logits: lane j keeps edge j's.
+        float pre = 0.f;
+        if constexpr (kLaneDots<VEC>) {
+          pre = lane_dot<float, float, VEC>(d1, D2 + (int64_t)c * Ka, Ka);
+        } else {
+          for (int u0 = 0; u0 < n_here; u0 += kFwdBatch) {
+            const float* drows[kFwdBatch];
+            F y[kFwdBatch];
+            float q[kFwdBatch];
+            batch_rows(w, c, u0, n_here, D2, Ka, drows);
+            gather(drows, ca.kk, y);
+            edge_dots<float, float, VEC, SW>(w.lane, Ka, d1, x0, drows, y, q);
+            sums(w, q);
 #pragma unroll
-      for (int t = 0; t < VEC; ++t) acc[t] *= scale;
-      run_max = new_max;
-      const int n_here = min(32, end - base);
-#pragma unroll 2
-      for (int j = 0; j < n_here; ++j) {
-        const int cj = __shfl_sync(kFull, c, j);
-        const float zj = __shfl_sync(kFull, z, j);
-        if (active) {
-          const P p = *reinterpret_cast<const P*>(B + (int64_t)cj * K + k);
+            for (int u = 0; u < kFwdBatch; ++u)
+              if (w.lane == u0 + u) pre = q[u];
+          }
+        }
+        const float l = live ? act(pre, leaky, slope) : -CUDART_INF_F;
+        const float m_new = fmaxf(m_run, w.max(l));
+        const float sc = m_run == m_new ? 1.f : expf(m_run - m_new);
+        const float z = live ? expf(fmaxf(l - m_new, kExpFloor)) : 0.f;
+        m_run = m_new;
+        zsum *= sc;
 #pragma unroll
-          for (int t = 0; t < VEC; ++t) acc[t] = fmaf(zj, to_f32(p.v[t]), acc[t]);
+        for (int t = 0; t < VEC; ++t) acc[t] *= sc;
+        for (int u0 = 0;;) {
+          float zj[kFwdBatch];
+#pragma unroll
+          for (int u = 0; u < kFwdBatch; ++u)
+            zj[u] = w.get(z, min(u0 + u, n_here - 1));
+#pragma unroll
+          for (int u = 0; u < kFwdBatch; ++u) {
+            if (u0 + u < n_here) {  // walker-uniform
+              zsum += zj[u];
+#pragma unroll
+              for (int t = 0; t < VEC; ++t)
+                acc[t] = fmaf(zj[u], to_f32(p[u].v[t]), acc[t]);
+            }
+          }
+          u0 += kFwdBatch;
+          if (u0 >= n_here) break;
+          batch_rows(w, c, u0, n_here, B + cl.kk, K, brows);
+          gather(brows, 0, p);
         }
       }
-    }
-    const float d = fmaxf(zsum, kDenomEps);
-    if (active) {
-      P o;
+      const bool first = slab == 0 && w.lane == 0;
+      if (item < S) {
+        if (cl.on) {
+          F o;
 #pragma unroll
-      for (int t = 0; t < VEC; ++t) o.v[t] = from_f32<T>(acc[t] / d);
-      *reinterpret_cast<P*>(out + (int64_t)row * K + k) = o;
-    }
-    if (blockIdx.y == 0 && lane == 0) {
-      mx[row] = isfinite(run_max) ? run_max : 0.f;  // an empty row: 0
-      den[row] = d;
+          for (int t = 0; t < VEC; ++t) o.v[t] = acc[t];
+          *reinterpret_cast<F*>(pacc + (int64_t)item * K + cl.kk) = o;
+        }
+        if (first) {
+          pm[item] = m_run;
+          pz[item] = zsum;
+        }
+      } else {
+        const float d = fmaxf(zsum, kDenomEps);
+        if (cl.on) {
+          P o;
+#pragma unroll
+          for (int t = 0; t < VEC; ++t) o.v[t] = from_f32<T>(acc[t] / d);
+          *reinterpret_cast<P*>(out + (int64_t)it.row * K + cl.kk) = o;
+        }
+        if (first) {
+          mx[it.row] = isfinite(m_run) ? m_run : 0.f;  // an empty row: 0
+          den[it.row] = d;
+        }
+      }
     }
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, int SW>
 __global__ void __launch_bounds__(kThreads)
-dot_bwd_rows_kernel(int m, int K, int Ka, int leaky, float slope, int vec4,
-                    const int* __restrict__ indptr,
+dot_bwd_rows_kernel(int m, int S, int K, int Ka, int L, int leaky,
+                    float slope, const int* __restrict__ indptr,
                     const int* __restrict__ indices,
+                    const int* __restrict__ seg_row,
+                    const int* __restrict__ seg_start,
                     const float* __restrict__ D1, const float* __restrict__ D2,
                     const T* __restrict__ B, const float* __restrict__ g,
                     const float* __restrict__ mx, const float* __restrict__ den,
                     const float* __restrict__ srow,
-                    float* __restrict__ grad_D1) {
+                    float* __restrict__ grad_D1, float* __restrict__ part) {
   using F = Pack<float, VEC>;
-  const int lane = threadIdx.x & 31;
-  const int ka = (blockIdx.y * 32 + lane) * VEC;  // this lane's Ka columns
-  const bool active = ka < Ka;
-  const int stride = gridDim.x * kWarps;
-  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < m;
-       row += stride) {
-    const int start = indptr[row];
-    const int end = indptr[row + 1];
-    const float* d1 = D1 + (int64_t)row * Ka;
-    const float* g_row = g + (int64_t)row * K;
-    const float mh = mx[row], dn = den[row], s = srow[row];
-    float acc[VEC];
+  // One edge a batch on 1-column lanes: at (Ka, K) = (16, 3) it beat 2 and
+  // 4 (PERF.md, section 6).
+  constexpr int kB = VEC == 1 ? 1 : kRowsBatch;
+  constexpr int kPerBlock = kThreads / SW;
+  const Sub<SW> w;
+  const int nslab = (Ka + SW * VEC - 1) / (SW * VEC);
+  for (int item = blockIdx.x * kPerBlock + threadIdx.x / SW; item < S + m;
+       item += gridDim.x * kPerBlock) {
+    Item it;
+    if (!item_edges(item, S, L, indptr, seg_row, seg_start, it)) continue;
+    const float* __restrict__ d1 = D1 + (int64_t)it.row * Ka;
+    const float* __restrict__ g_row = g + (int64_t)it.row * K;
+    const float mh = mx[it.row], dn = den[it.row], s = srow[it.row];
+    const Col<VEC, SW> ca(0, Ka, w.lane), cb(0, K, w.lane);
+    const F xa = load<float, VEC>(d1 + ca.kk);
+    const F xb = load<float, VEC>(g_row + cb.kk);
+    for (int slab = 0; slab < nslab; ++slab) {
+      const Col<VEC, SW> cl(slab, Ka, w.lane);  // this walk's grad_D1 columns
+      float acc[VEC];
 #pragma unroll
-    for (int t = 0; t < VEC; ++t) acc[t] = 0.f;
-    for (int base = start; base < end; base += 32) {
-      const int e = base + lane;
-      int c = 0;
-      float dpre = 0.f;
-      if (e < end) {  // this lane's edge
-        c = __ldg(indices + e);
-        const float pre = row_dot(d1, D2 + (int64_t)c * Ka, Ka, vec4);
-        const float u = g_dot(g_row, B + (int64_t)c * K, K);
-        dpre = attention(pre, leaky, slope, mh, dn) * (u - s) *
-               dact(pre, leaky, slope);
-      }
-      const int n_here = min(32, end - base);
-#pragma unroll 2
-      for (int j = 0; j < n_here; ++j) {
-        const int cj = __shfl_sync(kFull, c, j);
-        const float dj = __shfl_sync(kFull, dpre, j);
-        if (active) {
-          const F p = *reinterpret_cast<const F*>(D2 + (int64_t)cj * Ka + ka);
+      for (int t = 0; t < VEC; ++t) acc[t] = 0.f;
+      for (int base = it.s; base < it.t; base += SW) {
+        const int e = base + w.lane;
+        const bool live = e < it.t;
+        const int c = live ? __ldg(indices + e) : 0;
+        const int n_here = min(SW, it.t - base);
+        if constexpr (kLaneDots<VEC>) {
+          float dp = 0.f;
+          if (live) {  // this lane's edge
+            const float pre =
+                lane_dot<float, float, VEC>(d1, D2 + (int64_t)c * Ka, Ka);
+            const float u = lane_dot<float, T, VEC>(g_row, B + (int64_t)c * K, K);
+            dp = attention(pre, leaky, slope, mh, dn) * (u - s) *
+                 dact(pre, leaky, slope);
+          }
+          for (int u0 = 0; u0 < n_here; u0 += kB) {
+            const float* drows[kB];
+            F y[kB];
+            float dj[kB];
+            batch_rows(w, c, u0, n_here, D2, Ka, drows);
+            gather(drows, cl.kk, y);
 #pragma unroll
-          for (int t = 0; t < VEC; ++t) acc[t] = fmaf(dj, p.v[t], acc[t]);
+            for (int u = 0; u < kB; ++u)
+              dj[u] = w.get(dp, min(u0 + u, n_here - 1));
+#pragma unroll
+            for (int u = 0; u < kB; ++u)
+              if (u0 + u < n_here)
+#pragma unroll
+                for (int t = 0; t < VEC; ++t)
+                  acc[t] = fmaf(dj[u], y[u].v[t], acc[t]);
+          }
+        } else {
+          for (int u0 = 0; u0 < n_here; u0 += kB) {
+            const float* drows[kB];
+            const T* brows[kB];
+            F y[kB];
+            Pack<T, VEC> yb[kB];
+            float pre[kB], uu[kB];
+            batch_rows(w, c, u0, n_here, D2, Ka, drows);
+            batch_rows(w, c, u0, n_here, B, K, brows);
+            gather(drows, ca.kk, y);
+            gather(brows, cb.kk, yb);
+            edge_dots<float, float, VEC, SW>(w.lane, Ka, d1, xa, drows, y, pre);
+            edge_dots<float, T, VEC, SW>(w.lane, K, g_row, xb, brows, yb, uu);
+            sums(w, pre);
+            sums(w, uu);
+            if (slab > 0) gather(drows, cl.kk, y);  // this walk's columns
+#pragma unroll
+            for (int u = 0; u < kB; ++u) {
+              if (u0 + u < n_here) {  // walker-uniform
+                const float dp = attention(pre[u], leaky, slope, mh, dn) *
+                                 (uu[u] - s) * dact(pre[u], leaky, slope);
+#pragma unroll
+                for (int t = 0; t < VEC; ++t)
+                  acc[t] = fmaf(dp, y[u].v[t], acc[t]);
+              }
+            }
+          }
         }
       }
-    }
-    if (active) {
-      F o;
+      if (cl.on) {
+        F o;
 #pragma unroll
-      for (int t = 0; t < VEC; ++t) o.v[t] = acc[t];
-      *reinterpret_cast<F*>(grad_D1 + (int64_t)row * Ka + ka) = o;
+        for (int t = 0; t < VEC; ++t) o.v[t] = acc[t];
+        float* dst = item < S ? part + (int64_t)item * Ka
+                              : grad_D1 + (int64_t)it.row * Ka;
+        *reinterpret_cast<F*>(dst + cl.kk) = o;
+      }
     }
   }
 }
 
-// Grid rows 0 .. b_slabs-1 write K slabs of grad_B (VB columns a lane), the
-// rest Ka slabs of grad_D2 (VD columns a lane).
-template <typename T, int VB, int VD>
+// One walk a column gives both grad_D2 (Ka wide) and grad_B (K wide); a
+// walk covers slab `slab` of both.
+template <typename T, int VEC, int SW>
 __global__ void __launch_bounds__(kThreads)
-dot_bwd_cols_kernel(int n, int K, int Ka, int b_slabs, int leaky, float slope,
-                    int vec4, const int* __restrict__ colptr,
+dot_bwd_cols_kernel(int n, int S, int K, int Ka, int L, int leaky,
+                    float slope, const int* __restrict__ colptr,
                     const int* __restrict__ rows,
+                    const int* __restrict__ seg_row,
+                    const int* __restrict__ seg_start,
                     const float* __restrict__ D1, const float* __restrict__ D2,
                     const T* __restrict__ B, const float* __restrict__ g,
                     const float* __restrict__ mx, const float* __restrict__ den,
                     const float* __restrict__ srow, T* __restrict__ grad_B,
-                    float* __restrict__ grad_D2) {
-  const int lane = threadIdx.x & 31;
-  const bool to_B = (int)blockIdx.y < b_slabs;  // block-uniform
-  const int kk = to_B ? (blockIdx.y * 32 + lane) * VB
-                      : ((blockIdx.y - b_slabs) * 32 + lane) * VD;
-  const bool active = kk < (to_B ? K : Ka);
-  const int stride = gridDim.x * kWarps;
-  for (int col = blockIdx.x * kWarps + (threadIdx.x >> 5); col < n;
-       col += stride) {
-    const int start = colptr[col];
-    const int end = colptr[col + 1];
-    const float* d2 = D2 + (int64_t)col * Ka;
-    const T* b_col = B + (int64_t)col * K;
-    float acc_b[VB], acc_d[VD];
+                    float* __restrict__ grad_D2, float* __restrict__ part_B,
+                    float* __restrict__ part_D) {
+  using F = Pack<float, VEC>;
+  using P = Pack<T, VEC>;
+  constexpr int kPerBlock = kThreads / SW;
+  const Sub<SW> w;
+  const int width = max(K, Ka);
+  const int nslab = (width + SW * VEC - 1) / (SW * VEC);
+  for (int item = blockIdx.x * kPerBlock + threadIdx.x / SW; item < S + n;
+       item += gridDim.x * kPerBlock) {
+    Item it;  // it.row is the column
+    if (!item_edges(item, S, L, colptr, seg_row, seg_start, it)) continue;
+    const float* __restrict__ d2 = D2 + (int64_t)it.row * Ka;
+    const T* __restrict__ b_col = B + (int64_t)it.row * K;
+    const Col<VEC, SW> ca(0, Ka, w.lane), cb(0, K, w.lane);
+    const F xa = load<float, VEC>(d2 + ca.kk);
+    const P xb = load<T, VEC>(b_col + cb.kk);
+    for (int slab = 0; slab < nslab; ++slab) {
+      const Col<VEC, SW> cd(slab, Ka, w.lane), cg(slab, K, w.lane);
+      float accD[VEC], accB[VEC];
 #pragma unroll
-    for (int t = 0; t < VB; ++t) acc_b[t] = 0.f;
+      for (int t = 0; t < VEC; ++t) accD[t] = accB[t] = 0.f;
+      for (int base = it.s; base < it.t; base += SW) {
+        const int e = base + w.lane;
+        const bool live = e < it.t;
+        const int r = live ? __ldg(rows + e) : 0;
+        const int n_here = min(SW, it.t - base);
+        if constexpr (kLaneDots<VEC>) {
+          float al = 0.f, dp = 0.f;
+          if (live) {  // this lane's edge
+            const float pre = lane_dot<float, float, VEC>(
+                D1 + (int64_t)r * Ka, d2, Ka);
+            const float u = lane_dot<float, T, VEC>(g + (int64_t)r * K, b_col,
+                                                    K);
+            al = attention(pre, leaky, slope, __ldg(mx + r), __ldg(den + r));
+            dp = al * (u - __ldg(srow + r)) * dact(pre, leaky, slope);
+          }
+          for (int u0 = 0; u0 < n_here; u0 += kColsBatch) {
+            const float *drows[kColsBatch], *grows[kColsBatch];
+            F yd[kColsBatch], yg[kColsBatch];
+            float aj[kColsBatch], dj[kColsBatch];
+            batch_rows(w, r, u0, n_here, D1, Ka, drows);
+            batch_rows(w, r, u0, n_here, g, K, grows);
+            gather(drows, cd.kk, yd);
+            gather(grows, cg.kk, yg);
 #pragma unroll
-    for (int t = 0; t < VD; ++t) acc_d[t] = 0.f;
-    for (int base = start; base < end; base += 32) {
-      const int e = base + lane;
-      int r = 0;
-      float w = 0.f;  // alpha for grad_B, dpre for grad_D2
-      if (e < end) {  // this lane's edge
-        r = __ldg(rows + e);
-        const float pre = row_dot(D1 + (int64_t)r * Ka, d2, Ka, vec4);
-        const float alpha =
-            attention(pre, leaky, slope, __ldg(mx + r), __ldg(den + r));
-        if (to_B) {
-          w = alpha;
+            for (int u = 0; u < kColsBatch; ++u) {
+              aj[u] = w.get(al, min(u0 + u, n_here - 1));
+              dj[u] = w.get(dp, min(u0 + u, n_here - 1));
+            }
+#pragma unroll
+            for (int u = 0; u < kColsBatch; ++u) {
+              if (u0 + u < n_here) {
+#pragma unroll
+                for (int t = 0; t < VEC; ++t) {
+                  accD[t] = fmaf(dj[u], yd[u].v[t], accD[t]);
+                  accB[t] = fmaf(aj[u], yg[u].v[t], accB[t]);
+                }
+              }
+            }
+          }
         } else {
-          const float u = g_dot(g + (int64_t)r * K, b_col, K);
-          w = alpha * (u - __ldg(srow + r)) * dact(pre, leaky, slope);
+          // Lane j loads the row-side tables of edge j, ahead of the gathers.
+          const float mr_l = __ldg(mx + r), dr_l = __ldg(den + r),
+                      sr_l = __ldg(srow + r);
+          for (int u0 = 0; u0 < n_here; u0 += kColsBatch) {
+            const float *drows[kColsBatch], *grows[kColsBatch];
+            F yd[kColsBatch], yg[kColsBatch];
+            float pre[kColsBatch], uu[kColsBatch], mr[kColsBatch],
+                dr[kColsBatch], sr[kColsBatch];
+            batch_rows(w, r, u0, n_here, D1, Ka, drows);
+            batch_rows(w, r, u0, n_here, g, K, grows);
+            gather(drows, ca.kk, yd);
+            gather(grows, cb.kk, yg);
+#pragma unroll
+            for (int u = 0; u < kColsBatch; ++u) {
+              const int j = min(u0 + u, n_here - 1);
+              mr[u] = w.get(mr_l, j);
+              dr[u] = w.get(dr_l, j);
+              sr[u] = w.get(sr_l, j);
+            }
+            edge_dots<float, float, VEC, SW>(w.lane, Ka, d2, xa, drows, yd, pre);
+            edge_dots<T, float, VEC, SW>(w.lane, K, b_col, xb, grows, yg, uu);
+            sums(w, pre);
+            sums(w, uu);
+            if (slab > 0) {  // this walk's columns
+              gather(drows, cd.kk, yd);
+              gather(grows, cg.kk, yg);
+            }
+#pragma unroll
+            for (int u = 0; u < kColsBatch; ++u) {
+              if (u0 + u < n_here) {  // walker-uniform
+                const float al = attention(pre[u], leaky, slope, mr[u], dr[u]);
+                const float dp = al * (uu[u] - sr[u]) * dact(pre[u], leaky, slope);
+#pragma unroll
+                for (int t = 0; t < VEC; ++t) {
+                  accD[t] = fmaf(dp, yd[u].v[t], accD[t]);
+                  accB[t] = fmaf(al, yg[u].v[t], accB[t]);
+                }
+              }
+            }
+          }
         }
       }
-      const int n_here = min(32, end - base);
-#pragma unroll 2
-      for (int j = 0; j < n_here; ++j) {
-        const int rj = __shfl_sync(kFull, r, j);
-        const float wj = __shfl_sync(kFull, w, j);
-        if (!active) continue;
-        if (to_B) {
-          const Pack<float, VB> p = *reinterpret_cast<const Pack<float, VB>*>(
-              g + (int64_t)rj * K + kk);
+      if (cg.on) {
+        if (item < S) {
+          F o;
 #pragma unroll
-          for (int t = 0; t < VB; ++t) acc_b[t] = fmaf(wj, p.v[t], acc_b[t]);
+          for (int t = 0; t < VEC; ++t) o.v[t] = accB[t];
+          *reinterpret_cast<F*>(part_B + (int64_t)item * K + cg.kk) = o;
         } else {
-          const Pack<float, VD> p = *reinterpret_cast<const Pack<float, VD>*>(
-              D1 + (int64_t)rj * Ka + kk);
+          P o;
 #pragma unroll
-          for (int t = 0; t < VD; ++t) acc_d[t] = fmaf(wj, p.v[t], acc_d[t]);
+          for (int t = 0; t < VEC; ++t) o.v[t] = from_f32<T>(accB[t]);
+          *reinterpret_cast<P*>(grad_B + (int64_t)it.row * K + cg.kk) = o;
         }
       }
-    }
-    if (!active) continue;
-    if (to_B) {
-      Pack<T, VB> o;
+      if (cd.on) {
+        F o;
 #pragma unroll
-      for (int t = 0; t < VB; ++t) o.v[t] = from_f32<T>(acc_b[t]);
-      *reinterpret_cast<Pack<T, VB>*>(grad_B + (int64_t)col * K + kk) = o;
-    } else {
-      Pack<float, VD> o;
-#pragma unroll
-      for (int t = 0; t < VD; ++t) o.v[t] = acc_d[t];
-      *reinterpret_cast<Pack<float, VD>*>(grad_D2 + (int64_t)col * Ka + kk) = o;
+        for (int t = 0; t < VEC; ++t) o.v[t] = accD[t];
+        float* dst = item < S ? part_D + (int64_t)item * Ka
+                              : grad_D2 + (int64_t)it.row * Ka;
+        *reinterpret_cast<F*>(dst + cd.kk) = o;
+      }
     }
   }
 }
 
-template <int VEC>
-bool aligned(const void* p, size_t item) {
-  return (uintptr_t)p % (VEC * item) == 0;
+// --- launches --------------------------------------------------------------
+
+bool aligned(const void* p, size_t bytes) {
+  return p == nullptr || (uintptr_t)p % bytes == 0;
 }
 
-bool bad_dot(int Ka, int vec4, const float* D1, const float* D2) {
-  return Ka < 1 || (vec4 && (Ka % 4 != 0 || !aligned<4>(D1, sizeof(float)) ||
-                             !aligned<4>(D2, sizeof(float))));
+bool bad_args(int K, int Ka, int vec, const Split& sp) {
+  return K < 1 || Ka < 1 || K % vec != 0 || Ka % vec != 0 ||
+         gespmm::bad_split(sp);
 }
 
+// Every table and buffer aligned to VEC of its element type.
 template <typename T, int VEC>
-cudaError_t forward_vec(int m, int K, int Ka, int leaky, float slope, int vec4,
-                        const int* indptr, const int* indices, const float* D1,
-                        const float* D2, const T* B, T* out, float* mx,
-                        float* den, cudaStream_t stream) {
-  if (K < 1 || K % VEC != 0 || bad_dot(Ka, vec4, D1, D2) ||
-      !aligned<VEC>(B, sizeof(T)) || !aligned<VEC>(out, sizeof(T)))
-    return cudaErrorInvalidValue;
-  dot_fwd_kernel<T, VEC>
-      <<<warp_per_item_grid(m, slabs_of(K, VEC)), kThreads, 0, stream>>>(
-          m, K, Ka, leaky, slope, vec4, indptr, indices, D1, D2, B, out, mx,
-          den);
-  return cudaGetLastError();
-}
-
-template <typename T, int VEC>
-cudaError_t backward_rows_vec(int m, int K, int Ka, int leaky, float slope,
-                              int vec4, const int* indptr, const int* indices,
-                              const float* D1, const float* D2, const T* B,
-                              const float* g, const float* mx,
-                              const float* den, const float* srow,
-                              float* grad_D1, cudaStream_t stream) {
-  if (K < 1 || Ka % VEC != 0 || bad_dot(Ka, vec4, D1, D2) ||
-      !aligned<VEC>(D2, sizeof(float)) || !aligned<VEC>(grad_D1, sizeof(float)))
-    return cudaErrorInvalidValue;
-  dot_bwd_rows_kernel<T, VEC>
-      <<<warp_per_item_grid(m, slabs_of(Ka, VEC)), kThreads, 0, stream>>>(
-          m, K, Ka, leaky, slope, vec4, indptr, indices, D1, D2, B, g, mx, den,
-          srow, grad_D1);
-  return cudaGetLastError();
-}
-
-template <typename T, int VB, int VD>
-cudaError_t backward_cols_vec(int n, int K, int Ka, int leaky, float slope,
-                              int vec4, const int* colptr, const int* rows,
-                              const float* D1, const float* D2, const T* B,
-                              const float* g, const float* mx,
-                              const float* den, const float* srow, T* grad_B,
-                              float* grad_D2, cudaStream_t stream) {
-  if (K < 1 || K % VB != 0 || Ka % VD != 0 || bad_dot(Ka, vec4, D1, D2) ||
-      !aligned<VB>(g, sizeof(float)) || !aligned<VB>(grad_B, sizeof(T)) ||
-      !aligned<VD>(D1, sizeof(float)) || !aligned<VD>(grad_D2, sizeof(float)))
-    return cudaErrorInvalidValue;
-  const int b_slabs = slabs_of(K, VB);
-  dot_bwd_cols_kernel<T, VB, VD><<<
-      warp_per_item_grid(n, b_slabs + slabs_of(Ka, VD)), kThreads, 0, stream>>>(
-      n, K, Ka, b_slabs, leaky, slope, vec4, colptr, rows, D1, D2, B, g, mx,
-      den, srow, grad_B, grad_D2);
-  return cudaGetLastError();
+bool aligned_all(std::initializer_list<const void*> f32,
+                 std::initializer_list<const void*> typed) {
+  for (const void* p : f32)
+    if (!aligned(p, VEC * sizeof(float))) return false;
+  for (const void* p : typed)
+    if (!aligned(p, VEC * sizeof(T))) return false;
+  return true;
 }
 
 template <typename T>
-cudaError_t forward(int m, int K, int Ka, int vec, int leaky, float slope,
-                    int vec4, const int* indptr, const int* indices,
-                    const float* D1, const float* D2, const T* B, T* out,
-                    float* mx, float* den, cudaStream_t stream) {
-  switch (vec) {
-    case 4:
-      return forward_vec<T, 4>(m, K, Ka, leaky, slope, vec4, indptr, indices,
-                               D1, D2, B, out, mx, den, stream);
-    case 2:
-      return forward_vec<T, 2>(m, K, Ka, leaky, slope, vec4, indptr, indices,
-                               D1, D2, B, out, mx, den, stream);
-    case 1:
-      return forward_vec<T, 1>(m, K, Ka, leaky, slope, vec4, indptr, indices,
-                               D1, D2, B, out, mx, den, stream);
-  }
-  return cudaErrorInvalidValue;
+cudaError_t forward(int m, int K, int Ka, int vec, int sw, int leaky,
+                    float slope, const Split& sp, const int* indptr,
+                    const int* indices, const float* D1, const float* D2,
+                    const T* B, T* out, float* mx, float* den, float* pm,
+                    float* pz, float* pacc, cudaStream_t stream) {
+  if (bad_args(K, Ka, vec, sp)) return cudaErrorInvalidValue;
+  return dispatch(vec, sw, [&](auto V, auto W) {
+    constexpr int VEC = decltype(V)::value, SW = decltype(W)::value;
+    if (!aligned_all<T, VEC>({D1, D2, pacc}, {B, out}))
+      return cudaErrorInvalidValue;
+    dot_fwd_kernel<T, VEC, SW><<<item_grid(sp.S + m, SW), kThreads, 0, stream>>>(
+        m, sp.S, K, Ka, sp.L, leaky, slope, indptr, indices, sp.seg_row,
+        sp.seg_start, D1, D2, B, out, mx, den, pm, pz, pacc);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || sp.J == 0) return err;
+    return gespmm::launch_softmax_carry<T, VEC>(sp.J, K, 1, 1, sp.long_rows,
+                                               sp.seg_ptr, pm, pz, pacc, out,
+                                               mx, den, stream);
+  });
 }
 
 template <typename T>
-cudaError_t backward_rows(int m, int K, int Ka, int vec, int leaky,
-                          float slope, int vec4, const int* indptr,
+cudaError_t backward_rows(int m, int K, int Ka, int vec, int sw, int leaky,
+                          float slope, const Split& sp, const int* indptr,
                           const int* indices, const float* D1, const float* D2,
                           const T* B, const float* g, const float* mx,
                           const float* den, const float* srow, float* grad_D1,
-                          cudaStream_t stream) {
-  switch (vec) {
-    case 4:
-      return backward_rows_vec<T, 4>(m, K, Ka, leaky, slope, vec4, indptr,
-                                     indices, D1, D2, B, g, mx, den, srow,
-                                     grad_D1, stream);
-    case 2:
-      return backward_rows_vec<T, 2>(m, K, Ka, leaky, slope, vec4, indptr,
-                                     indices, D1, D2, B, g, mx, den, srow,
-                                     grad_D1, stream);
-    case 1:
-      return backward_rows_vec<T, 1>(m, K, Ka, leaky, slope, vec4, indptr,
-                                     indices, D1, D2, B, g, mx, den, srow,
-                                     grad_D1, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T, int VB>
-cudaError_t backward_cols_vb(int n, int K, int Ka, int vd, int leaky,
-                             float slope, int vec4, const int* colptr,
-                             const int* rows, const float* D1,
-                             const float* D2, const T* B, const float* g,
-                             const float* mx, const float* den,
-                             const float* srow, T* grad_B, float* grad_D2,
-                             cudaStream_t stream) {
-  switch (vd) {
-    case 4:
-      return backward_cols_vec<T, VB, 4>(n, K, Ka, leaky, slope, vec4, colptr,
-                                         rows, D1, D2, B, g, mx, den, srow,
-                                         grad_B, grad_D2, stream);
-    case 2:
-      return backward_cols_vec<T, VB, 2>(n, K, Ka, leaky, slope, vec4, colptr,
-                                         rows, D1, D2, B, g, mx, den, srow,
-                                         grad_B, grad_D2, stream);
-    case 1:
-      return backward_cols_vec<T, VB, 1>(n, K, Ka, leaky, slope, vec4, colptr,
-                                         rows, D1, D2, B, g, mx, den, srow,
-                                         grad_B, grad_D2, stream);
-  }
-  return cudaErrorInvalidValue;
+                          float* part, cudaStream_t stream) {
+  if (bad_args(K, Ka, vec, sp)) return cudaErrorInvalidValue;
+  return dispatch(vec, sw, [&](auto V, auto W) {
+    constexpr int VEC = decltype(V)::value, SW = decltype(W)::value;
+    if (!aligned_all<T, VEC>({D1, D2, g, grad_D1, part}, {B}))
+      return cudaErrorInvalidValue;
+    dot_bwd_rows_kernel<T, VEC, SW>
+        <<<item_grid(sp.S + m, SW), kThreads, 0, stream>>>(
+            m, sp.S, K, Ka, sp.L, leaky, slope, indptr, indices, sp.seg_row,
+            sp.seg_start, D1, D2, B, g, mx, den, srow, grad_D1, part);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || sp.J == 0) return err;
+    return gespmm::launch_carry<float, VEC>(sp.J, Ka, sp.long_rows,
+                                            sp.seg_ptr, part, grad_D1, stream);
+  });
 }
 
 template <typename T>
-cudaError_t backward_cols(int n, int K, int Ka, int vb, int vd, int leaky,
-                          float slope, int vec4, const int* colptr,
+cudaError_t backward_cols(int n, int K, int Ka, int vec, int sw, int leaky,
+                          float slope, const Split& sp, const int* colptr,
                           const int* rows, const float* D1, const float* D2,
                           const T* B, const float* g, const float* mx,
                           const float* den, const float* srow, T* grad_B,
-                          float* grad_D2, cudaStream_t stream) {
-  switch (vb) {
-    case 4:
-      return backward_cols_vb<T, 4>(n, K, Ka, vd, leaky, slope, vec4, colptr,
-                                    rows, D1, D2, B, g, mx, den, srow, grad_B,
-                                    grad_D2, stream);
-    case 2:
-      return backward_cols_vb<T, 2>(n, K, Ka, vd, leaky, slope, vec4, colptr,
-                                    rows, D1, D2, B, g, mx, den, srow, grad_B,
-                                    grad_D2, stream);
-    case 1:
-      return backward_cols_vb<T, 1>(n, K, Ka, vd, leaky, slope, vec4, colptr,
-                                    rows, D1, D2, B, g, mx, den, srow, grad_B,
-                                    grad_D2, stream);
-  }
-  return cudaErrorInvalidValue;
+                          float* grad_D2, float* part_B, float* part_D,
+                          cudaStream_t stream) {
+  if (bad_args(K, Ka, vec, sp)) return cudaErrorInvalidValue;
+  return dispatch(vec, sw, [&](auto V, auto W) {
+    constexpr int VEC = decltype(V)::value, SW = decltype(W)::value;
+    if (!aligned_all<T, VEC>({D1, D2, g, grad_D2, part_B, part_D},
+                             {B, grad_B}))
+      return cudaErrorInvalidValue;
+    dot_bwd_cols_kernel<T, VEC, SW>
+        <<<item_grid(sp.S + n, SW), kThreads, 0, stream>>>(
+            n, sp.S, K, Ka, sp.L, leaky, slope, colptr, rows, sp.seg_row,
+            sp.seg_start, D1, D2, B, g, mx, den, srow, grad_B, grad_D2,
+            part_B, part_D);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || sp.J == 0) return err;
+    err = gespmm::launch_carry<T, VEC>(sp.J, K, sp.long_rows, sp.seg_ptr,
+                                       part_B, grad_B, stream);
+    if (err != cudaSuccess) return err;
+    return gespmm::launch_carry<float, VEC>(sp.J, Ka, sp.long_rows,
+                                            sp.seg_ptr, part_D, grad_D2,
+                                            stream);
+  });
 }
 
 }  // namespace
 
+// Every entry point takes the split of its structure: segment length L, S
+// segments and J long rows (S = J = 0: no split, no carry) with the lists
+// seg_row, seg_start (S), long_rows (J) and seg_ptr (J + 1), and scratch
+// buffers of S rows (null when S = 0).  vec (1, 2 or 4) divides K and Ka,
+// and every table is aligned to it; sw is 4, 8, 16 or 32.  leaky = 0 is the
+// identity act (slope unused).
+
 // Forward over the CSR (indptr, indices): m >= 1, K >= 1, Ka >= 1, nnz >= 1
 // (the caller returns early otherwise).  D1 (m, Ka), D2 (n, Ka), mx and den
-// (m,) are f32; B (n, K) and out (m, K) are of one type.  leaky = 0 is the
-// identity act (slope unused).
-extern "C" int gespmm_dot_fwd_f32(int m, int K, int Ka, int vec, int leaky,
-                                  float slope, int vec4, const int* indptr,
-                                  const int* indices, const float* D1,
-                                  const float* D2, const float* B, float* out,
-                                  float* mx, float* den, void* stream) {
-  return (int)forward<float>(m, K, Ka, vec, leaky, slope, vec4, indptr,
-                             indices, D1, D2, B, out, mx, den,
-                             (cudaStream_t)stream);
-}
+// (m,) are f32; B (n, K) and out (m, K) are of one type.  Scratch: pm, pz
+// (S,) and pacc (S, K), f32.
+#define GESPMM_DOT_FWD(NAME, T)                                               \
+  extern "C" int NAME(int m, int K, int Ka, int vec, int sw, int leaky,       \
+                      float slope, int L, int S, int J, const int* seg_row,   \
+                      const int* seg_start, const int* long_rows,             \
+                      const int* seg_ptr, const int* indptr,                  \
+                      const int* indices, const float* D1, const float* D2,   \
+                      const void* B, void* out, float* mx, float* den,        \
+                      float* pm, float* pz, float* pacc, void* stream) {      \
+    return (int)forward<T>(                                                   \
+        m, K, Ka, vec, sw, leaky, slope,                                      \
+        Split{L, S, J, seg_row, seg_start, long_rows, seg_ptr}, indptr,       \
+        indices, D1, D2, (const T*)B, (T*)out, mx, den, pm, pz, pacc,         \
+        (cudaStream_t)stream);                                                \
+  }
 
-extern "C" int gespmm_dot_fwd_bf16(int m, int K, int Ka, int vec, int leaky,
-                                   float slope, int vec4, const int* indptr,
-                                   const int* indices, const float* D1,
-                                   const float* D2, const void* B, void* out,
-                                   float* mx, float* den, void* stream) {
-  return (int)forward<__nv_bfloat16>(
-      m, K, Ka, vec, leaky, slope, vec4, indptr, indices, D1, D2,
-      (const __nv_bfloat16*)B, (__nv_bfloat16*)out, mx, den,
-      (cudaStream_t)stream);
-}
+GESPMM_DOT_FWD(gespmm_dot_fwd_f32, float)
+GESPMM_DOT_FWD(gespmm_dot_fwd_bf16, __nv_bfloat16)
 
 // Backward over the CSR: grad_D1 (m, Ka) f32.  g (m, K), mx, den and srow
-// (m,) are f32; B (n, K) is f32 or bf16.  vec is the Ka lane vector.
-extern "C" int gespmm_dot_bwd_rows_f32(int m, int K, int Ka, int vec,
-                                       int leaky, float slope, int vec4,
-                                       const int* indptr, const int* indices,
-                                       const float* D1, const float* D2,
-                                       const float* B, const float* g,
-                                       const float* mx, const float* den,
-                                       const float* srow, float* grad_D1,
-                                       void* stream) {
-  return (int)backward_rows<float>(m, K, Ka, vec, leaky, slope, vec4, indptr,
-                                   indices, D1, D2, B, g, mx, den, srow,
-                                   grad_D1, (cudaStream_t)stream);
-}
+// (m,) are f32; B (n, K) is f32 or bf16.  Scratch: part (S, Ka), f32.
+#define GESPMM_DOT_BWD_ROWS(NAME, T)                                          \
+  extern "C" int NAME(int m, int K, int Ka, int vec, int sw, int leaky,       \
+                      float slope, int L, int S, int J, const int* seg_row,   \
+                      const int* seg_start, const int* long_rows,             \
+                      const int* seg_ptr, const int* indptr,                  \
+                      const int* indices, const float* D1, const float* D2,   \
+                      const void* B, const float* g, const float* mx,         \
+                      const float* den, const float* srow, float* grad_D1,    \
+                      float* part, void* stream) {                            \
+    return (int)backward_rows<T>(                                             \
+        m, K, Ka, vec, sw, leaky, slope,                                      \
+        Split{L, S, J, seg_row, seg_start, long_rows, seg_ptr}, indptr,       \
+        indices, D1, D2, (const T*)B, g, mx, den, srow, grad_D1, part,        \
+        (cudaStream_t)stream);                                                \
+  }
 
-extern "C" int gespmm_dot_bwd_rows_bf16(int m, int K, int Ka, int vec,
-                                        int leaky, float slope, int vec4,
-                                        const int* indptr, const int* indices,
-                                        const float* D1, const float* D2,
-                                        const void* B, const float* g,
-                                        const float* mx, const float* den,
-                                        const float* srow, float* grad_D1,
-                                        void* stream) {
-  return (int)backward_rows<__nv_bfloat16>(
-      m, K, Ka, vec, leaky, slope, vec4, indptr, indices, D1, D2,
-      (const __nv_bfloat16*)B, g, mx, den, srow, grad_D1, (cudaStream_t)stream);
-}
+GESPMM_DOT_BWD_ROWS(gespmm_dot_bwd_rows_f32, float)
+GESPMM_DOT_BWD_ROWS(gespmm_dot_bwd_rows_bf16, __nv_bfloat16)
 
 // Backward over the CSC (colptr, rows): n >= 1 columns; grad_B (n, K) in B's
-// type and grad_D2 (n, Ka) f32; vb and vd are the K and Ka lane vectors.  The
-// row-side tables are those of the backward over the CSR.
-extern "C" int gespmm_dot_bwd_cols_f32(int n, int K, int Ka, int vb, int vd,
-                                       int leaky, float slope, int vec4,
-                                       const int* colptr, const int* rows,
-                                       const float* D1, const float* D2,
-                                       const float* B, const float* g,
-                                       const float* mx, const float* den,
-                                       const float* srow, float* grad_B,
-                                       float* grad_D2, void* stream) {
-  return (int)backward_cols<float>(n, K, Ka, vb, vd, leaky, slope, vec4,
-                                   colptr, rows, D1, D2, B, g, mx, den, srow,
-                                   grad_B, grad_D2, (cudaStream_t)stream);
-}
+// type and grad_D2 (n, Ka) f32.  The row-side tables are those of the
+// backward over the CSR.  Scratch: part_B (S, K) and part_D (S, Ka), f32.
+#define GESPMM_DOT_BWD_COLS(NAME, T)                                          \
+  extern "C" int NAME(int n, int K, int Ka, int vec, int sw, int leaky,       \
+                      float slope, int L, int S, int J, const int* seg_row,   \
+                      const int* seg_start, const int* long_rows,             \
+                      const int* seg_ptr, const int* colptr, const int* rows, \
+                      const float* D1, const float* D2, const void* B,        \
+                      const float* g, const float* mx, const float* den,      \
+                      const float* srow, void* grad_B, float* grad_D2,        \
+                      float* part_B, float* part_D, void* stream) {           \
+    return (int)backward_cols<T>(                                             \
+        n, K, Ka, vec, sw, leaky, slope,                                      \
+        Split{L, S, J, seg_row, seg_start, long_rows, seg_ptr}, colptr, rows, \
+        D1, D2, (const T*)B, g, mx, den, srow, (T*)grad_B, grad_D2, part_B,   \
+        part_D, (cudaStream_t)stream);                                        \
+  }
 
-extern "C" int gespmm_dot_bwd_cols_bf16(int n, int K, int Ka, int vb, int vd,
-                                        int leaky, float slope, int vec4,
-                                        const int* colptr, const int* rows,
-                                        const float* D1, const float* D2,
-                                        const void* B, const float* g,
-                                        const float* mx, const float* den,
-                                        const float* srow, void* grad_B,
-                                        float* grad_D2, void* stream) {
-  return (int)backward_cols<__nv_bfloat16>(
-      n, K, Ka, vb, vd, leaky, slope, vec4, colptr, rows, D1, D2,
-      (const __nv_bfloat16*)B, g, mx, den, srow, (__nv_bfloat16*)grad_B,
-      grad_D2, (cudaStream_t)stream);
-}
+GESPMM_DOT_BWD_COLS(gespmm_dot_bwd_cols_f32, float)
+GESPMM_DOT_BWD_COLS(gespmm_dot_bwd_cols_bf16, __nv_bfloat16)
 
 extern "C" const char* gespmm_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -115,21 +115,23 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "carry.cuh"
+#include "attention.cuh"
 
 namespace {
 
 using gespmm::dispatch;  // (VEC, SW) -> the instantiation
 using gespmm::from_f32;
-using gespmm::kMaxBlocksX;
+using gespmm::item_edges;  // the split's work items (attention.cuh)
+using gespmm::item_grid;
+using gespmm::Item;
+using gespmm::kDenomEps;
+using gespmm::kExpFloor;
 using gespmm::kThreads;
 using gespmm::Pack;
+using gespmm::Split;
 using gespmm::Sub;  // a walker of SW lanes
 using gespmm::to_f32;
 
-// gespmm_tpu/kernels/gat_fused.py's _EXP_FLOOR and _DENOM_EPS.
-constexpr float kExpFloor = -80.f;
-constexpr float kDenomEps = 1e-20f;
 constexpr int kBatch = 4;  // table rows gathered before they are folded
 
 __device__ __forceinline__ float leaky(float x, float slope) {
@@ -168,29 +170,6 @@ struct Cols {
     run_end = min(k_end, (hd + 1) * dh);
   }
 };
-
-// The edges [s, t) of work item `item`: segment item of a long row, or row
-// item - S.  False for a long row, which its segments and the carry write.
-struct Item {
-  int row, s, t;
-};
-
-__device__ __forceinline__ bool item_edges(int item, int S, int L,
-                                           const int* __restrict__ indptr,
-                                           const int* __restrict__ seg_row,
-                                           const int* __restrict__ seg_start,
-                                           Item& it) {
-  if (item < S) {
-    it.row = seg_row[item];
-    it.s = seg_start[item];
-    it.t = min(it.s + L, indptr[it.row + 1]);
-    return true;
-  }
-  it.row = item - S;
-  it.s = indptr[it.row];
-  it.t = indptr[it.row + 1];
-  return S == 0 || it.t - it.s <= L;
-}
 
 // The sum of x over the lanes of this lane's head run from this lane on (a
 // suffix sum in a fixed order): the run's first lane gets the run's total.
@@ -334,55 +313,6 @@ gat_fwd_kernel(int m, int S, int K, int H, int dh, int L, int nh_max,
           if (exact) mx[rH + cl.hd] = isfinite(m_h) ? m_h : 0.f;
         }
       }
-    }
-  }
-}
-
-// The softmax carry: one warp per long row merges its segments' (m, zsum,
-// acc) in segment order and writes out, den and (exact) mx.  A long row has
-// edges, so M is finite; in the bound mode every factor is 1.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-gat_softmax_carry_kernel(int J, int K, int H, int dh, int exact,
-                         const int* __restrict__ long_rows,
-                         const int* __restrict__ seg_ptr,
-                         const float* __restrict__ pm,
-                         const float* __restrict__ pz,
-                         const float* __restrict__ pacc, T* __restrict__ out,
-                         float* __restrict__ mx, float* __restrict__ den) {
-  using F = Pack<float, VEC>;
-  const int lane = threadIdx.x & 31;
-  const int k = (blockIdx.y * 32 + lane) * VEC;
-  if (k >= K) return;  // no shuffles below: idle lanes may leave
-  const int hd = k / dh;
-  const int stride = gridDim.x * gespmm::kWarps;
-  for (int j = blockIdx.x * gespmm::kWarps + (threadIdx.x >> 5); j < J;
-       j += stride) {
-    const int s0 = seg_ptr[j], s1 = seg_ptr[j + 1];
-    float M = 0.f;
-    if (exact) {
-      M = -CUDART_INF_F;
-      for (int s = s0; s < s1; ++s) M = fmaxf(M, pm[(int64_t)s * H + hd]);
-    }
-    float zsum = 0.f, acc[VEC];
-#pragma unroll
-    for (int t = 0; t < VEC; ++t) acc[t] = 0.f;
-    for (int s = s0; s < s1; ++s) {
-      const float f = exact ? expf(pm[(int64_t)s * H + hd] - M) : 1.f;
-      zsum = fmaf(pz[(int64_t)s * H + hd], f, zsum);
-      const F p = *reinterpret_cast<const F*>(pacc + (int64_t)s * K + k);
-#pragma unroll
-      for (int t = 0; t < VEC; ++t) acc[t] = fmaf(p.v[t], f, acc[t]);
-    }
-    const int64_t row = long_rows[j];
-    const float d = fmaxf(zsum, kDenomEps);
-    Pack<T, VEC> o;
-#pragma unroll
-    for (int t = 0; t < VEC; ++t) o.v[t] = from_f32<T>(acc[t] / d);
-    *reinterpret_cast<Pack<T, VEC>*>(out + row * K + k) = o;
-    if (k % dh == 0) {
-      den[row * H + hd] = d;
-      if (exact) mx[row * H + hd] = M;
     }
   }
 }
@@ -596,13 +526,6 @@ gat_bwd_cols_kernel(int n, int S, int K, int H, int dh, int L, int nh_max,
 
 // --- launches --------------------------------------------------------------
 
-// The split of one launch: segment length, segments, long rows and the
-// host-built lists (partition.py::RowSplit).
-struct Split {
-  int L, S, J;
-  const int *seg_row, *seg_start, *long_rows, *seg_ptr;
-};
-
 // The most heads any K slab of W columns touches.
 int heads_per_slab(int K, int dh, int W) {
   int most = 1;
@@ -611,13 +534,6 @@ int heads_per_slab(int K, int dh, int W) {
     most = h > most ? h : most;
   }
   return most;
-}
-
-// One walker per item over a grid-stride loop.
-dim3 item_grid(int items, int sw) {
-  const int per_block = kThreads / sw;
-  const unsigned blocks = (unsigned)((items + per_block - 1) / per_block);
-  return dim3(blocks < kMaxBlocksX ? blocks : kMaxBlocksX);
 }
 
 // Dynamic shared memory of `tables` [head][edge] tables a walker, opting in
@@ -636,8 +552,8 @@ bool aligned(const void* p, size_t bytes) {
 }
 
 bool bad_args(int K, int H, int vec, const Split& sp) {
-  return H < 1 || K < 1 || K % H != 0 || (K / H) % vec != 0 || sp.L < 1 ||
-         sp.S < 0 || sp.J < 0 || (sp.S > 0) != (sp.J > 0);
+  return H < 1 || K < 1 || K % H != 0 || (K / H) % vec != 0 ||
+         gespmm::bad_split(sp);
 }
 
 template <typename T>
@@ -663,11 +579,9 @@ cudaError_t forward(int m, int K, int H, int vec, int sw, int exact,
         sp.seg_row, sp.seg_start, src, dst, B, mx, out, den, pm, pz, pacc);
     err = cudaGetLastError();
     if (err != cudaSuccess || sp.J == 0) return err;
-    gat_softmax_carry_kernel<T, VEC>
-        <<<gespmm::warp_grid(sp.J, K, VEC), kThreads, 0, stream>>>(
-            sp.J, K, H, dh, exact, sp.long_rows, sp.seg_ptr, pm, pz, pacc, out,
-            mx, den);
-    return cudaGetLastError();
+    return gespmm::launch_softmax_carry<T, VEC>(sp.J, K, H, exact,
+                                               sp.long_rows, sp.seg_ptr, pm,
+                                               pz, pacc, out, mx, den, stream);
   });
 }
 

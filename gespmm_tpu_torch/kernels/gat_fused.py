@@ -36,14 +36,17 @@ carries, grad_B and grad_dst, count two).
 over the three kernels of ``csrc/dot_attention.cu``: ``dot_forward``
 (replacing ``_dot_forward``), ``dot_backward_rows`` (grad_D1, the pass of
 ``_dot_bwd`` over ``plan``) and ``dot_backward_cols`` (grad_D2 and grad_B,
-its pass over ``plan_t``), counted by ``dot_launches``,
-``dot_bwd_rows_launches`` and ``dot_bwd_cols_launches``.
+its pass over ``plan_t``), with the same splits, counted by
+``dot_launches``, ``dot_bwd_rows_launches`` and ``dot_bwd_cols_launches``
+and their carries by ``dot_carry_launches``, ``dot_bwd_rows_carry_launches``
+and ``dot_bwd_cols_carry_launches`` (two a CSC call with segments).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Union
 
 import torch
@@ -51,8 +54,7 @@ import torch
 from gespmm_tpu_torch.kernels._build import load_library
 from gespmm_tpu_torch.kernels.spmm_csr import (_SPLIT, check_operands,
                                                check_split, check_table,
-                                               lane_vector, raise_on,
-                                               walk_shape)
+                                               raise_on, walk_shape)
 from gespmm_tpu_torch.ops import reference
 from gespmm_tpu_torch.ops.spmm import Adjacency
 from gespmm_tpu_torch.sparse.formats import CSR, expand_indptr
@@ -81,6 +83,9 @@ bwd_cols_carry_launches = 0
 dot_launches = 0
 dot_bwd_rows_launches = 0
 dot_bwd_cols_launches = 0
+dot_carry_launches = 0
+dot_bwd_rows_carry_launches = 0
+dot_bwd_cols_carry_launches = 0
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _F32 = torch.float32
@@ -90,9 +95,13 @@ def reset_launches() -> None:
     global launches, bwd_rows_launches, bwd_cols_launches
     global carry_launches, bwd_rows_carry_launches, bwd_cols_carry_launches
     global dot_launches, dot_bwd_rows_launches, dot_bwd_cols_launches
+    global dot_carry_launches, dot_bwd_rows_carry_launches
+    global dot_bwd_cols_carry_launches
     launches = bwd_rows_launches = bwd_cols_launches = 0
     carry_launches = bwd_rows_carry_launches = bwd_cols_carry_launches = 0
     dot_launches = dot_bwd_rows_launches = dot_bwd_cols_launches = 0
+    dot_carry_launches = dot_bwd_rows_carry_launches = 0
+    dot_bwd_cols_carry_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -475,9 +484,8 @@ def _dot_entry(kind: str, dtype: torch.dtype):
     lib = load_library("dot_attention")
     fn = getattr(lib, f"gespmm_dot_{kind}_{_SUFFIX[dtype]}")
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    fn.argtypes = {"fwd": [i, i, i, i, i, f, i] + [p] * 9,
-                   "bwd_rows": [i, i, i, i, i, f, i] + [p] * 11,
-                   "bwd_cols": [i, i, i, i, i, i, f, i] + [p] * 12}[kind]
+    head = [i] * 6 + [f] + [i] * 3 + [p] * 4  # shape, act, split
+    fn.argtypes = head + [p] * {"fwd": 12, "bwd_rows": 12, "bwd_cols": 14}[kind]
     fn.restype = ctypes.c_int
     lib.gespmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gespmm_cuda_error_string.restype = ctypes.c_char_p
@@ -489,11 +497,21 @@ def _act_args(slope: Optional[float]):
     return (0, 0.0) if slope is None else (1, float(slope))
 
 
-def _dot_vec4(D1: Tensor, D2: Tensor) -> int:
-    """1 when the per-edge Ka-wide dot can use 16-byte loads."""
-    Ka = D1.shape[1]
-    return int(Ka % 4 == 0 and D1.data_ptr() % 16 == 0
-               and D2.data_ptr() % 16 == 0)
+def dot_walk_shape(K: int, Ka: int, *tensors: Tensor):
+    """(VEC, SW) of the dot-attention kernels: ``walk_shape`` over the wider
+    of K and Ka taken as heads of gcd(K, Ka) columns, so that VEC divides
+    both widths and SW·VEC covers the wider.  The forward takes it from
+    (D1, D2, B), and so do the backward kernels, so that all three compute
+    each logit with the same lanes (``csrc/dot_attention.cu``)."""
+    wide = max(K, Ka)
+    return walk_shape(wide, wide // math.gcd(K, Ka), *tensors)
+
+
+def _aligned(t: Tensor, vec: int) -> Tensor:
+    """``t``, or a copy of it where its start is not aligned to VEC floats
+    (a view into a larger buffer): the backward's g must not narrow the
+    forward's walker shape."""
+    return t if t.data_ptr() % (vec * t.element_size()) == 0 else t.clone()
 
 
 def _check_dot_tables(m: int, n: int, Ka: int, B: Tensor, D1: Tensor,
@@ -506,26 +524,32 @@ def _check_dot_tables(m: int, n: int, Ka: int, B: Tensor, D1: Tensor,
 
 def dot_forward(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
                 B: Tensor, *, slope: Optional[float] = None,
-                rows: Optional[Tensor] = None):
+                rows: Optional[Tensor] = None,
+                split: Optional[RowSplit] = None):
     """(out, mx, den) of the dot-attention forward over the CSR.
 
     D1 (m, Ka), D2 (n, Ka), B (n, K).  ``out`` takes B's dtype; ``mx`` and
     ``den`` (m,) are f32 (f64 from the plain version for f64 inputs).
-    ``slope`` None is the identity act, else leaky ReLU.  ``rows`` (the
-    expanded indptr) is used only by the plain version.
+    ``slope`` None is the identity act, else leaky ReLU.  ``split`` is the
+    CSR's row split on B's device (``Adjacency.split``); without one, a CUDA
+    call builds it from a host copy of ``indptr``, which synchronises.
+    ``rows`` (the expanded indptr) is used only by the plain version.
     """
     m = indptr.shape[0] - 1
     if B.device.type == "cpu":
         if rows is None:
             rows = expand_indptr(indptr, indices.shape[0])
         return reference.dot_attention_rows(rows, indices, D1, D2, B, m, slope)
-    return dot_forward_cuda(indptr, indices, _f32(D1), _f32(D2), B, slope)
+    return dot_forward_cuda(indptr, indices, _f32(D1), _f32(D2), B, slope,
+                            split)
 
 
 def dot_forward_cuda(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
-                     B: Tensor, slope: Optional[float]):
-    """Launch the forward kernel on the current stream of B's device."""
-    global dot_launches
+                     B: Tensor, slope: Optional[float],
+                     split: Optional[RowSplit] = None):
+    """Launch the forward kernel, and its softmax carry when the split has a
+    segment, on the current stream of B's device."""
+    global dot_launches, dot_carry_launches
     check_operands(indptr, indices, None, B)
     m, (n, K), Ka = indptr.shape[0] - 1, B.shape, D1.shape[1]
     _check_dot_tables(m, n, Ka, B, D1, D2)
@@ -535,28 +559,37 @@ def dot_forward_cuda(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
                 torch.zeros(m, dtype=_F32, device=B.device),
                 torch.full((m,), reference.DENOM_EPS, dtype=_F32,
                            device=B.device))
+    if split is None:
+        split = build_row_split(indptr).to(B.device)
     fn, err_str = _dot_entry("fwd", B.dtype)
     out = torch.empty((m, K), dtype=B.dtype, device=B.device)
     mx = torch.empty(m, dtype=_F32, device=B.device)
     den = torch.empty(m, dtype=_F32, device=B.device)
+    S = split.num_segments
+    pm, pz, pacc = (_scratch(S, 1, B.device), _scratch(S, 1, B.device),
+                    _scratch(S, K, B.device))
+    vec, sw = dot_walk_shape(K, Ka, D1, D2, B)
     with torch.cuda.device(B.device):
-        err = fn(m, K, Ka, lane_vector(K, B, out), *_act_args(slope),
-                 _dot_vec4(D1, D2), indptr.data_ptr(), indices.data_ptr(),
-                 D1.data_ptr(), D2.data_ptr(), B.data_ptr(), out.data_ptr(),
-                 mx.data_ptr(), den.data_ptr(), _stream(B))
-    raise_on(err, err_str, f"dot forward at m={m} K={K} Ka={Ka} "
-             f"dtype={B.dtype}")
+        err = fn(m, K, Ka, vec, sw, *_act_args(slope),
+                 *_split_args(split, B.device), indptr.data_ptr(),
+                 indices.data_ptr(), D1.data_ptr(), D2.data_ptr(),
+                 B.data_ptr(), out.data_ptr(), mx.data_ptr(), den.data_ptr(),
+                 _ptr(pm), _ptr(pz), _ptr(pacc), _stream(B))
+    raise_on(err, err_str, f"dot forward at m={m} K={K} Ka={Ka} vec={vec} "
+             f"lanes={sw} segments={S} dtype={B.dtype}")
     dot_launches += 1
+    dot_carry_launches += int(S > 0)
     return out, mx, den
 
 
 def dot_backward_rows(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
                       B: Tensor, g: Tensor, mx: Tensor, den: Tensor,
                       s_row: Tensor, *, slope: Optional[float] = None,
-                      rows: Optional[Tensor] = None) -> Tensor:
+                      rows: Optional[Tensor] = None,
+                      split: Optional[RowSplit] = None) -> Tensor:
     """grad_D1 (m, Ka) = Σ_{e in row r} dpre_e·D2[c_e] over the CSR, f32 (f64
-    from the plain version for f64 inputs).  ``rows`` is used only by the
-    plain version."""
+    from the plain version for f64 inputs).  ``split``: the CSR's row split,
+    as in ``dot_forward``; ``rows`` is used only by the plain version."""
     m = indptr.shape[0] - 1
     if B.device.type == "cpu":
         if rows is None:
@@ -565,7 +598,7 @@ def dot_backward_rows(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
                                                 mx, den, s_row, m, slope)
     return dot_backward_rows_cuda(indptr, indices, _f32(D1), _f32(D2), B,
                                   _f32(g), _f32(mx), _f32(den), _f32(s_row),
-                                  slope)
+                                  slope, split)
 
 
 def _check_dot_bwd_tables(m, n, K, Ka, B, D1, D2, g, mx, den, s_row) -> None:
@@ -577,38 +610,49 @@ def _check_dot_bwd_tables(m, n, K, Ka, B, D1, D2, g, mx, den, s_row) -> None:
 
 def dot_backward_rows_cuda(indptr: Tensor, indices: Tensor, D1: Tensor,
                            D2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
-                           den: Tensor, s_row: Tensor,
-                           slope: Optional[float]) -> Tensor:
-    """Launch the backward kernel over the CSR on B's device's stream."""
-    global dot_bwd_rows_launches
+                           den: Tensor, s_row: Tensor, slope: Optional[float],
+                           split: Optional[RowSplit] = None) -> Tensor:
+    """Launch the backward kernel over the CSR, and the sum carry of its
+    segments' Ka-wide partials when the split has one, on B's device's
+    stream."""
+    global dot_bwd_rows_launches, dot_bwd_rows_carry_launches
     check_operands(indptr, indices, None, B)
     m, (n, K), Ka = indptr.shape[0] - 1, B.shape, D1.shape[1]
     _check_dot_bwd_tables(m, n, K, Ka, B, D1, D2, g, mx, den, s_row)
     if m == 0 or K == 0 or indices.shape[0] == 0:
         return torch.zeros((m, Ka), dtype=_F32, device=B.device)
+    if split is None:
+        split = build_row_split(indptr).to(B.device)
     fn, err_str = _dot_entry("bwd_rows", B.dtype)
     grad_D1 = torch.empty((m, Ka), dtype=_F32, device=B.device)
+    S = split.num_segments
+    part = _scratch(S, Ka, B.device)
+    vec, sw = dot_walk_shape(K, Ka, D1, D2, B)
+    g = _aligned(g, vec)
     with torch.cuda.device(B.device):
-        err = fn(m, K, Ka, lane_vector(Ka, D2, grad_D1), *_act_args(slope),
-                 _dot_vec4(D1, D2), indptr.data_ptr(), indices.data_ptr(),
-                 D1.data_ptr(), D2.data_ptr(), B.data_ptr(), g.data_ptr(),
-                 mx.data_ptr(), den.data_ptr(), s_row.data_ptr(),
-                 grad_D1.data_ptr(), _stream(B))
+        err = fn(m, K, Ka, vec, sw, *_act_args(slope),
+                 *_split_args(split, B.device), indptr.data_ptr(),
+                 indices.data_ptr(), D1.data_ptr(), D2.data_ptr(),
+                 B.data_ptr(), g.data_ptr(), mx.data_ptr(), den.data_ptr(),
+                 s_row.data_ptr(), grad_D1.data_ptr(), _ptr(part), _stream(B))
     raise_on(err, err_str, f"dot backward (rows) at m={m} K={K} Ka={Ka} "
-             f"dtype={B.dtype}")
+             f"vec={vec} lanes={sw} segments={S} dtype={B.dtype}")
     dot_bwd_rows_launches += 1
+    dot_bwd_rows_carry_launches += int(S > 0)
     return grad_D1
 
 
 def dot_backward_cols(colptr: Tensor, rows: Tensor, D1: Tensor, D2: Tensor,
                       B: Tensor, g: Tensor, mx: Tensor, den: Tensor,
                       s_row: Tensor, *, slope: Optional[float] = None,
-                      cols: Optional[Tensor] = None):
+                      cols: Optional[Tensor] = None,
+                      split: Optional[RowSplit] = None):
     """(grad_D2 (n, Ka), grad_B (n, K)) over the CSC (colptr, rows):
     grad_D2[c] = Σ_{e in col c} dpre_e·D1[r_e] and grad_B[c] = Σ_{e in col c}
     alpha_e·g[r_e].  grad_D2 is f32 and grad_B takes B's dtype (the plain
-    version returns both in the accumulation dtype).  ``cols`` (the expanded
-    colptr) is used only by the plain version."""
+    version returns both in the accumulation dtype).  ``split``: the CSC's
+    column split (``Adjacency.split_t``), as in ``dot_forward``; ``cols``
+    (the expanded colptr) is used only by the plain version."""
     if B.device.type == "cpu":
         if cols is None:
             cols = expand_indptr(colptr, rows.shape[0])
@@ -616,14 +660,17 @@ def dot_backward_cols(colptr: Tensor, rows: Tensor, D1: Tensor, D2: Tensor,
                                                 den, s_row, slope)
     return dot_backward_cols_cuda(colptr, rows, _f32(D1), _f32(D2), B,
                                   _f32(g), _f32(mx), _f32(den), _f32(s_row),
-                                  slope)
+                                  slope, split)
 
 
 def dot_backward_cols_cuda(colptr: Tensor, rows: Tensor, D1: Tensor,
                            D2: Tensor, B: Tensor, g: Tensor, mx: Tensor,
-                           den: Tensor, s_row: Tensor, slope: Optional[float]):
-    """Launch the backward kernel over the CSC on B's device's stream."""
-    global dot_bwd_cols_launches
+                           den: Tensor, s_row: Tensor, slope: Optional[float],
+                           split: Optional[RowSplit] = None):
+    """Launch the backward kernel over the CSC, and the sum carries of its
+    segments' grad_B and grad_D2 partials (two launches) when the split has
+    a segment, on B's device's stream."""
+    global dot_bwd_cols_launches, dot_bwd_cols_carry_launches
     check_operands(colptr, rows, None, B)
     n, K = B.shape
     if colptr.shape[0] - 1 != n:
@@ -634,19 +681,26 @@ def dot_backward_cols_cuda(colptr: Tensor, rows: Tensor, D1: Tensor,
     if n == 0 or K == 0 or rows.shape[0] == 0:
         return (torch.zeros((n, Ka), dtype=_F32, device=B.device),
                 torch.zeros((n, K), dtype=B.dtype, device=B.device))
+    if split is None:
+        split = build_row_split(colptr).to(B.device)
     fn, err_str = _dot_entry("bwd_cols", B.dtype)
     grad_D2 = torch.empty((n, Ka), dtype=_F32, device=B.device)
     grad_B = torch.empty((n, K), dtype=B.dtype, device=B.device)
+    S = split.num_segments
+    part_B, part_D = _scratch(S, K, B.device), _scratch(S, Ka, B.device)
+    vec, sw = dot_walk_shape(K, Ka, D1, D2, B)
+    g = _aligned(g, vec)
     with torch.cuda.device(B.device):
-        err = fn(n, K, Ka, lane_vector(K, g, grad_B),
-                 lane_vector(Ka, D1, grad_D2), *_act_args(slope),
-                 _dot_vec4(D1, D2), colptr.data_ptr(), rows.data_ptr(),
-                 D1.data_ptr(), D2.data_ptr(), B.data_ptr(), g.data_ptr(),
-                 mx.data_ptr(), den.data_ptr(), s_row.data_ptr(),
-                 grad_B.data_ptr(), grad_D2.data_ptr(), _stream(B))
+        err = fn(n, K, Ka, vec, sw, *_act_args(slope),
+                 *_split_args(split, B.device), colptr.data_ptr(),
+                 rows.data_ptr(), D1.data_ptr(), D2.data_ptr(), B.data_ptr(),
+                 g.data_ptr(), mx.data_ptr(), den.data_ptr(),
+                 s_row.data_ptr(), grad_B.data_ptr(), grad_D2.data_ptr(),
+                 _ptr(part_B), _ptr(part_D), _stream(B))
     raise_on(err, err_str, f"dot backward (cols) at n={n} K={K} Ka={Ka} "
-             f"dtype={B.dtype}")
+             f"vec={vec} lanes={sw} segments={S} dtype={B.dtype}")
     dot_bwd_cols_launches += 1
+    dot_bwd_cols_carry_launches += 2 * int(S > 0)
     return grad_D2, grad_B
 
 
@@ -664,7 +718,8 @@ class _DotFused(torch.autograd.Function):
                 adj.rows, adj.csr.indices, D1, D2, B, m, slope)
         else:
             out, mx, den = dot_forward(adj.csr.indptr, adj.csr.indices, D1,
-                                       D2, B, slope=slope, rows=adj.rows)
+                                       D2, B, slope=slope, rows=adj.rows,
+                                       split=adj.split)
         ctx.adj, ctx.slope, ctx.plain = adj, slope, plain
         ctx.save_for_backward(D1, D2, B, out, mx, den)
         return out
@@ -691,11 +746,11 @@ class _DotFused(torch.autograd.Function):
             if want_d1:
                 grad_D1 = dot_backward_rows(adj.csr.indptr, adj.csr.indices,
                                             *tables, slope=slope,
-                                            rows=adj.rows)
+                                            rows=adj.rows, split=adj.split)
             if want_cols:
                 grad_D2, grad_B = dot_backward_cols(
                     adj.csc.indptr, adj.csc.indices, *tables, slope=slope,
-                    cols=adj.rows_t)
+                    cols=adj.rows_t, split=adj.split_t)
         if grad_D1 is not None:
             grad_D1 = grad_D1.to(D1.dtype)
         if grad_D2 is not None:

@@ -22,6 +22,7 @@ from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.ops.sddmm import sddmm
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 from gespmm_tpu_torch.sparse.formats import CSR, in_degrees, out_degrees
+from gespmm_tpu_torch.sparse.partition import RowSplit
 
 Tensor = torch.Tensor
 
@@ -84,12 +85,14 @@ def _check_edge_method(method: str) -> None:
 
 
 def _segment(method: str, indptr: Tensor, rows: Tensor, vals: Tensor,
-             op: str) -> Tensor:
+             op: str, split: Optional[RowSplit]) -> Tensor:
     """Per-row ``op`` of the (nnz, K) ``vals``, in the edge order of
-    ``indptr``; ``rows`` is that ordering's expanded indptr."""
+    ``indptr``; ``rows`` is that ordering's expanded indptr and ``split``
+    its row split (the kernel's work list)."""
     if method == "xla":
         return ref.edge_segment_rows(rows, vals, indptr.shape[0] - 1, op)
-    return edge_segment_reduce(indptr, vals.contiguous(), op, rows=rows)
+    return edge_segment_reduce(indptr, vals.contiguous(), op, rows=rows,
+                               split=split)
 
 
 class _EdgeSoftmax(torch.autograd.Function):
@@ -99,9 +102,9 @@ class _EdgeSoftmax(torch.autograd.Function):
     def forward(ctx, adj: Adjacency, method: str, logits2d: Tensor) -> Tensor:
         indptr, rows = adj.csr.indptr, adj.rows
         r = rows.long()
-        mx = _segment(method, indptr, rows, logits2d, "max")
+        mx = _segment(method, indptr, rows, logits2d, "max", adj.split)
         ex = torch.exp(logits2d - mx.index_select(0, r))
-        den = _segment(method, indptr, rows, ex, "sum")
+        den = _segment(method, indptr, rows, ex, "sum", adj.split)
         alpha = ex / torch.clamp(den.index_select(0, r), min=ref.DENOM_EPS)
         ctx.adj, ctx.method = adj, method
         ctx.save_for_backward(alpha)
@@ -113,7 +116,7 @@ class _EdgeSoftmax(torch.autograd.Function):
         adj, method = ctx.adj, ctx.method
         (alpha,) = ctx.saved_tensors
         t = alpha * g
-        s = _segment(method, adj.csr.indptr, adj.rows, t, "sum")
+        s = _segment(method, adj.csr.indptr, adj.rows, t, "sum", adj.split)
         return None, None, t - alpha * s.index_select(0, adj.rows.long())
 
 
@@ -152,10 +155,10 @@ class _AdditiveLogits(torch.autograd.Function):
     def backward(ctx, g: Tensor):
         adj, method = ctx.adj, ctx.method
         g2 = g[:, None] if g.dim() == 1 else g
-        gs = _segment(method, adj.csr.indptr, adj.rows, g2, "sum")
+        gs = _segment(method, adj.csr.indptr, adj.rows, g2, "sum", adj.split)
         # The CSC's edge order: permute the cotangent.
         gd = _segment(method, adj.csc.indptr, adj.rows_t,
-                      g2.index_select(0, adj.perm.long()), "sum")
+                      g2.index_select(0, adj.perm.long()), "sum", adj.split_t)
         if g.dim() == 1:
             gs, gd = gs[:, 0], gd[:, 0]
         return None, None, gs, gd

@@ -649,17 +649,28 @@ def gat_split_rows(rows: Tensor, indptr: Tensor, cols: Tensor, src2: Tensor,
     unit, no rescale.  Dtypes as ``gat_fused_rows``.
     """
     acc = _gat_acc(src2, dst2, B)
-    H = heads
+    s, d = src2.to(acc), dst2.to(acc)
+    l = leaky(s.index_select(0, rows.long()) + d.index_select(0, cols.long()),
+              slope)
+    shift = (gat_bound_shift(s, d, slope).index_select(0, _unit_rows(m, seg_row))
+             if max_mode == "bound" else None)
+    return _split_softmax(rows, indptr, cols, l, B, m, seg_row, long_rows,
+                          seg_ptr, seg_len, batch, shift)
+
+
+def _split_softmax(rows, indptr, cols, l, B, m, seg_row, long_rows, seg_ptr,
+                   seg_len, batch, shift=None):
+    """(out, mx, den) of an online-softmax walk over the row split, from the
+    (nnz, H) logits ``l`` in the accumulation dtype (``gat_split_rows``;
+    ``shift``: the bound mode's per-unit shift, no rescale)."""
+    acc, H = l.dtype, l.shape[1]
     nnz, K = cols.shape[0], B.shape[1]
     dh = K // H
     S = seg_row.shape[0]
     unit, pos = split_units(rows, indptr, m, long_rows, seg_ptr, seg_len)
-    s, d = src2.to(acc), dst2.to(acc)
-    r = rows.long()
-    l = leaky(s.index_select(0, r) + d.index_select(0, cols.long()), slope)
     inf = torch.full((), float("inf"), dtype=acc, device=B.device)
-    if max_mode == "bound":
-        m_unit = gat_bound_shift(s, d, slope).index_select(0, _unit_rows(m, seg_row))
+    if shift is not None:
+        m_unit = shift
         z = torch.exp(torch.clamp(l - m_unit.index_select(0, unit),
                                   min=EXP_FLOOR))
     else:
@@ -681,7 +692,7 @@ def gat_split_rows(rows: Tensor, indptr: Tensor, cols: Tensor, src2: Tensor,
     # The carry: a long row's own unit is empty; its segments merge into it.
     sr = seg_row.long()
     M = m_unit[:m].clone()
-    if max_mode != "bound":
+    if shift is None:
         M.scatter_reduce_(0, sr[:, None].expand(S, H), m_unit[m:], "amax")
     f = torch.exp(m_unit[m:] - M.index_select(0, sr))
     den = zsum[:m].index_add_(0, sr, zsum[m:] * f)
@@ -690,6 +701,15 @@ def gat_split_rows(rows: Tensor, indptr: Tensor, cols: Tensor, src2: Tensor,
     out = (out / den[:, :, None]).view(m, K)
     mx = torch.where(torch.isfinite(M), M, torch.zeros_like(M))
     return out.to(B.dtype), mx, den
+
+
+def _unit_sums(unit: Tensor, units: int, vals: Tensor, m: int,
+               seg_row: Tensor) -> Tensor:
+    """Each unit's sum of its edges' (nnz, ...) ``vals``, the segments'
+    sums then added into their rows in segment order (the sum carry)."""
+    part = torch.zeros((units, *vals.shape[1:]), dtype=vals.dtype,
+                       device=vals.device).index_add_(0, unit, vals)
+    return part[:m].index_add_(0, seg_row.long(), part[m:])
 
 
 def _gat_w(rows, cols, src2, dst2, mx, den, slope, acc):
@@ -843,6 +863,84 @@ def dot_attention_vjp_cols(rows, cols, D1, D2, B, g, mx, den, s_row,
     grad_B = torch.zeros((n, B.shape[1]), dtype=dpre.dtype, device=dpre.device)
     grad_B.index_add_(0, c, g.to(dpre.dtype).index_select(0, r) * alpha[:, None])
     return grad_D2, grad_B
+
+
+# The split walks of the dot-attention kernels (csrc/dot_attention.cu) and
+# of the edge segment reduce (csrc/edge_reduce.cu), in plain PyTorch, as the
+# row-5 mirrors above: units (rows of at most seg_len edges, segments of
+# longer ones), per-unit partial states, merges in segment order.  Nothing
+# on the card's path calls these.
+
+
+def dot_split_rows(rows: Tensor, indptr: Tensor, cols: Tensor, D1: Tensor,
+                   D2: Tensor, B: Tensor, m: int, seg_row: Tensor,
+                   long_rows: Tensor, seg_ptr: Tensor, seg_len: int,
+                   slope: Optional[float] = None, batch: int = 32):
+    """(out, mx, den) of the dot-attention forward walk over the row split:
+    ``gat_split_rows``'s online softmax (a rescale per batch of ``batch``
+    edges, the walker's SW) on the logits act(D1[r]·D2[c]).  Dtypes as
+    ``dot_attention_rows``."""
+    acc = _gat_acc(D1, D2, B)
+    l = _act(_dot_pre(rows, cols, D1, D2, acc), slope)[:, None]
+    out, mx, den = _split_softmax(rows, indptr, cols, l, B, m, seg_row,
+                                  long_rows, seg_ptr, seg_len, batch)
+    return out, mx[:, 0], den[:, 0]
+
+
+def dot_split_vjp_rows(rows, indptr, cols, D1, D2, B, g, mx, den, s_row, m,
+                       seg_row, long_rows, seg_ptr, seg_len,
+                       slope=None) -> Tensor:
+    """grad_D1 (m, Ka) of the backward walk over the row split: each unit's
+    Σ_e dpre_e·D2[c_e], the segments' partials added into their rows."""
+    _, dpre = _dot_dpre(rows, cols, D1, D2, B, g, mx, den, s_row, slope)
+    unit, _ = split_units(rows, indptr, m, long_rows, seg_ptr, seg_len)
+    contrib = D2.to(dpre.dtype).index_select(0, cols.long()) * dpre[:, None]
+    return _unit_sums(unit, m + seg_row.shape[0], contrib, m, seg_row)
+
+
+def dot_split_vjp_cols(rows_t, colptr, cols_t, D1, D2, B, g, mx, den, s_row,
+                       seg_row, long_rows, seg_ptr, seg_len, slope=None):
+    """(grad_D2 (n, Ka), grad_B (n, K)) of the backward walk over the
+    column split, in CSC order (``rows_t`` the row of each edge, ``cols_t``
+    the expanded colptr): each unit's Σ_e dpre_e·D1[r_e] and Σ_e
+    alpha_e·g[r_e], the segments' partials added into their columns."""
+    alpha, dpre = _dot_dpre(rows_t, cols_t, D1, D2, B, g, mx, den, s_row,
+                            slope)
+    n = B.shape[0]
+    unit, _ = split_units(cols_t, colptr, n, long_rows, seg_ptr, seg_len)
+    r, units = rows_t.long(), n + seg_row.shape[0]
+    grad_D2 = _unit_sums(unit, units, D1.to(dpre.dtype).index_select(0, r)
+                         * dpre[:, None], n, seg_row)
+    grad_B = _unit_sums(unit, units, g.to(dpre.dtype).index_select(0, r)
+                        * alpha[:, None], n, seg_row)
+    return grad_D2, grad_B
+
+
+def edge_segment_split(rows: Tensor, indptr: Tensor, vals: Tensor, m: int,
+                       op: str, seg_row: Tensor, long_rows: Tensor,
+                       seg_ptr: Tensor, seg_len: int) -> Tensor:
+    """The split walk of the edge segment reduce: each unit's sum or max of
+    its (nnz, K) values, then a long row's segment sums added in segment
+    order (the sum carry) or their maximum taken (the max carry); a
+    non-finite max becomes 0.  Dtypes as ``edge_segment_rows``."""
+    if op not in SEGMENT_OPS:
+        raise ValueError(f"op must be one of {SEGMENT_OPS}, got {op!r}")
+    v = vals.to(_acc_dtype(vals.dtype))
+    unit, _ = split_units(rows, indptr, m, long_rows, seg_ptr, seg_len)
+    units = m + seg_row.shape[0]
+    if op == "sum":
+        out = _unit_sums(unit, units, v, m, seg_row)
+    else:
+        # Raw maxima (-inf for a long row's own, empty unit); the carry
+        # folds the segments' into their rows.
+        part = torch.full((units, v.shape[1]), float("-inf"), dtype=v.dtype,
+                          device=v.device).scatter_reduce_(
+            0, unit[:, None].expand_as(v), v, "amax")
+        out = part[:m].clone()
+        out.scatter_reduce_(0, seg_row.long()[:, None].expand_as(part[m:]),
+                            part[m:], "amax")
+        out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    return out.to(vals.dtype)
 
 
 # --- the scatter and dense tiers, and the chunked sum (kernel row 8) --------

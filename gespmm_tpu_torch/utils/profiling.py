@@ -44,6 +44,33 @@ def spmm_bytes(nnz: int, m: int, k: int, n: Optional[int] = None,
             + n * k * itemsize + m * k * itemsize)
 
 
+def dot_attention_work(kind: str, m: int, n: int, nnz: int, K: int,
+                       Ka: int) -> Tuple[int, int]:
+    """(bytes, operations) of one f32 dot-attention kernel call (kernel row
+    6), ``kind`` "dot_fwd" | "dot_bwd_rows" | "dot_bwd_cols": each input
+    read once and each output written once (the CSR's, or for the CSC
+    backward the CSC's, indptr and indices; D1, D2, B; g and the row-side
+    mx, den, s backward), and the per-edge work (2 operations a column of
+    each dot and of each accumulated row, the logit's exp and weights)."""
+    idx = ((n if kind == "dot_bwd_cols" else m) + 1) * 4 + nnz * 4
+    tables = (m + n) * Ka * 4 + n * K * 4
+    if kind == "dot_fwd":  # out, mx, den
+        return idx + tables + m * K * 4 + 2 * m * 4, nnz * (2 * Ka + 2 * K + 6)
+    if kind == "dot_bwd_rows":  # g, mx, den, s in; grad_D1 out
+        return (idx + tables + m * K * 4 + 3 * m * 4 + m * Ka * 4,
+                nnz * (4 * Ka + 2 * K + 10))
+    # g, mx, den, s in; grad_D2, grad_B out
+    return (idx + tables + m * K * 4 + 3 * m * 4 + n * Ka * 4 + n * K * 4,
+            nnz * (4 * Ka + 4 * K + 10))
+
+
+def edge_reduce_work(m: int, nnz: int, K: int) -> Tuple[int, int]:
+    """(bytes, operations) of one f32 edge segment reduce (kernel row 4):
+    indptr, the (nnz, K) values and the (m, K) out (the kernel reads no
+    column index); one add or compare a value."""
+    return (m + 1) * 4 + (nnz + m) * K * 4, nnz * K
+
+
 def spmm_roofline(nnz: int, m: int, k: int, measured_s: float,
                   n: Optional[int] = None, valued: bool = False,
                   itemsize: int = 4, hbm_gbps: float = H100_HBM_GBPS,

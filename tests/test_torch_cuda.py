@@ -869,6 +869,67 @@ def test_edge_reduce_kernel_matches_plain(dev, op, K, dtype):
     assert not out[empty].any()
 
 
+def edge_reduce_vs_plain(indptr, rows, vals, op, split):
+    """Run the edge reduce twice with ``split``: (max exact | sum within
+    the float64 bound, two runs bitwise equal, carries a run)."""
+    m = indptr.shape[0] - 1
+    before = kedge.carry_launches
+    out, again = (kedge.edge_segment_reduce(indptr, vals, op, split=split)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    carries = (kedge.carry_launches - before) // 2
+    if op == "max":
+        ok = torch.equal(out, ref.edge_segment_rows(rows, vals, m, "max"))
+    else:
+        want = ref.edge_segment_rows(rows, vals.double(), m, "sum")
+        mag = ref.edge_segment_rows(rows, vals.double().abs(), m, "sum")
+        tol = 8e-3 if vals.dtype == torch.bfloat16 else 1e-5
+        ok = bool(((out.double() - want).abs() <= tol * mag + 1e-6).all())
+    return ok, torch.equal(out, again), carries
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 3, 8])
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_edge_reduce_split_at_each_boundary(dev, op, K, dtype):
+    # Rows of L - 1, L, L + 1, 2L + 1 and 10,000 edges: the long ones are
+    # walked in segments and the carry adds (or takes the max of) them; the
+    # CSC's split over the transposed order too.
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    vals = randn((adj.nnz, K), dev, K, dtype)
+    for indptr, rows, v, split in (
+            (adj.csr.indptr, adj.rows, vals, adj.split),
+            (adj.csc.indptr, adj.rows_t, vals.index_select(0, adj.perm.long()),
+             adj.split_t)):
+        ok, repeat, carries = edge_reduce_vs_plain(indptr, rows, v, op, split)
+        assert ok and repeat and carries == 1
+
+
+@pytest.mark.parametrize("lanes", [4, 8, 16, 32])
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_edge_reduce_walk_widths(dev, monkeypatch, op, lanes):
+    # Every walker width, on rows of 0-20 edges around a hub of 2,000 (its
+    # segments and carry), at K = 3 (a column chunk past K).
+    monkeypatch.setattr(kedge, "walk_width", lambda nnz, m, K: lanes)
+    adj = Adjacency.from_csr(skewed_csr(), device=dev)
+    vals = randn((adj.nnz, 3), dev, lanes)
+    ok, repeat, carries = edge_reduce_vs_plain(adj.csr.indptr, adj.rows, vals,
+                                               op, adj.split)
+    assert ok and repeat and carries == 1
+
+
+def test_edge_reduce_without_a_long_row_launches_no_carry(dev):
+    ds = sbm_graph(n_per_class=300, num_classes=3, p_in=0.02, p_out=0.001,
+                   feat_dim=32, seed=0).to(dev)
+    adj = Adjacency.from_csr(add_self_loops(ds.csr))
+    assert adj.split.num_segments == 0
+    assert kedge.walk_width(adj.nnz, adj.shape[0], 1) == 4  # mean degree 7.5
+    ok, repeat, carries = edge_reduce_vs_plain(
+        adj.csr.indptr, adj.rows, randn((adj.nnz, 1), dev, 0), "sum",
+        adj.split)
+    assert ok and repeat and carries == 0
+
+
 def gat_kernels_vs_float64(adj, H, dh, max_mode, dtype, seed=0):
     """Run the three fused kernels once each; return {name: (max abs error,
     bound)} against the float64 plain versions."""
@@ -1364,8 +1425,9 @@ def test_spmm_pallas_autograd_on_card_matches_float64(dev):
 
 
 def dot_kernels_vs_float64(adj, Ka, K, slope, dtype, seed=0):
-    """Run the three dot kernels once each; {name: (max abs error, bound)}
-    against the float64 plain versions (s = <g, out> from the stored out)."""
+    """Run the three dot kernels once each, with the adjacency's splits;
+    {name: (max abs error, bound)} against the float64 plain versions (s =
+    <g, out> from the stored out)."""
     dev = adj.csr.indptr.device
     m, n = adj.shape
     D1 = randn((m, Ka), dev, seed) * Ka ** -0.25
@@ -1374,13 +1436,13 @@ def dot_kernels_vs_float64(adj, Ka, K, slope, dtype, seed=0):
     launched = (kgat.dot_launches, kgat.dot_bwd_rows_launches,
                 kgat.dot_bwd_cols_launches)
     out, mx, den = kgat.dot_forward(adj.csr.indptr, adj.csr.indices, D1, D2, B,
-                                    slope=slope)
+                                    slope=slope, split=adj.split)
     s_row = ref.dot_row_dot(g, out)
     tabs = (D1, D2, B, g, mx, den, s_row)
     gD1 = kgat.dot_backward_rows(adj.csr.indptr, adj.csr.indices, *tabs,
-                                 slope=slope)
+                                 slope=slope, split=adj.split)
     gD2, gB = kgat.dot_backward_cols(adj.csc.indptr, adj.csc.indices, *tabs,
-                                     slope=slope)
+                                     slope=slope, split=adj.split_t)
     torch.cuda.synchronize()
     assert (kgat.dot_launches, kgat.dot_bwd_rows_launches,
             kgat.dot_bwd_cols_launches) == tuple(x + 1 for x in launched)
@@ -1407,6 +1469,11 @@ def dot_kernels_vs_float64(adj, Ka, K, slope, dtype, seed=0):
     return errs
 
 
+def dot_carries():
+    return (kgat.dot_carry_launches, kgat.dot_bwd_rows_carry_launches,
+            kgat.dot_bwd_cols_carry_launches)
+
+
 # (Ka, K): Ka = 1 (the JAX _pad2 case), widths off the lane vector, K slabs.
 DOT_SHAPES = [(1, 8), (5, 3), (6, 1), (16, 3), (64, 64), (65, 130), (64, 130)]
 
@@ -1422,10 +1489,107 @@ def test_dot_kernels_match_float64(dev, Ka, K, slope, dtype):
 
 
 def test_dot_kernels_on_rmat15(dev):
+    # The hub rows and columns (3,866 edges) in segments, and their carries.
     adj = Adjacency.from_csr(rmat15(), device=dev)
+    before = dot_carries()
     for name, (err, bound) in dot_kernels_vs_float64(adj, 64, 64, None,
                                                      torch.float32).items():
         assert err <= bound, (name, err, bound)
+    assert dot_carries() == (before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("slope", [None, 0.2])
+@pytest.mark.parametrize("Ka,K", [(64, 64), (16, 3), (64, 130)])
+def test_dot_kernels_split_at_each_boundary(dev, Ka, K, slope, dtype):
+    # Rows and columns of L - 1, L, L + 1, 2L + 1 and 10,000 edges: every
+    # kernel walks segments and launches its carry (two over the CSC).
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    before = dot_carries()
+    for name, (err, bound) in dot_kernels_vs_float64(adj, Ka, K, slope,
+                                                     dtype).items():
+        assert err <= bound, (name, err, bound)
+    assert dot_carries() == (before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+# (Ka, K, VEC, SW): dot_walk_shape lands on each of the twelve (VEC, SW)
+# instantiations, with Ka and K on either side and slabs past SW·VEC.
+DOT_WALKS = [(3, 1, 1, 4), (5, 8, 1, 8), (16, 3, 1, 16), (65, 130, 1, 32),
+             (2, 4, 2, 4), (10, 6, 2, 8), (30, 2, 2, 16), (64, 130, 2, 32),
+             (4, 4, 4, 4), (32, 8, 4, 8), (64, 64, 4, 16), (128, 256, 4, 32)]
+
+
+@pytest.mark.parametrize("Ka,K,vec,lanes", DOT_WALKS)
+def test_dot_walk_shapes_match_float64(dev, Ka, K, vec, lanes):
+    assert kgat.dot_walk_shape(K, Ka, randn((1, 4), dev, 0)) == (vec, lanes)
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    for name, (err, bound) in dot_kernels_vs_float64(adj, Ka, K, 0.2,
+                                                     torch.float32).items():
+        assert err <= bound, (name, err, bound)
+
+
+def test_dot_kernels_with_carries_are_deterministic(dev):
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    m, n = adj.shape
+    for Ka, K in ((64, 64), (16, 3), (65, 130)):
+        D1, D2 = randn((m, Ka), dev, 1), randn((n, Ka), dev, 2)
+        B, g = randn((n, K), dev, 3), randn((m, K), dev, 4)
+
+        def run():
+            out, mx, den = kgat.dot_forward(adj.csr.indptr, adj.csr.indices,
+                                            D1, D2, B, split=adj.split)
+            tabs = (D1, D2, B, g, mx, den, ref.dot_row_dot(g, out))
+            return (out, mx, den,
+                    kgat.dot_backward_rows(adj.csr.indptr, adj.csr.indices,
+                                           *tabs, split=adj.split),
+                    *kgat.dot_backward_cols(adj.csc.indptr, adj.csc.indices,
+                                            *tabs, split=adj.split_t))
+
+        for a, b in zip(run(), run()):
+            assert torch.equal(a, b), (Ka, K)
+
+
+@pytest.mark.parametrize("Ka,K", [(64, 64), (32, 8), (64, 130)])
+def test_dot_backward_takes_the_forwards_walker_for_a_misaligned_g(dev, Ka,
+                                                                   K):
+    # A g that starts 4 bytes off the forward's VEC is copied, so the
+    # backward walks with the forward's (VEC, SW) and gives the same bits as
+    # an aligned g (a narrower VEC would split each logit's dot otherwise).
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    m, n = adj.shape
+    D1, D2 = randn((m, Ka), dev, 1), randn((n, Ka), dev, 2)
+    B = randn((n, K), dev, 3)
+    skewed = randn((m * K + 1,), dev, 4)[1:].view(m, K)
+    assert kgat.dot_walk_shape(K, Ka, D1, D2, B)[0] > 1
+    assert kgat.dot_walk_shape(K, Ka, skewed)[0] == 1
+    out, mx, den = kgat.dot_forward(adj.csr.indptr, adj.csr.indices, D1, D2,
+                                    B, split=adj.split)
+
+    def grads(g):
+        tabs = (D1, D2, B, g, mx, den, ref.dot_row_dot(g, out))
+        return (kgat.dot_backward_rows(adj.csr.indptr, adj.csr.indices, *tabs,
+                                       split=adj.split),
+                *kgat.dot_backward_cols(adj.csc.indptr, adj.csc.indices,
+                                        *tabs, split=adj.split_t))
+
+    for a, b in zip(grads(skewed), grads(skewed.clone())):
+        assert torch.equal(a, b), (Ka, K)
+
+
+def test_dot_without_a_long_row_launches_no_carry(dev):
+    ds = sbm_graph(n_per_class=300, num_classes=3, p_in=0.02, p_out=0.001,
+                   feat_dim=32, seed=0).to(dev)
+    adj = Adjacency.from_csr(add_self_loops(ds.csr))
+    assert adj.split.num_segments == adj.split_t.num_segments == 0
+    kgat.reset_launches()
+    xs = [randn(s, dev, i, requires_grad=True)
+          for i, s in enumerate(((900, 64), (900, 64), (900, 64)))]
+    out = attention_aggregate(adj, *xs)
+    out.backward(randn((900, 64), dev, 5))
+    torch.cuda.synchronize()
+    assert (kgat.dot_launches, kgat.dot_bwd_rows_launches,
+            kgat.dot_bwd_cols_launches) == (1, 1, 1)
+    assert dot_carries() == (0, 0, 0)
 
 
 def test_dot_kernels_are_deterministic(dev):
