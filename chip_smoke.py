@@ -162,6 +162,35 @@ Phases, each printed as it goes; any failure exits non-zero:
      launches an epoch, no carry) and GAT [128, 8, 3] with 2 heads, 20 epochs
      each, with the same checks but the float64 one; then
      dryrun_multichip(8);
+ 21. interop on the card: ops/interop.py::AdjacencyMatrix over the SBM
+     graph with self-loops at K=32: A @ x, x @ A (through __rmatmul__),
+     A.T @ x and A @ v (1-D), each within the sum kernel's float64 bound,
+     and the gradients of A.with_data(d) @ x to x and to the values within
+     1e-5 x max(|ref|, 1) of float64; exactly 6 launches of the CSR kernel
+     (row 1), no other kernel and no call of torch.sparse.mm; and
+     csr_from_torch_sparse(csr_to_torch_sparse(csr)) equal to the CSR;
+ 22. the stock baselines (models/baselines.py) at full width: GCNBcoo
+     [128, 32, 3] and GATStock [128, 64, 3] (one head) on the SBM graph with
+     self-loops, SAGEStock mean and pool [128, 16, 3] without; each, at the
+     ported model's parameters with dropout off, gives logits within
+     1e-5 x max |ref| + 1e-6 of ours on the card; then 20-epoch runs in the
+     order ours, stock, stock, ours: loss falling, train accuracy above
+     chance, no kernel of the port launched by a stock run, ms/epoch and
+     peak memory of both printed, the stock GAT's peak below a quarter of
+     a dense n x n f32 matrix (its gradient to alpha stays sparse);
+ 23. SAGE-LSTM [128, 16, 3] (models/sage_lstm.py, max_neighbors 32) on the
+     SBM graph without self-loops, 20 epochs: loss falling, accuracy above
+     chance, logits within 1e-4 x max |ref| of the same module's float64
+     forward on the CPU, ms/epoch printed;
+ 24. GAT [128, 64, 3] with method="pallas" over a plan="perrow" adjacency,
+     20 epochs: the composed chain, 10 edge segment-reduce (row 4) and 4
+     chunk (row 8) launches an epoch and 4 and 2 for the final evaluation,
+     no row-4 carry, no fused-attention or CSR-kernel launch; loss falling,
+     logits within 1e-4 x max |ref| of float64;
+ 25. checkpoint: the GCN (method="auto") 10 epochs straight against 5
+     epochs, a checkpoint (train/checkpoint.py), a fresh model restored
+     from it and 5 more: final parameters within 1e-6 x max |ref|, and
+     whether they are bitwise equal printed;
  15. timings, run last: the card's copy bandwidth (utils/profiling.py::
      measure_hbm_bandwidth) beside the published 3.35 TB/s; device time of
      every kernel against its plain version at the
@@ -207,9 +236,11 @@ Phases, each printed as it goes; any failure exits non-zero:
      against phase 6's CSR route (csr, grouped, grouped, csr); and the
      sharded GCN against phase 6's single-device run (single, sharded,
      sharded, single), and a train step's device time for both over their
-     ms/epoch (the device's busy share).
+     ms/epoch (the device's busy share); then the port's headline line
+     (bench/headline.py: spmm GFLOP/s at K=128 and vs_baseline against
+     torch.sparse.mm, on a line of its own).
 
-Phases run in the order 1-14, 16-20, 15.  Each path's launches are counted
+Phases run in the order 1-14, 16-25, 15.  Each path's launches are counted
 from 0 in its own run; the comparison launches of phases 3-5, 8, 11, 13, 16
 and 18 are not counted.  The CSR kernel and the chunk and grouped kernels
 count their carry pass apart (spmm_csr_carry, spmm_chunk_carry,
@@ -217,9 +248,10 @@ spmm_grouped_carry), and so do row 7 (halo_spmm_carry), row 5
 (gat_fwd_carry, gat_bwd_rows_carry, gat_bwd_cols_carry), row 2
 (spmm_minmax_carry), row 3 (spmm_minmax_vjp_carry), row 4
 (edge_segment_reduce_carry) and row 6 (dot_fwd_carry, dot_bwd_rows_carry,
-dot_bwd_cols_carry).  NCCL traffic
+dot_bwd_cols_carry).  In the kernels line rows 4 and 8 also give the GAT
+pallas route's launches (phase 24: gat_pallas_launches).  NCCL traffic
 between ranks is not run: the card machine has one card.  Output: one line
-per phase, then
+per phase (the headline's JSON line among them), then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  With --record, the full record of the run is
 also written to PATH as JSON.
@@ -231,6 +263,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -286,6 +319,10 @@ HALO_SPLIT_LENS = (64, 128)  # row 7's segment lengths timed
 SHARDS = 4  # the sharded tier's main path: P=4 shards in one process
 SHARDED_EPOCHS = 20  # SAGE-pool and GAT; the GCN runs EPOCHS
 SHARDED_GAT_DIMS, SHARDED_GAT_HEADS = [128, 8, 3], 2
+INTEROP_K = 32  # phase 21's operand width
+BASELINE_EPOCHS = 20  # phases 22-24: each run's epochs
+LSTM_NEIGHBORS = 32  # phase 23's neighbour sample cap
+CKPT_EPOCHS = 10  # phase 25: straight, or half, a checkpoint, half
 
 
 class SmokeFailure(Exception):
@@ -482,16 +519,21 @@ def main(argv=None):
     from gespmm_tpu_torch.kernels import spmm_minmax as kmm
     from gespmm_tpu_torch.kernels import spmm_grouped as kgrp
     from gespmm_tpu_torch.kernels import spmm_pallas as kpal
+    from gespmm_tpu_torch.bench.headline import headline
     from gespmm_tpu_torch.bench.spmm_bench import (bench_graph,
-                                                   bench_sddmm_graph,
-                                                   library_csr)
+                                                   bench_sddmm_graph)
+    from gespmm_tpu_torch.models.baselines import GATStock, GCNBcoo, SAGEStock
     from gespmm_tpu_torch.models.gat import GAT
     from gespmm_tpu_torch.models.gcn import GCN
     from gespmm_tpu_torch.models.sage import GraphSAGE
+    from gespmm_tpu_torch.models.sage_lstm import build_neighbor_table
     from gespmm_tpu_torch.ops import reference as ref
     from gespmm_tpu_torch.ops.graph import (add_self_loops,
                                             additive_attention_logits,
                                             attention_aggregate, edge_softmax)
+    from gespmm_tpu_torch.ops.interop import (AdjacencyMatrix,
+                                              csr_from_torch_sparse,
+                                              csr_to_torch_sparse)
     from gespmm_tpu_torch.ops.sddmm import sddmm
     from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
     from gespmm_tpu_torch.parallel import (build_halo_partition, dist_spmm,
@@ -823,9 +865,9 @@ def main(argv=None):
                    generator=torch.Generator(device=dev).manual_seed(SEED),
                    device=dev).with_norms(adj)
 
-    def make_sage(method):
-        return GraphSAGE(SAGE_DIMS, aggregator="pool", dropout_rate=0.5,
-                         method=method,
+    def make_sage(method, aggregator="pool", table=None):
+        return GraphSAGE(SAGE_DIMS, aggregator=aggregator, dropout_rate=0.5,
+                         method=method, neighbor_table=table,
                          generator=torch.Generator(device=dev).manual_seed(SEED),
                          device=dev)
 
@@ -1953,6 +1995,259 @@ def main(argv=None):
     sharded["dryrun_multichip_8"] = dryrun_multichip(8, device=dev)
     record["sharded"] = sharded
 
+    phase("21 interop: AdjacencyMatrix and torch.sparse on the card")
+    A = AdjacencyMatrix(adj)
+    m_, n_ = A.shape
+    x = torch.randn(n_, INTEROP_K, device=dev, generator=gen)
+    y = torch.randn(INTEROP_K, m_, device=dev, generator=gen)
+    xt = torch.randn(m_, INTEROP_K, device=dev, generator=gen)
+    v = torch.randn(n_, device=dev, generator=gen)
+    sparse_mm = torch.sparse.mm
+    sparse_mm_calls = []
+
+    def counting_sparse_mm(*a, **kw):
+        sparse_mm_calls.append(1)
+        return sparse_mm(*a, **kw)
+
+    d = adj.data.clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    g = torch.randn(m_, INTEROP_K, device=dev, generator=gen)
+    torch.sparse.mm = counting_sparse_mm
+    try:
+        reset_counts()
+        products = {"A @ x": A @ x, "x @ A": y @ A, "A.T @ x": A.T @ xt,
+                    "A @ v": A @ v}
+        (A.with_data(d) @ xg).backward(g)
+        torch.cuda.synchronize()
+        interop_launches = counts()
+    finally:
+        torch.sparse.mm = sparse_mm
+    interop = {"launches": interop_launches,
+               "sparse_mm_calls": len(sparse_mm_calls)}
+    csc = (adj.csc.indptr, adj.csc.indices, adj.rows_t, adj.csc.data)
+    csr_ = (adj.csr.indptr, adj.csr.indices, adj.rows, adj.data)
+    for name, out, operands, B_, transpose in (
+            ("A @ x", products["A @ x"], csr_, x, False),
+            ("x @ A", products["x @ A"], csc, y.t(), True),
+            ("A.T @ x", products["A.T @ x"], csc, xt, False),
+            ("A @ v", products["A @ v"][:, None], csr_, v[:, None], False)):
+        out = out.t() if transpose else out
+        err, ok = bound_check(torch, ref, out, *operands, B_)
+        print(f"{name}: shape {tuple(out.shape)} max_abs_err={err:.3e} "
+              f"within the sum kernel's bound: {ok}", flush=True)
+        check(ok, f"interop {name} outside the sum kernel's float64 bound")
+        interop[name] = err
+    d64 = adj.data.double().requires_grad_(True)
+    x64 = x.double().requires_grad_(True)
+    spmm(adj.with_data(d64), x64, method="xla").backward(g.double())
+    for name, got, want in (("grad_x", xg.grad, x64.grad),
+                            ("grad_values", d.grad, d64.grad)):
+        err = float((got.double() - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"A @ x {name}: max_abs_err={err:.3e} (max |ref| {scale:.3e})",
+              flush=True)
+        check(bool(torch.isfinite(got).all()) and err <= 1e-5 * max(scale, 1.0),
+              f"interop {name} disagrees with float64")
+        interop[name] = err
+    # A @ x, x @ A, A.T @ x, A @ v and A @ x with values: one row-1 launch
+    # each, and its grad_B one more; no row of sbm above L, so no carry.
+    print(f"interop launches: {interop_launches}; torch.sparse.mm calls "
+          f"{len(sparse_mm_calls)}", flush=True)
+    check(interop_launches["spmm_csr"] == 6
+          and not any(c for k, c in interop_launches.items()
+                      if k != "spmm_csr"),
+          f"interop: launches {interop_launches}, expected 6 of spmm_csr")
+    check(not sparse_mm_calls, "interop: AdjacencyMatrix called torch.sparse.mm")
+    back = csr_from_torch_sparse(csr_to_torch_sparse(adj.csr))
+    same = (back.shape == adj.shape and back.indices.device.type == "cuda"
+            and torch.equal(back.indptr, adj.csr.indptr)
+            and torch.equal(back.indices, adj.csr.indices)
+            and torch.equal(back.data, adj.data))
+    print(f"csr_from_torch_sparse(csr_to_torch_sparse(csr)) == csr on the "
+          f"card: {same}", flush=True)
+    check(same, "interop: the torch.sparse round trip changed the CSR")
+    interop["round_trip_equal"] = same
+    record["interop"] = interop
+
+    phase(f"22 stock baselines against ours, {BASELINE_EPOCHS} epochs each")
+    baselines = {}
+    for name, ours_make, stock_make, a, lr in (
+            ("GCN", make_gcn,
+             lambda: GCNBcoo(GCN_DIMS, generator=torch.Generator(
+                 device=dev).manual_seed(SEED), device=dev),
+             adj, 1e-2),
+            ("SAGE-mean", lambda m: make_sage(m, "mean"),
+             lambda: SAGEStock(SAGE_DIMS, "mean", generator=torch.Generator(
+                 device=dev).manual_seed(SEED), device=dev),
+             sage_adj, 1e-2),
+            ("SAGE-pool", make_sage,
+             lambda: SAGEStock(SAGE_DIMS, "pool", generator=torch.Generator(
+                 device=dev).manual_seed(SEED), device=dev),
+             sage_adj, 1e-2),
+            ("GAT", make_gat,
+             lambda: GATStock(GAT_DIMS, generator=torch.Generator(
+                 device=dev).manual_seed(SEED), device=dev),
+             adj, GAT_LR)):
+        stock = stock_make()
+        operand = (SAGEStock.from_adjacency(a, stock.aggregator)
+                   if isinstance(stock, SAGEStock)
+                   else type(stock).from_adjacency(a))
+        # The same function: the stock model at ours' parameters, no
+        # dropout.
+        ours = ours_make("auto").eval()
+        stock.load_state_dict(ours.state_dict())
+        stock.eval()
+        with torch.no_grad():
+            want, got = ours(a, ds.features), stock(operand, ds.features)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"{name} stock vs ours at the same parameters: max_abs_err="
+              f"{err:.3e} (max |ref| {scale:.3e})", flush=True)
+        check(tuple(got.shape) == tuple(want.shape)
+              and bool(torch.isfinite(got).all())
+              and err <= 1e-5 * scale + 1e-6,
+              f"{name}: the stock model's logits differ from ours")
+        row = {"logits_max_abs_err": err, "max_ref": scale,
+               "ours_ms_per_epoch": [], "stock_ms_per_epoch": [],
+               "ours_peak_mb": [], "stock_peak_mb": []}
+        for impl in ("ours", "stock", "stock", "ours"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if impl == "ours":
+                model, res, launched = train(ours_make, a, "auto",
+                                             BASELINE_EPOCHS, lr)
+            else:
+                model = stock_make()
+                reset_counts()
+                res = train_node_classifier(
+                    model, operand, ds.features, ds.labels, ds.masks,
+                    seed=SEED, epochs=BASELINE_EPOCHS, lr=lr)
+                torch.cuda.synchronize()
+                launched = counts()
+                check(not any(launched.values()),
+                      f"{name} stock launched a kernel of the port: "
+                      f"{launched}")
+            loss = res["history"]["loss"]
+            check(finite_list(loss) and loss[-1] < loss[0],
+                  f"{name} {impl}: loss did not fall")
+            check(res["train_acc"] > 1 / 3,
+                  f"{name} {impl}: train accuracy at chance")
+            row[f"{impl}_ms_per_epoch"].append(res["mean_epoch_time"] * 1e3)
+            row[f"{impl}_peak_mb"].append(
+                (torch.cuda.max_memory_allocated() - base) / 2**20)
+            row[f"{impl}_loss"] = [loss[0], loss[-1]]
+            row[f"{impl}_train_acc"] = res["train_acc"]
+        for impl in ("ours", "stock"):
+            ms = row[f"{impl}_ms_per_epoch"]
+            print(f"{name} {impl}: loss {row[impl + '_loss'][0]:.4f} -> "
+                  f"{row[impl + '_loss'][1]:.4f} | train acc "
+                  f"{row[impl + '_train_acc']:.4f} | {mean(ms):.4f} ms/epoch "
+                  f"(runs {', '.join(f'{t:.4f}' for t in ms)}) | peak "
+                  f"{max(row[impl + '_peak_mb']):.1f} MB above the run's "
+                  f"start | {card}", flush=True)
+        # torch.sparse.mm over a matrix of alpha would form its gradient
+        # as a dense n x n matrix; the stock GAT's must stay sparse.
+        n = a.shape[0]
+        check(name != "GAT" or max(row["stock_peak_mb"]) * 2**20
+              <= n * n * 4 / 4,
+              f"{name} stock: peak memory {max(row['stock_peak_mb']):.1f} MB "
+              f"reaches a quarter of a dense {n} x {n} f32 matrix")
+        baselines[name] = row
+    record["baselines"] = baselines
+
+    phase(f"23 SAGE-LSTM train, dims {SAGE_DIMS}, max_neighbors "
+          f"{LSTM_NEIGHBORS}, {BASELINE_EPOCHS} epochs")
+    table = build_neighbor_table(ds.csr, max_neighbors=LSTM_NEIGHBORS)
+    lstm_model, res, launched = train(
+        lambda m: make_sage(m, "lstm", table), sage_adj, "auto",
+        BASELINE_EPOCHS)
+    loss = res["history"]["loss"]
+    print(f"SAGE-LSTM: loss {loss[0]:.4f} -> {loss[-1]:.4f} | train/val/test "
+          f"acc {res['train_acc']:.4f}/{res['val_acc']:.4f}/"
+          f"{res['test_acc']:.4f} | {res['mean_epoch_time'] * 1e3:.4f} "
+          f"ms/epoch | {card}", flush=True)
+    check(finite_list(loss) and loss[-1] < loss[0], "SAGE-LSTM: loss did not "
+          "fall")
+    check(res["train_acc"] > 1 / 3, "SAGE-LSTM: train accuracy at chance")
+    lstm_model.eval()
+    cpu_lstm = GraphSAGE(SAGE_DIMS, aggregator="lstm",
+                         neighbor_table=tuple(t.cpu() for t in table)).double()
+    cpu_lstm.load_state_dict({k: v.cpu().double() for k, v in
+                              lstm_model.state_dict().items()})
+    with torch.no_grad():
+        logits = lstm_model(sage_adj, ds.features)
+        want = cpu_lstm.eval()(Adjacency.from_csr(ds.csr.to("cpu")),
+                               ds.features.cpu().double())
+    err = float((logits.cpu().double() - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"SAGE-LSTM logits vs float64 CPU forward: max_abs_err={err:.3e} "
+          f"(max |ref| {scale:.3e})", flush=True)
+    check(err <= 1e-4 * scale, "SAGE-LSTM: logits disagree with float64")
+    record["sage_lstm"] = {"loss_first": loss[0], "loss_last": loss[-1],
+                           "train_acc": res["train_acc"],
+                           "test_acc": res["test_acc"],
+                           "ms_per_epoch": res["mean_epoch_time"] * 1e3,
+                           "logits_max_abs_err": err, "max_ref": scale}
+
+    phase(f"24 GAT train with method='pallas' over a plan='perrow' adjacency, "
+          f"dims {GAT_DIMS}, {BASELINE_EPOCHS} epochs")
+    perrow_adj = Adjacency.from_csr(add_self_loops(ds.csr), plan="perrow")
+    # An epoch, two layers: forward 2 segment reduces (the softmax's max
+    # and sum) and 1 chunk launch a layer; backward 3 segment sums (the
+    # softmax's, the logits' over the CSR and over the CSC) and 1 chunk
+    # launch (grad_B over the transposed plan) a layer.  The final
+    # evaluation's forward adds 2 and 1 a layer.
+    per_epoch = {"edge_segment_reduce": 10, "spmm_chunk": 4}
+    gat_pallas = drive(
+        "GAT pallas", make_gat, perrow_adj,
+        GAT(GAT_DIMS, method="xla").double(), per_epoch,
+        methods=("pallas",), epochs=BASELINE_EPOCHS, lr=GAT_LR,
+        absent=("gat_fwd", "gat_bwd_rows", "gat_bwd_cols", "spmm_csr",
+                "edge_segment_reduce_carry"))["pallas"]
+    got = gat_pallas["launches"]
+    want = {"edge_segment_reduce": 10 * BASELINE_EPOCHS + 4,
+            "spmm_chunk": 4 * BASELINE_EPOCHS + 2}
+    print(f"GAT pallas: launches {got}; expected {want}", flush=True)
+    check(all(got[k] == v for k, v in want.items()),
+          f"GAT pallas: launches {got}, expected {want}")
+    record["gat_pallas"] = gat_pallas
+
+    phase(f"25 checkpoint: GCN {CKPT_EPOCHS} epochs straight against "
+          f"{CKPT_EPOCHS // 2}, a checkpoint, a fresh model and "
+          f"{CKPT_EPOCHS // 2} more")
+    straight = make_gcn("auto")
+    train_node_classifier(straight, adj, ds.features, ds.labels, ds.masks,
+                          seed=SEED, epochs=CKPT_EPOCHS)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as ckpt_dir:
+        half = CKPT_EPOCHS // 2
+        train_node_classifier(make_gcn("auto"), adj, ds.features, ds.labels,
+                              ds.masks, seed=SEED, epochs=half,
+                              checkpoint_dir=ckpt_dir, checkpoint_every=half)
+        saved = sorted(os.listdir(ckpt_dir))
+        resumed = make_gcn("auto")
+        res = train_node_classifier(
+            resumed, adj, ds.features, ds.labels, ds.masks, seed=SEED,
+            epochs=CKPT_EPOCHS, checkpoint_dir=ckpt_dir,
+            checkpoint_every=half)
+    torch.cuda.synchronize()
+    check(len(res["history"]["loss"]) == CKPT_EPOCHS - half,
+          f"checkpoint: the resumed run took {len(res['history']['loss'])} "
+          f"epochs, expected {CKPT_EPOCHS - half}")
+    ckpt = {"files": saved, "bitwise": True, "max_abs_err": 0.0}
+    for k, want in straight.state_dict().items():
+        got = resumed.state_dict()[k]
+        err = float((got.double() - want.double()).abs().max())
+        scale = float(want.abs().max())
+        ckpt["bitwise"] &= bool(torch.equal(got, want))
+        ckpt["max_abs_err"] = max(ckpt["max_abs_err"], err)
+        check(err <= 1e-6 * scale, f"checkpoint: {k} of the resumed run "
+              f"differs from the straight run by {err:.3e}")
+    print(f"checkpoint files {saved}; resumed parameters vs the straight run: "
+          f"max_abs_err={ckpt['max_abs_err']:.3e}, bitwise "
+          f"{ckpt['bitwise']}", flush=True)
+    record["checkpoint"] = ckpt
+
     phase("15 timings, in the order plain / kernel / kernel / plain")
     hbm = profiling.measure_hbm_bandwidth()
     print(f"copy bandwidth (256 MiB f32, device time): {hbm:.1f} GB/s, "
@@ -2028,8 +2323,7 @@ def main(argv=None):
         gf = timing.spmm_flops(nnz, K) / 1e6  # per ms
         lib_ms = None
         if label.startswith("rmat15") and dtype == f32:
-            lib = library_csr(CSR(indptr.cpu(), indices.cpu(), None,
-                                  (m, n_in)), dev)
+            lib = csr_to_torch_sparse(CSR(indptr, indices, None, (m, n_in)))
             lib_ms = library_time("torch.sparse.mm",
                                   lambda: torch.sparse.mm(lib, B))
         row = {"shape": label, "nnz": nnz, "K": K,
@@ -2342,7 +2636,7 @@ def main(argv=None):
         m, n = a.shape
         B = torch.randn(n, K, device=dev, generator=gen)
         data = a.data
-        lib = library_csr(a.csr.to("cpu"), dev)
+        lib = csr_to_torch_sparse(a.csr)
         lib_ms = library_time("torch.sparse.mm",
                               lambda: torch.sparse.mm(lib, B))
         for R, E in CHUNK_SIZES:
@@ -2406,7 +2700,7 @@ def main(argv=None):
         plan = build_grouped_plan(host_csr, *sizes).to(dev)
         chunk_plan = build_spmm_plan(host_csr, rows_per_block=64,
                                      chunk_nnz=64).to(dev)
-        lib = library_csr(host_csr, dev)
+        lib = csr_to_torch_sparse(host_csr.to(dev))
         lib_ms = library_time("torch.sparse.mm",
                               lambda: torch.sparse.mm(lib, B))
 
@@ -2776,17 +3070,24 @@ def main(argv=None):
     mh_ms = gat_mh_runs["auto"]["ms_per_epoch_runs"][0]
     print(f"GAT heads={GAT_MH_HEADS} auto: {mh_ms:.4f} ms/epoch | {card}",
           flush=True)
+    # The port's headline line (bench/headline.py), on a line of its own.
+    head = headline(device=dev)
+    check(head["value"] > 0 and head["vs_baseline"] > 0,
+          f"headline: {head}")
+    print(json.dumps(head), flush=True)
+    print(f"headline measured on {card}", flush=True)
+    record["headline"] = head
 
     # The library calls of the earlier kernels, at their kernels-line shapes.
     B32 = torch.randn(adj.shape[1], 32, device=dev, generator=gen)
-    lib_sbm = library_csr(adj.csr.to("cpu"), dev)
+    lib_sbm = csr_to_torch_sparse(adj.csr)
     timings[0]["library_ms"] = library_time(
         "torch.sparse.mm", lambda: torch.sparse.mm(lib_sbm, B32),
         want=kspmm.spmm_csr(adj.csr.indptr, adj.csr.indices, adj.data, B32,
                             split=adj.split))
     B128 = torch.relu(torch.randn(sage_adj.shape[1], 128, device=dev,
                                   generator=gen))
-    lib_sage = library_csr(sage_adj.csr.to("cpu"), dev)
+    lib_sage = csr_to_torch_sparse(sage_adj.csr)
     mm_timings[0]["library_ms"] = library_time(
         "torch.sparse.mm(reduce='amax')",
         lambda: torch.sparse.mm(lib_sage, B128, reduce="amax"),
@@ -2850,6 +3151,7 @@ def main(argv=None):
                           chain_launches["edge_segment_reduce"],
                           att_err["edge_segment_reduce"], seg_timings[0]),
              carry_launches=chain_launches["edge_segment_reduce_carry"],
+             gat_pallas_launches=gat_pallas["launches"]["edge_segment_reduce"],
              more=more_shapes(seg_timings[1:])),
         # Row 5: launches and carries of the GAT's run (phase 10), times at
         # sbm H=1 dh=64, the other timed shapes in more.
@@ -2878,6 +3180,9 @@ def main(argv=None):
                           sweep_launches["spmm_chunk"],
                           chunk_row["max_abs_err"], chunk_row),
              carry_launches=sweep_launches["spmm_chunk_carry"],
+             gat_pallas_launches=gat_pallas["launches"]["spmm_chunk"],
+             gat_pallas_carry_launches=gat_pallas["launches"][
+                 "spmm_chunk_carry"],
              more=more_shapes(r for r in chunk_timings if r is not chunk_row)),
         dict(kernel_entry("spmm_grouped", kgrp.SOURCE, kgrp.REPLACES,
                           grouped_launches["spmm_grouped"],

@@ -11,9 +11,11 @@ SpMM; grouped-gather sum SpMM; max/min SpMM with tie counts and its CSC
 backward), ``sddmm``, ``edge_softmax`` and ``additive_attention_logits``
 over an edge segment-reduce kernel, the fused attention ops
 ``gat_attention_aggregate`` and ``dot_attention_aggregate`` (forward, CSR
-and CSC backward kernels each) and ``attention_aggregate``, the GCN,
-GraphSAGE and GAT models, the training loop, timing, profiling, and the
-GCN, SAGE, GAT and SpMM/SDDMM benchmarks.
+and CSC backward kernels each) and ``attention_aggregate``,
+``torch.sparse`` interop and the drop-in ``AdjacencyMatrix``, the GCN,
+GraphSAGE (with the LSTM aggregator) and GAT models, their stock-PyTorch
+baselines, the training loop with checkpoint/resume, timing, profiling, the
+GCN, SAGE, GAT and SpMM/SDDMM benchmarks and the headline line.
 
 Layering mirrors the JAX package:
     sparse/    formats (CSR/CSC/COO of torch tensors), .mtx ingest, the
@@ -21,11 +23,11 @@ Layering mirrors the JAX package:
     csrc/      CUDA C++ kernels for sm_90a
     kernels/   nvcc build + ctypes wrappers (plain version on CPU tensors)
     ops/       spmm and sddmm with their autograd Functions, graph and
-               attention ops, plain reference
-    models/    GCN, GraphSAGE, GAT
-    train/     training loop
+               attention ops, torch.sparse interop, plain reference
+    models/    GCN, GraphSAGE (LSTM aggregator), GAT, stock baselines
+    train/     training loop, checkpoint/resume
     utils/     datasets, timing, profiling (roofline)
-    bench/     GCN, SAGE, GAT and SpMM/SDDMM benchmark CLIs
+    bench/     GCN, SAGE, GAT and SpMM/SDDMM benchmark CLIs, the headline
 
 Importing the package needs no compiler and no GPU: kernels build at
 their first launch.

@@ -4,11 +4,14 @@ The JAX bench's flags and JSON line (mean epoch time after the warm-up
 epochs, final accuracies, dims), with these differences, as in
 ``sage_bench``: ``--device`` picks the device; ``--dataset sbm-pubmed`` is
 the synthetic pubmed-scale graph (19,719 nodes, 3 classes, 128 features);
-``--method`` is ``auto`` (the fused attention kernels) or ``xla`` (the
-composed chain on the plain versions); only ``--impl ours`` is ported, the
-stock GAT baseline waits in ROADMAP A6.  ``--plan/--no-plan`` are not
-carried: the port builds no plans.  The graph gets self-loops unless
-``--no-self-loop``.
+``--method`` is ``auto``/``tiled`` (the fused attention kernels), ``xla``
+(the composed chain on the plain versions) or ``pallas`` (the composed
+chain: the edge ops on the segment-reduce kernel, the aggregate on the
+chunk kernel), over the plan ``--method`` needs, as in ``gcn_bench``
+(the JAX bench's ``--plan/--no-plan`` is not carried); ``--impl stock``
+trains the single-head GAT on stock ops
+(``models/baselines.py::GATStock``), the A/B baseline.  The graph gets
+self-loops unless ``--no-self-loop``.
 
 Run:  python -m gespmm_tpu_torch.bench.gat_bench --dataset sbm-pubmed
 """
@@ -18,7 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from gespmm_tpu_torch.bench.gcn_bench import load_dataset
+from gespmm_tpu_torch.bench.gcn_bench import load_dataset, plan_for
 
 
 def main(argv=None):
@@ -33,8 +36,11 @@ def main(argv=None):
     p.add_argument("--weight-decay", type=float, default=5e-4)
     p.add_argument("--self-loop", action="store_true", default=True)
     p.add_argument("--no-self-loop", dest="self_loop", action="store_false")
-    p.add_argument("--method", default="auto", choices=["auto", "xla"])
-    p.add_argument("--impl", default="ours", choices=["ours"])
+    p.add_argument("--method", default="auto",
+                   choices=["auto", "xla", "pallas", "tiled"])
+    p.add_argument("--impl", default="ours", choices=["ours", "stock"],
+                   help="'stock' trains the same single-head model on stock "
+                        "PyTorch ops (the A/B baseline)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--log-every", type=int, default=20)
     args = p.parse_args(argv)
@@ -49,14 +55,21 @@ def main(argv=None):
     device = torch.device(args.device)
     ds = load_dataset(args.dataset).to(device)
     csr = add_self_loops(ds.csr) if args.self_loop else ds.csr
-    adj = Adjacency.from_csr(csr)
+    adj = Adjacency.from_csr(csr, plan=plan_for(args.method))
     dims = ([ds.features.shape[1]] + [args.n_hidden] * (args.n_layers - 1)
             + [ds.num_classes])
     gen = torch.Generator(device=device).manual_seed(0)
-    model = GAT(dims, method=args.method, heads=args.n_heads, generator=gen,
-                device=device)
+    if args.impl == "stock":
+        from gespmm_tpu_torch.models.baselines import GATStock
+
+        model = GATStock(dims, generator=gen, device=device)
+        operand = GATStock.from_adjacency(adj)
+    else:
+        model = GAT(dims, method=args.method, heads=args.n_heads,
+                    generator=gen, device=device)
+        operand = adj
     res = train_node_classifier(
-        model, adj, ds.features, ds.labels, ds.masks,
+        model, operand, ds.features, ds.labels, ds.masks,
         epochs=args.n_epochs, lr=args.lr, weight_decay=args.weight_decay,
         log_every=args.log_every,
     )

@@ -39,11 +39,12 @@ import csv
 import json
 import os
 import sys
-import warnings
 from typing import List, Optional
 
 import numpy as np
 import torch
+
+from gespmm_tpu_torch.ops.interop import csr_to_torch_sparse
 
 METHODS = ("xla", "tiled", "pallas", "scatter", "dense", "bcoo", "tiled-hilo",
            "tiled-fast")
@@ -128,18 +129,6 @@ def _rel_err(got: torch.Tensor, golden: np.ndarray) -> float:
     return float((np.abs(got - golden) / (1.0 + np.abs(golden))).max())
 
 
-def library_csr(csr, device) -> torch.Tensor:
-    """The CSR as a ``torch.sparse_csr_tensor`` (f32 values), the operand of
-    the sparse-library yardstick ``torch.sparse.mm``."""
-    vals = (torch.ones(csr.nnz, dtype=torch.float32) if csr.data is None
-            else csr.data.float().cpu())
-    with warnings.catch_warnings():  # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore", UserWarning)
-        return torch.sparse_csr_tensor(csr.indptr.cpu().long(),
-                                       csr.indices.cpu().long(), vals,
-                                       size=csr.shape).to(device)
-
-
 def bench_graph(name: str, ks: List[int], iters: int = 200,
                 methods=("xla", "pallas"), rows_per_block: int = 64,
                 chunk_nnz: int = 64, csv_file: Optional[str] = None,
@@ -169,7 +158,8 @@ def bench_graph(name: str, ks: List[int], iters: int = 200,
                 rows_per_block=rows_per_block, chunk_nnz=chunk_nnz)
         else:
             adjs[method] = base_adj
-    lib = library_csr(csr, device) if "bcoo" in methods else None
+    lib = (csr_to_torch_sparse(csr.to(device)) if "bcoo" in methods
+           else None)
     golden_A = sp.csr_matrix(
         (np.ones(csr.nnz) if csr.data is None else csr.data.double().numpy(),
          csr.indices.numpy(), csr.indptr.numpy()), shape=csr.shape)

@@ -7,9 +7,14 @@ GATv1 additive attention, per head:
 
 ``method="auto"``/``"tiled"`` runs the whole layer, every head at once, as
 ``kernels/gat_fused.py::gat_attention_aggregate`` (the fused CUDA kernels on
-the card).  ``"xla"`` composes it from the plain versions, head by head:
-``additive_attention_logits``, leaky ReLU, ``edge_softmax``, then
-``spmm(adj.with_data(alpha), h)``.
+the card).  Any other sum method of ``spmm`` composes the layer head by
+head, as the JAX package does: ``additive_attention_logits``, leaky ReLU,
+``edge_softmax``, then ``spmm(adj.with_data(alpha), h, method=method)``.
+Under ``"xla"`` every step takes its plain version; under ``"pallas"``,
+``"scatter"`` or ``"dense"`` the edge ops take their ``"auto"`` tier (the
+edge segment-reduce kernel on the card) and the aggregate that method
+(``"pallas"``: the chunk kernel over a ``plan="perrow"`` adjacency, the
+grouped kernel over a ``plan="grouped"`` one).
 
 Multi-head layers follow DGL's GATConv, as the JAX package does: one shared
 projection ``w`` (in, H·dh), ``a_src``/``a_dst`` shaped (H, dh); hidden
@@ -29,11 +34,12 @@ from torch import nn
 from gespmm_tpu_torch.kernels.gat_fused import gat_attention_aggregate
 from gespmm_tpu_torch.models.common import dropout, glorot
 from gespmm_tpu_torch.ops.graph import additive_attention_logits, edge_softmax
-from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
+# Every method of spmm takes reduce="sum", so the layer takes each of them.
+from gespmm_tpu_torch.ops.spmm import METHODS, Adjacency, spmm
 
 Tensor = torch.Tensor
 
-METHODS = ("auto", "tiled", "xla")
+FUSED = ("auto", "tiled")
 
 
 class GATConv(nn.Module):
@@ -68,30 +74,34 @@ class GATConv(nn.Module):
             hv = h.view(n, H, dh)
             src = torch.einsum("nhd,hd->nh", hv, self.a_src)
             dst = torch.einsum("nhd,hd->nh", hv, self.a_dst)
-        if method == "xla":
-            out = self._composed(adj, h, src, dst, negative_slope)
-        else:
+        if method in FUSED:
             out = gat_attention_aggregate(adj, src, dst, h,
                                           negative_slope=negative_slope,
                                           heads=H)
+        else:
+            out = self._composed(adj, h, src, dst, negative_slope, method)
         if H > 1 and merge == "mean":
             return out.view(out.shape[0], H, dh).mean(1) + self.b[:dh]
         return out + self.b
 
     def _composed(self, adj: Adjacency, h: Tensor, src: Tensor, dst: Tensor,
-                  slope: float) -> Tensor:
-        """The attention chain from the plain versions, one head at a time."""
+                  slope: float, method: str) -> Tensor:
+        """The attention chain, one head at a time: the edge ops on their
+        plain versions under ``"xla"``, else on their ``"auto"`` tier; the
+        aggregate on ``method``."""
+        edge_method = "xla" if method == "xla" else "auto"
         if self.heads == 1:
             src, dst = src[:, None], dst[:, None]
         dh = h.shape[1] // self.heads
         outs = []
         for hd in range(self.heads):
             logits = additive_attention_logits(adj, src[:, hd], dst[:, hd],
-                                               method="xla")
+                                               method=edge_method)
             alpha = edge_softmax(
-                adj, torch.nn.functional.leaky_relu(logits, slope), method="xla")
+                adj, torch.nn.functional.leaky_relu(logits, slope),
+                method=edge_method)
             outs.append(spmm(adj.with_data(alpha), h[:, hd * dh:(hd + 1) * dh],
-                             method="xla"))
+                             method=method))
         return torch.cat(outs, dim=1)
 
 

@@ -6,10 +6,14 @@ SAGEConv semantics (as in DGL and the JAX package):
   pool:  h = x·W_self + max_agg(relu(x·W_pool + b_pool))·W_neigh + b
   sum:   h = x·W_self + sum_agg(x)·W_neigh + b
 
-``pool`` runs the max-SpMM kernel forward and backward.  Parameters are
-named ``layer_{i}.{self,neigh,pool}.{w,b}`` after the JAX pytree, so
-``params_from_jax`` carries them across.  ``aggregator="lstm"`` is not
-ported yet (ROADMAP A7).
+  lstm:  h = x·W_self + lstm_agg(x)·W_neigh + b        (models/sage_lstm.py)
+
+``pool`` runs the max-SpMM kernel forward and backward.  ``lstm`` runs an
+LSTM cell (hidden size = in) over a padded neighbour table
+(``models/sage_lstm.py::build_neighbor_table``), given to ``GraphSAGE`` at
+construction or per call.  Parameters are named
+``layer_{i}.{self,neigh,pool}.{w,b}`` and ``layer_{i}.lstm.{wi,wh,b}`` after
+the JAX pytree, so ``params_from_jax`` carries them across.
 """
 
 from __future__ import annotations
@@ -20,19 +24,16 @@ import torch
 from torch import nn
 
 from gespmm_tpu_torch.models.common import Dense, dropout
+from gespmm_tpu_torch.models.sage_lstm import LSTM, lstm_aggregate
 from gespmm_tpu_torch.ops.graph import sage_aggregate
 from gespmm_tpu_torch.ops.spmm import Adjacency
 
 Tensor = torch.Tensor
 
-AGGREGATORS = ("mean", "gcn", "pool", "sum")
+AGGREGATORS = ("mean", "gcn", "pool", "sum", "lstm")
 
 
 def _check_aggregator(aggregator: str) -> None:
-    if aggregator == "lstm":
-        raise NotImplementedError(
-            "aggregator='lstm' (the neighbour-table LSTM aggregate) is ROADMAP "
-            "A7: not ported yet")
     if aggregator not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}; expected one of "
                          f"{AGGREGATORS}")
@@ -40,7 +41,8 @@ def _check_aggregator(aggregator: str) -> None:
 
 class SAGEConv(nn.Module):
     """One GraphSAGE layer: ``self`` is a Dense without bias, ``neigh`` a
-    Dense with bias, ``pool`` (pool only) a Dense in -> in with bias."""
+    Dense with bias, ``pool`` (pool only) a Dense in -> in with bias,
+    ``lstm`` (lstm only) an LSTM cell in -> in."""
 
     def __init__(self, in_dim: int, out_dim: int, aggregator: str = "mean",
                  bias: bool = True, *,
@@ -54,8 +56,18 @@ class SAGEConv(nn.Module):
         self.neigh = Dense(in_dim, out_dim, bias=bias, **kw)
         if aggregator == "pool":
             self.pool = Dense(in_dim, in_dim, bias=True, **kw)
+        if aggregator == "lstm":
+            self.lstm = LSTM(in_dim, in_dim, **kw)
 
-    def forward(self, adj: Adjacency, x: Tensor, method: str = "auto") -> Tensor:
+    def forward(self, adj: Adjacency, x: Tensor, method: str = "auto",
+                neighbor_table=None) -> Tensor:
+        if self.aggregator == "lstm":
+            if neighbor_table is None:
+                raise ValueError(
+                    "aggregator='lstm' needs a neighbor_table "
+                    "(models.sage_lstm.build_neighbor_table)")
+            agg = lstm_aggregate(self.lstm, x, *neighbor_table)
+            return getattr(self, "self")(x) + self.neigh(agg)
         h = torch.relu(self.pool(x)) if self.aggregator == "pool" else x
         agg = sage_aggregate(adj, h, aggregator=self.aggregator, method=method)
         if self.aggregator == "gcn":
@@ -69,11 +81,14 @@ class GraphSAGE(nn.Module):
     ``forward`` is the JAX package's ``apply``: it returns logits.  In
     training mode (``model.train()``) dropout runs before every layer, the
     input layer too, drawing from the ``generator`` passed to ``forward``;
-    ReLU runs between layers.
+    ReLU runs between layers.  For ``aggregator="lstm"`` give a per-graph
+    ``neighbor_table`` (``models.sage_lstm.build_neighbor_table``) here or
+    per call.
     """
 
     def __init__(self, dims: Sequence[int], aggregator: str = "mean",
                  dropout_rate: float = 0.5, method: str = "auto", *,
+                 neighbor_table=None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         _check_aggregator(aggregator)
@@ -81,6 +96,7 @@ class GraphSAGE(nn.Module):
         self.aggregator = aggregator
         self.dropout_rate = dropout_rate
         self.method = method
+        self.neighbor_table = neighbor_table
         for i in range(self.n_layers):
             self.add_module(f"layer_{i}", SAGEConv(
                 dims[i], dims[i + 1], aggregator, generator=generator,
@@ -91,11 +107,14 @@ class GraphSAGE(nn.Module):
         return len(self.dims) - 1
 
     def forward(self, adj: Adjacency, x: Tensor, *,
-                generator: Optional[torch.Generator] = None) -> Tensor:
+                generator: Optional[torch.Generator] = None,
+                neighbor_table=None) -> Tensor:
+        table = (neighbor_table if neighbor_table is not None
+                 else self.neighbor_table)
         h = x
         for i in range(self.n_layers):
             h = dropout(h, self.dropout_rate, self.training, generator)
-            h = getattr(self, f"layer_{i}")(adj, h, self.method)
+            h = getattr(self, f"layer_{i}")(adj, h, self.method, table)
             if i < self.n_layers - 1:
                 h = torch.relu(h)
         return h

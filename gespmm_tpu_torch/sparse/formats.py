@@ -194,6 +194,14 @@ def transpose(csr: CSR) -> CSR:
     return csr_to_csc(csr).as_csr_of_transpose()
 
 
+def coo_from_dense(dense: Tensor) -> COO:
+    """Dense (m, n) -> COO of its nonzeros in row-major order, int32
+    indices, on the tensor's device (a host-side helper for tests)."""
+    row, col = torch.nonzero(dense, as_tuple=True)  # row-major already
+    return COO(row=row.to(torch.int32), col=col.to(torch.int32),
+               data=dense[row, col], shape=tuple(dense.shape))
+
+
 def csr_from_scipy(sp) -> CSR:
     """scipy.sparse matrix -> CSR container (host-side helper)."""
     sp = sp.tocsr()

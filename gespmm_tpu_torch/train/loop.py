@@ -2,10 +2,10 @@
 
 AdamW (``torch.optim.AdamW`` matches ``optax.adamw``: decoupled decay on
 every parameter, the same bias correction, eps outside the square root),
-masked NLL loss, per-epoch timing and train/val/test accuracy.  Epoch time
-is the mean over the epochs after the warm-up ones, as in the JAX loop; on
-the card it is taken with CUDA events around each epoch.  Checkpointing is
-not ported yet (ROADMAP A10).
+masked NLL loss, per-epoch timing, train/val/test accuracy, and
+checkpoint/resume (``train/checkpoint.py``).  Epoch time is the mean over
+the epochs after the warm-up ones, as in the JAX loop; on the card it is
+taken with CUDA events around each epoch.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+
+from gespmm_tpu_torch.train import checkpoint
 
 Tensor = torch.Tensor
 
@@ -74,18 +76,50 @@ class _EpochClock:
         return [b - a for a, b in self.marks]
 
 
+def train_state(model, optimizer: torch.optim.Optimizer,
+                generator: torch.Generator) -> Dict[str, Any]:
+    """The checkpointed state of a run: the model's and the optimizer's
+    state dicts and the dropout generator's state.  Before AdamW's first
+    step its state is empty; the template then holds the zeros that step
+    would create, so that ``checkpoint.restore`` can check a stored state
+    against it."""
+    opt = optimizer.state_dict()
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    if not opt["state"] and isinstance(optimizer, torch.optim.AdamW):
+        opt["state"] = {i: {"step": torch.tensor(0.0),
+                            "exp_avg": torch.zeros_like(p),
+                            "exp_avg_sq": torch.zeros_like(p)}
+                        for i, p in enumerate(params)}
+    return {"model": model.state_dict(), "optimizer": opt,
+            "generator": generator.get_state()}
+
+
 def train_node_classifier(model, adj, x: Tensor, labels: Tensor,
                           masks: Dict[str, Tensor], *, seed: int = 0,
                           lr: float = 1e-2, weight_decay: float = 5e-4,
-                          epochs: int = 200, log_every: int = 0
-                          ) -> Dict[str, Any]:
+                          epochs: int = 200, log_every: int = 0,
+                          checkpoint_dir: Optional[str] = None,
+                          checkpoint_every: int = 0) -> Dict[str, Any]:
     """Full training run on ``x.device``; returns metrics and history.
 
     ``seed`` seeds the dropout generator; the model arrives initialised.
+    With ``checkpoint_dir`` the run resumes from the directory's latest
+    checkpoint, at its epoch, and with ``checkpoint_every`` > 0 it saves
+    after epoch e + 1 whenever ``(e + 1) % checkpoint_every == 0``, as the
+    JAX loop does.  A resumed run equals the uninterrupted one.
     """
     generator = torch.Generator(device=x.device).manual_seed(seed)
     optimizer = torch.optim.AdamW(model.parameters(), lr=lr,
                                   weight_decay=weight_decay)
+    start_epoch = 0
+    if checkpoint_dir:
+        ckpt = checkpoint.latest_checkpoint(checkpoint_dir)
+        if ckpt is not None:
+            state, start_epoch = checkpoint.restore(
+                ckpt, train_state(model, optimizer, generator))
+            model.load_state_dict(state["model"])
+            optimizer.load_state_dict(state["optimizer"])
+            generator.set_state(state["generator"])
     step = make_train_step(model, optimizer, adj, x, labels, masks["train"],
                            generator=generator)
 
@@ -95,10 +129,11 @@ def train_node_classifier(model, adj, x: Tensor, labels: Tensor,
             return model(adj, x)
 
     clock = _EpochClock(x.device)
-    warmup_end = min(WARMUP_EPOCHS, max(epochs - 1, 0))
+    warmup_end = start_epoch + min(WARMUP_EPOCHS,
+                                   max(epochs - start_epoch - 1, 0))
     history = {"loss": [], "val_acc": [], "epoch_time": []}
     losses = []
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         start = clock.mark()
         losses.append(step())
         stop = clock.mark()
@@ -109,6 +144,11 @@ def train_node_classifier(model, adj, x: Tensor, labels: Tensor,
             history["val_acc"].append(val)
             print(f"epoch {epoch:04d} | loss {float(losses[-1]):.4f} | "
                   f"val acc {val:.4f}")
+        if (checkpoint_dir and checkpoint_every
+                and (epoch + 1) % checkpoint_every == 0):
+            checkpoint.save(checkpoint_dir,
+                            train_state(model, optimizer, generator),
+                            epoch + 1)
     history["epoch_time"] = clock.seconds()
     if losses:
         history["loss"] = torch.stack(losses).tolist()

@@ -90,12 +90,12 @@ def main(argv=None):
 
     import torch
     import walk_variants
-    from gespmm_tpu_torch.bench.spmm_bench import library_csr
     from gespmm_tpu_torch.kernels import _build
     from gespmm_tpu_torch.kernels import spmm_csr as kspmm
     from gespmm_tpu_torch.kernels import spmm_pallas as kpal
     from gespmm_tpu_torch.kernels.spmm_csr import lane_vector
     from gespmm_tpu_torch.ops.graph import add_self_loops
+    from gespmm_tpu_torch.ops.interop import csr_to_torch_sparse
     from gespmm_tpu_torch.ops.spmm import Adjacency
     from gespmm_tpu_torch.sparse.partition import WORK_LIST, build_spmm_plan
     from gespmm_tpu_torch.utils import profiling, timing
@@ -224,7 +224,7 @@ def main(argv=None):
         host, a = graphs[graph]
         m, n = a.shape
         B = torch.randn(n, K, device=dev, generator=gen)
-        lib = library_csr(host, dev)
+        lib = csr_to_torch_sparse(host.to(dev))
         lib_us = timing.device_time(lambda: torch.sparse.mm(lib, B)) * 1e6
         row1_us = timing.device_time(lambda: kspmm.spmm_csr(
             a.csr.indptr, a.csr.indices, a.data, B, split=a.split)) * 1e6

@@ -30,6 +30,14 @@ grouped-gather SpMMs: the sum kernel's bound.  The joint diag+halo SpMM
 within the sum kernel's bound, max/min out and joint ties exactly (the
 unsplit plain walk's); the sharded op's out and gradients within 1e-5 *
 max(|ref|, 1) of the float64 whole-graph SpMM.
+
+The cases of ``chip_smoke.py``'s phases 21-25 at test sizes: ``AdjacencyMatrix``
+on the CSR kernel (the sum kernel's bound; no ``torch.sparse.mm``), the
+stock baselines against ours (1e-5 * max |ref| + 1e-6) and training,
+one ``GATStock`` step at pubmed scale within a quarter of a dense n x n f32
+matrix of memory, SAGE-LSTM and the GAT's ``"pallas"`` route against their float64 forward on
+the CPU (1e-4 * max |ref|), and a checkpointed GCN against a straight one
+(1e-6 * max |ref|).
 """
 
 import functools
@@ -2104,3 +2112,212 @@ def test_sharded_train_steps_on_the_card(dev):
         assert (khalo.launches, khalo.carry_launches) == (10 * per_step, 0)
     losses = dryrun_multichip(8, device=dev)
     assert all(np.isfinite(v) for v in losses.values())
+
+
+# --- interop, the stock baselines, SAGE-LSTM, the GAT chunk route and
+# --- checkpoint/resume on the card --------------------------------------
+
+
+@pytest.fixture
+def small_sbm(dev):
+    return sbm_graph(n_per_class=300, num_classes=3, p_in=0.02, p_out=0.001,
+                     feat_dim=32, seed=0).to(dev)
+
+
+def test_adjacency_matrix_runs_the_csr_kernel(dev, small_sbm, monkeypatch):
+    from gespmm_tpu_torch.ops.interop import (AdjacencyMatrix,
+                                              csr_from_torch_sparse,
+                                              csr_to_torch_sparse)
+
+    adj = Adjacency.from_csr(add_self_loops(small_sbm.csr))
+    A = AdjacencyMatrix(adj)
+    m, n = A.shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(n, 32, device=dev, generator=gen, requires_grad=True)
+    y = torch.randn(8, m, device=dev, generator=gen)
+    v = torch.randn(n, device=dev, generator=gen)
+    d = adj.data.clone().requires_grad_(True)
+    calls = []
+    mm = torch.sparse.mm
+    monkeypatch.setattr(torch.sparse, "mm",
+                        lambda *a, **k: calls.append(1) or mm(*a, **k))
+    kspmm.reset_launches()
+    out = A.with_data(d) @ x
+    g = torch.randn_like(out)
+    out.backward(g)
+    left, vec, tr = y @ A, A @ v, A.T @ y.t()
+    torch.cuda.synchronize()
+    assert kspmm.launches == 5 and not calls
+    check_bound(out.detach(), adj.csr, x.detach(), adj.data)
+    csc_t = adj.transpose().csr
+    check_bound(left.t(), csc_t, y.t(), csc_t.data)
+    check_bound(tr, csc_t, y.t(), csc_t.data)
+    check_bound(vec[:, None], adj.csr, v[:, None], adj.data)
+    d64 = adj.data.double().requires_grad_(True)
+    x64 = x.detach().double().requires_grad_(True)
+    spmm(adj.with_data(d64), x64, method="xla").backward(g.double())
+    for got, want in ((x.grad, x64.grad), (d.grad, d64.grad)):
+        err = float((got.double() - want).abs().max())
+        assert err <= 1e-5 * max(float(want.abs().max()), 1.0)
+    back = csr_from_torch_sparse(csr_to_torch_sparse(adj.csr))
+    assert torch.equal(back.indptr, adj.csr.indptr)
+    assert torch.equal(back.indices, adj.csr.indices)
+    assert torch.equal(back.data, adj.data)
+
+
+@pytest.mark.parametrize("name", ["gcn", "sage-mean", "sage-pool", "gat"])
+def test_stock_baselines_match_ours_and_train(dev, small_sbm, name):
+    from gespmm_tpu_torch.models.baselines import GATStock, GCNBcoo, SAGEStock
+
+    ds = small_sbm
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    if name == "gcn":
+        adj = Adjacency.from_csr(add_self_loops(ds.csr))
+        ours = GCN([32, 16, 3], generator=gen(), device=dev)
+        stock = GCNBcoo([32, 16, 3], generator=gen(), device=dev)
+        operand = GCNBcoo.from_adjacency(adj)
+    elif name == "gat":
+        adj = Adjacency.from_csr(add_self_loops(ds.csr))
+        ours = GAT([32, 16, 3], generator=gen(), device=dev)
+        stock = GATStock([32, 16, 3], generator=gen(), device=dev)
+        operand = GATStock.from_adjacency(adj)
+    else:
+        agg = name.split("-")[1]
+        adj = Adjacency.from_csr(ds.csr)
+        ours = GraphSAGE([32, 16, 3], aggregator=agg, generator=gen(),
+                         device=dev)
+        stock = SAGEStock([32, 16, 3], agg, generator=gen(), device=dev)
+        operand = SAGEStock.from_adjacency(adj, agg)
+    stock.load_state_dict(ours.state_dict())
+    with torch.no_grad():
+        want = ours.eval()(adj, ds.features)
+        got = stock.eval()(operand, ds.features)
+    assert float((got - want).abs().max()) <= \
+        1e-5 * float(want.abs().max()) + 1e-6
+    for mod in (kspmm, kmm, kedge, kgat, kpal):
+        mod.reset_launches()
+    res = train_node_classifier(stock, operand, ds.features, ds.labels,
+                                ds.masks, epochs=20, lr=5e-3 if name == "gat"
+                                else 1e-2)
+    loss = res["history"]["loss"]
+    assert loss[-1] < loss[0] and np.all(np.isfinite(loss))
+    assert res["train_acc"] > 1 / 3
+    assert not (kspmm.launches or kmm.launches or kedge.launches
+                or kgat.launches or kpal.launches)
+
+
+def test_gat_stock_step_memory_stays_sparse(dev):
+    """One training step of ``GATStock`` [128, 64, 3] at pubmed scale holds
+    less than a quarter of a dense n x n f32 matrix above its start: the
+    gradient to alpha stays O(nnz K), where ``torch.sparse.mm`` over a
+    matrix of alpha forms it as a dense m x n one."""
+    from gespmm_tpu_torch.bench.gcn_bench import SBM_PUBMED
+    from gespmm_tpu_torch.models.baselines import GATStock
+
+    ds = sbm_graph(**SBM_PUBMED).to(dev)
+    adj = Adjacency.from_csr(add_self_loops(ds.csr))
+    model = GATStock([128, 64, 3],
+                     generator=torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    operand = GATStock.from_adjacency(adj)
+    opt = torch.optim.AdamW(model.parameters(), lr=5e-3)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    train = ds.masks["train"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logp = model.log_probs(operand, ds.features, generator=gen)
+    loss = torch.nn.functional.nll_loss(logp[train], ds.labels[train])
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    n = adj.shape[0]
+    peak = torch.cuda.max_memory_allocated() - base
+    assert np.isfinite(float(loss.detach()))
+    assert peak <= n * n * 4 // 4, (peak, n)
+
+
+def test_sage_lstm_trains_and_matches_float64(dev, small_sbm):
+    from gespmm_tpu_torch.models.sage_lstm import build_neighbor_table
+
+    ds = small_sbm
+    adj = Adjacency.from_csr(ds.csr)
+    table = build_neighbor_table(ds.csr, max_neighbors=8)
+    assert table[0].device.type == "cuda"
+    model = GraphSAGE([32, 16, 3], aggregator="lstm", neighbor_table=table,
+                      generator=torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    res = train_node_classifier(model, adj, ds.features, ds.labels, ds.masks,
+                                epochs=20)
+    loss = res["history"]["loss"]
+    assert loss[-1] < loss[0] and res["train_acc"] > 1 / 3
+    cpu = GraphSAGE([32, 16, 3], aggregator="lstm",
+                    neighbor_table=tuple(t.cpu() for t in table)).double()
+    cpu.load_state_dict({k: v.cpu().double()
+                         for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        got = model.eval()(adj, ds.features)
+        want = cpu.eval()(Adjacency.from_csr(ds.csr.to("cpu")),
+                          ds.features.cpu().double())
+    assert float((got.cpu().double() - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+def test_gat_pallas_route_launches_rows_8_and_4(dev, small_sbm, heads):
+    ds = small_sbm
+    adj = Adjacency.from_csr(add_self_loops(ds.csr), plan="perrow",
+                             rows_per_block=64, chunk_nnz=64)
+    model = GAT([32, 8, 3], heads=heads, method="pallas",
+                generator=torch.Generator(device=dev).manual_seed(0),
+                device=dev)
+    for mod in (kspmm, kedge, kgat, kpal):
+        mod.reset_launches()
+    res = train_node_classifier(model, adj, ds.features, ds.labels, ds.masks,
+                                epochs=10, lr=5e-3)
+    torch.cuda.synchronize()
+    loss = res["history"]["loss"]
+    assert loss[-1] < loss[0] and np.all(np.isfinite(loss))
+    # A head a layer, each epoch: 2 segment reduces and 1 chunk launch
+    # forward, 3 segment sums and 1 chunk launch backward; the final
+    # evaluation adds the forward once.
+    per_layer_heads = 2 * heads
+    assert kedge.launches == per_layer_heads * (5 * 10 + 2)
+    assert kpal.launches == per_layer_heads * (2 * 10 + 1)
+    assert kedge.carry_launches == 0
+    assert kgat.launches == kgat.bwd_rows_launches == kspmm.launches == 0
+    cpu = GAT([32, 8, 3], heads=heads, method="xla").double()
+    cpu.load_state_dict({k: v.cpu().double()
+                         for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        got = model.eval()(adj, ds.features)
+        want = cpu.eval()(Adjacency.from_csr(adj.csr.to("cpu").with_data(
+            adj.data.cpu().double())), ds.features.cpu().double())
+    assert float((got.cpu().double() - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())
+
+
+def test_checkpoint_resume_equals_the_straight_run(dev, small_sbm, tmp_path):
+    ds = small_sbm
+    adj = Adjacency.from_csr(add_self_loops(ds.csr))
+
+    def model():
+        return GCN([32, 16, 3], generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev).with_norms(adj)
+
+    straight = model()
+    train_node_classifier(straight, adj, ds.features, ds.labels, ds.masks,
+                          epochs=10)
+    train_node_classifier(model(), adj, ds.features, ds.labels, ds.masks,
+                          epochs=5, checkpoint_dir=str(tmp_path),
+                          checkpoint_every=5)
+    resumed = model()
+    res = train_node_classifier(resumed, adj, ds.features, ds.labels,
+                                ds.masks, epochs=10,
+                                checkpoint_dir=str(tmp_path),
+                                checkpoint_every=5)
+    assert len(res["history"]["loss"]) == 5
+    for k, want in straight.state_dict().items():
+        got = resumed.state_dict()[k]
+        assert float((got - want).abs().max()) <= \
+            1e-6 * float(want.abs().max())

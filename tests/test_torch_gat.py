@@ -151,7 +151,10 @@ def test_dropout_runs_before_the_input_layer(problem):
 
 def test_gatconv_refuses_an_unknown_method(problem):
     _, td, _, tadj = problem
-    with pytest.raises(ValueError, match="method"):
+    with pytest.raises(ValueError, match="unknown method"):
+        GATConv(16, 4)(tadj, td.features, method="bogus")
+    # "pallas" is a method of the layer; it needs a chunk or grouped plan.
+    with pytest.raises(ValueError, match="plan='perrow'"):
         GATConv(16, 4)(tadj, td.features, method="pallas")
 
 

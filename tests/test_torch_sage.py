@@ -151,11 +151,13 @@ def test_sage_aggregate_matches_jax(problem, aggregator):
         tgraph.sage_aggregate(tadj, torch.from_numpy(x), aggregator="median")
 
 
-def test_lstm_and_unknown_aggregators_raise():
-    with pytest.raises(NotImplementedError, match="A7"):
-        TSAGE(DIMS, aggregator="lstm")
-    with pytest.raises(NotImplementedError, match="A7"):
-        SAGEConv(16, 8, aggregator="lstm")
+def test_lstm_and_unknown_aggregators_raise(problem):
+    # "lstm" is ported: without a neighbour table it raises JAX's ValueError.
+    _, td, _, tadj = problem
+    with pytest.raises(ValueError, match="neighbor_table"):
+        TSAGE(DIMS, aggregator="lstm")(tadj, td.features)
+    with pytest.raises(ValueError, match="neighbor_table"):
+        SAGEConv(16, 8, aggregator="lstm")(tadj, td.features)
     with pytest.raises(ValueError, match="aggregator"):
         TSAGE(DIMS, aggregator="median")
 
