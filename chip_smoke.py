@@ -161,7 +161,8 @@ Phases, each printed as it goes; any failure exits non-zero:
      SAGE-pool [128, 16, 3] (no self-loops; its max backward exactly 4 row-3
      launches an epoch, no carry) and GAT [128, 8, 3] with 2 heads, 20 epochs
      each, with the same checks but the float64 one; then
-     dryrun_multichip(8);
+     dryrun_multichip(8) (a (data, model) = (4, 2) mesh, as in the JAX
+     package);
  21. interop on the card: ops/interop.py::AdjacencyMatrix over the SBM
      graph with self-loops at K=32: A @ x, x @ A (through __rmatmul__),
      A.T @ x and A @ v (1-D), each within the sum kernel's float64 bound,
@@ -191,6 +192,33 @@ Phases, each printed as it goes; any failure exits non-zero:
      epochs, a checkpoint (train/checkpoint.py), a fresh model restored
      from it and 5 more: final parameters within 1e-6 x max |ref|, and
      whether they are bitwise equal printed;
+ 26. native graph IO (utils/native.py): the library g++ builds from
+     native/graphio.cpp lies under gespmm_tpu_torch/_build/; an .mtx of
+     rmat15 reads back equal through the native and the NumPy reader, and
+     Adjacency.from_csr's CSC arrays are equal both ways; Fennel at rmat17
+     (edge factor 16) P=4, native and NumPy loop, and partition_order's
+     balancing pass, each with its host seconds;
+ 27. partition and weak scaling (bench/dist_bench.py): bench_weak_scaling
+     at P in {1, 2, 4} on rmat(15 + log2 P) (edge factor 16, K=64) with
+     halo-tiled and partition "auto" (row 7 launched, no row 1), then with
+     allgather (row 1 launched, no row 7), every row printed; the P=4 graph
+     is rmat17 (131,072 nodes, 3,728,080 nonzeros); on it, "auto"'s padded
+     footprint no larger than the naive split's, and halo_spmm of the
+     partitioned graph (one row-7 launch over the 4 shards) and the
+     allgather path's dist_spmm of the naive split (one row-1 launch a
+     (32,768, 131,072) slab) each within 1e-5 (|A| @ |B|) + 1e-6 of
+     float64;
+ 28. the model axis in one process: halo_spmm on (data, model) = (2, 2)
+     against (2, 1), forward and backward within 1e-5 x max |ref| (3 row-7
+     launches against 6); the sharded GCN [128, 32, 3] on (2, 1), (2, 2),
+     (2, 2), (2, 1) for 20 epochs each: loss falling, row-7 launches an
+     epoch 6 and 9, ms/epoch printed (nothing claimed), and the (2, 2)
+     logits within 1e-5 x max |ref| of the (2, 1) module's from the same
+     parameters; then dryrun_multichip(4) ((2, 2));
+ 29. profiling (utils/profiling.py): trace of one (2, 2) GCN step writes
+     its file, and the count of device events in it is printed (0 is
+     printed, not hidden); op_cost_table of the GCN's first dense layer
+     counts 2 m 128 32 flops;
  15. timings, run last: the card's copy bandwidth (utils/profiling.py::
      measure_hbm_bandwidth) beside the published 3.35 TB/s; device time of
      every kernel against its plain version at the
@@ -225,8 +253,9 @@ Phases, each printed as it goes; any failure exits non-zero:
      the widest K tile 32 ... 256 (the launch shape chosen); row 7, one
      launch over P=4 shards with the split at L = 64 and 128, at the SBM
      graph K=32 (sum) and rmat15 K=128 (sum, max with ties, and the sum
-     backward over both transposes) against the first port's launch
-     pattern (one launch a shard, no split), its plain version, the
+     backward over both transposes), and at rmat17 in the "auto" order
+     K=64 (dist_bench's P=4 shape, sum, L = 64), against the first port's
+     launch pattern (one launch a shard, no split), its plain version, the
      whole-graph kernel (row 1, row 2 for the max), torch.sparse.mm of each
      shard's [A_diag | A_halo] (its transpose for the backward) and its
      bound, and each shard's launch alone, unsplit and split, beside its
@@ -240,7 +269,7 @@ Phases, each printed as it goes; any failure exits non-zero:
      (bench/headline.py: spmm GFLOP/s at K=128 and vs_baseline against
      torch.sparse.mm, on a line of its own).
 
-Phases run in the order 1-14, 16-25, 15.  Each path's launches are counted
+Phases run in the order 1-14, 16-29, 15.  Each path's launches are counted
 from 0 in its own run; the comparison launches of phases 3-5, 8, 11, 13, 16
 and 18 are not counted.  The CSR kernel and the chunk and grouped kernels
 count their carry pass apart (spmm_csr_carry, spmm_chunk_carry,
@@ -249,7 +278,10 @@ spmm_grouped_carry), and so do row 7 (halo_spmm_carry), row 5
 (spmm_minmax_carry), row 3 (spmm_minmax_vjp_carry), row 4
 (edge_segment_reduce_carry) and row 6 (dot_fwd_carry, dot_bwd_rows_carry,
 dot_bwd_cols_carry).  In the kernels line rows 4 and 8 also give the GAT
-pallas route's launches (phase 24: gat_pallas_launches).  NCCL traffic
+pallas route's launches (phase 24: gat_pallas_launches), row 1 the
+allgather weak-scaling run's and row 7 the halo-tiled one's (phase 27:
+dist_bench_launches), and row 7 the (2, 2) GCN's (phase 28:
+model_axis_launches).  NCCL traffic
 between ranks is not run: the card machine has one card.  Output: one line
 per phase (the headline's JSON line among them), then
 a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last line
@@ -323,6 +355,9 @@ INTEROP_K = 32  # phase 21's operand width
 BASELINE_EPOCHS = 20  # phases 22-24: each run's epochs
 LSTM_NEIGHBORS = 32  # phase 23's neighbour sample cap
 CKPT_EPOCHS = 10  # phase 25: straight, or half, a checkpoint, half
+# Phase 27: dist_bench's weak scaling, rmat(15 + log2 P) at P = 1, 2, 4 (so
+# rmat17 at P = 4: 131,072 nodes, 3,728,080 nonzeros), edge factor 16, K=64.
+DIST_DEVICES, DIST_SCALE, DIST_K, DIST_EDGE_FACTOR = (1, 2, 4), 15, 64, 16
 
 
 class SmokeFailure(Exception):
@@ -519,6 +554,7 @@ def main(argv=None):
     from gespmm_tpu_torch.kernels import spmm_minmax as kmm
     from gespmm_tpu_torch.kernels import spmm_grouped as kgrp
     from gespmm_tpu_torch.kernels import spmm_pallas as kpal
+    from gespmm_tpu_torch.bench.dist_bench import bench_weak_scaling
     from gespmm_tpu_torch.bench.headline import headline
     from gespmm_tpu_torch.bench.spmm_bench import (bench_graph,
                                                    bench_sddmm_graph)
@@ -554,10 +590,15 @@ def main(argv=None):
                                                     build_grouped_plan,
                                                     build_row_split,
                                                     build_spmm_plan)
-    from gespmm_tpu_torch.sparse.reorder import inverse_permutation, reorder
+    from gespmm_tpu_torch.sparse.io import read_mtx, write_mtx
+    from gespmm_tpu_torch.sparse.reorder import (apply_permutation,
+                                                 fennel_partition,
+                                                 halo_need_stats,
+                                                 inverse_permutation,
+                                                 partition_order, reorder)
     from gespmm_tpu_torch.train.loop import (make_train_step,
                                              train_node_classifier)
-    from gespmm_tpu_torch.utils import profiling, timing
+    from gespmm_tpu_torch.utils import native, profiling, timing
     from gespmm_tpu_torch.utils.datasets import (GraphDataset, rmat_graph,
                                                  sbm_graph,
                                                  split_boundary_graph,
@@ -1885,11 +1926,11 @@ def main(argv=None):
 
     phase(f"20 sharded training over P={SHARDS} shards")
 
-    def sharded_train(build, host_csr, dims, epochs, lr, **kw):
-        """Train through the sharded builder; the run's record, the model
-        and its inputs."""
+    def sharded_train(build, host_csr, dims, epochs, lr, mesh=None, **kw):
+        """Train through the sharded builder (on ``mesh``, by default the
+        P=4 one); the run's record, the model and its inputs."""
         step, (model, opt), prepare, hp = build(
-            host_csr, dims[0], dims[1], dims[2], mesh4, lr=lr, **kw)
+            host_csr, dims[0], dims[1], dims[2], mesh or mesh4, lr=lr, **kw)
         x, labels, mask = prepare(ds.features, ds.labels, ds.masks["train"])
         marks, losses = [], []
         reset_counts()
@@ -2247,6 +2288,284 @@ def main(argv=None):
           f"max_abs_err={ckpt['max_abs_err']:.3e}, bitwise "
           f"{ckpt['bitwise']}", flush=True)
     record["checkpoint"] = ckpt
+
+    phase("26 native graph IO: the port's library from native/graphio.cpp")
+    check(native.available(), f"the native library is unavailable: "
+          f"{native.error()}")
+    lib_path = native.library_path()
+    check(lib_path.parent == _build.BUILD_DIR and lib_path.exists(),
+          f"the native library is not under _build/: {lib_path}")
+    print(f"g++ {' '.join(native.CXX_FLAGS)} -> "
+          f"{os.path.relpath(lib_path, HERE)}", flush=True)
+    host_s = {}
+
+    def host_time(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        host_s[name] = time.perf_counter() - t0
+        return out
+
+    mtx_csr = rmat_host
+    mtx_rows = np.repeat(np.arange(mtx_csr.shape[0], dtype=np.int32),
+                         np.diff(mtx_csr.indptr.numpy()))
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as mtx_dir:
+        mtx_path = os.path.join(mtx_dir, "rmat15.mtx")
+        host_time("write_mtx", lambda: write_mtx(
+            mtx_path, mtx_rows, mtx_csr.indices.numpy(), None,
+            mtx_csr.shape))
+        coo_nat = host_time("read_mtx native", lambda: read_mtx(
+            mtx_path, use_native=True))
+        coo_py = host_time("read_mtx numpy", lambda: read_mtx(
+            mtx_path, use_native=False))
+    same_mtx = coo_nat.shape == coo_py.shape == tuple(mtx_csr.shape) and all(
+        torch.equal(getattr(coo_nat, f), getattr(coo_py, f))
+        for f in ("row", "col", "data"))
+    same_mtx = same_mtx and torch.equal(coo_nat.col, mtx_csr.indices.cpu())
+    adj_nat = host_time("Adjacency.from_csr native", lambda: Adjacency.from_csr(
+        mtx_csr, device=dev, use_native=True))
+    adj_py = host_time("Adjacency.from_csr numpy", lambda: Adjacency.from_csr(
+        mtx_csr, device=dev, use_native=False))
+    same_csc = all(torch.equal(getattr(adj_nat.csc, f), getattr(adj_py.csc, f))
+                   for f in ("indptr", "indices")) and all(
+        torch.equal(getattr(adj_nat, f), getattr(adj_py, f))
+        for f in ("perm", "inv_perm", "rows_t"))
+    rmat17 = rmat_graph(DIST_SCALE + 2, edge_factor=DIST_EDGE_FACTOR, seed=SEED)
+    lab_nat = host_time("fennel rmat17 P=4 native", lambda: fennel_partition(
+        rmat17, 4, use_native=True))
+    lab_py = host_time("fennel rmat17 P=4 numpy loop", lambda: fennel_partition(
+        rmat17, 4, use_native=False))
+    rows17 = np.repeat(np.arange(rmat17.shape[0]),
+                       np.diff(rmat17.indptr.numpy()))
+    cut = {name: float((lab[rows17] != lab[rmat17.indices.numpy()]).mean())
+           for name, lab in (("native", lab_nat), ("numpy", lab_py))}
+    host_time("partition_order fennel rmat17 P=4", lambda: partition_order(
+        rmat17, 4, method="fennel"))
+    # The balancing pass, by difference of two host timings (noisy).
+    host_s["balancing pass by difference"] = (
+        host_s["partition_order fennel rmat17 P=4"]
+        - host_s["fennel rmat17 P=4 native"])
+    print(f".mtx of rmat15 ({coo_py.row.shape[0]} entries) read back equal "
+          f"through native and NumPy: {same_mtx}; Adjacency.from_csr's CSC "
+          f"equal both ways: {same_csc}; Fennel rmat17 P=4 edge cut native "
+          f"{cut['native']:.4f}, NumPy loop {cut['numpy']:.4f} | host s "
+          + " ".join(f"{k}={v:.4f}" for k, v in host_s.items()), flush=True)
+    check(same_mtx, "the native .mtx reader differs from the NumPy one")
+    check(same_csc, "the native CSC transform differs from the NumPy one")
+    check(all(np.bincount(lab, minlength=4).size == 4
+              for lab in (lab_nat, lab_py)), "Fennel labels out of range")
+    record["native"] = {"library": os.path.relpath(lib_path, HERE),
+                        "host_s": host_s, "fennel_edge_cut": cut,
+                        "mtx_equal": same_mtx, "csc_equal": same_csc}
+
+    phase(f"27 partition and weak scaling: dist_bench on rmat{DIST_SCALE} "
+          f"+ log2 P, K={DIST_K}, P in {list(DIST_DEVICES)}")
+    weak, weak_launches = {}, {}
+    for method, partition in (("halo-tiled", "auto"), ("allgather", "none")):
+        reset_counts()
+        weak[method] = bench_weak_scaling(
+            list(DIST_DEVICES), DIST_SCALE, DIST_K, DIST_EDGE_FACTOR,
+            method=method, partition=partition, device=dev)
+        torch.cuda.synchronize()
+        weak_launches[method] = counts()
+        print(f"dist_bench {method} launches: "
+              f"{ {k: v for k, v in weak_launches[method].items() if v} } | "
+              f"{card}", flush=True)
+    last = weak["halo-tiled"][-1]
+    check((last["nodes"], last["nnz"]) == (rmat17.shape[0], rmat17.nnz),
+          f"dist_bench's P=4 graph is not rmat17: {last}")
+    check(weak_launches["halo-tiled"]["halo_spmm"] > 0
+          and not weak_launches["halo-tiled"]["spmm_csr"],
+          "dist_bench halo-tiled did not run on row 7 alone")
+    check(weak_launches["allgather"]["spmm_csr"] > 0
+          and not weak_launches["allgather"]["halo_spmm"],
+          "dist_bench allgather did not run on row 1 alone")
+    for rows in weak.values():
+        check(all(r["ms"] > 0 and r["nnz_per_s"] > 0 for r in rows),
+              "dist_bench: a row without a time")
+    # The P=4 rmat17 partitioned by "auto", and row 7 on it against float64.
+    perm17 = host_time("partition_order auto rmat17 P=4", lambda:
+                       partition_order(rmat17, 4, method="auto"))
+    part17 = apply_permutation(rmat17, perm17)
+    need = {name: halo_need_stats(c, 4) for name, c in (("none", rmat17),
+                                                        ("auto", part17))}
+    hp17 = {name: build_halo_partition(c, 4, device=dev)
+            for name, c in (("none", rmat17), ("auto", part17))}
+    footprints = {name: {"padded": need[name]["footprint_frac"],
+                         "ragged": need[name]["ragged_frac"],
+                         "halo_rows": hp17[name].halo_rows,
+                         "exchange": hp17[name].footprint_fraction}
+                  for name in need}
+    print("rmat17 P=4 footprints (padded all-to-all, ragged, the partition's "
+          "halo exchange): " + "; ".join(
+              f"{k} {v['padded']:.4f} / {v['ragged']:.4f} / "
+              f"{v['exchange']:.4f} ({v['halo_rows']} halo rows a shard)"
+              for k, v in footprints.items())
+          + f" | partition_order auto {host_s['partition_order auto rmat17 P=4']:.4f}"
+          " host s", flush=True)
+    check(footprints["auto"]["padded"] <= footprints["none"]["padded"],
+          "partition 'auto' made the padded footprint larger than 'none'")
+    hp_a = hp17["auto"]
+    n17 = part17.shape[0]
+
+    def float64_err(csr, out, B):
+        """max |out - A @ B| against float64, and whether every entry lies
+        within 1e-5 * (|A| @ |B|) + 1e-6."""
+        a64 = Adjacency.from_csr(csr, device=dev)
+        a64 = a64.with_data(torch.ones(a64.nnz, device=dev,
+                                       dtype=torch.float64))
+        diff = (out[:n17].double()
+                - spmm(a64, B[:n17].double(), method="xla")).abs()
+        mag = spmm(a64, B[:n17].double().abs(), method="xla")
+        return float(diff.max()), bool((diff <= 1e-5 * mag + 1e-6).all())
+
+    B17 = torch.randn(4 * hp_a.cpp, DIST_K, device=dev, generator=gen)
+    reset_counts()
+    out17 = halo_spmm(hp_a, B17, make_mesh(4, device=dev), model_axis=None)
+    torch.cuda.synchronize()
+    launches17 = counts()
+    err17, ok17 = float64_err(part17, out17, B17)
+    print(f"halo_spmm rmat17 P=4 ('auto' order) K={DIST_K}: row-7 launches "
+          f"{launches17['halo_spmm']} (+{launches17['halo_spmm_carry']} "
+          f"carry), max_abs_err {err17:.3e} against float64", flush=True)
+    check(ok17, "halo_spmm on rmat17 disagrees with float64")
+    check(launches17["halo_spmm"] == 1, "halo_spmm rmat17: expected one "
+          "row-7 launch over the 4 shards")
+    # The allgather path's shape: row 1 on rmat17's four (rpp, n) slabs.
+    padj17 = partition_adjacency(rmat17, 4, device=dev)
+    Bg17 = torch.randn(n17, DIST_K, device=dev, generator=gen)
+    reset_counts()
+    outg17 = dist_spmm(padj17, Bg17, make_mesh(4, device=dev),
+                       model_axis=None)
+    torch.cuda.synchronize()
+    launchesg17 = counts()
+    errg17, okg17 = float64_err(rmat17, outg17, Bg17)
+    print(f"dist_spmm rmat17 P=4 K={DIST_K}: row-1 launches "
+          f"{launchesg17['spmm_csr']} (+{launchesg17['spmm_csr_carry']} "
+          f"carry), max_abs_err {errg17:.3e} against float64", flush=True)
+    check(okg17, "dist_spmm on rmat17 disagrees with float64")
+    check(launchesg17["spmm_csr"] == 4 and not launchesg17["halo_spmm"],
+          "dist_spmm rmat17: expected one row-1 launch a slab")
+    # Where the op's time goes at P=4: the exchange (one index_select) and
+    # the op as a whole; row 7 alone is timed in phase 15.
+    exchange17 = make_exchange(hp_a, make_mesh(4, device=dev))
+    split17 = {"exchange_ms": timing.device_time(lambda: exchange17(B17))
+               * 1e3,
+               "op_ms": timing.device_time(lambda: halo_spmm(
+                   hp_a, B17, make_mesh(4, device=dev), model_axis=None))
+               * 1e3}
+    print(f"halo_spmm rmat17 P=4 K={DIST_K} device ms: the op "
+          f"{split17['op_ms']:.5f}, its exchange alone "
+          f"{split17['exchange_ms']:.5f} (B {B17.numel() * 4 / 1e6:.1f} MB, "
+          f"halo tables {4 * hp_a.halo_rows * DIST_K * 4 / 1e6:.1f} MB) | "
+          f"{card}", flush=True)
+    record["weak_scaling"] = {"rows": weak, "launches": weak_launches,
+                              "footprints_rmat17_P4": footprints,
+                              "rmat17_row7": {"launches": launches17,
+                                              "max_abs_err": err17,
+                                              **split17},
+                              "rmat17_row1_slabs": {"launches": launchesg17,
+                                                    "max_abs_err": errg17}}
+
+    phase("28 the model axis on the card: (data, model) = (2, 2) in one "
+          "process")
+    mesh21 = make_mesh(2, device=dev)
+    mesh22 = make_mesh(2, 2, device=dev)
+    hp2 = build_halo_partition(sbm_host, 2, device=dev)
+    B2 = quantized((2 * hp2.cpp, 32), torch.float32)
+    g2 = torch.randn(2 * hp2.rpp, 32, device=dev, generator=gen)
+    axis_runs = {}
+    for name, mesh in (("(2, 1)", mesh21), ("(2, 2)", mesh22)):
+        Bm = B2.clone().requires_grad_(True)
+        reset_counts()
+        out = halo_spmm(hp2, Bm, mesh)
+        out.backward(g2)
+        torch.cuda.synchronize()
+        axis_runs[name] = (out.detach(), Bm.grad, counts()["halo_spmm"])
+    (o1, gb1, l1), (o2, gb2, l2) = axis_runs["(2, 1)"], axis_runs["(2, 2)"]
+    axis_err = {"out": float((o2 - o1).abs().max()),
+                "grad_B": float((gb2 - gb1).abs().max())}
+    print(f"halo_spmm sbm K=32 on (2, 2) against (2, 1): max_abs_err "
+          f"{axis_err}, bitwise {torch.equal(o2, o1)}/{torch.equal(gb2, gb1)};"
+          f" row-7 launches {l2} against {l1}", flush=True)
+    check(axis_err["out"] <= 1e-5 * float(o1.abs().max())
+          and axis_err["grad_B"] <= 1e-5 * float(gb1.abs().max()),
+          "halo_spmm on (2, 2) disagrees with (2, 1)")
+    check((l1, l2) == (3, 6), f"halo_spmm: expected 3 row-7 launches on "
+          f"(2, 1) and 6 on (2, 2), got {l1} and {l2}")
+    model_axis = {}
+    for name, mesh in (("(2, 1)", mesh21), ("(2, 2)", mesh22),
+                       ("(2, 2) again", mesh22), ("(2, 1) again", mesh21)):
+        run, mmodel, mx, mlogits, losses = sharded_train(
+            build_sharded_gcn, sbm_host, GCN_DIMS, SHARDED_EPOCHS, 1e-2,
+            mesh=mesh)
+        check(finite_list(losses) and losses[-1] < losses[0],
+              f"sharded GCN on {name}: loss did not fall")
+        per_epoch = run["launches"]["halo_spmm"] / SHARDED_EPOCHS
+        model_axis.setdefault(name.split(" again")[0], []).append(
+            {"ms_per_epoch": run["ms_per_epoch_runs"][0],
+             "row7_per_epoch": per_epoch, "loss_first": run["loss_first"],
+             "loss_last": run["loss_last"], "launches": run["launches"]})
+        if name == "(2, 2)":
+            # The (2, 1) module from the trained (2, 2) parameters.
+            twin = ShardedGCN(mmodel.hp, mesh21, *GCN_DIMS).to(dev)
+            twin.load_state_dict(mmodel.state_dict())
+            with torch.no_grad():
+                twin_logits = twin(mx)
+            logit_err = float((mlogits - twin_logits).abs().max())
+            logit_scale = float(twin_logits.abs().max())
+    for name, runs in model_axis.items():
+        ms = ", ".join(f"{r['ms_per_epoch']:.4f}" for r in runs)
+        print(f"sharded GCN {GCN_DIMS} on {name}, {SHARDED_EPOCHS} epochs: "
+              f"ms/epoch {ms} | row-7 launches an epoch "
+              f"{runs[0]['row7_per_epoch']:.1f} | "
+              f"loss {runs[0]['loss_first']:.4f} -> "
+              f"{runs[0]['loss_last']:.4f} | {card}", flush=True)
+    print(f"(2, 2) logits against the (2, 1) module's from the same "
+          f"parameters: max_abs_err {logit_err:.3e} (max |ref| "
+          f"{logit_scale:.3e})", flush=True)
+    check(logit_err <= 1e-5 * logit_scale,
+          "the (2, 2) GCN's logits disagree with (2, 1)'s")
+    # Row 7 an epoch: (2, 1) 2 aggregations + 2 x 2 backward = 6; (2, 2)
+    # the hidden one a slice (2 + 2 x 2) and the output one (1 + 2) = 9.
+    check([model_axis[k][0]["row7_per_epoch"] for k in ("(2, 1)", "(2, 2)")]
+          == [6, 9], "the model-axis GCN's row-7 launches an epoch")
+    dry4 = dryrun_multichip(4, device=dev)
+    record["model_axis"] = {"halo_spmm_vs_data_only": axis_err,
+                            "gcn": model_axis,
+                            "logits_vs_data_only": {"max_abs_err": logit_err,
+                                                    "max_ref": logit_scale},
+                            "dryrun_multichip_4": dry4}
+
+    phase("29 profiling: trace and op_cost_table")
+    pstep, (pmodel, popt), pprep, _ = build_sharded_gcn(
+        sbm_host, *GCN_DIMS, mesh22, lr=1e-2)
+    px, pl, pm = pprep(ds.features, ds.labels, ds.masks["train"])
+    pstep(pmodel, popt, px, pl, pm)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as trace_dir:
+        with profiling.trace(trace_dir) as prof:
+            pstep(pmodel, popt, px, pl, pm)
+            torch.cuda.synchronize()
+        trace_files = [f for f in os.listdir(trace_dir)
+                       if f.endswith(".pt.trace.json")]
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.time_range.elapsed_us() for e in device_events)
+    print(f"trace of one (2, 2) GCN step: files {trace_files}, "
+          f"{len(prof.events())} events, {len(device_events)} on the device,"
+          f" device time total {device_us:.1f} us", flush=True)
+    check(len(trace_files) == 1, "trace wrote no file")
+    flops = profiling.op_cost_table(pmodel.l1, px)
+    n_px = px.shape[0]
+    print(f"op_cost_table of the GCN's dense layer ({n_px} x {GCN_DIMS[0]} @ "
+          f"{GCN_DIMS[0]} x {GCN_DIMS[1]}): {flops}", flush=True)
+    check(flops["flops"] == 2.0 * n_px * GCN_DIMS[0] * GCN_DIMS[1],
+          f"op_cost_table flops {flops['flops']}")
+    record["profiling"] = {"trace_files": trace_files,
+                           "events": len(prof.events()),
+                           "device_events": len(device_events),
+                           "device_time_total_us": device_us,
+                           "dense_layer_flops": flops}
 
     phase("15 timings, in the order plain / kernel / kernel / plain")
     hbm = profiling.measure_hbm_bandwidth()
@@ -2996,11 +3315,14 @@ def main(argv=None):
     def mesh4_for(hp):
         return make_mesh(hp.num_parts, device=dev)
 
-    for graph, host_csr, K, ops in (("sbm", sbm_host, 32, ("sum",)),
-                                    ("rmat15", rmat_host, 128,
-                                     ("sum", "max", "sum-bwd"))):
+    # ... and dist_bench's P=4 shape: rmat17 in the "auto" order, K=64.
+    for graph, host_csr, K, ops, seg_lens in (
+            ("sbm", sbm_host, 32, ("sum",), HALO_SPLIT_LENS),
+            ("rmat15", rmat_host, 128, ("sum", "max", "sum-bwd"),
+             HALO_SPLIT_LENS),
+            ("rmat17-auto", part17, DIST_K, ("sum",), (SPLIT_LEN,))):
         a = Adjacency.from_csr(host_csr, device=dev)
-        for seg_len in HALO_SPLIT_LENS:
+        for seg_len in seg_lens:
             hp = build_halo_partition(host_csr, SHARDS, device=dev,
                                       seg_len=seg_len)
             for op in ops:
@@ -3122,6 +3444,7 @@ def main(argv=None):
                           gcn_runs["auto"]["launches"]["spmm_csr"], slice_err,
                           timings[0]),
              carry_launches=gcn_runs["auto"]["launches"]["spmm_csr_carry"],
+             dist_bench_launches=weak_launches["allgather"]["spmm_csr"],
              more=more_shapes(t for t in timings
                               if t["shape"].startswith("rmat15"))),
         # Row 2: launches and carries of SAGE-pool's run (phase 7); times at
@@ -3196,6 +3519,9 @@ def main(argv=None):
                           sharded["gcn"]["launches"]["halo_spmm"], halo_err,
                           halo_timings[0]),
              carry_launches=sharded["gcn"]["launches"]["halo_spmm_carry"],
+             dist_bench_launches=weak_launches["halo-tiled"]["halo_spmm"],
+             model_axis_launches=model_axis["(2, 2)"][0]["launches"][
+                 "halo_spmm"],
              more=more_shapes(halo_timings[1:])),
     ]}
     record.update(kernels)

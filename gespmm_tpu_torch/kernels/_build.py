@@ -41,14 +41,41 @@ def _nvcc() -> str:
     )
 
 
+def library_name(stem: str, content: bytes, flags) -> str:
+    """The file name of the library built from ``content`` with ``flags``:
+    a hash of both, so an edited source or flag builds anew."""
+    digest = hashlib.sha256(content + " ".join(flags).encode()).hexdigest()
+    return f"lib{stem}_{digest[:16]}.so"
+
+
+def compile_library(cmd, lib: Path, error=RuntimeError,
+                    timeout=None) -> Path:
+    """Run the compiler command ``cmd`` (its flags and source, not its
+    output) with ``-o`` a temporary name beside ``lib`` that ``os.replace``
+    moves into place; a failed compile removes the temporary file and raises
+    ``error`` with the compiler's stderr."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+    cmd = [*cmd, "-o", str(tmp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise error(
+            f"{Path(cmd[0]).name} failed with exit code {proc.returncode}: "
+            f"{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    return lib
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives.  The hash
     covers the shared headers ``csrc/*.cuh`` too, so an edited header
     rebuilds every library."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    return BUILD_DIR / library_name(name, src, NVCC_FLAGS)
 
 
 def build(name: str) -> Path:
@@ -56,18 +83,8 @@ def build(name: str) -> Path:
     lib = library_path(name)
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib
+    return compile_library(
+        [_nvcc(), *NVCC_FLAGS, str(CSRC_DIR / f"{name}.cu")], lib)
 
 
 @functools.lru_cache(maxsize=None)

@@ -55,6 +55,7 @@ from gespmm_tpu_torch.sparse.partition import (GroupedSpmmPlan, RowSplit,
                                                 build_grouped_plan,
                                                 build_row_split,
                                                 build_spmm_plan)
+from gespmm_tpu_torch.utils import native as _native
 
 Tensor = torch.Tensor
 
@@ -117,6 +118,7 @@ class Adjacency:
 
     @classmethod
     def from_csr(cls, csr: CSR, device=None, plan=False, plan_transpose=True,
+                 use_native: Optional[bool] = None,
                  **plan_kwargs) -> "Adjacency":
         """Build the paired orderings on the host, then move them to
         ``device`` (default: the device ``csr`` lives on).
@@ -129,18 +131,26 @@ class Adjacency:
         ``edges_per_chunk``, ``groups_per_chunk``/``group_rows`` from
         ``plan_kwargs``).  ``plan_transpose=False`` skips the plan of Aᵀ;
         grad_B then takes the CSR kernel (the JAX package takes its plain
-        tier there).
+        tier there).  ``use_native`` picks the CSC transform: the native
+        counting sort (``utils/native.py``) under None when available or
+        under True, else a stable argsort; both give the same arrays.
         """
         device = csr.device if device is None else torch.device(device)
         indptr_h = csr.indptr.cpu().numpy()
         indices_h = csr.indices.cpu().numpy()
         m, n = csr.shape
         nnz = int(indices_h.shape[0])
-        order = np.argsort(indices_h, kind="stable")
         rows_h = np.repeat(np.arange(m, dtype=np.int32), np.diff(indptr_h))
-        colptr_h = np.zeros(n + 1, np.int64)
-        colptr_h[1:] = np.cumsum(np.bincount(indices_h, minlength=n))
-        perm_h = order.astype(np.int32)
+        if _native.wanted(use_native):
+            colptr_h, csc_rows_h, perm_h = _native.csr_to_csc_native(
+                indptr_h, indices_h, m, n)
+            colptr_h = colptr_h.astype(np.int64)
+        else:
+            order = np.argsort(indices_h, kind="stable")
+            colptr_h = np.zeros(n + 1, np.int64)
+            colptr_h[1:] = np.cumsum(np.bincount(indices_h, minlength=n))
+            perm_h = order.astype(np.int32)
+            csc_rows_h = rows_h[order]
         inv_perm_h = np.empty_like(perm_h)
         inv_perm_h[perm_h] = np.arange(nnz, dtype=np.int32)
 
@@ -151,7 +161,7 @@ class Adjacency:
         perm = dev(perm_h)
         csc = CSC(
             indptr=dev(colptr_h.astype(np.int32)),
-            indices=dev(rows_h[order]),
+            indices=dev(csc_rows_h),
             data=None if csr_d.data is None else csr_d.data[perm.long()],
             shape=(m, n),
         )
@@ -160,7 +170,7 @@ class Adjacency:
         if plan:
             p = _build_plan(indptr_h, indices_h, (m, n), plan, plan_kwargs)
             if plan_transpose:
-                pt = _build_plan(colptr_h.astype(np.int32), rows_h[order],
+                pt = _build_plan(colptr_h.astype(np.int32), csc_rows_h,
                                  (n, m), plan, plan_kwargs)
         # The plans walk the adjacency's own device arrays.
         if p is not None:

@@ -1,10 +1,12 @@
-"""The sharded tier — port of ``gespmm_tpu/parallel/`` on the data axis.
+"""The sharded tier — port of ``gespmm_tpu/parallel/`` on a (data, model) mesh.
 
 ``halo.py`` (the halo-exchange SpMM over kernel row 7), ``dist_spmm.py``
 (the all-gather tier), ``edge_ops.py`` (sharded SDDMM, attention logits and
 edge softmax), ``train_step.py`` (the sharded GCN, GraphSAGE and GAT train
-steps), ``mesh.py`` (one process holding every shard, or one
-``torch.distributed`` rank a shard) and ``dryrun.py``.
+steps; the GCN shards its hidden dimension over the "model" axis),
+``mesh.py`` (one process holding every data × model cell, or one
+``torch.distributed`` rank a cell, with its data and model subgroups) and
+``dryrun.py``.
 """
 
 from gespmm_tpu_torch.parallel.mesh import make_mesh

@@ -9,7 +9,8 @@ whole B and multiplies its own row slab,
 Per-shard memory is O(n·K) whatever the shard count; ``parallel/halo.py`` is
 the scalable design.  Each slab goes through the port's ``ops/spmm.py::spmm``
 (kernel rows 1-3 on the card), over an ``Adjacency`` built once per slab by
-``partition_adjacency``.
+``partition_adjacency``.  The "model" axis shards K: the op is
+embarrassingly parallel over it, one ``spmm`` a slab and local slice.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
+from gespmm_tpu_torch.parallel.halo import model_slices
 from gespmm_tpu_torch.parallel.mesh import Mesh
 from gespmm_tpu_torch.sparse.formats import CSR
 
@@ -127,14 +129,18 @@ class _AllGather(torch.autograd.Function):
 
 
 def dist_spmm(padj: PartitionedAdjacency, B: Tensor, mesh: Mesh, *,
-              reduce: str = "sum", method: str = "auto") -> Tensor:
+              reduce: str = "sum", method: str = "auto",
+              model_axis: Optional[str] = "model") -> Tensor:
     """C = A @ B with A row-partitioned and B row-sharded.
 
     Without a group, B is the whole (n, K) and the result (parts*rpp, K);
     with a group, B is the rank's (n / parts, K) rows (n a multiple of the
     parts, as the JAX package's sharding requires) and the result its
-    (rpp, K) rows.  ``reduce`` and ``method`` are ``spmm``'s.
-    Differentiable.
+    (rpp, K) rows, all-gathered over the rank's data group.
+    ``model_axis="model"`` shards K over the mesh's model axis (B holds the
+    local slices' columns: all of K without a group, K/model with one), and
+    each slab is multiplied once a local slice; None replicates K.
+    ``reduce`` and ``method`` are ``spmm``'s.  Differentiable.
     """
     if mesh.data != padj.num_parts:
         raise ValueError(f"the mesh has {mesh.data} shards, the partition "
@@ -146,7 +152,14 @@ def dist_spmm(padj: PartitionedAdjacency, B: Tensor, mesh: Mesh, *,
         if n % mesh.data or B.shape[0] != n // mesh.data:
             raise ValueError(f"B must hold n/parts = {n}/{mesh.data} rows on "
                              f"each rank, got {B.shape[0]}")
-        B_full = _AllGather.apply(B, mesh.group)
-    outs = [spmm(padj.slabs[p], B_full, reduce=reduce, method=method)
-            for p in mesh.local_shards]
+        B_full = _AllGather.apply(B, mesh.data_group)
+    blocks = model_slices(B_full, mesh, model_axis)
+
+    def slab(p):
+        if blocks is None:
+            return spmm(padj.slabs[p], B_full, reduce=reduce, method=method)
+        return torch.cat([spmm(padj.slabs[p], B_full[:, cols], reduce=reduce,
+                               method=method) for cols in blocks], 1)
+
+    outs = [slab(p) for p in mesh.local_shards]
     return outs[0] if len(outs) == 1 else torch.cat(outs)

@@ -1,9 +1,12 @@
-"""The sharded tier's dry run — the data-axis counterpart of
+"""The sharded tier's dry run — the counterpart of
 ``__graft_entry__.py::dryrun_multichip``.
 
-One GCN training step and one 2-head GAT step over ``n_shards`` shards held
-by one process, on a small SBM graph with self-loops sized so that every
-shard has rows (``n_per_class = 32 * n_shards``); each loss must be finite.
+One GCN training step and one 2-head GAT step over an n-cell mesh held by
+one process, with the JAX package's layout: ``model = 2`` when n is even
+and above 1 (the GCN's hidden dimension cut into two column slices; the GAT
+replicates its features over that axis), else 1, and ``data = n // model``
+shards of a small SBM graph with self-loops sized so that every shard has
+rows (``n_per_class = 32 * data``); each loss must be finite.
 """
 
 from __future__ import annotations
@@ -17,23 +20,31 @@ from gespmm_tpu_torch.parallel.train_step import (build_sharded_gat,
 from gespmm_tpu_torch.utils.datasets import sbm_graph
 
 
-def dryrun_multichip(n_shards: int, device=None) -> dict:
+def mesh_layout(n_devices: int):
+    """(data, model) of the dry run's mesh of ``n_devices`` cells."""
+    model_axis = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    return n_devices // model_axis, model_axis
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
     """Run one sharded GCN step and one 2-head GAT step on ``device``
-    (default: the CUDA card); returns their losses."""
-    mesh = make_mesh(data=n_shards, device=device)
+    (default: the CUDA card) over ``mesh_layout(n_devices)``; returns their
+    losses."""
+    data_axis, model_axis = mesh_layout(n_devices)
+    mesh = make_mesh(data=data_axis, model=model_axis, device=device)
     feat, hidden, classes = 32, 16, 4
-    ds = sbm_graph(n_per_class=32 * n_shards, num_classes=classes,
+    ds = sbm_graph(n_per_class=32 * data_axis, num_classes=classes,
                    feat_dim=feat, seed=0)
     csr = add_self_loops(ds.csr)
-    losses = {}
+    out = {}
     for name, build, kw in (("gcn", build_sharded_gcn, {}),
                             ("gat", build_sharded_gat, {"heads": 2})):
         step, (model, opt), prepare, _ = build(csr, feat, hidden, classes,
                                                mesh, **kw)
         x, labels, mask = prepare(ds.features, ds.labels, ds.masks["train"])
         _, _, loss = step(model, opt, x, labels, mask)
-        losses[name] = float(loss)
-        assert math.isfinite(losses[name]), f"non-finite {name} loss {loss}"
-        print(f"dryrun_multichip {name.upper()} OK: {n_shards} shards on "
-              f"{mesh.device}, loss={losses[name]:.4f}")
-    return losses
+        out[name] = float(loss)
+        assert math.isfinite(out[name]), f"non-finite {name} loss {loss}"
+        print(f"dryrun_multichip {name.upper()} OK: mesh data={data_axis} "
+              f"model={model_axis} on {mesh.device}, loss={out[name]:.4f}")
+    return out

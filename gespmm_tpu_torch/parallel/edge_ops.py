@@ -19,12 +19,13 @@ that owns its destination row.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from gespmm_tpu_torch.parallel.halo import HaloPartition, make_exchange
-from gespmm_tpu_torch.parallel.mesh import Mesh
+from gespmm_tpu_torch.parallel.halo import (HaloPartition, make_exchange,
+                                            model_slices)
+from gespmm_tpu_torch.parallel.mesh import Mesh, model_sum
 
 Tensor = torch.Tensor
 
@@ -54,19 +55,29 @@ def _pad_slots(v: Tensor, width: int) -> Tensor:
     return v if pad == 0 else torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
 
 
-def halo_sddmm(hp: HaloPartition, D1: Tensor, D2: Tensor,
-               mesh: Mesh) -> Tuple[Tensor, Tensor]:
+def halo_sddmm(hp: HaloPartition, D1: Tensor, D2: Tensor, mesh: Mesh, *,
+               model_axis: Optional[str] = "model") -> Tuple[Tensor, Tensor]:
     """Sharded SDDMM: out[e] = D1[row_e] · D2[col_e] for every edge.
 
     D1: the local shards' (L·rpp, K) destination-side rows; D2: their
-    (L·cpp, K) source-side rows (``pad_for_halo`` layout).  Returns
-    ``(diag_vals, halo_vals)``, (L, d_nnz) / (L, h_nnz), padded slots 0.
+    (L·cpp, K) source-side rows (``pad_for_halo`` layout).  With
+    ``model_axis="model"`` on a mesh of model > 1, K is sharded over the
+    model axis (the columns are the local slices'): each slice's partial
+    dots are summed by ``parallel/mesh.py::model_sum`` (an ``all_reduce``
+    over the model group under a group), and the edge values come back
+    replicated on that axis.  Returns ``(diag_vals, halo_vals)``,
+    (L, d_nnz) / (L, h_nnz), padded slots 0.
     """
     if D1.dim() != 2 or D2.dim() != 2 or D1.shape[1] != D2.shape[1]:
         raise ValueError(f"D1 {tuple(D1.shape)} / D2 {tuple(D2.shape)} must "
                          "be (m,K)/(n,K)")
     _check_rows(hp, mesh, "D1", D1.shape[0], hp.rpp, "num_parts*rpp")
     _check_rows(hp, mesh, "D2", D2.shape[0], hp.cpp, "num_parts*cpp")
+    blocks = model_slices(D1, mesh, model_axis)
+    if blocks is not None:
+        parts = [halo_sddmm(hp, D1[:, cols], D2[:, cols], mesh,
+                            model_axis=None) for cols in blocks]
+        return tuple(model_sum(torch.stack(p), mesh) for p in zip(*parts))
     halo = make_exchange(hp, mesh)(D2)
     rpp, cpp = hp.rpp, hp.cpp
 

@@ -40,7 +40,7 @@ import torch.distributed as dist
 from gespmm_tpu_torch.kernels import halo_spmm as khalo
 from gespmm_tpu_torch.kernels.spmm_minmax import spmm_minmax_vjp_stacked
 from gespmm_tpu_torch.ops import reference as ref
-from gespmm_tpu_torch.parallel.mesh import Mesh
+from gespmm_tpu_torch.parallel.mesh import Mesh, model_replicated
 from gespmm_tpu_torch.sparse.formats import CSR
 from gespmm_tpu_torch.sparse.partition import (SPLIT_LEN, ShardSplit,
                                                 build_shard_split)
@@ -380,7 +380,7 @@ class _Rounds(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, B_shard, hp, mesh):
-        send = hp.send_idx[mesh.rank].long()
+        send = hp.send_idx[mesh.local_shards[0]].long()
         ctx.hp, ctx.mesh, ctx.rows = hp, mesh, B_shard.shape[0]
         ctx.save_for_backward(send)
         req = B_shard.index_select(0, send)
@@ -400,18 +400,19 @@ class _Rounds(torch.autograd.Function):
 
 def _post(mesh: Mesh, hp: HaloPartition, src: Tensor, dst: Tensor,
           reverse: bool) -> None:
-    """One isend and one irecv a round, batched; the backward sends each
-    round's rows back whence they came."""
-    P, rank = mesh.data, mesh.rank
+    """One isend and one irecv a round over the data group (the rank's
+    model column), batched; the backward sends each round's rows back
+    whence they came."""
+    P, shard = mesh.data, mesh.local_shards[0]
     ops = []
     for r, o, h in _round_offsets(hp):
-        to, frm = (rank + r) % P, (rank - r) % P
+        to, frm = (shard + r) % P, (shard - r) % P
         if reverse:
             to, frm = frm, to
         ops.append(dist.P2POp(dist.isend, src[o: o + h], mesh.global_rank(to),
-                              mesh.group))
+                              mesh.data_group))
         ops.append(dist.P2POp(dist.irecv, dst[o: o + h],
-                              mesh.global_rank(frm), mesh.group))
+                              mesh.global_rank(frm), mesh.data_group))
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
@@ -571,8 +572,23 @@ def _xla_shard(blk: ShardBlocks, base: str, dv, hv, B_shard, halo_tbl,
                        torch.zeros_like(out)).to(B_shard.dtype)
 
 
+def model_slices(B: Tensor, mesh: Mesh, model_axis: Optional[str]):
+    """The column blocks of ``B`` that are the local model slices, or None
+    when ``B`` is not sharded over the model axis (``model_axis`` is not
+    "model", or the mesh has one slice)."""
+    if model_axis != "model" or mesh.model == 1:
+        return None
+    S = len(mesh.local_slices)
+    if B.shape[-1] % S:
+        raise ValueError(f"B width {B.shape[-1]} must hold {S} local slices "
+                         f"of equal width (model={mesh.model})")
+    w = B.shape[-1] // S
+    return [slice(i * w, (i + 1) * w) for i in range(S)]
+
+
 def halo_spmm(hp: HaloPartition, B: Tensor, mesh: Mesh, *,
               reduce: str = "sum", method: str = "auto",
+              model_axis: Optional[str] = "model",
               diag_vals: Optional[Tensor] = None,
               halo_vals: Optional[Tensor] = None) -> Tensor:
     """C = A @ B with A row-partitioned and B row-sharded, exchanging ONLY
@@ -582,6 +598,16 @@ def halo_spmm(hp: HaloPartition, B: Tensor, mesh: Mesh, *,
     (num_parts*cpp, K) B (``pad_for_halo``) and the result is
     (num_parts*rpp, K); with a group, the rank's (cpp, K) rows and the
     result its (rpp, K).  Differentiable in B and in runtime edge values.
+
+    model_axis: "model" (the default, as in the JAX package) shards B's
+    columns over the mesh's model axis: B holds the local slices' columns
+    (all K without a group, the rank's K/model with one), and the op runs
+    once a local slice (one row-7 launch a slice on "tiled"), each slice
+    with its own exchange.  None, or a mesh with model = 1, means the
+    columns are replicated over that axis: one call over all of B.  Runtime
+    edge values are replicated over the model axis: on sliced columns their
+    gradient is summed over every slice (under a group, an ``all_reduce``
+    over ``mesh.model_group``).
 
     diag_vals / halo_vals: optional runtime edge values of the local shards,
     stacked as ``split_edge_values`` gives them, (L, max_nnz) or, on
@@ -598,6 +624,17 @@ def halo_spmm(hp: HaloPartition, B: Tensor, mesh: Mesh, *,
         raise ValueError(f"unknown reduce {reduce!r}")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
+    blocks = model_slices(B, mesh, model_axis)
+    if blocks is not None:
+        if diag_vals is not None and diag_vals.dim() == 3:
+            raise ValueError("per-head (3-D) edge values need model_axis=None")
+        if diag_vals is not None and halo_vals is not None:
+            diag_vals = model_replicated(diag_vals, mesh)
+            halo_vals = model_replicated(halo_vals, mesh)
+        outs = [halo_spmm(hp, B[:, cols], mesh, reduce=reduce, method=method,
+                          model_axis=None, diag_vals=diag_vals,
+                          halo_vals=halo_vals) for cols in blocks]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
     Pn, rpp, cpp = hp.num_parts, hp.rpp, hp.cpp
     shards = mesh.local_shards
     if mesh.data != Pn:

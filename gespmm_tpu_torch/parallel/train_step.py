@@ -1,12 +1,19 @@
-"""Sharded GNN training on the data axis — port of ``gespmm_tpu/parallel/train_step.py``.
+"""Sharded GNN training over a (data, model) mesh — port of ``gespmm_tpu/parallel/train_step.py``.
 
-Graph rows are partitioned into the mesh's shards; activations, labels and
-masks are row-sharded, and every aggregation is ``halo_spmm`` (kernel row 7
-on the card), which exchanges only the halo rows each shard needs.  The
-parameters are replicated: without a group one process holds them all; with
-a ``torch.distributed`` group each rank holds a copy, the loss is the global
-masked mean and the parameter gradients are summed over the ranks
-(data-parallel).  The JAX package's "model" axis is not ported (ROADMAP A1).
+  * "data" axis: graph rows are partitioned into the mesh's shards;
+    activations, labels and masks are row-sharded, and every aggregation is
+    ``halo_spmm`` (kernel row 7 on the card), which exchanges only the halo
+    rows each shard needs.  With a ``torch.distributed`` group the loss is
+    the global masked mean and the parameter gradients are summed over the
+    rank's data group (data-parallel).
+  * "model" axis (the GCN): the hidden dimension is cut into the mesh's
+    model slices.  ``l1.w`` and ``l1.b`` are split by columns, ``l2.w`` by
+    rows, ``l2.b`` is replicated (``shard_gcn_params``); the hidden
+    aggregation runs once a slice, and the output layer's contraction sums
+    the slices' partial products (``parallel/mesh.py::model_sum``: an
+    ``all_reduce`` over the model group under a group, whose backward passes
+    the replicated cotangent through).  GraphSAGE and GAT replicate their
+    features over the model axis, as in the JAX package.
 
 Each builder returns ``(train_step, (model, optimizer), prepare_inputs,
 hp)``: ``train_step(model, optimizer, x, labels, mask)`` takes one AdamW step
@@ -14,13 +21,14 @@ and returns ``(model, optimizer, loss)``; ``prepare_inputs`` pads
 node-indexed arrays to num_parts*rpp rows and puts the local shards' rows on
 the mesh's device.  The modules name their parameters as the JAX params
 (``l1.w``, ``att.src``, ``pool1.b``, ...), so ``models/common.py::
-params_from_jax`` loads a JAX init state into them.  The optimizer is
+params_from_jax`` loads a JAX init state into them (through
+``shard_gcn_params`` for the GCN under a group).  The optimizer is
 ``optax.adamw(lr)``'s: weight decay 1e-4, eps 1e-8, betas (0.9, 0.999).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -31,7 +39,7 @@ from gespmm_tpu_torch.models.common import Dense
 from gespmm_tpu_torch.parallel.edge_ops import (halo_additive_logits,
                                                 halo_edge_softmax)
 from gespmm_tpu_torch.parallel.halo import build_halo_partition, halo_spmm
-from gespmm_tpu_torch.parallel.mesh import Mesh
+from gespmm_tpu_torch.parallel.mesh import Mesh, model_sum
 
 Tensor = torch.Tensor
 
@@ -40,21 +48,57 @@ ADAMW_WEIGHT_DECAY = 1e-4
 ADAMW_EPS = 1e-8
 
 
+def shard_gcn_params(state: Dict[str, Tensor], mesh: Mesh) -> Dict[str, Tensor]:
+    """A whole 2-layer GCN state dict (``l1.w``, ``l1.b``, ``l2.w``,
+    ``l2.b``, as ``params_from_jax`` gives it) cut to this process's share
+    of the model axis: the local slices' columns of ``l1.w`` and ``l1.b``
+    and rows of ``l2.w``; ``l2.b`` (and any other entry) whole.  Without a
+    group the share is every slice, so the state comes back whole."""
+    S = mesh.local_slices
+    w = mesh.slice_width(int(state["l1.w"].shape[1]), "hidden")
+    cols = slice(S[0] * w, (S[-1] + 1) * w)
+    out = dict(state)
+    out["l1.w"] = state["l1.w"][:, cols]
+    out["l1.b"] = state["l1.b"][cols]
+    out["l2.w"] = state["l2.w"][cols]
+    return out
+
+
 class ShardedGCN(nn.Module):
     """Two dense layers, each followed by a ``mean`` halo aggregation (no
-    symmetric normalisation), ReLU between them: the JAX forward."""
+    symmetric normalisation), ReLU between them: the JAX forward.  On a
+    mesh of model > 1 the hidden aggregation runs once a local slice and
+    the output layer sums the slices' partial products (``model_sum``)."""
 
     def __init__(self, hp, mesh: Mesh, feat_dim: int, hidden: int,
                  classes: int, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.hp, self.mesh = hp, mesh
+        mesh.slice_width(hidden, "hidden")
         self.l1 = Dense(feat_dim, hidden, generator=generator)
         self.l2 = Dense(hidden, classes, generator=generator)
+        if mesh.group is not None and mesh.model > 1:
+            # The whole init, then this rank's share: model=1 and model>1
+            # start from equal parameters.
+            local = shard_gcn_params(dict(self.named_parameters()), mesh)
+            for name, value in local.items():
+                layer, attr = name.split(".")
+                setattr(getattr(self, layer), attr,
+                        nn.Parameter(value.detach().clone()))
 
     def forward(self, x: Tensor) -> Tensor:
-        h = halo_spmm(self.hp, self.l1(x), self.mesh, reduce="mean")
-        return halo_spmm(self.hp, self.l2(torch.relu(h)), self.mesh,
-                         reduce="mean")
+        hp, mesh = self.hp, self.mesh
+        h = torch.relu(halo_spmm(hp, self.l1(x), mesh, reduce="mean"))
+        if mesh.model == 1:
+            logits = self.l2(h)
+        else:
+            S = len(mesh.local_slices)
+            w = h.shape[1] // S
+            partials = torch.stack([
+                h[:, i * w:(i + 1) * w] @ self.l2.w[i * w:(i + 1) * w]
+                for i in range(S)])
+            logits = model_sum(partials, mesh) + self.l2.b
+        return halo_spmm(hp, logits, mesh, reduce="mean", model_axis=None)
 
 
 class _SAGELayer(nn.Module):
@@ -87,10 +131,11 @@ class ShardedSAGE(nn.Module):
 
     def _layer(self, layer: _SAGELayer, h: Tensor, pool: Optional[Dense]):
         if pool is None:
-            agg = halo_spmm(self.hp, h, self.mesh, reduce=self.aggregator)
+            agg = halo_spmm(self.hp, h, self.mesh, reduce=self.aggregator,
+                            model_axis=None)
         else:
             agg = halo_spmm(self.hp, torch.relu(pool(h)), self.mesh,
-                            reduce="max")
+                            reduce="max", model_axis=None)
         return layer(h, agg)
 
     def forward(self, x: Tensor) -> Tensor:
@@ -133,21 +178,23 @@ class ShardedGAT(nn.Module):
         if self.heads == 1:
             ad, ah = ad[..., 0], ah[..., 0]
         h = torch.nn.functional.elu(
-            halo_spmm(hp, h, mesh, diag_vals=ad, halo_vals=ah))
-        return halo_spmm(hp, self.l2(h), mesh, reduce="mean")
+            halo_spmm(hp, h, mesh, diag_vals=ad, halo_vals=ah,
+                      model_axis=None))
+        return halo_spmm(hp, self.l2(h), mesh, reduce="mean", model_axis=None)
 
 
 def _global_loss(logits: Tensor, labels: Tensor, mask: Tensor,
                  mesh: Mesh) -> Tensor:
     """The masked mean NLL over every shard's nodes (this rank's share of
-    it with a group: the local masked sum over the global count)."""
+    it with a group: the local masked sum over the count of the data
+    group, which the model axis replicates)."""
     lp = torch.log_softmax(logits, dim=-1)
     ll = lp.gather(-1, labels[:, None].long())[:, 0]
     maskf = mask.to(lp.dtype)
     count = maskf.sum()
     if mesh.group is not None:
         count = count.detach().clone()
-        dist.all_reduce(count, group=mesh.group)
+        dist.all_reduce(count, group=mesh.data_group)
     return -(ll * maskf).sum() / torch.clamp(count, min=1.0)
 
 
@@ -160,9 +207,11 @@ def _make_step(mesh: Mesh):
         loss.backward()
         loss = loss.detach()
         if mesh.group is not None:
+            # Over the data group only: a model slice's gradient is its own,
+            # and a replicated parameter's is equal on every slice.
             for p in model.parameters():
-                dist.all_reduce(p.grad, group=mesh.group)
-            dist.all_reduce(loss, group=mesh.group)
+                dist.all_reduce(p.grad, group=mesh.data_group)
+            dist.all_reduce(loss, group=mesh.data_group)
         optimizer.step()
         return model, optimizer, loss
 
@@ -170,6 +219,9 @@ def _make_step(mesh: Mesh):
 
 
 def _make_prepare(hp, mesh: Mesh):
+    """Each cell gets its shards' rows with every feature column: the first
+    layer's ``x @ l1.w[:, slice]`` needs them (the JAX package feeds x in
+    as P("data", "model") and XLA inserts that all-gather itself)."""
     m_pad = hp.num_parts * hp.rpp
     shards = mesh.local_shards
     local = slice(shards[0] * hp.rpp, (shards[-1] + 1) * hp.rpp)

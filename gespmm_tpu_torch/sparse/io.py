@@ -8,8 +8,9 @@ Same semantics as the JAX package's reader:
     deduplicate keeping the first occurrence;
   * final stable row-major sort.
 
-Host-side only.  The native C++ ingest path (``native/libgespmm_io.so``) is
-not wired into the port yet.
+Host-side only.  ``read_mtx`` parses through the native C++ library
+(``utils/native.py``, built from ``native/graphio.cpp``) when it is
+available; its arrays equal this NumPy reader's.
 """
 
 from __future__ import annotations
@@ -85,12 +86,30 @@ def sort_coo(row: np.ndarray, col: np.ndarray, val: np.ndarray):
 
 
 def read_mtx(path: str, dtype=np.float32, symmetrize: Optional[bool] = None,
-             remove_self_loops: bool = True):
+             remove_self_loops: bool = True, use_native: Optional[bool] = None):
     """Read a .mtx file into a sorted, canonical COO container (CPU tensors).
 
     ``symmetrize=None`` follows the banner; True/False forces it on/off.
+    ``use_native``: None parses natively when the library is available
+    (``utils/native.py``), True demands the native parser (raising
+    ``NativeUnavailable`` without it), False takes the NumPy reader.  A file
+    the native parser refuses goes to the NumPy reader under None, as in the
+    JAX package, and raises ``MtxFormatError`` under True.
     """
     from gespmm_tpu_torch.sparse.formats import COO
+    from gespmm_tpu_torch.utils import native
+
+    if native.wanted(use_native):
+        try:
+            row, col, val, shape = native.read_mtx_native(
+                path, symmetrize=symmetrize,
+                remove_self_loops=remove_self_loops)
+        except ValueError as e:
+            if use_native:
+                raise MtxFormatError(str(e)) from e
+        else:
+            return COO(row=torch.from_numpy(row), col=torch.from_numpy(col),
+                       data=torch.from_numpy(val.astype(dtype)), shape=shape)
 
     header = read_mtx_header(path)
     with open(path, "r") as f:

@@ -1,6 +1,13 @@
-"""Roofline arithmetic and the card's stream bandwidth — port of part of
-``gespmm_tpu/utils/profiling.py`` (``spmm_roofline``,
-``measure_hbm_bandwidth``).
+"""Profiling and roofline arithmetic — port of ``gespmm_tpu/utils/profiling.py``
+(``trace``, ``op_cost_table``, ``spmm_roofline``, ``measure_hbm_bandwidth``).
+
+``trace(log_dir)`` is a ``torch.profiler`` context that writes a Chrome
+trace into ``log_dir``; ``op_cost_table(fn, *args)`` counts the flops of
+``fn(*args)`` with ``torch.utils.flop_counter.FlopCounterMode``.  The count
+sees only the ops that reach PyTorch's dispatcher: the port's kernels are
+launched through ctypes and never do, so an ``spmm`` on the card counts 0
+flops there (on the CPU its plain version's ops are counted).  The bounds
+below stay the yardstick of the kernels.
 
 The least time a card could take for a piece of work is the larger of its
 bytes over the memory rate and its operations over the peak rate for their
@@ -15,13 +22,47 @@ CUDA kernels do not have.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+import os
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 H100_HBM_GBPS = 3350.0
 H100_F32_GFLOPS = 67_000.0
 H100_BF16_TC_GFLOPS = 989_000.0
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``with trace(log_dir) as prof: step()``: a ``torch.profiler.profile``
+    of the CPU, and of CUDA when a card is present, whose Chrome trace
+    (``*.pt.trace.json``) is written into ``log_dir`` on exit; ``prof``
+    gives the events."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+def op_cost_table(fn: Callable, *args) -> Dict[str, float]:
+    """Run ``fn(*args)`` under ``FlopCounterMode``: {"flops": the total,
+    and one entry an op that counted}.  Ops outside the dispatcher (the
+    ctypes kernels) count nothing."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    table = {"flops": float(counter.get_total_flops())}
+    for op, n in counter.get_flop_counts().get("Global", {}).items():
+        table[str(op)] = float(n)
+    return table
 
 
 def bound(bytes_moved: float, flops: float,

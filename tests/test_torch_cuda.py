@@ -37,7 +37,10 @@ stock baselines against ours (1e-5 * max |ref| + 1e-6) and training,
 one ``GATStock`` step at pubmed scale within a quarter of a dense n x n f32
 matrix of memory, SAGE-LSTM and the GAT's ``"pallas"`` route against their float64 forward on
 the CPU (1e-4 * max |ref|), and a checkpointed GCN against a straight one
-(1e-6 * max |ref|).
+(1e-6 * max |ref|).  The "model" mesh axis in one process (``halo_spmm``
+one row-7 launch a slice and equal to the data-only mesh; the sharded GCN's
+launches and logits, 1e-5 * max |ref|) and the weak-scaling bench's
+launches of rows 7 and 1.
 """
 
 import functools
@@ -2112,6 +2115,55 @@ def test_sharded_train_steps_on_the_card(dev):
         assert (khalo.launches, khalo.carry_launches) == (10 * per_step, 0)
     losses = dryrun_multichip(8, device=dev)
     assert all(np.isfinite(v) for v in losses.values())
+
+
+def test_model_axis_on_the_card(dev):
+    """(4, 2) in one process: halo_spmm one row-7 launch a slice, equal to
+    (4, 1); the sharded GCN 9 row-7 launches a step (6 on (4, 1)) and the
+    same logits from the same parameters."""
+    ds = sbm_graph(n_per_class=64, num_classes=3, feat_dim=16, seed=0)
+    csr = add_self_loops(ds.csr)
+    hp = build_halo_partition(csr, 4, device=dev)
+    B = torch.randn(4 * hp.cpp, 16, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    outs = []
+    for model in (1, 2):
+        khalo.reset_launches()
+        outs.append(halo_spmm(hp, B, make_mesh(4, model, device=dev)))
+        torch.cuda.synchronize()
+        assert khalo.launches == model
+    assert torch.equal(outs[0], outs[1])
+    logits = []
+    for model in (1, 2):
+        step, (gcn, opt), prepare, _ = build_sharded_gcn(
+            csr, 16, 8, 3, make_mesh(4, model, device=dev))
+        if logits:
+            gcn.load_state_dict(state)
+        state = {k: v.clone() for k, v in gcn.state_dict().items()}
+        x, labels, mask = prepare(ds.features, ds.labels, ds.masks["train"])
+        with torch.no_grad():
+            logits.append(gcn(x))
+        khalo.reset_launches()
+        step(gcn, opt, x, labels, mask)
+        torch.cuda.synchronize()
+        assert (khalo.launches, khalo.carry_launches) == (
+            (6, 0) if model == 1 else (9, 0))
+    scale = float(logits[0].abs().max())
+    assert float((logits[1] - logits[0]).abs().max()) <= 1e-5 * scale
+
+
+def test_dist_bench_on_the_card_launches_rows_7_and_1(dev):
+    from gespmm_tpu_torch.bench.dist_bench import bench_weak_scaling
+
+    for method, kernel in (("halo-tiled", khalo), ("allgather", kspmm)):
+        kernel.reset_launches()
+        rows = bench_weak_scaling([1, 2], scale=9, k=16, edge_factor=8,
+                                  iters=5, method=method, partition="auto",
+                                  device=dev)
+        torch.cuda.synchronize()
+        assert kernel.launches > 0, method
+        assert [r["devices"] for r in rows] == [1, 2]
+        assert all(r["ms"] > 0 for r in rows)
 
 
 # --- interop, the stock baselines, SAGE-LSTM, the GAT chunk route and

@@ -287,5 +287,10 @@ def test_halo_errors_match_jax():
     with pytest.raises(ValueError, match="heads=2"):
         halo_spmm(tiled, torch.zeros(46, 7), mesh, diag_vals=dv3,
                   halo_vals=hv3)
-    with pytest.raises(NotImplementedError, match="A1"):
-        make_mesh(2, 2, device="cpu")
+    mesh22 = make_mesh(2, 2, device="cpu")
+    assert (mesh22.data, mesh22.model, mesh22.local_slices) == (2, 2, (0, 1))
+    with pytest.raises(ValueError, match="model=2"):
+        halo_spmm(tiled, torch.zeros(46, 7), mesh22)
+    with pytest.raises(ValueError, match="model_axis=None"):
+        halo_spmm(tiled, torch.zeros(46, 8), mesh22, diag_vals=dv3,
+                  halo_vals=hv3)
