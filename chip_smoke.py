@@ -217,8 +217,9 @@ Phases, each printed as it goes; any failure exits non-zero:
      parameters; then dryrun_multichip(4) ((2, 2));
  29. profiling (utils/profiling.py): trace of one (2, 2) GCN step writes
      its file, and the count of device events in it is printed (0 is
-     printed, not hidden); op_cost_table of the GCN's first dense layer
-     counts 2 m 128 32 flops;
+     printed, not hidden); the trace of one make_train_step of the
+     single-card GCN holds the program's spans step, op/spmm and
+     op/spmm.grad, and span() is off again after it;
  15. timings, run last: the card's copy bandwidth (utils/profiling.py::
      measure_hbm_bandwidth) beside the published 3.35 TB/s; device time of
      every kernel against its plain version at the
@@ -290,6 +291,7 @@ also written to PATH as JSON.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import socket
@@ -2536,7 +2538,7 @@ def main(argv=None):
                                                     "max_ref": logit_scale},
                             "dryrun_multichip_4": dry4}
 
-    phase("29 profiling: trace and op_cost_table")
+    phase("29 profiling: trace and the program's spans")
     pstep, (pmodel, popt), pprep, _ = build_sharded_gcn(
         sbm_host, *GCN_DIMS, mesh22, lr=1e-2)
     px, pl, pm = pprep(ds.features, ds.labels, ds.masks["train"])
@@ -2555,17 +2557,35 @@ def main(argv=None):
           f"{len(prof.events())} events, {len(device_events)} on the device,"
           f" device time total {device_us:.1f} us", flush=True)
     check(len(trace_files) == 1, "trace wrote no file")
-    flops = profiling.op_cost_table(pmodel.l1, px)
-    n_px = px.shape[0]
-    print(f"op_cost_table of the GCN's dense layer ({n_px} x {GCN_DIMS[0]} @ "
-          f"{GCN_DIMS[0]} x {GCN_DIMS[1]}): {flops}", flush=True)
-    check(flops["flops"] == 2.0 * n_px * GCN_DIMS[0] * GCN_DIMS[1],
-          f"op_cost_table flops {flops['flops']}")
+    # One make_train_step of the single-card GCN under the profiler: the
+    # program's spans are in the trace beside the kernels.
+    span_model = make_gcn("auto")
+    span_step = make_train_step(
+        span_model, torch.optim.Adam(span_model.parameters(), lr=1e-2), adj,
+        ds.features, ds.labels, ds.masks["train"],
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    span_step()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as trace_dir:
+        with profiling.trace(trace_dir) as sprof:
+            span_step()
+            torch.cuda.synchronize()
+    span_names = sorted({e.name for e in sprof.events()}
+                        & set(profiling.SPANS))
+    span_device = sum(1 for e in sprof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"spans in the trace of one GCN train step: {span_names}; "
+          f"{span_device} device events", flush=True)
+    check({"step", "op/spmm", "op/spmm.grad"} <= set(span_names),
+          f"the traced step's spans {span_names}")
+    check(isinstance(profiling.span("step"), contextlib.nullcontext),
+          "span() is not off after the profiler")
     record["profiling"] = {"trace_files": trace_files,
                            "events": len(prof.events()),
                            "device_events": len(device_events),
                            "device_time_total_us": device_us,
-                           "dense_layer_flops": flops}
+                           "step_spans": span_names,
+                           "step_device_events": span_device}
 
     phase("15 timings, in the order plain / kernel / kernel / plain")
     hbm = profiling.measure_hbm_bandwidth()

@@ -4,7 +4,9 @@ A library is built at first use, never at import, into ``_build/`` inside
 the package (git-ignored).  A hash of the source and the flags names the
 library, so an edited source builds anew.  nvcc writes to a temporary name
 that ``os.replace`` moves into place, so parallel processes never load a
-half-written library.  A failed build raises with nvcc's stderr.
+half-written library.  A failed build raises with nvcc's stderr.  The
+compiler's run is the span ``kernel/build`` and the ``ctypes`` load the
+span ``kernel/load`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from gespmm_tpu_torch.utils.profiling import span
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -57,8 +61,9 @@ def compile_library(cmd, lib: Path, error=RuntimeError,
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
     cmd = [*cmd, "-o", str(tmp)]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=timeout)
+    with span("kernel/build"):
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=timeout)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise error(
@@ -90,4 +95,6 @@ def build(name: str) -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one load per process."""
-    return ctypes.CDLL(str(build(name)))
+    lib = build(name)
+    with span("kernel/load"):
+        return ctypes.CDLL(str(lib))

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from gespmm_tpu_torch.utils.profiling import span
+
 Tensor = torch.Tensor
 
 
@@ -39,8 +41,9 @@ class Dense(nn.Module):
                   if bias else None)
 
     def forward(self, x: Tensor) -> Tensor:
-        y = x @ self.w
-        return y if self.b is None else y + self.b
+        with span("model/dense"):
+            y = x @ self.w
+            return y if self.b is None else y + self.b
 
 
 def dropout(x: Tensor, rate: float, training: bool,
@@ -49,9 +52,11 @@ def dropout(x: Tensor, rate: float, training: bool,
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    with span("model/dropout"):
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 def params_from_jax(params, prefix: str = "") -> Dict[str, Tensor]:

@@ -17,6 +17,7 @@ from torch import nn
 from gespmm_tpu_torch.models.common import Dense, dropout, params_from_jax
 from gespmm_tpu_torch.ops.graph import degree_norm
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
+from gespmm_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -49,7 +50,8 @@ class GCN(nn.Module):
 
     def with_norms(self, adj: Adjacency) -> "GCN":
         """Cache the degree norms of ``adj`` so steps skip the reduction."""
-        self.norms = degree_norm(adj)
+        with span("graph_prep/degree_norm"):
+            self.norms = degree_norm(adj)
         return self
 
     def forward(self, adj: Adjacency, x: Tensor, *, norms=None,
@@ -61,19 +63,25 @@ class GCN(nn.Module):
         for i in range(self.n_layers):
             layer = getattr(self, f"layer_{i}")
             # Dense transform first: it shrinks the width the SpMM gathers.
-            h = h @ layer.w
-            h = h * in_norm[:, None].to(h.dtype)
+            with span("model/dense"):
+                h = h @ layer.w
+            with span("model/norm"):
+                h = h * in_norm[:, None].to(h.dtype)
             h = spmm(adj, h, reduce="sum", method=self.method)
-            h = h * out_norm[:, None].to(h.dtype)
-            if layer.b is not None:
-                h = h + layer.b
+            with span("model/norm"):
+                h = h * out_norm[:, None].to(h.dtype)
+                if layer.b is not None:
+                    h = h + layer.b
             if i < self.n_layers - 1:
-                h = torch.relu(h)
+                with span("model/relu"):
+                    h = torch.relu(h)
                 h = dropout(h, self.dropout_rate, self.training, generator)
         return h
 
     def log_probs(self, adj: Adjacency, x: Tensor, **kw) -> Tensor:
-        return torch.log_softmax(self(adj, x, **kw), dim=-1)
+        logits = self(adj, x, **kw)
+        with span("model/log_softmax"):
+            return torch.log_softmax(logits, dim=-1)
 
 
 __all__ = ["GCN", "params_from_jax"]

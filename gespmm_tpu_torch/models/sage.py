@@ -27,6 +27,7 @@ from gespmm_tpu_torch.models.common import Dense, dropout
 from gespmm_tpu_torch.models.sage_lstm import LSTM, lstm_aggregate
 from gespmm_tpu_torch.ops.graph import sage_aggregate
 from gespmm_tpu_torch.ops.spmm import Adjacency
+from gespmm_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -67,12 +68,18 @@ class SAGEConv(nn.Module):
                     "aggregator='lstm' needs a neighbor_table "
                     "(models.sage_lstm.build_neighbor_table)")
             agg = lstm_aggregate(self.lstm, x, *neighbor_table)
-            return getattr(self, "self")(x) + self.neigh(agg)
-        h = torch.relu(self.pool(x)) if self.aggregator == "pool" else x
+            with span("model/dense"):
+                return getattr(self, "self")(x) + self.neigh(agg)
+        h = x
+        if self.aggregator == "pool":
+            h = self.pool(x)
+            with span("model/relu"):
+                h = torch.relu(h)
         agg = sage_aggregate(adj, h, aggregator=self.aggregator, method=method)
         if self.aggregator == "gcn":
             return self.neigh(agg)
-        return getattr(self, "self")(x) + self.neigh(agg)
+        with span("model/dense"):
+            return getattr(self, "self")(x) + self.neigh(agg)
 
 
 class GraphSAGE(nn.Module):
@@ -116,8 +123,11 @@ class GraphSAGE(nn.Module):
             h = dropout(h, self.dropout_rate, self.training, generator)
             h = getattr(self, f"layer_{i}")(adj, h, self.method, table)
             if i < self.n_layers - 1:
-                h = torch.relu(h)
+                with span("model/relu"):
+                    h = torch.relu(h)
         return h
 
     def log_probs(self, adj: Adjacency, x: Tensor, **kw) -> Tensor:
-        return torch.log_softmax(self(adj, x, **kw), dim=-1)
+        logits = self(adj, x, **kw)
+        with span("model/log_softmax"):
+            return torch.log_softmax(logits, dim=-1)

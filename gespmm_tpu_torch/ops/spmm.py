@@ -56,6 +56,7 @@ from gespmm_tpu_torch.sparse.partition import (GroupedSpmmPlan, RowSplit,
                                                 build_row_split,
                                                 build_spmm_plan)
 from gespmm_tpu_torch.utils import native as _native
+from gespmm_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -134,55 +135,76 @@ class Adjacency:
         tier there).  ``use_native`` picks the CSC transform: the native
         counting sort (``utils/native.py``) under None when available or
         under True, else a stable argsort; both give the same arrays.
+        Each phase runs under its span (``utils/profiling.py::SPANS``,
+        ``graph_prep/*``): the copy down, the host passes, the copies up.
         """
-        device = csr.device if device is None else torch.device(device)
-        indptr_h = csr.indptr.cpu().numpy()
-        indices_h = csr.indices.cpu().numpy()
-        m, n = csr.shape
-        nnz = int(indices_h.shape[0])
-        rows_h = np.repeat(np.arange(m, dtype=np.int32), np.diff(indptr_h))
-        if _native.wanted(use_native):
-            colptr_h, csc_rows_h, perm_h = _native.csr_to_csc_native(
-                indptr_h, indices_h, m, n)
-            colptr_h = colptr_h.astype(np.int64)
-        else:
-            order = np.argsort(indices_h, kind="stable")
-            colptr_h = np.zeros(n + 1, np.int64)
-            colptr_h[1:] = np.cumsum(np.bincount(indices_h, minlength=n))
-            perm_h = order.astype(np.int32)
-            csc_rows_h = rows_h[order]
-        inv_perm_h = np.empty_like(perm_h)
-        inv_perm_h[perm_h] = np.arange(nnz, dtype=np.int32)
+        with span("graph_prep"):
+            device = csr.device if device is None else torch.device(device)
+            m, n = csr.shape
+            with span("graph_prep/d2h"):
+                indptr_h = csr.indptr.cpu().numpy()
+                indices_h = csr.indices.cpu().numpy()
+            nnz = int(indices_h.shape[0])
+            with span("graph_prep/rows"):
+                rows_h = np.repeat(np.arange(m, dtype=np.int32),
+                                   np.diff(indptr_h))
+            with span("graph_prep/csc"):
+                if _native.wanted(use_native):
+                    colptr_h, csc_rows_h, perm_h = (
+                        _native.csr_to_csc_native(indptr_h, indices_h, m, n))
+                    colptr_h = colptr_h.astype(np.int64)
+                else:
+                    order = np.argsort(indices_h, kind="stable")
+                    colptr_h = np.zeros(n + 1, np.int64)
+                    colptr_h[1:] = np.cumsum(
+                        np.bincount(indices_h, minlength=n))
+                    perm_h = order.astype(np.int32)
+                    csc_rows_h = rows_h[order]
+            with span("graph_prep/rows"):
+                rows_t_h = np.repeat(np.arange(n, dtype=np.int32),
+                                     np.diff(colptr_h))
+            with span("graph_prep/inv_perm"):
+                inv_perm_h = np.empty_like(perm_h)
+                inv_perm_h[perm_h] = np.arange(nnz, dtype=np.int32)
+            p = pt = None
+            with span("graph_prep/plans"):
+                if plan:
+                    p = _build_plan(indptr_h, indices_h, (m, n), plan,
+                                    plan_kwargs)
+                    if plan_transpose:
+                        pt = _build_plan(colptr_h.astype(np.int32),
+                                         csc_rows_h, (n, m), plan,
+                                         plan_kwargs)
+            with span("graph_prep/split"):
+                split_h = build_row_split(indptr_h)
+                split_t_h = build_row_split(colptr_h)
 
-        def dev(a: np.ndarray) -> Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            def dev(a: np.ndarray) -> Tensor:
+                return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        csr_d = csr.to(device)
-        perm = dev(perm_h)
-        csc = CSC(
-            indptr=dev(colptr_h.astype(np.int32)),
-            indices=dev(csc_rows_h),
-            data=None if csr_d.data is None else csr_d.data[perm.long()],
-            shape=(m, n),
-        )
-        rows_t = dev(np.repeat(np.arange(n, dtype=np.int32), np.diff(colptr_h)))
-        p = pt = None
-        if plan:
-            p = _build_plan(indptr_h, indices_h, (m, n), plan, plan_kwargs)
-            if plan_transpose:
-                pt = _build_plan(colptr_h.astype(np.int32), csc_rows_h,
-                                 (n, m), plan, plan_kwargs)
-        # The plans walk the adjacency's own device arrays.
-        if p is not None:
-            p = dataclasses.replace(p.to(device), indptr=csr_d.indptr,
-                                    indices=csr_d.indices)
-        if pt is not None:
-            pt = dataclasses.replace(pt.to(device), indptr=csc.indptr,
-                                     indices=csc.indices)
-        return cls(csr=csr_d, csc=csc, perm=perm, rows=dev(rows_h),
-                   rows_t=rows_t, inv_perm=dev(inv_perm_h), plan=p, plan_t=pt,
-                   split=build_row_split(indptr_h).to(device),
-                   split_t=build_row_split(colptr_h).to(device))
+            with span("graph_prep/h2d"):
+                csr_d = csr.to(device)
+                perm = dev(perm_h)
+                csc = CSC(
+                    indptr=dev(colptr_h.astype(np.int32)),
+                    indices=dev(csc_rows_h),
+                    data=(None if csr_d.data is None
+                          else csr_d.data[perm.long()]),
+                    shape=(m, n),
+                )
+                # The plans walk the adjacency's own device arrays.
+                if p is not None:
+                    p = dataclasses.replace(p.to(device),
+                                            indptr=csr_d.indptr,
+                                            indices=csr_d.indices)
+                if pt is not None:
+                    pt = dataclasses.replace(pt.to(device),
+                                             indptr=csc.indptr,
+                                             indices=csc.indices)
+                return cls(csr=csr_d, csc=csc, perm=perm, rows=dev(rows_h),
+                           rows_t=dev(rows_t_h), inv_perm=dev(inv_perm_h),
+                           plan=p, plan_t=pt, split=split_h.to(device),
+                           split_t=split_t_h.to(device))
 
     @property
     def shape(self):
@@ -253,19 +275,20 @@ class _SpmmSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: Tensor):
-        adj, method = ctx.adj, ctx.method
-        data, B = ctx.saved_tensors
-        g = g.contiguous()  # autograd often hands in an expanded view
-        grad_data = grad_B = None
-        if ctx.needs_input_grad[4]:
-            t_data = None if data is None else data[adj.perm.long()]
-            grad_B = _forward(method, ctx.mode, adj.csc.indptr,
-                              adj.csc.indices, t_data, g, adj.rows_t,
-                              adj.plan_t, adj.split_t)
-        if data is not None and ctx.needs_input_grad[3]:
-            grad_data = ref.sddmm_rows(adj.rows, adj.csr.indices, g, B)
-            grad_data = grad_data.to(data.dtype)
-        return None, None, None, grad_data, grad_B
+        with span("op/spmm.grad"):
+            adj, method = ctx.adj, ctx.method
+            data, B = ctx.saved_tensors
+            g = g.contiguous()  # autograd often hands in an expanded view
+            grad_data = grad_B = None
+            if ctx.needs_input_grad[4]:
+                t_data = None if data is None else data[adj.perm.long()]
+                grad_B = _forward(method, ctx.mode, adj.csc.indptr,
+                                  adj.csc.indices, t_data, g, adj.rows_t,
+                                  adj.plan_t, adj.split_t)
+            if data is not None and ctx.needs_input_grad[3]:
+                grad_data = ref.sddmm_rows(adj.rows, adj.csr.indices, g, B)
+                grad_data = grad_data.to(data.dtype)
+            return None, None, None, grad_data, grad_B
 
 
 class _SpmmMinMax(torch.autograd.Function):
@@ -288,34 +311,36 @@ class _SpmmMinMax(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: Tensor):
-        adj, method = ctx.adj, ctx.method
-        data, B, out, ties = ctx.saved_tensors
-        g = g.contiguous()
-        want_values = data is not None and ctx.needs_input_grad[3]
-        if method == "xla":
-            # The JAX package's plain VJP: ties recounted against ``out``.
-            grad_c = ref.spmm_max_vjp_edges(adj.rows, adj.csr.indices, data, B,
-                                            out, g, adj.shape[0])
-            scaled = (grad_c if data is None
-                      else grad_c * data.to(grad_c.dtype)[:, None])
-            grad_B = torch.zeros((B.shape[0], B.shape[1]), dtype=grad_c.dtype,
-                                 device=B.device)
-            grad_B.index_add_(0, adj.csr.indices.long(), scaled)
-            grad_data = None
-            if want_values:
-                gathered = B.index_select(0, adj.csr.indices.long())
-                grad_data = (grad_c * gathered.to(grad_c.dtype)).sum(-1)
-        else:
-            t_data = None if data is None else data[adj.perm.long()]
-            grad_B, grad_data = spmm_minmax_vjp(
-                adj.csc.indptr, adj.csc.indices, t_data, B, out, g, ties,
-                want_values=want_values, cols=adj.rows_t, split=adj.split_t)
-            if grad_data is not None:  # CSC order -> CSR order
-                grad_data = grad_data[adj.inv_perm.long()]
-        if grad_data is not None:
-            grad_data = grad_data.to(data.dtype)
-        grad_B = grad_B.to(B.dtype) if ctx.needs_input_grad[4] else None
-        return None, None, None, grad_data, grad_B
+        with span("op/spmm.grad"):
+            adj, method = ctx.adj, ctx.method
+            data, B, out, ties = ctx.saved_tensors
+            g = g.contiguous()
+            want_values = data is not None and ctx.needs_input_grad[3]
+            if method == "xla":
+                # The JAX package's plain VJP: ties recounted against ``out``.
+                grad_c = ref.spmm_max_vjp_edges(adj.rows, adj.csr.indices,
+                                                data, B, out, g, adj.shape[0])
+                scaled = (grad_c if data is None
+                          else grad_c * data.to(grad_c.dtype)[:, None])
+                grad_B = torch.zeros((B.shape[0], B.shape[1]),
+                                     dtype=grad_c.dtype, device=B.device)
+                grad_B.index_add_(0, adj.csr.indices.long(), scaled)
+                grad_data = None
+                if want_values:
+                    gathered = B.index_select(0, adj.csr.indices.long())
+                    grad_data = (grad_c * gathered.to(grad_c.dtype)).sum(-1)
+            else:
+                t_data = None if data is None else data[adj.perm.long()]
+                grad_B, grad_data = spmm_minmax_vjp(
+                    adj.csc.indptr, adj.csc.indices, t_data, B, out, g, ties,
+                    want_values=want_values, cols=adj.rows_t,
+                    split=adj.split_t)
+                if grad_data is not None:  # CSC order -> CSR order
+                    grad_data = grad_data[adj.inv_perm.long()]
+            if grad_data is not None:
+                grad_data = grad_data.to(data.dtype)
+            grad_B = grad_B.to(B.dtype) if ctx.needs_input_grad[4] else None
+            return None, None, None, grad_data, grad_B
 
 
 def _check_method(adj: Adjacency, reduce: str, method: str) -> None:
@@ -371,10 +396,11 @@ def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
             f"A is {adj.shape}, B is {tuple(B.shape)}: inner dims differ"
         )
     _check_method(adj, reduce, method)
-    if reduce == "mean":
-        out = spmm(adj, B, reduce="sum", method=method, mode=mode)
-        deg = (adj.csr.indptr[1:] - adj.csr.indptr[:-1]).to(out.dtype)
-        return out / torch.clamp(deg, min=1.0)[:, None]
-    if reduce in ("max", "min"):
-        return _SpmmMinMax.apply(adj, method, reduce, adj.csr.data, B)
-    return _SpmmSum.apply(adj, method, mode, adj.csr.data, B)
+    with span("op/spmm"):
+        if reduce in ("max", "min"):
+            return _SpmmMinMax.apply(adj, method, reduce, adj.csr.data, B)
+        out = _SpmmSum.apply(adj, method, mode, adj.csr.data, B)
+        if reduce == "mean":
+            deg = (adj.csr.indptr[1:] - adj.csr.indptr[:-1]).to(out.dtype)
+            out = out / torch.clamp(deg, min=1.0)[:, None]
+        return out

@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from gespmm_tpu_torch.train import checkpoint
+from gespmm_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -38,16 +39,27 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, adj, x: Tensor,
                     labels: Tensor, mask: Tensor, *,
                     generator: Optional[torch.Generator] = None
                     ) -> Callable[[], Tensor]:
-    """One optimizer step per call; returns the loss (a device scalar)."""
+    """One optimizer step per call; returns the loss (a device scalar).
+    The step and its five phases each run under a span
+    (``utils/profiling.py``)."""
 
     def step() -> Tensor:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        loss = masked_nll_loss(model.log_probs(adj, x, generator=generator),
-                               labels, mask)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with span("step"):
+            model.train()
+            with span("step/zero_grad"):
+                optimizer.zero_grad(set_to_none=True)
+            with span("step/forward"):
+                log_probs = model.log_probs(adj, x, generator=generator)
+            with span("step/loss"):
+                loss = masked_nll_loss(log_probs, labels, mask)
+            # The backward frees the log-probabilities once their node has
+            # run; a name held here would keep them to the step's end.
+            del log_probs
+            with span("step/bwd"):
+                loss.backward()
+            with span("step/optimizer"):
+                optimizer.step()
+            return loss.detach()
 
     return step
 

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from gespmm_tpu_torch.kernels import _build
+from gespmm_tpu_torch.utils.profiling import span
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG_DIR / "_build"
@@ -106,7 +107,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if not _TRIED:
             _TRIED = True
             try:
-                _LIB = _bind(ctypes.CDLL(str(build())))
+                lib = build()
+                with span("kernel/load"):
+                    _LIB = _bind(ctypes.CDLL(str(lib)))
             except (NativeUnavailable, OSError, subprocess.SubprocessError) as e:
                 _LIB, _ERROR = None, str(e)
         return _LIB

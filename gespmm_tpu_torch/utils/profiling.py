@@ -1,13 +1,21 @@
-"""Profiling and roofline arithmetic — port of ``gespmm_tpu/utils/profiling.py``
-(``trace``, ``op_cost_table``, ``spmm_roofline``, ``measure_hbm_bandwidth``).
+"""Profiling, the program's spans, and roofline arithmetic — port of
+``gespmm_tpu/utils/profiling.py`` (``trace``, ``spmm_roofline``,
+``measure_hbm_bandwidth``).
 
 ``trace(log_dir)`` is a ``torch.profiler`` context that writes a Chrome
-trace into ``log_dir``; ``op_cost_table(fn, *args)`` counts the flops of
-``fn(*args)`` with ``torch.utils.flop_counter.FlopCounterMode``.  The count
-sees only the ops that reach PyTorch's dispatcher: the port's kernels are
-launched through ctypes and never do, so an ``spmm`` on the card counts 0
-flops there (on the CPU its plain version's ops are counted).  The bounds
-below stay the yardstick of the kernels.
+trace into ``log_dir``.
+
+``span(name)`` marks a piece of the program's own work, one of ``SPANS``,
+named ``<layer>/<what>``: the train step and its phases, the model's dense
+and elementwise work, the SpMM op forward and backward, the phases of
+``Adjacency.from_csr`` and the kernel libraries' build and load.  Under
+the torch profiler a span is a ``record_function`` range in the same trace
+as the kernels, on the same clock; inside ``recording()`` it also appends
+``(name, start_ns, end_ns, thread id)`` from ``time.perf_counter_ns`` to
+the recording; with both off it is one shared ``nullcontext``.  No name
+holds "spmm" unless SpMM work runs under it, and none holds "backward":
+a reader that takes a range named ``*spmm*backward*`` for SpMM work stays
+right.
 
 The least time a card could take for a piece of work is the larger of its
 bytes over the memory rate and its operations over the peak rate for their
@@ -24,9 +32,12 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Callable, Dict, Optional, Tuple
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 H100_HBM_GBPS = 3350.0
 H100_F32_GFLOPS = 67_000.0
@@ -51,18 +62,88 @@ def trace(log_dir: str):
         yield prof
 
 
-def op_cost_table(fn: Callable, *args) -> Dict[str, float]:
-    """Run ``fn(*args)`` under ``FlopCounterMode``: {"flops": the total,
-    and one entry an op that counted}.  Ops outside the dispatcher (the
-    ctypes kernels) count nothing."""
-    from torch.utils.flop_counter import FlopCounterMode
+# Every span the program opens, by layer: the train step, the model, the
+# SpMM op, graph prep, the kernel libraries.
+SPANS = (
+    "step", "step/zero_grad", "step/forward", "step/loss", "step/bwd",
+    "step/optimizer",
+    "model/dense", "model/norm", "model/relu", "model/dropout",
+    "model/log_softmax",
+    "op/spmm", "op/spmm.grad",
+    "graph_prep", "graph_prep/d2h", "graph_prep/rows", "graph_prep/csc",
+    "graph_prep/inv_perm", "graph_prep/plans", "graph_prep/split",
+    "graph_prep/h2d", "graph_prep/degree_norm",
+    "kernel/build", "kernel/load",
+)
+_SPAN_NAMES = frozenset(SPANS)
+_OFF = contextlib.nullcontext()
+# The open recordings; spans append to each.
+_RECORDINGS: List["Recording"] = []
 
-    with FlopCounterMode(display=False) as counter:
-        fn(*args)
-    table = {"flops": float(counter.get_total_flops())}
-    for op, n in counter.get_flop_counts().get("Global", {}).items():
-        table[str(op)] = float(n)
-    return table
+
+class Recording:
+    """The spans closed inside one ``recording()``: ``spans`` holds
+    ``(name, start_ns, end_ns, thread id)`` in the order they closed."""
+
+    def __init__(self):
+        self.spans: List[Tuple[str, int, int, int]] = []
+
+    def seconds(self) -> Dict[str, float]:
+        """Host seconds by span name, summed over its spans."""
+        out: Dict[str, float] = {}
+        for name, start, end, _ in self.spans:
+            out[name] = out.get(name, 0.0) + (end - start) / 1e9
+        return out
+
+
+class _Span:
+    __slots__ = ("name", "range", "sinks", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.sinks = tuple(_RECORDINGS)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        for rec in self.sinks:
+            rec.spans.append((self.name, self.start, end,
+                              threading.get_ident()))
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """``with span(name):`` around a piece of the program's work; ``name``
+    is one of ``SPANS`` (any other raises ``ValueError``).  With neither
+    the torch profiler nor a ``recording()`` on it returns one shared
+    ``nullcontext``."""
+    if name not in _SPAN_NAMES:
+        raise ValueError(f"unknown span {name!r}; the program's spans are "
+                         f"profiling.SPANS")
+    if not _RECORDINGS and not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+@contextlib.contextmanager
+def recording():
+    """``with recording() as rec:``: every span closed inside, on any
+    thread, is appended to ``rec.spans`` (host clock, no profiler)."""
+    rec = Recording()
+    _RECORDINGS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDINGS.remove(rec)
 
 
 def bound(bytes_moved: float, flops: float,
