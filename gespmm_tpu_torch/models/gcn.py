@@ -1,7 +1,11 @@
 """GCN on the SpMM primitive — port of ``gespmm_tpu/models/gcn.py``.
 
 Each layer runs, in this order: ``x @ W``, ``* in_norm``, sum-SpMM,
-``* out_norm``, ``+ b``, then ReLU and dropout between layers.  Parameters
+``* out_norm``, ``+ b``, then dropout and ReLU between layers.  A layer that
+widens, whose input takes no gradient (``GCN.aggregate_input``; layer 0 in
+training), takes W's gradient from its input's aggregate, ``* in_norm``,
+sum-SpMM, ``* out_norm`` at the input's width, in place of a grad_B SpMM at
+W's output width; its forward rounds as the others'.  Parameters
 are named ``layer_{i}.w`` (shaped (in, out)) and ``layer_{i}.b``, so
 ``params_from_jax`` (``models/common.py``, re-exported here) carries the JAX
 package's parameters across unchanged.
@@ -20,6 +24,23 @@ from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 from gespmm_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
+
+
+class _WeightGradFrom(torch.autograd.Function):
+    """``z`` unchanged forward; backward, ``w``'s gradient ``agg.T @ g``.
+
+    ``z`` is ``agg @ w``, computed without autograd from ``w``: a layer's
+    aggregate of ``x @ w``, where ``agg`` is the aggregate of ``x``."""
+
+    @staticmethod
+    def forward(ctx, z: Tensor, agg: Tensor, w: Tensor) -> Tensor:
+        ctx.save_for_backward(agg)
+        return z.view_as(z)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        agg, = ctx.saved_tensors
+        return None, None, agg.t() @ g
 
 
 class GCN(nn.Module):
@@ -43,6 +64,11 @@ class GCN(nn.Module):
             self.add_module(f"layer_{i}", Dense(
                 dims[i], dims[i + 1], bias=bias, generator=generator,
                 device=device))
+        # Per layer: whether W's gradient comes from the aggregate of the
+        # layer's input, narrower than W's output, where that input takes
+        # no gradient.
+        self.aggregate_input = tuple(dims[i] < dims[i + 1]
+                                     for i in range(self.n_layers))
 
     @property
     def n_layers(self) -> int:
@@ -62,20 +88,35 @@ class GCN(nn.Module):
         h = x
         for i in range(self.n_layers):
             layer = getattr(self, f"layer_{i}")
-            # Dense transform first: it shrinks the width the SpMM gathers.
+            from_input = (self.aggregate_input[i] and not h.requires_grad
+                          and layer.w.requires_grad and torch.is_grad_enabled())
+            if from_input:
+                with span("model/norm"):
+                    agg = h * in_norm[:, None].to(h.dtype)
+                agg = spmm(adj, agg, reduce="sum", method=self.method)
+                with span("model/norm"):
+                    agg = agg * out_norm[:, None].to(agg.dtype)
+            # One name for the activations, so each is freed as soon as the
+            # next is made.
             with span("model/dense"):
-                h = h @ layer.w
+                h = h @ (layer.w.detach() if from_input else layer.w)
             with span("model/norm"):
                 h = h * in_norm[:, None].to(h.dtype)
             h = spmm(adj, h, reduce="sum", method=self.method)
             with span("model/norm"):
                 h = h * out_norm[:, None].to(h.dtype)
-                if layer.b is not None:
+            if from_input:
+                with span("model/dense"):
+                    h = _WeightGradFrom.apply(h, agg, layer.w)
+            if layer.b is not None:
+                with span("model/norm"):
                     h = h + layer.b
             if i < self.n_layers - 1:
+                # Dropout, then ReLU: the two commute, and the ReLU's saved
+                # output is then the tensor the next layer saves.
+                h = dropout(h, self.dropout_rate, self.training, generator)
                 with span("model/relu"):
                     h = torch.relu(h)
-                h = dropout(h, self.dropout_rate, self.training, generator)
         return h
 
     def log_probs(self, adj: Adjacency, x: Tensor, **kw) -> Tensor:

@@ -8,6 +8,12 @@ SAGEConv semantics (as in DGL and the JAX package):
 
   lstm:  h = x·W_self + lstm_agg(x)·W_neigh + b        (models/sage_lstm.py)
 
+``mean``, ``gcn`` and ``sum`` are linear, so a layer that narrows (in > out)
+runs its neighbour path as ``agg(x·W_neigh) + b``: the SpMM gathers out
+columns, not in (the bias after the aggregate, where an empty row's mean
+must still read b).  ``pool`` and ``lstm`` always aggregate first.
+``SAGEConv.aggregate_first`` says which.
+
 ``pool`` runs the max-SpMM kernel forward and backward.  ``lstm`` runs an
 LSTM cell (hidden size = in) over a padded neighbour table
 (``models/sage_lstm.py::build_neighbor_table``), given to ``GraphSAGE`` at
@@ -32,6 +38,8 @@ from gespmm_tpu_torch.utils.profiling import span
 Tensor = torch.Tensor
 
 AGGREGATORS = ("mean", "gcn", "pool", "sum", "lstm")
+# The aggregators that commute with the neighbour product.
+LINEAR = ("mean", "gcn", "sum")
 
 
 def _check_aggregator(aggregator: str) -> None:
@@ -59,6 +67,9 @@ class SAGEConv(nn.Module):
             self.pool = Dense(in_dim, in_dim, bias=True, **kw)
         if aggregator == "lstm":
             self.lstm = LSTM(in_dim, in_dim, **kw)
+        # A linear aggregator commutes with W_neigh: a layer that narrows
+        # transforms first, so the SpMM gathers the narrower width.
+        self.aggregate_first = aggregator not in LINEAR or in_dim <= out_dim
 
     def forward(self, adj: Adjacency, x: Tensor, method: str = "auto",
                 neighbor_table=None) -> Tensor:
@@ -70,16 +81,26 @@ class SAGEConv(nn.Module):
             agg = lstm_aggregate(self.lstm, x, *neighbor_table)
             with span("model/dense"):
                 return getattr(self, "self")(x) + self.neigh(agg)
-        h = x
-        if self.aggregator == "pool":
-            h = self.pool(x)
-            with span("model/relu"):
-                h = torch.relu(h)
-        agg = sage_aggregate(adj, h, aggregator=self.aggregator, method=method)
+        if self.aggregate_first:
+            h = x
+            if self.aggregator == "pool":
+                h = self.pool(x)
+                with span("model/relu"):
+                    h = torch.relu(h)
+            neigh = self.neigh(sage_aggregate(
+                adj, h, aggregator=self.aggregator, method=method))
+        else:
+            with span("model/dense"):
+                h = x @ self.neigh.w
+            neigh = sage_aggregate(adj, h, aggregator=self.aggregator,
+                                   method=method)
+            if self.neigh.b is not None:
+                with span("model/dense"):
+                    neigh = neigh + self.neigh.b
         if self.aggregator == "gcn":
-            return self.neigh(agg)
+            return neigh
         with span("model/dense"):
-            return getattr(self, "self")(x) + self.neigh(agg)
+            return getattr(self, "self")(x) + neigh
 
 
 class GraphSAGE(nn.Module):
@@ -88,9 +109,9 @@ class GraphSAGE(nn.Module):
     ``forward`` is the JAX package's ``apply``: it returns logits.  In
     training mode (``model.train()``) dropout runs before every layer, the
     input layer too, drawing from the ``generator`` passed to ``forward``;
-    ReLU runs between layers.  For ``aggregator="lstm"`` give a per-graph
-    ``neighbor_table`` (``models.sage_lstm.build_neighbor_table``) here or
-    per call.
+    ReLU runs between layers, after the next layer's dropout.  For
+    ``aggregator="lstm"`` give a per-graph ``neighbor_table``
+    (``models.sage_lstm.build_neighbor_table``) here or per call.
     """
 
     def __init__(self, dims: Sequence[int], aggregator: str = "mean",
@@ -121,10 +142,13 @@ class GraphSAGE(nn.Module):
         h = x
         for i in range(self.n_layers):
             h = dropout(h, self.dropout_rate, self.training, generator)
-            h = getattr(self, f"layer_{i}")(adj, h, self.method, table)
-            if i < self.n_layers - 1:
+            if i > 0:
+                # The previous layer's ReLU, after this dropout: the two
+                # commute, and the ReLU's saved output is then the tensor
+                # this layer saves.
                 with span("model/relu"):
                     h = torch.relu(h)
+            h = getattr(self, f"layer_{i}")(adj, h, self.method, table)
         return h
 
     def log_probs(self, adj: Adjacency, x: Tensor, **kw) -> Tensor:

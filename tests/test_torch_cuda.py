@@ -57,9 +57,11 @@ from gespmm_tpu_torch.kernels import spmm_csr as kspmm
 from gespmm_tpu_torch.kernels import spmm_grouped as kgrp
 from gespmm_tpu_torch.kernels import spmm_minmax as kmm
 from gespmm_tpu_torch.kernels import spmm_pallas as kpal
+from gespmm_tpu_torch.models import gcn as gcn_module
 from gespmm_tpu_torch.models.gat import GAT
 from gespmm_tpu_torch.models.gcn import GCN
 from gespmm_tpu_torch.models.sage import GraphSAGE
+from gespmm_tpu_torch.ops import graph as graph_module
 from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.ops.graph import (add_self_loops,
                                         additive_attention_logits,
@@ -82,6 +84,7 @@ from gespmm_tpu_torch.train.loop import train_node_classifier
 from gespmm_tpu_torch.utils import timing
 from gespmm_tpu_torch.utils.datasets import (rmat_graph, sbm_graph,
                                              split_boundary_graph)
+from torch_helpers import spmm_widths
 
 pytestmark = pytest.mark.cuda
 
@@ -397,6 +400,44 @@ def test_gcn_training_goes_through_the_kernel(dev):
     model.method = "xla"
     train_node_classifier(model, adj, ds.features, ds.labels, ds.masks, epochs=3)
     assert kspmm.launches == 0
+
+
+@pytest.mark.parametrize("kind", ["gcn", "sage-mean"])
+def test_training_runs_each_spmm_at_the_narrower_width(dev, kind,
+                                                       monkeypatch):
+    """GCN [16, 64, 3]: layer 0 widens and x takes no gradient, so a
+    training forward gathers x's aggregate 16 (for W's gradient), 64 and 3
+    columns, and the backward one grad_B at 3, where a grad_B at 64 would
+    run: 4 calls an epoch.  SAGE-mean [64, 64, 3] transforms layer 1 first:
+    its forward gathers 64 and 3 columns, where aggregating first gathers
+    64 twice, and one grad_B at 3: 3 calls an epoch.  The closing
+    evaluation (no gradient) runs 2 in both."""
+    feat = 16 if kind == "gcn" else 64
+    ds = sbm_graph(n_per_class=300, num_classes=3, p_in=0.02, p_out=0.001,
+                   feat_dim=feat, seed=0).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if kind == "gcn":
+        adj = Adjacency.from_csr(add_self_loops(ds.csr))
+        model = GCN([16, 64, 3], generator=gen, device=dev).with_norms(adj)
+        assert model.aggregate_input == (True, False)
+        widths = spmm_widths(monkeypatch, gcn_module)
+        epoch, calls = [16, 64, 3], 4
+    else:
+        adj = Adjacency.from_csr(ds.csr)
+        model = GraphSAGE([64, 64, 3], aggregator="mean", generator=gen,
+                          device=dev)
+        assert [model.layer_0.aggregate_first,
+                model.layer_1.aggregate_first] == [True, False]
+        widths = spmm_widths(monkeypatch, graph_module)
+        epoch, calls = [64, 3], 3
+    kspmm.reset_launches()
+    res = train_node_classifier(model, adj, ds.features, ds.labels, ds.masks,
+                                epochs=20)
+    assert kspmm.launches == calls * 20 + 2
+    assert widths == epoch * 20 + [64, 3]
+    loss = res["history"]["loss"]
+    assert loss[-1] < loss[0] and np.all(np.isfinite(loss))
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
 
 
 @pytest.mark.parametrize("view", ["column slice", "transposed"])

@@ -8,11 +8,18 @@ through ``params_from_jax`` and dropout is off.  Tolerances, as in
 five AdamW steps: losses rtol 1e-5, parameters atol 1e-4.  ``pool`` runs
 the max-SpMM forward and backward (the kernels' plain versions here).
 
-The five steps are held to the JAX package's step run in float64.  Its f32
+The forward and the five steps are held to the JAX package run in float64,
+the forward also to its float32 run but for ``sum``.  The JAX package's f32
 step is itself 1.2e-5 (sum) and 7e-6 (pool) away from that float64 run on
 this problem: optax rounds its f32 bias correction (the first update is
 0.00999993 for lr 0.01), and gradients near 18 carry that into the loss.
-The port's f32 step stays within 3e-7 of it.
+The port's f32 step stays within 3e-7 of it.  At these narrowing widths the
+port's mean, gcn and sum layers transform before they aggregate, the JAX
+package after: two f32 roundings of one function, each within the
+tolerance of the float64 forward, but not always of each other (sum's
+logits near 16 cancel to 0.3 in one entry, 2 ulps of the terms apart:
+1.37e-5 relative).  At widening dims [16, 32, 3] the port's last layer
+transforms first where the JAX package's aggregates first.
 """
 
 import json
@@ -34,7 +41,7 @@ from gespmm_tpu.train import loop as jloop
 from gespmm_tpu.utils import datasets as jds
 
 from gespmm_tpu_torch.bench import sage_bench
-from gespmm_tpu_torch.models.common import params_from_jax
+from gespmm_tpu_torch.models.common import dropout, params_from_jax
 from gespmm_tpu_torch.models.gcn import params_from_jax as gcn_params_from_jax
 from gespmm_tpu_torch.models.sage import GraphSAGE as TSAGE
 from gespmm_tpu_torch.models.sage import SAGEConv
@@ -42,6 +49,8 @@ from gespmm_tpu_torch.ops import graph as tgraph
 from gespmm_tpu_torch.ops.spmm import Adjacency as TAdjacency
 from gespmm_tpu_torch.train import loop as tloop
 from gespmm_tpu_torch.utils import datasets as tds
+from torch_helpers import (WIDTHS, empty_rows_graph, saved_activations,
+                           spmm_widths, step_spmm_counts)
 
 DIMS = [16, 8, 3]
 SBM = dict(n_per_class=50, num_classes=3, p_in=0.08, p_out=0.01, feat_dim=16,
@@ -65,21 +74,187 @@ def torch_model(params, aggregator, method="auto"):
     return model
 
 
+def jax_forward(jmodel, params, jadj, features, x64):
+    """The JAX model's logits and log-probabilities, in float64 if ``x64``."""
+    with jax.enable_x64(x64):
+        if x64:
+            params = jax.tree_util.tree_map(
+                lambda a: jnp.asarray(a, jnp.float64), params)
+            features = jnp.asarray(features, jnp.float64)
+        return (np.asarray(jmodel.apply(params, jadj, features)),
+                np.asarray(jmodel.log_probs(params, jadj, features)))
+
+
 @pytest.mark.parametrize("method", ["auto", "xla"])
 @pytest.mark.parametrize("aggregator", AGGREGATORS)
 def test_sage_forward_matches_jax(problem, aggregator, method):
+    """Held to the JAX forward in float64, and in float32 but for ``sum``
+    (the module docstring says why)."""
     jd, td, jadj, tadj = problem
     params = jax_params(aggregator)
     jmodel = JSAGE(DIMS, aggregator=aggregator, dropout_rate=0.0)
     model = torch_model(params, aggregator, method).eval()
-    np.testing.assert_allclose(
-        model(tadj, td.features).detach().numpy(),
-        np.asarray(jmodel.apply(params, jadj, jd.features)), rtol=1e-5,
-        atol=1e-6)
-    np.testing.assert_allclose(
-        model.log_probs(tadj, td.features).detach().numpy(),
-        np.asarray(jmodel.log_probs(params, jadj, jd.features)), rtol=1e-5,
-        atol=1e-6)
+    out = model(tadj, td.features).detach().numpy()
+    lp = model.log_probs(tadj, td.features).detach().numpy()
+    for x64 in (True, False) if aggregator != "sum" else (True,):
+        ref, ref_lp = jax_forward(jmodel, params, jadj, jd.features, x64)
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(lp, ref_lp, rtol=1e-5, atol=1e-6)
+
+
+WIDE = [16, 32, 3]
+
+
+@pytest.mark.parametrize("aggregator", ["mean", "sum", "gcn"])
+def test_widening_sage_matches_jax_in_float64(problem, aggregator):
+    """[16, 32, 3]: layer 0 widens and aggregates first, as in the JAX
+    package; layer 1 narrows, so the port transforms it first and the JAX
+    package does not.  The forward and five AdamW steps are held to the
+    JAX package run in float64, at the tolerances above."""
+    jd, td, jadj, tadj = problem
+    params = JSAGE(WIDE, aggregator=aggregator).init(jax.random.PRNGKey(0))
+    jmodel = JSAGE(WIDE, aggregator=aggregator, dropout_rate=0.0)
+    ref, _ = jax_forward(jmodel, params, jadj, jd.features, True)
+    opt = optax.adamw(1e-2, weight_decay=5e-4)
+    with jax.enable_x64(True):
+        p64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                     params)
+        x64 = jnp.asarray(jd.features, jnp.float64)
+        state = jloop.TrainState(p64, opt.init(p64), jnp.zeros((), jnp.int32))
+        jstep = jloop.make_train_step(jmodel, opt)
+        jlosses = []
+        for _ in range(5):
+            state, loss = jstep(state, jadj, x64, jd.labels, jd.masks["train"],
+                                jax.random.PRNGKey(1))
+            jlosses.append(float(loss))
+        final = jax.device_get(state.params)
+
+    model = TSAGE(WIDE, aggregator=aggregator, dropout_rate=0.0)
+    model.load_state_dict(params_from_jax(params))
+    assert [model.layer_0.aggregate_first,
+            model.layer_1.aggregate_first] == [True, False]
+    np.testing.assert_allclose(model.eval()(tadj, td.features).detach().numpy(),
+                               ref, rtol=1e-5, atol=1e-6)
+    tstep = tloop.make_train_step(
+        model.train(),
+        torch.optim.AdamW(model.parameters(), lr=1e-2, weight_decay=5e-4),
+        tadj, td.features, td.labels, td.masks["train"])
+    tlosses = [tstep().item() for _ in range(5)]
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-5)
+    sd = model.state_dict()
+    for k, v in params_from_jax(final).items():
+        np.testing.assert_allclose(sd[k].numpy(), v.numpy(), rtol=0, atol=1e-4)
+
+
+def aggregation_matrix(aggregator, adj, dense):
+    """The float64 matrix of a linear aggregator: mean's rows over their
+    degree (an empty row stays 0), the symmetric norm, or the plain sum."""
+    if aggregator == "mean":
+        return dense / dense.sum(1, keepdim=True).clamp(min=1.0)
+    if aggregator == "gcn":
+        out_norm, in_norm = (t.double() for t in tgraph.degree_norm(adj))
+        return out_norm[:, None] * dense * in_norm[None, :]
+    return dense
+
+
+@pytest.mark.parametrize("widths", WIDTHS.values(), ids=list(WIDTHS))
+@pytest.mark.parametrize("aggregator", ["mean", "sum", "gcn"])
+def test_sage_layer_aggregates_at_the_narrower_width(aggregator, widths):
+    """A linear aggregator's layer aggregates first unless it narrows; its
+    output and every gradient agree with the other order in float64.  The
+    bias is nonzero and rows have no edge: agg(x W + b) would read 0 (mean)
+    or deg * b (sum) there, where the layer reads b."""
+    d_in, d_out = widths
+    csr, dense = empty_rows_graph()
+    adj = TAdjacency.from_csr(csr)
+    layer = SAGEConv(d_in, d_out, aggregator,
+                     generator=torch.Generator().manual_seed(2))
+    assert layer.aggregate_first == (d_in <= d_out)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        layer.neigh.b.copy_(torch.randn(d_out, generator=gen))
+    x = torch.randn(40, d_in, generator=gen, requires_grad=True)
+    g = torch.randn(40, d_out, generator=gen)
+    layer(adj, x).backward(g)
+
+    m = aggregation_matrix(aggregator, adj, dense)
+    x64 = x.detach().double().requires_grad_()
+    leaves = {k: v.detach().double().requires_grad_()
+              for k, v in layer.named_parameters()}
+    w, b = leaves["neigh.w"], leaves["neigh.b"]
+    want = m @ (x64 @ w) if layer.aggregate_first else (m @ x64) @ w
+    want = want + b
+    if aggregator != "gcn":
+        want = want + x64 @ leaves["self.w"]
+    want.backward(g.double())
+    np.testing.assert_allclose(layer(adj, x).detach().numpy(),
+                               want.detach().numpy(), rtol=1e-5, atol=1e-6)
+    grads = {"x": x.grad, **{k: p.grad for k, p in layer.named_parameters()}}
+    refs = {"x": x64.grad, **{k: v.grad for k, v in leaves.items()}}
+    assert set(grads) == set(refs) and len(grads) == (3 if aggregator == "gcn"
+                                                      else 4)
+    for k, got in grads.items():
+        np.testing.assert_allclose(got.numpy(), refs[k].numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("aggregator", ["pool", "lstm"])
+def test_pool_and_lstm_aggregate_first_at_every_width(problem, aggregator,
+                                                      monkeypatch):
+    """A max or an LSTM does not commute with W: both orders stay the
+    first, and pool's max-SpMM gathers the layer's input width."""
+    for d_in, d_out in WIDTHS.values():
+        assert SAGEConv(d_in, d_out, aggregator).aggregate_first
+    if aggregator == "pool":
+        _, td, _, tadj = problem
+        widths = spmm_widths(monkeypatch, tgraph)
+        SAGEConv(16, 8, "pool")(tadj, td.features)
+        assert widths == [16]
+
+
+def small_sage_mean():
+    """GraphSAGE-mean [10, 24, 24, 5] with dropout on a 5 x 20-node SBM
+    graph."""
+    ds = tds.sbm_graph(n_per_class=20, num_classes=5, p_in=0.2, p_out=0.02,
+                       feat_dim=10, seed=0)
+    model = TSAGE([10, 24, 24, 5], aggregator="mean", dropout_rate=0.5,
+                  generator=torch.Generator().manual_seed(0))
+    return model, TAdjacency.from_csr(ds.csr), ds
+
+
+def test_sage_mean_step_aggregates_its_last_layer_at_its_output_width(
+        monkeypatch):
+    """[10, 24, 24, 5], mean: the SpMMs gather 10, 24 and 5 columns (the
+    last layer narrows, so it transforms first); layer 0's input takes no
+    gradient, so the backward runs two grad_B SpMMs."""
+    model, adj, ds = small_sage_mean()
+    assert [model.get_submodule(f"layer_{i}").aggregate_first
+            for i in range(3)] == [True, True, False]
+    step = tloop.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=1e-2), adj,
+        torch.as_tensor(ds.features), torch.as_tensor(ds.labels),
+        torch.as_tensor(ds.masks["train"]),
+        generator=torch.Generator().manual_seed(1))
+    assert step_spmm_counts(monkeypatch, tgraph, step) == ([10, 24, 5], 3, 2)
+
+
+def test_sage_relu_after_dropout_saves_each_layer_input_once():
+    """[10, 24, 24, 5], mean, training: layer 1 saves its input and its
+    mean, layer 2 its input (it transforms first, so no mean of 24
+    columns); the ReLU's output is the input saved, not a fourth tensor.
+    The numbers are those of ReLU then dropout, bit for bit."""
+    model, adj, ds = small_sage_mean()
+    x = torch.as_tensor(ds.features)
+    assert saved_activations(model, adj, x, 24) == 3
+    gen = torch.Generator().manual_seed(1)
+    h = x
+    for i in range(3):
+        h = dropout(h, 0.5, True, gen)
+        h = getattr(model, f"layer_{i}")(adj, h)
+        if i < 2:
+            h = torch.relu(h)
+    got = model.train()(adj, x, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(got, h)
 
 
 @pytest.mark.parametrize("aggregator", AGGREGATORS)
