@@ -27,7 +27,9 @@ there is no fallback.  ``launches``, ``bwd_rows_launches`` and
 ``bwd_cols_launches`` count the launches of each kernel;
 ``carry_launches``, ``bwd_rows_carry_launches`` and
 ``bwd_cols_carry_launches`` their carry passes (the CSC backward's two
-carries, grad_B and grad_dst, count two).
+carries, grad_B and grad_dst, count two).  The op runs under the span
+``op/gat`` and its backward, both walks, under ``op/gat.grad``
+(``utils/profiling.py``).
 
 ``dot_attention_aggregate`` (dot-product attention) is the same for
 
@@ -59,6 +61,7 @@ from gespmm_tpu_torch.ops import reference
 from gespmm_tpu_torch.ops.spmm import Adjacency
 from gespmm_tpu_torch.sparse.formats import CSR, expand_indptr
 from gespmm_tpu_torch.sparse.partition import RowSplit, build_row_split
+from gespmm_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -393,39 +396,40 @@ class _GatFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: Tensor):
-        adj, slope, heads = ctx.adj, ctx.slope, ctx.heads
-        src2, dst2, B, out, mx, den = ctx.saved_tensors
-        g = g.contiguous()
-        s_row = reference.gat_row_dot(g, out, heads)
-        want_src = ctx.needs_input_grad[5]
-        want_cols = ctx.needs_input_grad[6] or ctx.needs_input_grad[7]
-        kw = dict(slope=slope, heads=heads)
-        grad_src = grad_dst = grad_B = None
-        if ctx.plain:
-            m = adj.shape[0]
-            if want_src:
-                grad_src = reference.gat_fused_vjp_rows(
-                    adj.rows, adj.csr.indices, src2, dst2, B, g, mx, den,
-                    s_row, m, slope, heads)
-            if want_cols:
-                grad_dst, grad_B = reference.gat_fused_vjp_cols(
-                    adj.rows, adj.csr.indices, src2, dst2, B, g, mx, den,
-                    s_row, slope, heads)
-        else:
-            if want_src:
-                grad_src = gat_backward_rows(
-                    adj.csr.indptr, adj.csr.indices, src2, dst2, B, g, mx,
-                    den, s_row, rows=adj.rows, split=adj.split, **kw)
-            if want_cols:
-                grad_dst, grad_B = gat_backward_cols(
-                    adj.csc.indptr, adj.csc.indices, src2, dst2, B, g, mx,
-                    den, s_row, cols=adj.rows_t, split=adj.split_t, **kw)
-        if grad_src is not None:
-            grad_src = grad_src.to(src2.dtype)
-        if grad_dst is not None:
-            grad_dst = grad_dst.to(dst2.dtype)
-            grad_B = grad_B.to(B.dtype)
-        return None, None, None, None, None, grad_src, grad_dst, grad_B
+        with span("op/gat.grad"):
+            adj, slope, heads = ctx.adj, ctx.slope, ctx.heads
+            src2, dst2, B, out, mx, den = ctx.saved_tensors
+            g = g.contiguous()
+            s_row = reference.gat_row_dot(g, out, heads)
+            want_src = ctx.needs_input_grad[5]
+            want_cols = ctx.needs_input_grad[6] or ctx.needs_input_grad[7]
+            kw = dict(slope=slope, heads=heads)
+            grad_src = grad_dst = grad_B = None
+            if ctx.plain:
+                m = adj.shape[0]
+                if want_src:
+                    grad_src = reference.gat_fused_vjp_rows(
+                        adj.rows, adj.csr.indices, src2, dst2, B, g, mx, den,
+                        s_row, m, slope, heads)
+                if want_cols:
+                    grad_dst, grad_B = reference.gat_fused_vjp_cols(
+                        adj.rows, adj.csr.indices, src2, dst2, B, g, mx, den,
+                        s_row, slope, heads)
+            else:
+                if want_src:
+                    grad_src = gat_backward_rows(
+                        adj.csr.indptr, adj.csr.indices, src2, dst2, B, g, mx,
+                        den, s_row, rows=adj.rows, split=adj.split, **kw)
+                if want_cols:
+                    grad_dst, grad_B = gat_backward_cols(
+                        adj.csc.indptr, adj.csc.indices, src2, dst2, B, g, mx,
+                        den, s_row, cols=adj.rows_t, split=adj.split_t, **kw)
+            if grad_src is not None:
+                grad_src = grad_src.to(src2.dtype)
+            if grad_dst is not None:
+                grad_dst = grad_dst.to(dst2.dtype)
+                grad_B = grad_B.to(B.dtype)
+            return None, None, None, None, None, grad_src, grad_dst, grad_B
 
 
 def gat_attention_aggregate(adj: Union[Adjacency, CSR], src_score: Tensor,
@@ -453,25 +457,27 @@ def gat_attention_aggregate(adj: Union[Adjacency, CSR], src_score: Tensor,
     port's counterpart of the Pallas interpreter; otherwise a CUDA tensor
     runs the kernels and a CPU tensor their plain versions.
     """
-    if isinstance(adj, CSR):
-        adj = Adjacency.from_csr(adj)
-    m, n = adj.shape
-    src2 = src_score[:, None] if src_score.dim() == 1 else src_score
-    dst2 = dst_score[:, None] if dst_score.dim() == 1 else dst_score
-    H = int(heads)
-    if tuple(src2.shape) != (m, H) or tuple(dst2.shape) != (n, H):
-        raise ValueError(
-            f"score shapes {tuple(src_score.shape)}/{tuple(dst_score.shape)} "
-            f"must be ({m}, {H})/({n}, {H}) for heads={H} (1-D accepted when "
-            f"heads=1; single head means heads=1)")
-    if B.dim() != 2 or B.shape[0] != n or B.shape[1] % H:
-        raise ValueError(f"B must be ({n}, {H}*dh), got {tuple(B.shape)}")
-    if max_mode not in MAX_MODES:
-        raise ValueError(f"max_mode must be exact|bound, got {max_mode!r}")
-    if mode not in MODES:
-        raise ValueError(f"mode must be trilo|hilo|fast, got {mode!r}")
-    return _GatFused.apply(adj, float(negative_slope), max_mode, H,
-                           bool(interpret), src2, dst2, B)
+    with span("op/gat"):
+        if isinstance(adj, CSR):
+            adj = Adjacency.from_csr(adj)
+        m, n = adj.shape
+        src2 = src_score[:, None] if src_score.dim() == 1 else src_score
+        dst2 = dst_score[:, None] if dst_score.dim() == 1 else dst_score
+        H = int(heads)
+        if tuple(src2.shape) != (m, H) or tuple(dst2.shape) != (n, H):
+            raise ValueError(
+                f"score shapes {tuple(src_score.shape)}/"
+                f"{tuple(dst_score.shape)} must be ({m}, {H})/({n}, {H}) for "
+                f"heads={H} (1-D accepted when heads=1; single head means "
+                f"heads=1)")
+        if B.dim() != 2 or B.shape[0] != n or B.shape[1] % H:
+            raise ValueError(f"B must be ({n}, {H}*dh), got {tuple(B.shape)}")
+        if max_mode not in MAX_MODES:
+            raise ValueError(f"max_mode must be exact|bound, got {max_mode!r}")
+        if mode not in MODES:
+            raise ValueError(f"mode must be trilo|hilo|fast, got {mode!r}")
+        return _GatFused.apply(adj, float(negative_slope), max_mode, H,
+                               bool(interpret), src2, dst2, B)
 
 
 # --- dot-product attention (kernel row 6) ---------------------------------

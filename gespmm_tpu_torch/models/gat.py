@@ -22,6 +22,12 @@ layers concatenate their heads and the output layer averages them and adds
 ``b[:dh]``.  A single-head layer keeps 1-D ``a_src``/``a_dst``.  Parameters
 are named ``layer_{i}.{w,a_src,a_dst,b}`` after the JAX pytree, so
 ``params_from_jax`` carries them across.
+
+``GAT(..., skip=True)`` adds PyG's ogbn-products skip connections: a
+``Dense`` ``skip_{i}`` (with bias) a layer, from the layer's input to its
+output width (H·dh in hidden layers, dh in the mean-merged output layer),
+added to the attention layer's output before the ELU.  The JAX package has
+no skip, so it is off by default.
 """
 
 from __future__ import annotations
@@ -32,10 +38,11 @@ import torch
 from torch import nn
 
 from gespmm_tpu_torch.kernels.gat_fused import gat_attention_aggregate
-from gespmm_tpu_torch.models.common import dropout, glorot
+from gespmm_tpu_torch.models.common import Dense, dropout, glorot
 from gespmm_tpu_torch.ops.graph import additive_attention_logits, edge_softmax
 # Every method of spmm takes reduce="sum", so the layer takes each of them.
 from gespmm_tpu_torch.ops.spmm import METHODS, Adjacency, spmm
+from gespmm_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -64,16 +71,18 @@ class GATConv(nn.Module):
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; expected one of "
                              f"{METHODS}")
-        h = x @ self.w  # (n, H·dh)
+        with span("model/dense"):
+            h = x @ self.w  # (n, H·dh)
         n = h.shape[0]
         H = self.heads
         dh = h.shape[1] // H
-        if H == 1:
-            src, dst = h @ self.a_src, h @ self.a_dst  # (n,)
-        else:
-            hv = h.view(n, H, dh)
-            src = torch.einsum("nhd,hd->nh", hv, self.a_src)
-            dst = torch.einsum("nhd,hd->nh", hv, self.a_dst)
+        with span("model/attn_scores"):
+            if H == 1:
+                src, dst = h @ self.a_src, h @ self.a_dst  # (n,)
+            else:
+                hv = h.view(n, H, dh)
+                src = torch.einsum("nhd,hd->nh", hv, self.a_src)
+                dst = torch.einsum("nhd,hd->nh", hv, self.a_dst)
         if method in FUSED:
             out = gat_attention_aggregate(adj, src, dst, h,
                                           negative_slope=negative_slope,
@@ -114,12 +123,14 @@ class GAT(nn.Module):
     ``forward`` is the JAX package's ``apply``: it returns logits.  In
     training mode (``model.train()``) dropout runs before every layer, the
     input layer too, drawing from the ``generator`` passed to ``forward``;
-    ELU runs between layers.
+    ELU runs between layers.  ``skip`` adds a ``Dense`` ``skip_{i}`` a
+    layer, on the layer's (dropped) input, to its output before the ELU;
+    the skips draw their weights after every layer's.
     """
 
     def __init__(self, dims: Sequence[int], dropout_rate: float = 0.5,
                  negative_slope: float = 0.2, method: str = "auto",
-                 heads: int = 1, *,
+                 heads: int = 1, skip: bool = False, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.dims = list(dims)
@@ -127,11 +138,19 @@ class GAT(nn.Module):
         self.negative_slope = negative_slope
         self.method = method
         self.heads = heads
-        for i in range(self.n_layers):
-            in_dim = self.dims[i] * (heads if i > 0 else 1)
+        self.skip = skip
+        in_dims = [self.dims[i] * (heads if i > 0 else 1)
+                   for i in range(self.n_layers)]
+        for i, in_dim in enumerate(in_dims):
             self.add_module(f"layer_{i}", GATConv(
                 in_dim, self.dims[i + 1], heads, generator=generator,
                 device=device))
+        if skip:
+            for i, in_dim in enumerate(in_dims):
+                last = i == self.n_layers - 1
+                self.add_module(f"skip_{i}", Dense(
+                    in_dim, self.dims[i + 1] * (1 if last else heads),
+                    generator=generator, device=device))
 
     @property
     def n_layers(self) -> int:
@@ -142,13 +161,20 @@ class GAT(nn.Module):
         h = x
         for i in range(self.n_layers):
             last = i == self.n_layers - 1
-            h = dropout(h, self.dropout_rate, self.training, generator)
+            # The skip takes the layer's own (dropped) input.
+            h_in = dropout(h, self.dropout_rate, self.training, generator)
             h = getattr(self, f"layer_{i}")(
-                adj, h, negative_slope=self.negative_slope, method=self.method,
-                merge="mean" if last else "concat")
+                adj, h_in, negative_slope=self.negative_slope,
+                method=self.method, merge="mean" if last else "concat")
+            if self.skip:
+                h = h + getattr(self, f"skip_{i}")(h_in)
+            del h_in
             if not last:
-                h = torch.nn.functional.elu(h)
+                with span("model/elu"):
+                    h = torch.nn.functional.elu(h)
         return h
 
     def log_probs(self, adj: Adjacency, x: Tensor, **kw) -> Tensor:
-        return torch.log_softmax(self(adj, x, **kw), dim=-1)
+        logits = self(adj, x, **kw)
+        with span("model/log_softmax"):
+            return torch.log_softmax(logits, dim=-1)

@@ -7,15 +7,15 @@ trace into ``log_dir``.
 
 ``span(name)`` marks a piece of the program's own work, one of ``SPANS``,
 named ``<layer>/<what>``: the train step and its phases, the model's dense
-and elementwise work, the SpMM op forward and backward, the phases of
-``Adjacency.from_csr`` and the kernel libraries' build and load.  Under
-the torch profiler a span is a ``record_function`` range in the same trace
-as the kernels, on the same clock; inside ``recording()`` it also appends
-``(name, start_ns, end_ns, thread id)`` from ``time.perf_counter_ns`` to
-the recording; with both off it is one shared ``nullcontext``.  No name
-holds "spmm" unless SpMM work runs under it, and none holds "backward":
-a reader that takes a range named ``*spmm*backward*`` for SpMM work stays
-right.
+and elementwise work, the SpMM op and the fused GAT op forward and
+backward, the phases of ``Adjacency.from_csr`` and the kernel libraries'
+build and load.  Under the torch profiler a span is a ``record_function``
+range in the same trace as the kernels, on the same clock; inside
+``recording()`` it also appends ``(name, start_ns, end_ns, thread id)``
+from ``time.perf_counter_ns`` to the recording; with both off it is one
+shared ``nullcontext``.  No name holds "spmm" unless SpMM work runs under
+it, and none holds "backward": a reader that takes a range named
+``*spmm*backward*`` for SpMM work stays right.
 
 The least time a card could take for a piece of work is the larger of its
 bytes over the memory rate and its operations over the peak rate for their
@@ -63,13 +63,13 @@ def trace(log_dir: str):
 
 
 # Every span the program opens, by layer: the train step, the model, the
-# SpMM op, graph prep, the kernel libraries.
+# SpMM op, the fused GAT op, graph prep, the kernel libraries.
 SPANS = (
     "step", "step/zero_grad", "step/forward", "step/loss", "step/bwd",
     "step/optimizer",
     "model/dense", "model/norm", "model/relu", "model/dropout",
-    "model/log_softmax",
-    "op/spmm", "op/spmm.grad",
+    "model/log_softmax", "model/attn_scores", "model/elu",
+    "op/spmm", "op/spmm.grad", "op/gat", "op/gat.grad",
     "graph_prep", "graph_prep/d2h", "graph_prep/rows", "graph_prep/csc",
     "graph_prep/inv_perm", "graph_prep/plans", "graph_prep/split",
     "graph_prep/h2d", "graph_prep/degree_norm",

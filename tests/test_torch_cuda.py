@@ -1097,6 +1097,25 @@ def test_gat_fused_kernels_split_at_each_boundary(dev, H, dh, max_mode, dtype):
                                               carries[2] + 2)
 
 
+@pytest.mark.parametrize("H,dh", [(4, 128), (4, 47)])
+def test_gat_fused_kernels_at_the_products_gat_heads(dev, H, dh):
+    # PyG's ogbn-products GAT: hidden layers of 4 heads of 128 (K = 512,
+    # four K slabs of 128 columns on 16-byte lanes), the mean-merged output
+    # layer of 4 heads of 47 (1-column lanes, heads across slabs); rows and
+    # columns above L walked in segments, so every carry runs.
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    assert kgat.walk_shape(H * dh, H, randn((1, H * dh), dev, 0)) == \
+        ((4, 32) if dh == 128 else (1, 32))
+    carries = (kgat.carry_launches, kgat.bwd_rows_carry_launches,
+               kgat.bwd_cols_carry_launches)
+    for name, (err, bound) in gat_kernels_vs_float64(adj, H, dh, "exact",
+                                                     torch.float32).items():
+        assert err <= bound, (name, err, bound)
+    assert (kgat.carry_launches, kgat.bwd_rows_carry_launches,
+            kgat.bwd_cols_carry_launches) == (carries[0] + 1, carries[1] + 1,
+                                              carries[2] + 2)
+
+
 # (heads, head width, VEC, SW): walk_shape lands on each of the twelve
 # (VEC, SW) instantiations from (H, dh) alone, with heads straddling lanes
 # and K slabs of 32·VEC columns (one head across slabs at dh 65, 130, 132).

@@ -21,6 +21,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from gespmm_tpu_torch.kernels import _build
+from gespmm_tpu_torch.models.gat import GAT
 from gespmm_tpu_torch.models.gcn import GCN
 from gespmm_tpu_torch.models.sage import GraphSAGE
 from gespmm_tpu_torch.ops.spmm import Adjacency
@@ -41,6 +42,9 @@ STEP_SPANS = {
     "sage": {"step", *STEP_CHILDREN, "model/dense", "model/relu",
              "model/dropout", "model/log_softmax", "op/spmm",
              "op/spmm.grad"},
+    "gat": {"step", *STEP_CHILDREN, "model/dense", "model/attn_scores",
+            "model/elu", "model/dropout", "model/log_softmax", "op/gat",
+            "op/gat.grad"},
 }
 GRAPH_PREP = [n for n in tprof.SPANS
               if n.startswith("graph_prep/") and n != "graph_prep/degree_norm"]
@@ -113,6 +117,9 @@ def _problem(kind):
     if kind == "gcn":
         model = GCN([8, 16, 3], dropout_rate=0.5, generator=gen).with_norms(
             adj)
+    elif kind == "gat":
+        model = GAT([8, 4, 3], dropout_rate=0.5, heads=2, skip=True,
+                    generator=gen)
     else:
         model = GraphSAGE([8, 16, 3], aggregator="mean", dropout_rate=0.5,
                           generator=gen)
@@ -124,7 +131,7 @@ def _problem(kind):
     return step, model
 
 
-@pytest.mark.parametrize("kind", ["gcn", "sage"])
+@pytest.mark.parametrize("kind", ["gcn", "sage", "gat"])
 def test_a_step_shows_every_span_under_the_profiler(kind):
     step, _ = _problem(kind)
     step()
@@ -137,7 +144,7 @@ def test_a_step_shows_every_span_under_the_profiler(kind):
     assert isinstance(tprof.span("step"), contextlib.nullcontext)
 
 
-@pytest.mark.parametrize("kind", ["gcn", "sage"])
+@pytest.mark.parametrize("kind", ["gcn", "sage", "gat"])
 def test_step_holds_its_five_children_in_order(kind):
     step, _ = _problem(kind)
     with tprof.recording() as rec:
@@ -262,7 +269,7 @@ def test_kernel_build_span_around_the_compiler(tmp_path, ok):
     assert lib.exists() == ok
 
 
-@pytest.mark.parametrize("kind", ["gcn", "sage"])
+@pytest.mark.parametrize("kind", ["gcn", "sage", "gat"])
 def test_step_frees_log_probs_during_the_backward(kind):
     """The spanned step holds no name on the log-probabilities through the
     backward: they are freed once their node has run, before the first
@@ -280,7 +287,8 @@ def test_step_frees_log_probs_during_the_backward(kind):
         return out
 
     model.log_probs = log_probs
-    weight = model.layer_0.w if kind == "gcn" else model.layer_0.neigh.w
+    weight = (model.layer_0.neigh.w if kind == "sage"
+              else model.layer_0.w)
     weight.register_hook(lambda g: alive.append(refs[-1]() is not None))
     step()
     assert alive == [False]
