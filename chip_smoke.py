@@ -323,9 +323,13 @@ MINMAX_BOUNDARY_KS = (1, 3, 16, 32, 33, 64, 128, 130)
 # (K=3) of the slice, and DGL's 8-head shape at both layers.
 GAT_SBM_SHAPES = ((1, 64), (1, 3), (8, 8), (8, 3))
 GAT_RMAT_SHAPES = ((1, 64), (8, 3))
-# ... on the split-boundary graph: both walker kinds, and a head of 65
-# columns over 64-column slabs.
-GAT_BOUNDARY_SHAPES = ((1, 64), (1, 3), (8, 3), (2, 65))
+# ... on the split-boundary graph: both walker kinds, a head of 65 columns
+# over 32-column slabs, and the products GAT's heads, whose walkers hold all
+# K slabs at once (K=512: 4 of 128 columns; K=188: 6 of 32).
+GAT_BOUNDARY_SHAPES = ((1, 64), (1, 3), (8, 3), (2, 65), (4, 128), (4, 47))
+# Walks of the edges a launch: one, but at (2, 65), whose five slabs no
+# multi-slab walker divides.
+GAT_WALKS = {(2, 65): 5}
 # (graph, heads, head width) of row 5's timings: layer 0 and 1 of the
 # slice, DGL's 8-head layers, and both heads on the hub-heavy graph.
 GAT_TIMED = (("sbm", 1, 64), ("sbm", 1, 3), ("sbm", 8, 8), ("sbm", 8, 3),
@@ -630,6 +634,7 @@ def main(argv=None):
                 "gat_fwd_carry": kgat.carry_launches,
                 "gat_bwd_rows_carry": kgat.bwd_rows_carry_launches,
                 "gat_bwd_cols_carry": kgat.bwd_cols_carry_launches,
+                "gat_edge_walks": kgat.edge_walks,
                 "dot_fwd": kgat.dot_launches,
                 "dot_bwd_rows": kgat.dot_bwd_rows_launches,
                 "dot_bwd_cols": kgat.dot_bwd_cols_launches,
@@ -1090,21 +1095,27 @@ def main(argv=None):
                                               max_mode, dtype, gen)
         after = counts()
         carries = tuple(after[k] - before[k] for k in carry_names)
+        walks = after["gat_edge_walks"] - before["gat_edge_walks"]
         gat_carries.setdefault(graph, set()).add(carries)
         bad = [k for k, (e, b) in errs.items() if e > b]
         print(f"{label}: " + " ".join(f"{k}={e:.3e}" for k, (e, _) in
                                       errs.items())
-              + f" | carries in two runs {carries} | repeat "
+              + f" | carries in two runs {carries} | edge walks {walks}"
+              + " | repeat "
               + ("bitwise" if repeat else "DIFFERS")
               + (f" OUT OF BOUND: {bad}" if bad else " ok"), flush=True)
         check(not bad, f"fused kernels disagree with float64: {label} {bad}")
         check(repeat, f"fused kernels not repeatable: {label}")
+        check(walks == 2 * 3 * GAT_WALKS.get((H, dh), 1),
+              f"fused kernels' edge walks in two runs: {label} {walks}")
         if (max_mode, dtype) == ("exact", torch.float32):
             gat_err[(graph, H, dh)] = {
                 "gat_fwd": errs["out"][0], "gat_bwd_rows": errs["grad_src"][0],
                 "gat_bwd_cols": max(errs["grad_dst"][0], errs["grad_B"][0])}
         att_compared.append({"case": label, "errors": errs,
-                             "carries_in_two_runs": carries, "repeat": repeat})
+                             "carries_in_two_runs": carries,
+                             "edge_walks_in_two_runs": walks,
+                             "repeat": repeat})
     att_err.update(gat_err[("sbm", 1, 64)])
     check(gat_carries["sbm"] == {(0, 0, 0)},
           f"a fused kernel launched a carry on sbm: {gat_carries['sbm']}")
@@ -1210,7 +1221,8 @@ def main(argv=None):
                 bad = [k for k, (e, b) in errs.items() if e > b]
                 print(f"{label}: " + " ".join(f"{k}={e:.3e}" for k, (e, _) in
                                               errs.items())
-                      + f" | carries in two runs {carries} | repeat "
+                      + f" | carries in two runs {carries} | edge walks {walks}"
+              + " | repeat "
                       + ("bitwise" if repeat else "DIFFERS")
                       + (f" OUT OF BOUND: {bad}" if bad else " ok"), flush=True)
                 check(not bad, f"dot kernels disagree with float64: {label} "

@@ -27,9 +27,11 @@ there is no fallback.  ``launches``, ``bwd_rows_launches`` and
 ``bwd_cols_launches`` count the launches of each kernel;
 ``carry_launches``, ``bwd_rows_carry_launches`` and
 ``bwd_cols_carry_launches`` their carry passes (the CSC backward's two
-carries, grad_B and grad_dst, count two).  The op runs under the span
-``op/gat`` and its backward, both walks, under ``op/gat.grad``
-(``utils/profiling.py``).
+carries, grad_B and grad_dst, count two); ``edge_walks`` the walks of the
+edges by all three kernels: a launch walks them once for every group of
+``launch_shape``'s NS K slabs, once in all where NS covers K.  The op runs
+under the span ``op/gat`` and its backward, both walks, under
+``op/gat.grad`` (``utils/profiling.py``).
 
 ``dot_attention_aggregate`` (dot-product attention) is the same for
 
@@ -83,6 +85,7 @@ bwd_cols_launches = 0
 carry_launches = 0
 bwd_rows_carry_launches = 0
 bwd_cols_carry_launches = 0
+edge_walks = 0
 dot_launches = 0
 dot_bwd_rows_launches = 0
 dot_bwd_cols_launches = 0
@@ -97,11 +100,13 @@ _F32 = torch.float32
 def reset_launches() -> None:
     global launches, bwd_rows_launches, bwd_cols_launches
     global carry_launches, bwd_rows_carry_launches, bwd_cols_carry_launches
+    global edge_walks
     global dot_launches, dot_bwd_rows_launches, dot_bwd_cols_launches
     global dot_carry_launches, dot_bwd_rows_carry_launches
     global dot_bwd_cols_carry_launches
     launches = bwd_rows_launches = bwd_cols_launches = 0
     carry_launches = bwd_rows_carry_launches = bwd_cols_carry_launches = 0
+    edge_walks = 0
     dot_launches = dot_bwd_rows_launches = dot_bwd_cols_launches = 0
     dot_carry_launches = dot_bwd_rows_carry_launches = 0
     dot_bwd_cols_carry_launches = 0
@@ -114,9 +119,9 @@ def _entry(kind: str, dtype: torch.dtype):
     fn = getattr(lib, f"gespmm_gat_{kind}_{_SUFFIX[dtype]}")
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     split = [i] * 3 + [p] * 4  # L, S, J and the four lists
-    fn.argtypes = {"fwd": [i] * 6 + [f] + split + [p] * 12,
-                   "bwd_rows": [i] * 5 + [f] + split + [p] * 12,
-                   "bwd_cols": [i] * 5 + [f] + split + [p] * 14}[kind]
+    fn.argtypes = {"fwd": [i] * 7 + [f] + split + [p] * 12,
+                   "bwd_rows": [i] * 6 + [f] + split + [p] * 12,
+                   "bwd_cols": [i] * 6 + [f] + split + [p] * 14}[kind]
     fn.restype = ctypes.c_int
     lib.gespmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gespmm_cuda_error_string.restype = ctypes.c_char_p
@@ -138,7 +143,56 @@ def _heads_of(B: Tensor, heads: int) -> int:
     return heads
 
 
-# --- the walk's split (its launch shape: spmm_csr.py::walk_shape) ---------
+# --- the walk's launch shape and split ------------------------------------
+
+# The K slabs a walker of lane vector VEC holds at once where it holds more
+# than one, as csrc/gat_fused.cu's ``dispatch_walk`` instantiates them: only
+# on whole warps (SW = 32, the only walkers whose K spans several slabs), at
+# the products GAT's K = 512 (VEC 4, 4 slabs) and K = 188 (VEC 1, 6 slabs).
+# Every other (VEC, SW) holds one slab a walk.
+WALK_SLABS = {4: 4, 1: 6}
+# The most bytes of [head][edge] tables a block of walkers holding several
+# slabs may take: the default without an opt-in, a fifth of an SM's shared
+# memory, so that the tables never cost a block of occupancy that the
+# registers allow.
+SLAB_TABLE_BYTES = 48 * 1024
+_THREADS = 256  # a block of walkers (carry.cuh::kThreads)
+
+
+def heads_per_slab(K: int, dh: int, width: int) -> int:
+    """The most heads that any run of ``width`` columns of K, from a
+    multiple of ``width``, touches (gat_fused.cu's ``heads_per_slab``)."""
+    return max((min(K, k0 + width) - 1) // dh - k0 // dh + 1
+               for k0 in range(0, K, width))
+
+
+def launch_shape(K: int, heads: int, tables: int, *tensors: Tensor):
+    """(VEC, SW, NS) of a fused GAT kernel: ``walk_shape``'s lanes and
+    lane vector, and NS, how many of K's slabs of SW·VEC columns a walker
+    holds at once, so that it walks the edges ceil(slabs / NS) times.  NS is
+    ``WALK_SLABS``' value at VEC on a whole warp where it divides the slabs,
+    every group of NS slabs touches at most SW heads (lane j holds head j's
+    row-side entries), and the group's ``tables`` [head][edge] tables a
+    walker (1 forward and over the CSR, 3 over the CSC) fit
+    ``SLAB_TABLE_BYTES`` a block; else 1, a walk a slab."""
+    vec, sw = walk_shape(K, heads, *tensors)
+    dh, width = K // heads, sw * vec
+    ns = WALK_SLABS.get(vec, 1) if sw == 32 else 1
+    nh = heads_per_slab(K, dh, ns * width)
+    if (-(-K // width) % ns == 0 and nh <= sw
+            and (_THREADS // sw) * tables * nh * (sw + 1) * 4
+            <= SLAB_TABLE_BYTES):
+        return vec, sw, ns
+    return vec, sw, 1
+
+
+def _walked(K: int, vec: int, sw: int, ns: int) -> None:
+    """Count a launch's walks of the edges in ``edge_walks``."""
+    global edge_walks
+    edge_walks += -(-K // (sw * vec)) // ns
+
+
+# --- the walk's split ------------------------------------------------------
 
 
 def _split_args(split: RowSplit, device: torch.device):
@@ -227,16 +281,18 @@ def gat_forward_cuda(indptr: Tensor, indices: Tensor, src2: Tensor,
     S = split.num_segments
     pm, pz, pacc = (_scratch(S, H, B.device), _scratch(S, H, B.device),
                     _scratch(S, K, B.device))
-    vec, sw = walk_shape(K, H, B, out, *(() if pacc is None else (pacc,)))
+    vec, sw, ns = launch_shape(K, H, 1, B, out,
+                               *(() if pacc is None else (pacc,)))
     with torch.cuda.device(B.device):
-        err = fn(m, K, H, vec, sw, int(exact), float(slope),
+        err = fn(m, K, H, vec, sw, ns, int(exact), float(slope),
                  *_split_args(split, B.device), indptr.data_ptr(),
                  indices.data_ptr(), src2.data_ptr(), dst2.data_ptr(),
                  B.data_ptr(), mx.data_ptr(), out.data_ptr(), den.data_ptr(),
                  _ptr(pm), _ptr(pz), _ptr(pacc), _stream(B))
     raise_on(err, err_str, f"gat forward at m={m} K={K} H={H} vec={vec} "
-             f"lanes={sw} segments={S} dtype={B.dtype}")
+             f"lanes={sw} slabs={ns} segments={S} dtype={B.dtype}")
     launches += 1
+    _walked(K, vec, sw, ns)
     carry_launches += int(S > 0)
     return out, mx, den
 
@@ -293,16 +349,18 @@ def gat_backward_rows_cuda(indptr: Tensor, indices: Tensor, src2: Tensor,
     grad_src = torch.empty((m, H), dtype=_F32, device=B.device)
     S = split.num_segments
     part = _scratch(S, H, B.device)
-    vec, sw = walk_shape(K, H, B, g)
+    vec, sw, ns = launch_shape(K, H, 1, B, g)
     with torch.cuda.device(B.device):
-        err = fn(m, K, H, vec, sw, float(slope), *_split_args(split, B.device),
+        err = fn(m, K, H, vec, sw, ns, float(slope),
+                 *_split_args(split, B.device),
                  indptr.data_ptr(), indices.data_ptr(), src2.data_ptr(),
                  dst2.data_ptr(), B.data_ptr(), g.data_ptr(), mx.data_ptr(),
                  den.data_ptr(), s_row.data_ptr(), grad_src.data_ptr(),
                  _ptr(part), _stream(B))
     raise_on(err, err_str, f"gat backward (rows) at m={m} K={K} H={H} "
-             f"vec={vec} lanes={sw} segments={S} dtype={B.dtype}")
+             f"vec={vec} lanes={sw} slabs={ns} segments={S} dtype={B.dtype}")
     bwd_rows_launches += 1
+    _walked(K, vec, sw, ns)
     bwd_rows_carry_launches += int(S > 0)
     return grad_src
 
@@ -355,17 +413,19 @@ def gat_backward_cols_cuda(colptr: Tensor, rows: Tensor, src2: Tensor,
     grad_B = torch.empty((n, K), dtype=B.dtype, device=B.device)
     S = split.num_segments
     part_B, part_dst = _scratch(S, K, B.device), _scratch(S, H, B.device)
-    vec, sw = walk_shape(K, H, B, g, grad_B,
-                         *(() if part_B is None else (part_B,)))
+    vec, sw, ns = launch_shape(K, H, 3, B, g, grad_B,
+                               *(() if part_B is None else (part_B,)))
     with torch.cuda.device(B.device):
-        err = fn(n, K, H, vec, sw, float(slope), *_split_args(split, B.device),
+        err = fn(n, K, H, vec, sw, ns, float(slope),
+                 *_split_args(split, B.device),
                  colptr.data_ptr(), rows.data_ptr(), src2.data_ptr(),
                  dst2.data_ptr(), B.data_ptr(), g.data_ptr(), mx.data_ptr(),
                  den.data_ptr(), s_row.data_ptr(), grad_B.data_ptr(),
                  grad_dst.data_ptr(), _ptr(part_B), _ptr(part_dst), _stream(B))
     raise_on(err, err_str, f"gat backward (cols) at n={n} K={K} H={H} "
-             f"vec={vec} lanes={sw} segments={S} dtype={B.dtype}")
+             f"vec={vec} lanes={sw} slabs={ns} segments={S} dtype={B.dtype}")
     bwd_cols_launches += 1
+    _walked(K, vec, sw, ns)
     bwd_cols_carry_launches += 2 * int(S > 0)
     return grad_dst, grad_B
 

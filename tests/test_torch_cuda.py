@@ -1027,9 +1027,11 @@ def gat_kernels_vs_float64(adj, H, dh, max_mode, dtype, seed=0):
 
 
 # (heads, head width): dh in {1, 3, 8, 64}, K not a multiple of 4, K slabs
-# that split a head (K=130 at 64 columns a slab), 16-byte lanes (K=128).
+# that split a head (K=130 at 64 columns a slab), 16-byte lanes (K=128),
+# and the products GAT's heads, whose walkers hold several K slabs at once
+# (K=512: 4 slabs of 128 columns; K=188: 6 of 32, heads across slabs).
 GAT_SHAPES = [(1, 1), (1, 3), (3, 3), (8, 3), (3, 8), (1, 64), (4, 32),
-              (2, 65)]
+              (2, 65), (4, 128), (4, 47)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1080,7 +1082,8 @@ def boundary_graph() -> CSR:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("max_mode", ["exact", "bound"])
-@pytest.mark.parametrize("H,dh", [(1, 64), (1, 3), (8, 3), (2, 65)])
+@pytest.mark.parametrize("H,dh", [(1, 64), (1, 3), (8, 3), (2, 65), (4, 128),
+                                  (4, 47)])
 def test_gat_fused_kernels_split_at_each_boundary(dev, H, dh, max_mode, dtype):
     # Rows and columns of L - 1, L, L + 1, 2L + 1 and 10,000 edges: every
     # kernel walks segments and launches its carry.
@@ -1106,6 +1109,9 @@ def test_gat_fused_kernels_at_the_products_gat_heads(dev, H, dh):
     adj = Adjacency.from_csr(boundary_graph(), device=dev)
     assert kgat.walk_shape(H * dh, H, randn((1, H * dh), dev, 0)) == \
         ((4, 32) if dh == 128 else (1, 32))
+    for tables in (1, 3):  # every slab at once in each kernel
+        assert kgat.launch_shape(H * dh, H, tables, randn(
+            (1, H * dh), dev, 0)) == ((4, 32, 4) if dh == 128 else (1, 32, 6))
     carries = (kgat.carry_launches, kgat.bwd_rows_carry_launches,
                kgat.bwd_cols_carry_launches)
     for name, (err, bound) in gat_kernels_vs_float64(adj, H, dh, "exact",
@@ -1114,6 +1120,54 @@ def test_gat_fused_kernels_at_the_products_gat_heads(dev, H, dh):
     assert (kgat.carry_launches, kgat.bwd_rows_carry_launches,
             kgat.bwd_cols_carry_launches) == (carries[0] + 1, carries[1] + 1,
                                               carries[2] + 2)
+
+
+@pytest.mark.parametrize("max_mode", ["exact", "bound"])
+@pytest.mark.parametrize("graph", ["skewed", "boundary"])
+@pytest.mark.parametrize("H,dh,walks", [(4, 128, 3), (4, 47, 3),
+                                         (8, 128, 6), (8, 47, 6),
+                                         (16, 32, 6)])
+def test_gat_fused_one_walk_for_all_slabs_gives_the_same_bits(
+        dev, monkeypatch, H, dh, walks, graph, max_mode):
+    # Each kernel walking the edges once for every group of launch_shape's
+    # NS K slabs against once a slab (NS = 1): every output bit for bit,
+    # since each slab's sums take the same edges in the same order;
+    # edge_walks counts the walks of the three kernels.  Both multi-slab
+    # walkers (NS 4 at 4-column lanes, 6 at 1-column lanes) at the products
+    # GAT's heads (one walk), in two groups (8 heads), and with 16 heads a
+    # group (the CSC backward's tables hold one slab a walk there).
+    adj = Adjacency.from_csr(
+        skewed_csr() if graph == "skewed" else boundary_graph(), device=dev)
+    m, n = adj.shape
+    K = H * dh
+    src, dst = randn((m, H), dev, 1), randn((n, H), dev, 2)
+    B, g = randn((n, K), dev, 3), randn((m, K), dev, 4)
+    shape = kgat.launch_shape
+
+    def run(ns_one):
+        monkeypatch.setattr(
+            kgat, "launch_shape", (lambda *a: (*shape(*a)[:2], 1)) if ns_one
+            else shape)
+        walks = kgat.edge_walks
+        out, mx, den = kgat.gat_forward(adj.csr.indptr, adj.csr.indices, src,
+                                        dst, B, heads=H, max_mode=max_mode,
+                                        split=adj.split)
+        tabs = (src, dst, B, g, mx, den, ref.gat_row_dot(g, out, H))
+        gs = kgat.gat_backward_rows(adj.csr.indptr, adj.csr.indices, *tabs,
+                                    heads=H, split=adj.split)
+        gd, gB = kgat.gat_backward_cols(adj.csc.indptr, adj.csc.indices,
+                                        *tabs, heads=H, split=adj.split_t)
+        torch.cuda.synchronize()
+        return (out, mx, den, gs, gd, gB), kgat.edge_walks - walks
+
+    (many, many_walks), (one, one_walks) = run(False), run(True)
+    for name, a, b in zip(("out", "mx", "den", "grad_src", "grad_dst",
+                           "grad_B"), many, one):
+        assert torch.equal(a, b), name
+    vec, sw, _ = shape(K, H, 1, B)
+    slabs = -(-K // (sw * vec))
+    assert one_walks == 3 * slabs
+    assert many_walks == walks
 
 
 # (heads, head width, VEC, SW): walk_shape lands on each of the twelve

@@ -20,6 +20,9 @@ more than 3L edges and which has empty rows, and are held:
 The CUDA kernels themselves are checked in ``tests/test_torch_cuda.py``.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -297,3 +300,56 @@ def test_walk_shape_reaches_every_instantiation(H, dh, vec, lanes):
     skewed = torch.empty(8 * K + 1)[1:].view(8, K)  # 4 bytes off
     assert kgat.walk_shape(K, H, torch.empty(8, K), skewed) == \
         (1, min(32, max(4, 1 << (K - 1).bit_length())))
+
+
+@pytest.mark.parametrize("H,dh,tables,shape", [
+    # The products GAT's hidden layers: K = 512 on 4-column lanes, all four
+    # slabs of 128 columns at once, in every kernel.
+    (4, 128, 1, (4, 32, 4)), (4, 128, 3, (4, 32, 4)),
+    # Its output layer: K = 188 on 1-column lanes, all six slabs of 32 (the
+    # heads straddle slabs), in every kernel.
+    (4, 47, 1, (1, 32, 6)), (4, 47, 3, (1, 32, 6)),
+    # Eight slabs of 128 and twelve of 32: two groups of 4 and of 6.
+    (8, 128, 3, (4, 32, 4)), (8, 47, 3, (1, 32, 6)),
+    # K within one slab: one walk, NS = 1.
+    (1, 64, 3, (4, 16, 1)), (8, 3, 1, (1, 32, 1)),
+    # Five slabs of 1-column lanes, two of 4-column lanes: NS does not
+    # divide them, so a walk a slab.
+    (2, 65, 3, (1, 32, 1)), (32, 8, 1, (4, 32, 1)),
+    # 2-column lanes hold one slab a walk.
+    (4, 46, 1, (2, 32, 1)),
+    # 16 heads of 32: the forward's one table holds all four slabs' heads
+    # in 17 KiB a block; the CSC backward's three (50 KiB) would overflow
+    # SLAB_TABLE_BYTES, so it walks the slabs in groups of one.
+    (16, 32, 1, (4, 32, 4)), (16, 32, 3, (4, 32, 1)),
+    # 128 heads of 4: a group of four slabs would hold more heads than lanes.
+    (128, 4, 1, (4, 32, 1))])
+def test_launch_shape_holds_every_slab_it_can(H, dh, tables, shape):
+    # NS, the K slabs a walker holds at once (csrc/gat_fused.cu), on top of
+    # walk_shape's (VEC, SW): WALK_SLABS' value at VEC on a whole warp where
+    # it divides the slabs, its groups touch at most SW heads and their
+    # tables fit SLAB_TABLE_BYTES a block.
+    K = H * dh
+    vec, sw, ns = kgat.launch_shape(K, H, tables, torch.empty(8, K))
+    assert (vec, sw, ns) == shape
+    assert (vec, sw) == kgat.walk_shape(K, H, torch.empty(8, K))
+    slabs = -(-K // (sw * vec))
+    assert slabs % ns == 0 and ns in (1, kgat.WALK_SLABS.get(vec))
+    assert kgat.heads_per_slab(K, dh, ns * sw * vec) <= sw
+
+
+def test_walk_slabs_are_the_instantiated_walkers():
+    # launch_shape may pick only the NS that csrc/gat_fused.cu's dispatch_walk
+    # instantiates (else the launch returns cudaErrorInvalidValue): its
+    # (VEC, NS) cases on whole warps are WALK_SLABS, and NS = 1 everywhere.
+    src = (Path(kgat.__file__).parent.parent / "csrc" / "gat_fused.cu"
+           ).read_text()
+    body = src[src.index("cudaError_t dispatch_walk("):]
+    body = body[:body.index("\n}\n")]
+    cases = re.findall(r"if constexpr \(SW == 32 && VEC == (\d+)\)\s*"
+                       r"if \(ns == (\d+)\) return fn\(V, W, gespmm::Int<"
+                       r"(\d+)>\(\)\);", body)
+    assert {int(v): int(n) for v, n, _ in cases} == kgat.WALK_SLABS
+    assert all(n == i for _, n, i in cases)
+    assert "if (ns == 1) return fn(V, W, gespmm::Int<1>());" in body
+    assert body.count("return fn(") == len(cases) + 1
