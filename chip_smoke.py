@@ -572,7 +572,8 @@ def main(argv=None):
     from gespmm_tpu_torch.ops import reference as ref
     from gespmm_tpu_torch.ops.graph import (add_self_loops,
                                             additive_attention_logits,
-                                            attention_aggregate, edge_softmax)
+                                            attention_aggregate, edge_softmax,
+                                            gat_attention_aggregate)
     from gespmm_tpu_torch.ops.interop import (AdjacencyMatrix,
                                               csr_from_torch_sparse,
                                               csr_to_torch_sparse)
@@ -1147,7 +1148,7 @@ def main(argv=None):
     composed = grads_of(lambda s, d, h: chain(s, d, h, "auto"))
     torch.cuda.synchronize()
     chain_launches = counts()
-    fused = grads_of(lambda s, d, h: kgat.gat_attention_aggregate(
+    fused = grads_of(lambda s, d, h: gat_attention_aggregate(
         adj, s, d, h, negative_slope=SLOPE))
     exact = grads_of(lambda s, d, h: chain(s, d, h, "xla"), torch.float64)
     print(f"composed chain launches: {chain_launches}", flush=True)

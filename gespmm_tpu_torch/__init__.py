@@ -17,14 +17,18 @@ GraphSAGE (with the LSTM aggregator) and GAT models, their stock-PyTorch
 baselines, the training loop with checkpoint/resume, timing, profiling, the
 GCN, SAGE, GAT and SpMM/SDDMM benchmarks and the headline line.
 
-Layering mirrors the JAX package:
+Layering mirrors the JAX package's, except that the fused attention ops
+sit in ops/ over their launches in kernels/:
     sparse/    formats (CSR/CSC/COO of torch tensors), .mtx ingest, the
                per-row chunk plan and the grouped plan, reordering
     csrc/      CUDA C++ kernels for sm_90a
-    kernels/   nvcc build + ctypes wrappers (plain version on CPU tensors)
-    ops/       spmm and sddmm with their autograd Functions, graph and
-               attention ops, torch.sparse interop, plain reference
-    models/    GCN, GraphSAGE (LSTM aggregator), GAT, stock baselines
+    kernels/   nvcc build + ctypes launches (plain version on CPU tensors);
+               they call no op-layer code but the plain reference
+    ops/       spmm, sddmm, the graph ops and the fused attention ops with
+               their autograd Functions, torch.sparse interop, plain
+               reference
+    models/    GCN, GraphSAGE (LSTM aggregator), GAT, stock baselines; they
+               reach the kernels only through ops/
     train/     training loop, checkpoint/resume
     utils/     datasets, timing, profiling (roofline)
     bench/     GCN, SAGE, GAT and SpMM/SDDMM benchmark CLIs, the headline
@@ -39,11 +43,10 @@ from gespmm_tpu_torch.sparse.reorder import reorder
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 from gespmm_tpu_torch.ops.sddmm import sddmm, sddmm_coo
 from gespmm_tpu_torch.ops.graph import (additive_attention_logits,
-                                        attention_aggregate, edge_softmax,
-                                        gat_attention, gcn_aggregate,
-                                        sage_aggregate)
-from gespmm_tpu_torch.kernels.gat_fused import (dot_attention_aggregate,
-                                                gat_attention_aggregate)
+                                        attention_aggregate,
+                                        dot_attention_aggregate, edge_softmax,
+                                        gat_attention, gat_attention_aggregate,
+                                        gcn_aggregate, sage_aggregate)
 
 __version__ = "0.1.0"
 

@@ -1,12 +1,11 @@
-"""Fused graph attention — port of ``gespmm_tpu/kernels/gat_fused.py``.
+"""Launches of kernel rows 5 and 6, the fused attention kernels — port of
+the Pallas passes of ``gespmm_tpu/kernels/gat_fused.py``.
 
-``gat_attention_aggregate`` (GATv1, additive attention) is the whole
-attention layer as one op,
+Row 5 is GATv1's additive attention,
 
     out[r] = Σ_c softmax_c(leaky(src[r] + dst[c])) · B[c]   per head,
 
-a ``torch.autograd.Function`` over three hand-written CUDA kernels in
-``csrc/gat_fused.cu``:
+as three hand-written CUDA kernels in ``csrc/gat_fused.cu``:
 
   * ``gat_forward``: (out, mx, den) over the CSR, replacing ``_forward``;
   * ``gat_backward_rows``: grad_src over the CSR, replacing the pass of
@@ -29,21 +28,24 @@ there is no fallback.  ``launches``, ``bwd_rows_launches`` and
 ``bwd_cols_carry_launches`` their carry passes (the CSC backward's two
 carries, grad_B and grad_dst, count two); ``edge_walks`` the walks of the
 edges by all three kernels: a launch walks them once for every group of
-``launch_shape``'s NS K slabs, once in all where NS covers K.  The op runs
-under the span ``op/gat`` and its backward, both walks, under
-``op/gat.grad`` (``utils/profiling.py``).
+``launch_shape``'s NS K slabs, once in all where NS covers K.
 
-``dot_attention_aggregate`` (dot-product attention) is the same for
+Row 6 is dot-product attention,
 
     out[r] = Σ_c softmax_c(act(D1[r]·D2[c])) · B[c],
 
-over the three kernels of ``csrc/dot_attention.cu``: ``dot_forward``
+as the three kernels of ``csrc/dot_attention.cu``: ``dot_forward``
 (replacing ``_dot_forward``), ``dot_backward_rows`` (grad_D1, the pass of
 ``_dot_bwd`` over ``plan``) and ``dot_backward_cols`` (grad_D2 and grad_B,
-its pass over ``plan_t``), with the same splits, counted by
-``dot_launches``, ``dot_bwd_rows_launches`` and ``dot_bwd_cols_launches``
-and their carries by ``dot_carry_launches``, ``dot_bwd_rows_carry_launches``
-and ``dot_bwd_cols_carry_launches`` (two a CSC call with segments).
+its pass over ``plan_t``), with the same splits and the same CPU route,
+counted by ``dot_launches``, ``dot_bwd_rows_launches`` and
+``dot_bwd_cols_launches`` and their carries by ``dot_carry_launches``,
+``dot_bwd_rows_carry_launches`` and ``dot_bwd_cols_carry_launches`` (two a
+CSC call with segments).
+
+The ops over both rows, ``gat_attention_aggregate`` and
+``dot_attention_aggregate`` with their autograd Functions, are in
+``ops/graph.py``.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 
@@ -60,10 +62,8 @@ from gespmm_tpu_torch.kernels.spmm_csr import (_SPLIT, check_operands,
                                                check_split, check_table,
                                                raise_on, walk_shape)
 from gespmm_tpu_torch.ops import reference
-from gespmm_tpu_torch.ops.spmm import Adjacency
-from gespmm_tpu_torch.sparse.formats import CSR, expand_indptr
+from gespmm_tpu_torch.sparse.formats import expand_indptr
 from gespmm_tpu_torch.sparse.partition import RowSplit, build_row_split
-from gespmm_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -72,7 +72,6 @@ REPLACES = "gespmm_tpu/kernels/gat_fused.py:103"
 BWD_ROWS_REPLACES = "gespmm_tpu/kernels/gat_fused.py:223"
 BWD_COLS_REPLACES = "gespmm_tpu/kernels/gat_fused.py:260"
 MAX_MODES = ("exact", "bound")
-MODES = ("trilo", "hilo", "fast")
 
 DOT_SOURCE = "gespmm_tpu_torch/csrc/dot_attention.cu"
 DOT_REPLACES = "gespmm_tpu/kernels/gat_fused.py:317"
@@ -430,116 +429,6 @@ def gat_backward_cols_cuda(colptr: Tensor, rows: Tensor, src2: Tensor,
     return grad_dst, grad_B
 
 
-# --- the op --------------------------------------------------------------
-
-
-class _GatFused(torch.autograd.Function):
-    """The fused op over ``adj``; differentiable in src2, dst2 and B."""
-
-    @staticmethod
-    def forward(ctx, adj: Adjacency, slope: float, max_mode: str, heads: int,
-                plain: bool, src2: Tensor, dst2: Tensor, B: Tensor) -> Tensor:
-        m = adj.shape[0]
-        B = B.contiguous()
-        if plain:
-            out, mx, den = reference.gat_fused_rows(
-                adj.rows, adj.csr.indices, src2, dst2, B, m, slope, max_mode,
-                heads)
-        else:
-            out, mx, den = gat_forward(adj.csr.indptr, adj.csr.indices, src2,
-                                       dst2, B, slope=slope, heads=heads,
-                                       max_mode=max_mode, rows=adj.rows,
-                                       split=adj.split)
-        ctx.adj, ctx.slope, ctx.heads, ctx.plain = adj, slope, heads, plain
-        ctx.save_for_backward(src2, dst2, B, out, mx, den)
-        return out
-
-    @staticmethod
-    def backward(ctx, g: Tensor):
-        with span("op/gat.grad"):
-            adj, slope, heads = ctx.adj, ctx.slope, ctx.heads
-            src2, dst2, B, out, mx, den = ctx.saved_tensors
-            g = g.contiguous()
-            s_row = reference.gat_row_dot(g, out, heads)
-            want_src = ctx.needs_input_grad[5]
-            want_cols = ctx.needs_input_grad[6] or ctx.needs_input_grad[7]
-            kw = dict(slope=slope, heads=heads)
-            grad_src = grad_dst = grad_B = None
-            if ctx.plain:
-                m = adj.shape[0]
-                if want_src:
-                    grad_src = reference.gat_fused_vjp_rows(
-                        adj.rows, adj.csr.indices, src2, dst2, B, g, mx, den,
-                        s_row, m, slope, heads)
-                if want_cols:
-                    grad_dst, grad_B = reference.gat_fused_vjp_cols(
-                        adj.rows, adj.csr.indices, src2, dst2, B, g, mx, den,
-                        s_row, slope, heads)
-            else:
-                if want_src:
-                    grad_src = gat_backward_rows(
-                        adj.csr.indptr, adj.csr.indices, src2, dst2, B, g, mx,
-                        den, s_row, rows=adj.rows, split=adj.split, **kw)
-                if want_cols:
-                    grad_dst, grad_B = gat_backward_cols(
-                        adj.csc.indptr, adj.csc.indices, src2, dst2, B, g, mx,
-                        den, s_row, cols=adj.rows_t, split=adj.split_t, **kw)
-            if grad_src is not None:
-                grad_src = grad_src.to(src2.dtype)
-            if grad_dst is not None:
-                grad_dst = grad_dst.to(dst2.dtype)
-                grad_B = grad_B.to(B.dtype)
-            return None, None, None, None, None, grad_src, grad_dst, grad_B
-
-
-def gat_attention_aggregate(adj: Union[Adjacency, CSR], src_score: Tensor,
-                            dst_score: Tensor, B: Tensor, *,
-                            negative_slope: float = 0.2,
-                            interpret: Optional[bool] = None,
-                            max_mode: str = "exact", heads: int = 1,
-                            mode: str = "trilo") -> Tensor:
-    """out[r] = Σ_c softmax_c(leaky(src[r]+dst[c])) · B[c] over the edge
-    pattern — the whole GATv1 attention layer as one fused op.
-
-    ``src_score``: (m,) or (m, H); ``dst_score``: (n,) or (n, H); ``B``:
-    (n, H·dh) in head blocks (``heads`` = H); every head runs in the same
-    kernel launch.  ``out`` takes B's dtype (f32 or bf16 on the card).
-    Differentiable in all three tensors.  Rows without an edge give 0.
-
-    ``adj``: an ``Adjacency``, or a bare ``CSR`` paired on the fly.  The
-    JAX package needs tiled plans here; the port has none, and takes any.
-    ``max_mode``: "exact" (the per-row max of the logits, one pass of the
-    kernel) or "bound" (leaky(src[r] + max_c dst[c]) per head, computed
-    before the launch; exact alphas while the dst scores span under ~80).
-    ``mode``: "trilo" | "hilo" | "fast", validated as in the JAX package;
-    every mode accumulates in f32, which meets each mode's tolerance.
-    ``interpret``: True runs the plain PyTorch version on any device, the
-    port's counterpart of the Pallas interpreter; otherwise a CUDA tensor
-    runs the kernels and a CPU tensor their plain versions.
-    """
-    with span("op/gat"):
-        if isinstance(adj, CSR):
-            adj = Adjacency.from_csr(adj)
-        m, n = adj.shape
-        src2 = src_score[:, None] if src_score.dim() == 1 else src_score
-        dst2 = dst_score[:, None] if dst_score.dim() == 1 else dst_score
-        H = int(heads)
-        if tuple(src2.shape) != (m, H) or tuple(dst2.shape) != (n, H):
-            raise ValueError(
-                f"score shapes {tuple(src_score.shape)}/"
-                f"{tuple(dst_score.shape)} must be ({m}, {H})/({n}, {H}) for "
-                f"heads={H} (1-D accepted when heads=1; single head means "
-                f"heads=1)")
-        if B.dim() != 2 or B.shape[0] != n or B.shape[1] % H:
-            raise ValueError(f"B must be ({n}, {H}*dh), got {tuple(B.shape)}")
-        if max_mode not in MAX_MODES:
-            raise ValueError(f"max_mode must be exact|bound, got {max_mode!r}")
-        if mode not in MODES:
-            raise ValueError(f"mode must be trilo|hilo|fast, got {mode!r}")
-        return _GatFused.apply(adj, float(negative_slope), max_mode, H,
-                               bool(interpret), src2, dst2, B)
-
-
 # --- dot-product attention (kernel row 6) ---------------------------------
 
 
@@ -768,91 +657,3 @@ def dot_backward_cols_cuda(colptr: Tensor, rows: Tensor, D1: Tensor,
     dot_bwd_cols_launches += 1
     dot_bwd_cols_carry_launches += 2 * int(S > 0)
     return grad_D2, grad_B
-
-
-class _DotFused(torch.autograd.Function):
-    """Fused dot-product attention over ``adj``; differentiable in D1, D2
-    and B."""
-
-    @staticmethod
-    def forward(ctx, adj: Adjacency, slope: Optional[float], plain: bool,
-                D1: Tensor, D2: Tensor, B: Tensor) -> Tensor:
-        m = adj.shape[0]
-        B = B.contiguous()
-        if plain:
-            out, mx, den = reference.dot_attention_rows(
-                adj.rows, adj.csr.indices, D1, D2, B, m, slope)
-        else:
-            out, mx, den = dot_forward(adj.csr.indptr, adj.csr.indices, D1,
-                                       D2, B, slope=slope, rows=adj.rows,
-                                       split=adj.split)
-        ctx.adj, ctx.slope, ctx.plain = adj, slope, plain
-        ctx.save_for_backward(D1, D2, B, out, mx, den)
-        return out
-
-    @staticmethod
-    def backward(ctx, g: Tensor):
-        adj, slope = ctx.adj, ctx.slope
-        D1, D2, B, out, mx, den = ctx.saved_tensors
-        g = g.contiguous()
-        s_row = reference.dot_row_dot(g, out)
-        want_d1 = ctx.needs_input_grad[3]
-        want_cols = ctx.needs_input_grad[4] or ctx.needs_input_grad[5]
-        grad_D1 = grad_D2 = grad_B = None
-        tables = (D1, D2, B, g, mx, den, s_row)
-        if ctx.plain:
-            edges = (adj.rows, adj.csr.indices)
-            if want_d1:
-                grad_D1 = reference.dot_attention_vjp_rows(
-                    *edges, *tables, adj.shape[0], slope)
-            if want_cols:
-                grad_D2, grad_B = reference.dot_attention_vjp_cols(
-                    *edges, *tables, slope)
-        else:
-            if want_d1:
-                grad_D1 = dot_backward_rows(adj.csr.indptr, adj.csr.indices,
-                                            *tables, slope=slope,
-                                            rows=adj.rows, split=adj.split)
-            if want_cols:
-                grad_D2, grad_B = dot_backward_cols(
-                    adj.csc.indptr, adj.csc.indices, *tables, slope=slope,
-                    cols=adj.rows_t, split=adj.split_t)
-        if grad_D1 is not None:
-            grad_D1 = grad_D1.to(D1.dtype)
-        if grad_D2 is not None:
-            grad_D2 = grad_D2.to(D2.dtype)
-            grad_B = grad_B.to(B.dtype)
-        return None, None, None, grad_D1, grad_D2, grad_B
-
-
-def dot_attention_aggregate(adj: Union[Adjacency, CSR], D1: Tensor,
-                            D2: Tensor, B: Tensor, *,
-                            negative_slope: Optional[float] = None,
-                            interpret: Optional[bool] = None) -> Tensor:
-    """out[r] = Σ_c softmax_c(act(D1[r]·D2[c])) · B[c] over the edge pattern
-    — fused dot-product (transformer-style) graph attention.
-
-    ``act`` is the identity (default) or leaky ReLU when ``negative_slope``
-    is given.  D1: (m, Ka); D2: (n, Ka); B: (n, K); ``out`` takes B's dtype
-    (f32 or bf16 on the card).  Differentiable in all three; each gradient
-    takes its input's dtype.  Rows without an edge give 0.
-
-    ``adj``: an ``Adjacency``, or a bare ``CSR`` paired on the fly.  The JAX
-    package needs tiled plans here; the port walks the CSR and the CSC and
-    needs none.  ``interpret``: True runs the plain PyTorch version on any
-    device; otherwise a CUDA tensor runs the kernels and a CPU tensor their
-    plain versions.
-    """
-    if isinstance(adj, CSR):
-        adj = Adjacency.from_csr(adj)
-    m, n = adj.shape
-    if D1.dim() != 2 or D2.dim() != 2 or D1.shape[1] != D2.shape[1]:
-        raise ValueError(f"D1 {tuple(D1.shape)} / D2 {tuple(D2.shape)} must be "
-                         "(m,Ka)/(n,Ka)")
-    if D1.shape[0] != m or D2.shape[0] != n:
-        raise ValueError(f"D1/D2 rows {D1.shape[0]}/{D2.shape[0]} must match "
-                         f"the pattern {adj.shape}")
-    if B.dim() != 2 or B.shape[0] != n:
-        raise ValueError(f"B must be ({n}, K), got {tuple(B.shape)}")
-    slope = None if negative_slope is None else float(negative_slope)
-    return _DotFused.apply(adj, slope, bool(interpret), D1, D2, B)

@@ -6,8 +6,8 @@ GATv1 additive attention, per head:
   h'_i  = Σ_j α_ij (W h_j)
 
 ``method="auto"``/``"tiled"`` runs the whole layer, every head at once, as
-``kernels/gat_fused.py::gat_attention_aggregate`` (the fused CUDA kernels on
-the card).  Any other sum method of ``spmm`` composes the layer head by
+``ops/graph.py::gat_attention_aggregate`` (the fused CUDA kernels of row 5
+on the card).  Any other sum method of ``spmm`` composes the layer head by
 head, as the JAX package does: ``additive_attention_logits``, leaky ReLU,
 ``edge_softmax``, then ``spmm(adj.with_data(alpha), h, method=method)``.
 Under ``"xla"`` every step takes its plain version; under ``"pallas"``,
@@ -37,9 +37,9 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from gespmm_tpu_torch.kernels.gat_fused import gat_attention_aggregate
 from gespmm_tpu_torch.models.common import Dense, dropout, glorot
-from gespmm_tpu_torch.ops.graph import additive_attention_logits, edge_softmax
+from gespmm_tpu_torch.ops.graph import (additive_attention_logits, edge_softmax,
+                                        gat_attention_aggregate)
 # Every method of spmm takes reduce="sum", so the layer takes each of them.
 from gespmm_tpu_torch.ops.spmm import METHODS, Adjacency, spmm
 from gespmm_tpu_torch.utils.profiling import span

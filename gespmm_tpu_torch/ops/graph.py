@@ -4,9 +4,14 @@ Ported: degree normalisation, the symmetric-normalised GCN aggregation,
 the GraphSAGE aggregates, self-loop insertion, the attention building
 blocks ``edge_softmax``, ``additive_attention_logits`` and
 ``gat_attention``, whose per-row reductions run the edge segment-reduce
-kernel (``kernels/edge_reduce.py``) on a CUDA tensor, and
-``attention_aggregate``, the dot-product attention layer, which runs the
-fused kernels of ``kernels/gat_fused.py::dot_attention_aggregate``.
+kernel (``kernels/edge_reduce.py``) on a CUDA tensor, and the fused
+attention ops of ``gespmm_tpu/kernels/gat_fused.py``:
+``gat_attention_aggregate`` (GATv1, kernel row 5) and
+``dot_attention_aggregate`` (dot-product attention, row 6), each an
+autograd Function over the launches of ``kernels/gat_fused.py``, which run
+the CUDA kernels on a CUDA tensor and their plain versions
+(``ops/reference.py``) on a CPU tensor.  ``attention_aggregate``, the
+dot-product attention layer, runs the fused op.
 """
 
 from __future__ import annotations
@@ -17,12 +22,16 @@ import numpy as np
 import torch
 
 from gespmm_tpu_torch.kernels.edge_reduce import edge_segment_reduce
-from gespmm_tpu_torch.kernels.gat_fused import dot_attention_aggregate
+from gespmm_tpu_torch.kernels.gat_fused import (dot_backward_cols,
+                                                dot_backward_rows, dot_forward,
+                                                gat_backward_cols,
+                                                gat_backward_rows, gat_forward)
 from gespmm_tpu_torch.ops import reference as ref
 from gespmm_tpu_torch.ops.sddmm import sddmm
 from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 from gespmm_tpu_torch.sparse.formats import CSR, in_degrees, out_degrees
 from gespmm_tpu_torch.sparse.partition import RowSplit
+from gespmm_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -189,6 +198,156 @@ def gat_attention(adj: Union[Adjacency, CSR], q: Tensor, k: Tensor, *,
     return edge_softmax(adj, sddmm(adj, q, k, method=method), method=method)
 
 
+class _GatFused(torch.autograd.Function):
+    """The fused GAT op over ``adj``; differentiable in src2, dst2 and B."""
+
+    @staticmethod
+    def forward(ctx, adj: Adjacency, slope: float, max_mode: str, heads: int,
+                src2: Tensor, dst2: Tensor, B: Tensor) -> Tensor:
+        B = B.contiguous()
+        out, mx, den = gat_forward(adj.csr.indptr, adj.csr.indices, src2, dst2,
+                                   B, slope=slope, heads=heads,
+                                   max_mode=max_mode, rows=adj.rows,
+                                   split=adj.split)
+        ctx.adj, ctx.slope, ctx.heads = adj, slope, heads
+        ctx.save_for_backward(src2, dst2, B, out, mx, den)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        with span("op/gat.grad"):
+            adj = ctx.adj
+            src2, dst2, B, out, mx, den = ctx.saved_tensors
+            g = g.contiguous()
+            s_row = ref.gat_row_dot(g, out, ctx.heads)
+            tables = (src2, dst2, B, g, mx, den, s_row)
+            kw = dict(slope=ctx.slope, heads=ctx.heads)
+            grad_src = grad_dst = grad_B = None
+            if ctx.needs_input_grad[4]:
+                grad_src = gat_backward_rows(adj.csr.indptr, adj.csr.indices,
+                                             *tables, rows=adj.rows,
+                                             split=adj.split, **kw)
+            if ctx.needs_input_grad[5] or ctx.needs_input_grad[6]:
+                grad_dst, grad_B = gat_backward_cols(
+                    adj.csc.indptr, adj.csc.indices, *tables, cols=adj.rows_t,
+                    split=adj.split_t, **kw)
+            if grad_src is not None:
+                grad_src = grad_src.to(src2.dtype)
+            if grad_dst is not None:
+                grad_dst = grad_dst.to(dst2.dtype)
+                grad_B = grad_B.to(B.dtype)
+            return None, None, None, None, grad_src, grad_dst, grad_B
+
+
+def gat_attention_aggregate(adj: Union[Adjacency, CSR], src_score: Tensor,
+                            dst_score: Tensor, B: Tensor, *,
+                            negative_slope: float = 0.2,
+                            max_mode: str = "exact", heads: int = 1) -> Tensor:
+    """out[r] = Σ_c softmax_c(leaky(src[r]+dst[c])) · B[c] over the edge
+    pattern — the whole GATv1 attention layer as one fused op.
+
+    ``src_score``: (m,) or (m, H); ``dst_score``: (n,) or (n, H); ``B``:
+    (n, H·dh) in head blocks (``heads`` = H); every head runs in the same
+    kernel launch.  ``out`` takes B's dtype (f32 or bf16 on the card).
+    Differentiable in all three tensors.  Rows without an edge give 0.
+
+    ``adj``: an ``Adjacency``, or a bare ``CSR`` paired on the fly.  The
+    JAX package needs tiled plans here; the port has none, and takes any.
+    ``max_mode``: "exact" (the per-row max of the logits, one pass of the
+    kernel) or "bound" (leaky(src[r] + max_c dst[c]) per head, computed
+    before the launch; exact alphas while the dst scores span under ~80).
+    The JAX package's ``mode`` is not taken: the kernels accumulate in f32,
+    which meets every mode's tolerance.  The call runs under the span
+    ``op/gat`` and its backward under ``op/gat.grad``
+    (``utils/profiling.py``).
+    """
+    with span("op/gat"):
+        if isinstance(adj, CSR):
+            adj = Adjacency.from_csr(adj)
+        m, n = adj.shape
+        src2 = src_score[:, None] if src_score.dim() == 1 else src_score
+        dst2 = dst_score[:, None] if dst_score.dim() == 1 else dst_score
+        H = int(heads)
+        if tuple(src2.shape) != (m, H) or tuple(dst2.shape) != (n, H):
+            raise ValueError(
+                f"score shapes {tuple(src_score.shape)}/"
+                f"{tuple(dst_score.shape)} must be ({m}, {H})/({n}, {H}) for "
+                f"heads={H} (1-D accepted when heads=1; single head means "
+                f"heads=1)")
+        if B.dim() != 2 or B.shape[0] != n or B.shape[1] % H:
+            raise ValueError(f"B must be ({n}, {H}*dh), got {tuple(B.shape)}")
+        return _GatFused.apply(adj, float(negative_slope), max_mode, H, src2,
+                               dst2, B)
+
+
+class _DotFused(torch.autograd.Function):
+    """Fused dot-product attention over ``adj``; differentiable in D1, D2
+    and B."""
+
+    @staticmethod
+    def forward(ctx, adj: Adjacency, slope: Optional[float], D1: Tensor,
+                D2: Tensor, B: Tensor) -> Tensor:
+        B = B.contiguous()
+        out, mx, den = dot_forward(adj.csr.indptr, adj.csr.indices, D1, D2, B,
+                                   slope=slope, rows=adj.rows, split=adj.split)
+        ctx.adj, ctx.slope = adj, slope
+        ctx.save_for_backward(D1, D2, B, out, mx, den)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        adj, slope = ctx.adj, ctx.slope
+        D1, D2, B, out, mx, den = ctx.saved_tensors
+        g = g.contiguous()
+        s_row = ref.dot_row_dot(g, out)
+        tables = (D1, D2, B, g, mx, den, s_row)
+        grad_D1 = grad_D2 = grad_B = None
+        if ctx.needs_input_grad[2]:
+            grad_D1 = dot_backward_rows(adj.csr.indptr, adj.csr.indices,
+                                        *tables, slope=slope, rows=adj.rows,
+                                        split=adj.split)
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+            grad_D2, grad_B = dot_backward_cols(
+                adj.csc.indptr, adj.csc.indices, *tables, slope=slope,
+                cols=adj.rows_t, split=adj.split_t)
+        if grad_D1 is not None:
+            grad_D1 = grad_D1.to(D1.dtype)
+        if grad_D2 is not None:
+            grad_D2 = grad_D2.to(D2.dtype)
+            grad_B = grad_B.to(B.dtype)
+        return None, None, grad_D1, grad_D2, grad_B
+
+
+def dot_attention_aggregate(adj: Union[Adjacency, CSR], D1: Tensor,
+                            D2: Tensor, B: Tensor, *,
+                            negative_slope: Optional[float] = None) -> Tensor:
+    """out[r] = Σ_c softmax_c(act(D1[r]·D2[c])) · B[c] over the edge pattern
+    — fused dot-product (transformer-style) graph attention.
+
+    ``act`` is the identity (default) or leaky ReLU when ``negative_slope``
+    is given.  D1: (m, Ka); D2: (n, Ka); B: (n, K); ``out`` takes B's dtype
+    (f32 or bf16 on the card).  Differentiable in all three; each gradient
+    takes its input's dtype.  Rows without an edge give 0.
+
+    ``adj``: an ``Adjacency``, or a bare ``CSR`` paired on the fly.  The JAX
+    package needs tiled plans here; the port walks the CSR and the CSC and
+    needs none.
+    """
+    if isinstance(adj, CSR):
+        adj = Adjacency.from_csr(adj)
+    m, n = adj.shape
+    if D1.dim() != 2 or D2.dim() != 2 or D1.shape[1] != D2.shape[1]:
+        raise ValueError(f"D1 {tuple(D1.shape)} / D2 {tuple(D2.shape)} must be "
+                         "(m,Ka)/(n,Ka)")
+    if D1.shape[0] != m or D2.shape[0] != n:
+        raise ValueError(f"D1/D2 rows {D1.shape[0]}/{D2.shape[0]} must match "
+                         f"the pattern {adj.shape}")
+    if B.dim() != 2 or B.shape[0] != n:
+        raise ValueError(f"B must be ({n}, K), got {tuple(B.shape)}")
+    slope = None if negative_slope is None else float(negative_slope)
+    return _DotFused.apply(adj, slope, D1, D2, B)
+
+
 def attention_aggregate(adj: Union[Adjacency, CSR], q: Tensor, k: Tensor,
                         v: Tensor, *, negative_slope: Optional[float] = None,
                         method: str = "auto") -> Tensor:
@@ -197,8 +356,8 @@ def attention_aggregate(adj: Union[Adjacency, CSR], q: Tensor, k: Tensor,
     weighted aggregate) in one call.
 
     ``method``: "auto" | "tiled" run the fused op
-    (``kernels/gat_fused.py::dot_attention_aggregate``: three kernels on a
-    CUDA tensor, their plain versions on a CPU tensor); "xla" composes
+    (``dot_attention_aggregate``: three kernels on a CUDA tensor, their
+    plain versions on a CPU tensor); "xla" composes
     ``sddmm`` → leaky ReLU (when ``negative_slope`` is given) →
     ``edge_softmax`` → ``spmm(adj.with_data(alpha), v)``, each with
     ``method="xla"``.  ``act`` is the identity unless ``negative_slope`` is

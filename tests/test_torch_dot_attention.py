@@ -26,7 +26,6 @@ from gespmm_tpu.ops.graph import attention_aggregate as jattention
 from gespmm_tpu.ops.spmm import Adjacency as JAdjacency
 from gespmm_tpu.sparse import formats as jf
 
-from gespmm_tpu_torch.kernels import gat_fused as kgat
 from gespmm_tpu_torch.ops import graph as tgraph
 from gespmm_tpu_torch.ops import reference as tref
 from gespmm_tpu_torch.ops.spmm import Adjacency as TAdjacency
@@ -89,7 +88,7 @@ def jax_fused(graph):
 
 def port_fused(adj, D1, D2, B, g, slope, fn=None):
     """(out, [grad_D1, grad_D2, grad_B]) of the port's op on the CPU."""
-    fn = fn or (lambda a, b, c: kgat.dot_attention_aggregate(
+    fn = fn or (lambda a, b, c: tgraph.dot_attention_aggregate(
         adj, a, b, c, negative_slope=slope))
     xs = [torch.tensor(x, requires_grad=True) for x in (D1, D2, B)]
     out = fn(*xs)
@@ -171,7 +170,7 @@ def test_bf16_B_gives_bf16_out_and_grads_in_input_dtypes(graph):
     D1, D2, B, g = inputs(6)
     Bb = torch.from_numpy(B).to(torch.bfloat16).requires_grad_(True)
     d1 = torch.from_numpy(D1).requires_grad_(True)
-    out = kgat.dot_attention_aggregate(tadj, d1, torch.from_numpy(D2), Bb)
+    out = tgraph.dot_attention_aggregate(tadj, d1, torch.from_numpy(D2), Bb)
     assert out.dtype == torch.bfloat16
     out.float().backward(torch.from_numpy(g))
     assert Bb.grad.dtype == torch.bfloat16 and d1.grad.dtype == torch.float32
@@ -186,10 +185,12 @@ def test_bf16_B_gives_bf16_out_and_grads_in_input_dtypes(graph):
 def test_interpret_and_bare_csr(graph):
     jadj, tadj = graph
     D1, D2, B, _ = (torch.from_numpy(x) for x in inputs(6))
-    ref = kgat.dot_attention_aggregate(tadj, D1, D2, B)
-    interp = kgat.dot_attention_aggregate(tadj, D1, D2, B, interpret=True)
-    bare = kgat.dot_attention_aggregate(tadj.csr, D1, D2, B)
-    np.testing.assert_array_equal(interp.numpy(), ref.numpy())
+    ref = tgraph.dot_attention_aggregate(tadj, D1, D2, B)
+    # The op on a CPU tensor is the plain version, bit for bit.
+    plain, _, _ = tref.dot_attention_rows(tadj.rows, tadj.csr.indices, D1, D2,
+                                          B, M, None)
+    bare = tgraph.dot_attention_aggregate(tadj.csr, D1, D2, B)
+    np.testing.assert_array_equal(plain.numpy(), ref.numpy())
     np.testing.assert_array_equal(bare.numpy(), ref.numpy())
 
 
@@ -204,7 +205,7 @@ def test_validation_errors_match_jax(graph, bad, match):
     with pytest.raises(ValueError, match=match):
         jdot(jadj, *bad(jnp.asarray(D1), jnp.asarray(D2), jnp.asarray(B)))
     with pytest.raises(ValueError, match=match):
-        kgat.dot_attention_aggregate(
+        tgraph.dot_attention_aggregate(
             tadj, *bad(torch.from_numpy(D1), torch.from_numpy(D2),
                        torch.from_numpy(B)))
     with pytest.raises(ValueError, match="unknown method"):

@@ -33,6 +33,7 @@ from gespmm_tpu.ops.spmm import Adjacency as JAdjacency
 from gespmm_tpu.sparse import formats as jf
 
 from gespmm_tpu_torch.kernels import gat_fused as kgat
+from gespmm_tpu_torch.ops import graph as tgraph
 from gespmm_tpu_torch.ops import reference as tref
 from gespmm_tpu_torch.ops.spmm import Adjacency as TAdjacency
 from gespmm_tpu_torch.sparse import formats as tf
@@ -221,11 +222,12 @@ def test_op_hands_each_kernel_the_split_of_its_direction(graph, monkeypatch):
         return run
 
     for name in ("dot_forward", "dot_backward_rows", "dot_backward_cols"):
-        monkeypatch.setattr(kgat, name, counted(name, getattr(kgat, name)))
+        monkeypatch.setattr(tgraph, name,
+                            counted(name, getattr(tgraph, name)))
     m, n = adj.shape
     xs = [torch.randn(s, dtype=torch.float64, requires_grad=True)
           for s in ((m, 6), (n, 6), (n, K))]
-    out = kgat.dot_attention_aggregate(adj, *xs)
+    out = tgraph.dot_attention_aggregate(adj, *xs)
     out.backward(torch.randn_like(out))
     assert [name for name, _ in calls] == ["dot_forward", "dot_backward_rows",
                                            "dot_backward_cols"]

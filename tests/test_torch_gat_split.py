@@ -36,6 +36,7 @@ from gespmm_tpu.ops.spmm import Adjacency as JAdjacency
 from gespmm_tpu.sparse import formats as jf
 
 from gespmm_tpu_torch.kernels import gat_fused as kgat
+from gespmm_tpu_torch.ops import graph as tgraph
 from gespmm_tpu_torch.ops import reference as tref
 from gespmm_tpu_torch.ops.spmm import Adjacency as TAdjacency
 from gespmm_tpu_torch.sparse import formats as tf
@@ -274,12 +275,13 @@ def test_op_hands_each_kernel_the_split_of_its_direction(graph, monkeypatch):
         return run
 
     for name in ("gat_forward", "gat_backward_rows", "gat_backward_cols"):
-        monkeypatch.setattr(kgat, name, counted(name, getattr(kgat, name)))
+        monkeypatch.setattr(tgraph, name,
+                            counted(name, getattr(tgraph, name)))
     m, n = adj.shape
     src = torch.randn(m, 2, dtype=torch.float64, requires_grad=True)
     dst = torch.randn(n, 2, dtype=torch.float64, requires_grad=True)
     B = torch.randn(n, 6, dtype=torch.float64, requires_grad=True)
-    out = kgat.gat_attention_aggregate(adj, src, dst, B, heads=2)
+    out = tgraph.gat_attention_aggregate(adj, src, dst, B, heads=2)
     out.backward(torch.randn_like(out))
     assert [name for name, _ in calls] == ["gat_forward", "gat_backward_rows",
                                            "gat_backward_cols"]
