@@ -15,8 +15,8 @@ Phases, each printed as it goes; any failure exits non-zero:
      8e-3 (|A| @ |B|)), two calls bitwise equal, at the GCN slice's shapes
      (pubmed-scale SBM graph with self-loops, K=32 and K=3, over the CSR and
      the CSC; no row longer than L, so no carry launch) and on rmat15 (hub
-     rows, empty rows) at K in {1, 3, 32, 33, 128, 130, 512}, valued and
-     binary, f32 and bf16, over the CSC at K=128, bf16 B with an f32 out
+     rows, empty rows) at K in {1, 3, 32, 33, 47, 100, 128, 130, 256, 512},
+     valued and binary, f32 and bf16, over the CSC at K=128, bf16 B with an f32 out
      (mode="fast"'s entry) at K in {32, 128}; and on a graph with rows of
      L - 1, L, L + 1, 2L, 2L + 1 and 10,000 edges at K in {32, 128, 130}, f32,
      bf16 and bf16 in / f32 out;
@@ -231,7 +231,9 @@ Phases, each printed as it goes; any failure exits non-zero:
      with its bound, error and carries, and row 1 over the same edges at
      the same K beside them;
      the CSR kernel at rmat15 (edge factors 8 and 16) K=128 and sbm K=32,
-     f32 and with bf16 B / f32 out (mode="fast"), against torch.sparse.mm,
+     f32 and with bf16 B / f32 out (mode="fast"), and at rmat15 K = 47, 100
+     and 256 (the products cells' widths), each with its (VEC, SW, NS) and
+     edge walks, against torch.sparse.mm,
      and its split at L in {32, 64, 128, 256} at both rmat15 K=128 (each L
      timed twice, in the order 32 ... 256 ... 32);
      the edge segment reduce (row 4, with the split) at sbm and rmat15 K=1
@@ -278,8 +280,10 @@ spmm_grouped_carry), and so do row 7 (halo_spmm_carry), row 5
 (gat_fwd_carry, gat_bwd_rows_carry, gat_bwd_cols_carry), row 2
 (spmm_minmax_carry), row 3 (spmm_minmax_vjp_carry), row 4
 (edge_segment_reduce_carry) and row 6 (dot_fwd_carry, dot_bwd_rows_carry,
-dot_bwd_cols_carry).  In the kernels line rows 4 and 8 also give the GAT
-pallas route's launches (phase 24: gat_pallas_launches), row 1 the
+dot_bwd_cols_carry); rows 1 and 5 also count their walks of the edges
+(spmm_csr_edge_walks, gat_edge_walks), which row 1's entry of the kernels
+line gives for phase 6's GCN.  In the kernels line rows 4 and 8 also give
+the GAT pallas route's launches (phase 24: gat_pallas_launches), row 1 the
 allgather weak-scaling run's and row 7 the halo-tiled one's (phase 27:
 dist_bench_launches), and row 7 the (2, 2) GCN's (phase 28:
 model_axis_launches).  NCCL traffic
@@ -313,7 +317,7 @@ SBM_PUBMED = dict(n_per_class=6573, num_classes=3, p_in=0.0006, p_out=0.00002,
                   feat_dim=128, seed=SEED)
 LIBS = ("spmm_csr", "spmm_minmax", "edge_reduce", "gat_fused", "dot_attention",
         "spmm_chunk", "spmm_grouped", "halo_spmm")
-RMAT_KS = (1, 3, 32, 33, 128, 130, 512)
+RMAT_KS = (1, 3, 32, 33, 47, 100, 128, 130, 256, 512)
 MINMAX_RMAT_KS = (1, 3, 32, 33, 128, 130)
 MINMAX_SBM_KS = (128, 16)
 # Row 3's walker widths (4-lane walkers at K = 1, 3, 16; 8 at 32; 16 at 64)
@@ -623,6 +627,7 @@ def main(argv=None):
     def counts():
         return {"spmm_csr": kspmm.launches,
                 "spmm_csr_carry": kspmm.carry_launches,
+                "spmm_csr_edge_walks": kspmm.edge_walks,
                 "spmm_minmax": kmm.launches,
                 "spmm_minmax_carry": kmm.carry_launches,
                 "spmm_minmax_vjp": kmm.vjp_launches,
@@ -2110,9 +2115,11 @@ def main(argv=None):
     print(f"interop launches: {interop_launches}; torch.sparse.mm calls "
           f"{len(sparse_mm_calls)}", flush=True)
     check(interop_launches["spmm_csr"] == 6
+          and interop_launches["spmm_csr_edge_walks"] == 6
           and not any(c for k, c in interop_launches.items()
-                      if k != "spmm_csr"),
-          f"interop: launches {interop_launches}, expected 6 of spmm_csr")
+                      if k not in ("spmm_csr", "spmm_csr_edge_walks")),
+          f"interop: launches {interop_launches}, expected 6 of spmm_csr, "
+          "one walk each")
     check(not sparse_mm_calls, "interop: AdjacencyMatrix called torch.sparse.mm")
     back = csr_from_torch_sparse(csr_to_torch_sparse(adj.csr))
     same = (back.shape == adj.shape and back.indices.device.type == "cuda"
@@ -2649,6 +2656,8 @@ def main(argv=None):
     for graph, a in (("rmat15", rmat), ("rmat15-ef16", sweep_adj)):
         shapes.append((f"{graph} csr K=128 binary", a, "csr", 128, f32))
         shapes.append((f"{graph} csr K=128 binary fast", a, "csr", 128, bf16))
+    for K in (47, 100, 256):
+        shapes.append((f"rmat15 csr K={K} binary", rmat, "csr", K, f32))
 
     timings = []
     for label, a, direction, K, dtype in shapes:
@@ -2665,8 +2674,10 @@ def main(argv=None):
         def plain():
             return ref.spmm_rows(rows, indices, data, Bk.float(), m)
 
+        walks = kspmm.edge_walks
         err, ok = bound_check(torch, ref, kernel(), indptr, indices, rows,
                               data, Bk.float())
+        walks = kspmm.edge_walks - walks
         check(ok, f"CSR kernel disagrees at {label}")
         k_dev, p_dev = alternate(timing.device_time, kernel, plain)
         k_call, p_call = alternate(lambda f: timing.benchmark(f).mean_s,
@@ -2679,6 +2690,7 @@ def main(argv=None):
             lib_ms = library_time("torch.sparse.mm",
                                   lambda: torch.sparse.mm(lib, B))
         row = {"shape": label, "nnz": nnz, "K": K,
+               "vec_sw_ns": kspmm.csr_shape(K, Bk), "edge_walks": walks,
                "segments": split.num_segments, "max_abs_err": err,
                "kernel_device_ms": k_dev, "plain_device_ms": p_dev,
                "kernel_call_ms": k_call, "plain_call_ms": p_call,
@@ -2689,7 +2701,8 @@ def main(argv=None):
                          + n_in * K * Bk.element_size() + m * K * 4),
                "ops": 2 * nnz * K}
         timings.append(row)
-        print(f"{label}: {split.num_segments} segments | max_abs_err "
+        print(f"{label}: {split.num_segments} segments | (VEC, SW, NS) "
+              f"{row['vec_sw_ns']}, {walks} edge walks | max_abs_err "
               f"{err:.3e} | device time kernel {mean(k_dev):.5f} ms "
               f"({row['kernel_gflops']:.3f} GFLOP/s) | plain {mean(p_dev):.5f} "
               f"ms ({row['plain_gflops']:.3f} GFLOP/s) | torch.sparse.mm "
@@ -3465,7 +3478,8 @@ def main(argv=None):
                                                   r["max_abs_err"], r).items()
                     if k not in ("name", "route", "source", "replaces",
                                  "launches")},
-                 **{k: r[k] for k in ("row1_ms", "carry_launches") if k in r}}
+                 **{k: r[k] for k in ("row1_ms", "carry_launches",
+                                      "vec_sw_ns", "edge_walks") if k in r}}
                 for r in rows]
 
     chunk_row = next(r for r in chunk_timings
@@ -3477,6 +3491,7 @@ def main(argv=None):
                           gcn_runs["auto"]["launches"]["spmm_csr"], slice_err,
                           timings[0]),
              carry_launches=gcn_runs["auto"]["launches"]["spmm_csr_carry"],
+             edge_walks=gcn_runs["auto"]["launches"]["spmm_csr_edge_walks"],
              dist_bench_launches=weak_launches["allgather"]["spmm_csr"],
              more=more_shapes(t for t in timings
                               if t["shape"].startswith("rmat15"))),

@@ -12,7 +12,8 @@ a CUDA tensor launches the kernel or raises — there is no fallback.
 ``launches`` counts the main pass, ``carry_launches`` the carry pass (one
 call is one launch of each, or of the main pass alone when no row is longer
 than L), plain ints, so a run can show that its SpMMs went through the
-kernel.
+kernel; ``edge_walks`` counts the main pass's walks of the edges,
+ceil(slabs / NS) a launch for ``csr_shape``'s NS slabs a walker.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ REPLACES = "gespmm_tpu/kernels/spmm_stream.py:232"
 
 launches = 0
 carry_launches = 0
+edge_walks = 0
 
 # (B dtype, out dtype) -> entry point.
 _ENTRY = {(torch.float32, torch.float32): "gespmm_spmm_csr_f32",
@@ -44,8 +46,8 @@ _SPLIT = ("seg_row", "seg_start", "long_rows", "seg_ptr")
 
 
 def reset_launches() -> None:
-    global launches, carry_launches
-    launches = carry_launches = 0
+    global launches, carry_launches, edge_walks
+    launches = carry_launches = edge_walks = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,7 +55,7 @@ def _entry(b_dtype: torch.dtype, out_dtype: torch.dtype):
     lib = load_library("spmm_csr")
     fn = getattr(lib, _ENTRY[(b_dtype, out_dtype)])
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i] * 6 + [p] * 11
+    fn.argtypes = [i] * 8 + [p] * 11
     fn.restype = ctypes.c_int
     lib.gespmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gespmm_cuda_error_string.restype = ctypes.c_char_p
@@ -100,6 +102,26 @@ def lane_vector(K: int, *tensors: Tensor) -> int:
                 t.data_ptr() % (vec * t.element_size()) == 0 for t in tensors):
             return vec
     return 1
+
+
+def csr_shape(K: int, *tensors: Tensor):
+    """(VEC, SW, NS) of row 1: walkers of SW lanes, VEC columns a lane,
+    holding NS slabs of SW·VEC columns, so that a launch walks the edges
+    ceil(slabs / NS) times.  ``lane_vector``'s VEC on whole warps, one slab,
+    where that covers K; else one walk where VEC 4 on a warp (K <= 128,
+    K % 4 == 0, every table aligned to it) or three slabs of VEC 1 on 16
+    lanes (K <= 48) cover K (K = 100: VEC 4, 25 lanes; K = 47: 47 of 48
+    lanes, two rows a warp); else ``lane_vector``'s VEC on whole warps, a
+    walk a slab (K = 256: VEC 4, two walks)."""
+    vec = lane_vector(K, *tensors)
+    if K <= 32 * vec:
+        return vec, 32, 1
+    if K <= 128 and K % 4 == 0 and all(
+            t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors):
+        return 4, 32, 1
+    if K <= 48:
+        return 1, 16, 3
+    return vec, 32, 1
 
 
 def walk_shape(K: int, heads: int, *tensors: Tensor):
@@ -180,7 +202,7 @@ def spmm_csr_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
                   out_dtype: torch.dtype) -> Tensor:
     """Launch the main pass, then the carry pass when the split has a long
     row, on the current stream of B's device."""
-    global launches, carry_launches
+    global launches, carry_launches, edge_walks
     check_operands(indptr, indices, data, B)
     if (B.dtype, out_dtype) not in _ENTRY:
         raise TypeError(f"no kernel for B {B.dtype} with out {out_dtype}")
@@ -195,17 +217,21 @@ def spmm_csr_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
     S, J = split.num_segments, split.num_long_rows
     partial = (torch.empty((S, K), dtype=torch.float32, device=B.device)
                if S else None)
-    vec = lane_vector(K, B, out, *(() if partial is None else (partial,)))
+    vec, sw, ns = csr_shape(K, B, out,
+                            *(() if partial is None else (partial,)))
     with torch.cuda.device(B.device):
-        err = fn(m, K, vec, split.seg_len, S, J, indptr.data_ptr(),
+        err = fn(m, K, vec, sw, ns, split.seg_len, S, J, indptr.data_ptr(),
                  indices.data_ptr(),
                  None if vals is None else vals.data_ptr(),
                  *(getattr(split, name).data_ptr() for name in _SPLIT),
                  B.data_ptr(), out.data_ptr(),
                  None if partial is None else partial.data_ptr(),
                  torch.cuda.current_stream(B.device).cuda_stream)
-    raise_on(err, err_str, f"spmm_csr at m={m} K={K} L={split.seg_len} "
-             f"segments={S} B {B.dtype} out {out_dtype}")
+    raise_on(err, err_str, f"spmm_csr at m={m} K={K} vec={vec} lanes={sw} "
+             f"slabs={ns} L={split.seg_len} segments={S} B {B.dtype} out "
+             f"{out_dtype}")
     launches += 1
     carry_launches += int(J > 0)
+    slabs = -(-K // (sw * vec))
+    edge_walks += -(-slabs // ns)
     return out

@@ -21,8 +21,9 @@ Then, at rmat15 K=128, the one-warp walks of the hub row of 3,866 edges
 unsplit, over the same edges), each against the earlier max forward:
   * the earlier max forward rebuilt without its ``if (active)`` branch (every
     lane loads, a lane past K at column 0);
-  * the CSR sum kernel (row 1) without a split (one warp a row: its walk of
-    PRs 1-6), as it is and rebuilt without its ``if (active)`` branch;
+  * the CSR sum kernel (row 1) without a split (one warp a row; its walk
+    has loaded on every lane, without an ``if (active)`` branch, since it
+    walks several K slabs at once);
   * this checkout's max forward without a split (one walker a row: the
     batched walk alone; built with the walker at S = 0, see below).
 Then, through this checkout's wrapper, at sbm K=16 and K=128: the walker
@@ -61,12 +62,10 @@ BATCH = "constexpr int kFwdBatch = 4;"
 WALK = "gespmm::walk_edges<T, VEC, SW, kFwdBatch, HAS_VALS>("
 UNSPLIT = "spmm_minmax_kernel<T, VEC, SW, HAS_VALS, IS_MAX, false>"
 ROW_KERNEL = "} else if constexpr (SW == 32) {"
-# The gather behind `if (active)` in the earlier max forward and in row 1's
-# walk, and the same load taken by every lane (column 0 past K).
+# The gather behind `if (active)` in the earlier max forward, and the same
+# load taken by every lane (column 0 past K).
 OLD_MM_LOAD = """        if (active) {
           const P p = *reinterpret_cast<const P*>(B + (int64_t)cj * K + k);"""
-CSR_LOAD = """      if (active) {
-        const P p = *reinterpret_cast<const P*>(B + (int64_t)cj * K + k);"""
 
 
 def unbranched(src, load):
@@ -111,7 +110,6 @@ def main(argv=None):
     old_csrc = os.path.join(args.old_dir, "gespmm_tpu_torch", "csrc")
     new_csrc = str(_build.CSRC_DIR)
     old_src = open(os.path.join(old_csrc, "spmm_minmax.cu")).read()
-    csr_src = _build.CSRC_DIR.joinpath("spmm_csr.cu").read_text()
     mm_src = _build.CSRC_DIR.joinpath("spmm_minmax.cu").read_text()
     assert all(mm_src.count(x) == 1
                for x in (BATCH, WALK, UNSPLIT, ROW_KERNEL))
@@ -119,8 +117,6 @@ def main(argv=None):
     libs = [("old", old_src, old_csrc, "gespmm_spmm_minmax_f32"),
             ("old, no branch", unbranched(old_src, OLD_MM_LOAD), old_csrc,
              "gespmm_spmm_minmax_f32"),
-            ("row 1, no branch", unbranched(csr_src, CSR_LOAD), new_csrc,
-             "gespmm_spmm_csr_f32"),
             ("walker at S = 0", mm_src.replace(
                 ROW_KERNEL, ROW_KERNEL.replace("SW == 32", "false")),
              new_csrc, "gespmm_spmm_minmax_f32")]
@@ -165,8 +161,6 @@ def main(argv=None):
     for name, (fn, _) in built.items():
         if name.startswith("old"):
             fn.argtypes, fn.restype = [i] * 4 + [p] * 7, ctypes.c_int
-        elif name.startswith("row 1"):
-            fn.argtypes, fn.restype = [i] * 6 + [p] * 11, ctypes.c_int
         else:
             fn.argtypes, fn.restype = [i] * 8 + [p] * 13, ctypes.c_int
     card = subprocess.run(
@@ -259,20 +253,15 @@ def main(argv=None):
     def old_max():
         return old_fwd(built["old"][0], a, B)
 
-    def row1(entry=None):
-        call = lambda: kspmm.spmm_csr(  # noqa: E731
-            a.csr.indptr, a.csr.indices, None, B, split=whole)
-        return call if entry is None else patched(
-            kspmm, call, _entry=lambda *_: entry)
+    def row1():
+        return kspmm.spmm_csr(a.csr.indptr, a.csr.indices, None, B,
+                              split=whole)
 
     ab("rmat15 K=128 hub walks: old max / old max without if (active)",
        old_max, lambda: old_fwd(built["old, no branch"][0], a, B),
        ("old max", "old max, no branch"))
-    ab("rmat15 K=128 hub walks: old max / row 1 unsplit", old_max, row1(),
+    ab("rmat15 K=128 hub walks: old max / row 1 unsplit", old_max, row1,
        ("old max", "row 1 unsplit"))
-    ab("rmat15 K=128 hub walks: row 1 unsplit / row 1 unsplit without "
-       "if (active)", row1(), row1(built["row 1, no branch"]),
-       ("row 1 unsplit", "row 1 unsplit, no branch"))
     ab("rmat15 K=128 hub walks: old max / new max unsplit", old_max,
        patched(kmm, lambda: kmm.spmm_minmax(a.csr.indptr, a.csr.indices, None,
                                             B, "max", split=whole),

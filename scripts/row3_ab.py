@@ -44,8 +44,8 @@ the shape walk_shape picks, against (2, 8) and (1, 16).
 Prints one line a row and the card's name and power limit; ``--json`` also
 writes the rows there.  ``--sass`` dumps into OUT_DIR the SASS of row 3's
 walk (f32, binary, at (VEC, SW) = (4, 32) and (4, 4), with and without the
-split) and of row 1's (``spmm_csr_kernel``, f32, VEC 4, with and without
-the split), and prints for each its global loads and branches and the
+split) and of row 1's (``spmm_csr_kernel``, f32, VEC 4, one slab, with and
+without the split), and prints for each its global loads and branches and the
 conditional branches with a global load within the next 8 instructions (a
 gather that a branch can skip).
 """
@@ -66,8 +66,8 @@ SASS = (("spmm_minmax_vjp_kernel", "IfLi4ELi32ELb0ELb0ELb0E", "VEC4 SW32"),
         ("spmm_minmax_vjp_kernel", "IfLi4ELi32ELb0ELb0ELb1E",
          "VEC4 SW32 split"),
         ("spmm_minmax_vjp_kernel", "IfLi4ELi4ELb0ELb0ELb0E", "VEC4 SW4"),
-        ("spmm_csr_kernel", "IffLi4ELb0ELb0E", "VEC4"),
-        ("spmm_csr_kernel", "IffLi4ELb0ELb1E", "VEC4 split"))
+        ("spmm_csr_kernel", "IffLi4ELi32ELi1ELb0ELb0E", "VEC4"),
+        ("spmm_csr_kernel", "IffLi4ELi32ELi1ELb0ELb1E", "VEC4 split"))
 
 
 def nvcc_build(nvcc, flags, src, out):

@@ -127,18 +127,27 @@ def check_bound(out, csr, B, data):
     assert (err <= bound).all(), float((err - bound).max())
 
 
+def edge_walks(K, B):
+    """Row 1's walks of the edges a launch over B: ceil(slabs / NS) for
+    ``csr_shape``'s (VEC, SW, NS), its out and partial freshly allocated."""
+    vec, sw, ns = kspmm.csr_shape(K, B)
+    slabs = -(-K // (sw * vec))
+    return -(-slabs // ns)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("binary", [False, True])
-@pytest.mark.parametrize("K", [1, 3, 32, 33, 128, 130, 512])
+@pytest.mark.parametrize("K", [1, 3, 32, 33, 47, 100, 128, 130, 188, 256, 512])
 def test_kernel_matches_plain(dev, K, binary, dtype):
     csr = skewed_csr().to(dev)
     data = None if binary else csr.data
     B = torch.randn(csr.shape[1], K, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(K)).to(dtype)
-    before = kspmm.launches
+    before, walks = kspmm.launches, kspmm.edge_walks
     out = kspmm.spmm_csr(csr.indptr, csr.indices, data, B)
     torch.cuda.synchronize()
     assert kspmm.launches == before + 1
+    assert kspmm.edge_walks == walks + edge_walks(K, B)
     assert out.dtype == dtype and out.shape == (csr.shape[0], K)
     check_bound(out, csr, B, data)
     empty = (csr.indptr[1:] == csr.indptr[:-1]).nonzero()[:, 0]
@@ -171,7 +180,7 @@ def hub_csr(L, seed=0):
 @pytest.mark.parametrize("dtype,out_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("K", [1, 32, 33, 128, 130])
+@pytest.mark.parametrize("K", [1, 32, 33, 47, 100, 128, 130, 188, 256])
 @pytest.mark.parametrize("L", [32, 64, 128, 256])
 def test_split_kernel_at_each_boundary_and_a_hub(dev, L, K, dtype, out_dtype):
     # A row of L edges is one warp's walk, L + 1 two segments, the hub of
@@ -187,12 +196,40 @@ def test_split_kernel_at_each_boundary_and_a_hub(dev, L, K, dtype, out_dtype):
     again = kspmm.spmm_csr(adj.csr.indptr, adj.csr.indices, adj.data, B,
                            split=split, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert (kspmm.launches, kspmm.carry_launches) == (2, 2)
+    assert (kspmm.launches, kspmm.carry_launches,
+            kspmm.edge_walks) == (2, 2, 2 * edge_walks(K, B))
     assert out.dtype == out_dtype and torch.equal(out, again)
     check_bound(out, adj.csr, B, adj.data)
     if out_dtype == torch.float32:  # bf16 in, f32 out: no output rounding
         check_bound(out, adj.csr, B.float(), adj.data)
     assert not out[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("K", [47, 100, 188, 256])
+@pytest.mark.parametrize("graph", ["skewed", "hub"])
+def test_kernel_over_the_csc_at_the_cells_widths(dev, graph, K, binary,
+                                                 dtype):
+    # grad_B's call: the CSC, with a split short enough that columns are
+    # walked in segments and added by the carry (skewed_csr's columns reach
+    # 25 edges, hub_csr's 3).
+    csr, L = (skewed_csr(), 16) if graph == "skewed" else (hub_csr(64), 2)
+    if binary:
+        csr = CSR(csr.indptr, csr.indices, None, csr.shape)
+    t = Adjacency.from_csr(csr, device=dev).transpose()
+    split = build_row_split(t.csr.indptr.cpu(), L).to(dev)
+    assert split.num_segments > 0
+    B = randn((t.shape[1], K), dev, K, dtype)
+    kspmm.reset_launches()
+    out = kspmm.spmm_csr(t.csr.indptr, t.csr.indices, t.data, B, split=split)
+    again = kspmm.spmm_csr(t.csr.indptr, t.csr.indices, t.data, B,
+                           split=split)
+    torch.cuda.synchronize()
+    assert (kspmm.launches, kspmm.carry_launches,
+            kspmm.edge_walks) == (2, 2, 2 * edge_walks(K, B))
+    assert out.dtype == dtype and torch.equal(out, again)
+    check_bound(out, t.csr, B, t.data)
 
 
 def test_split_kernel_adds_no_launch_without_a_long_row(dev):
@@ -439,6 +476,30 @@ def test_training_runs_each_spmm_at_the_narrower_width(dev, kind,
     loss = res["history"]["loss"]
     assert loss[-1] < loss[0] and np.all(np.isfinite(loss))
     assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+
+
+@pytest.mark.parametrize("config,launches,walks", [
+    ("gcn-ogbn-products", 6, 9), ("sage-mean-ogbn-products", 5, 7)])
+def test_products_cell_step_walks_row_1s_edges(dev, config, launches, walks,
+                                               tmp_path):
+    """One training step of the products cells' program on the benchmark's
+    tiny graph, at the cells' widths: GCN gathers K = 256, 100, 256, 47
+    forward and 256, 47 backward, SAGE-mean 100, 256, 47 and 256, 47.  A
+    K = 256 launch walks the edges twice (two slabs of VEC 4), K = 100 and
+    K = 47 once."""
+    from gnnbench import harness
+    from gnnbench.tests import tiny_cells
+
+    cell = tiny_cells.tiny_cell(tiny_cells.make_root(tmp_path), config)
+    seed = 2**31 + 11
+    graph, inputs, init = harness.make_inputs(cell, seed, dev)
+    prog = harness.build_program(cell, graph, inputs, init, seed, dev,
+                                 harness.Clock(dev))
+    prog.step()
+    kspmm.reset_launches()
+    prog.step()
+    torch.cuda.synchronize()
+    assert (kspmm.launches, kspmm.edge_walks) == (launches, walks)
 
 
 @pytest.mark.parametrize("view", ["column slice", "transposed"])

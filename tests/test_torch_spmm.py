@@ -258,6 +258,35 @@ def test_lane_vector_needs_width_and_alignment():
     assert kspmm.lane_vector(128, bf[4:132]) == 4  # 8 bytes is a bf16 4-vector
 
 
+def test_csr_shape_walks_the_cells_narrow_widths_once():
+    buf = torch.zeros(4 * 256 + 2)
+    # The GCN and SAGE cells' widths: one walk at K = 47 (16-lane walkers of
+    # three slabs, 47 of 48 lanes) and K = 100 (25 lanes of 4 columns); two
+    # slabs of VEC 4 walked apart at K = 188 and 256.
+    assert kspmm.csr_shape(47, buf[:47]) == (1, 16, 3)
+    assert kspmm.csr_shape(100, buf[:100]) == (4, 32, 1)
+    assert kspmm.csr_shape(188, buf[:188]) == (4, 32, 1)
+    assert kspmm.csr_shape(256, buf[:256]) == (4, 32, 1)
+    # Where lane_vector's one slab covers K, its shape on whole warps.
+    for K, vec in ((1, 1), (32, 1), (64, 2), (128, 4)):
+        assert kspmm.csr_shape(K, buf[:K]) == (vec, 32, 1)
+    assert kspmm.csr_shape(48, buf[:48]) == (4, 32, 1)  # 12 lanes of 4 columns
+    assert kspmm.csr_shape(33, buf[:33]) == (1, 16, 3)
+    assert kspmm.csr_shape(49, buf[:49]) == (1, 32, 1)  # two walks, as before
+    assert kspmm.csr_shape(130, buf[:130]) == (2, 32, 1)  # 130 % 4: 3 walks
+    # Misalignment: VEC 1 needs none, so K = 47 keeps its one walk; K = 100
+    # falls back to lane_vector's two slabs of VEC 2 (8-byte offset) or
+    # four of VEC 1 (4-byte offset).
+    assert kspmm.csr_shape(47, buf[1:48]) == (1, 16, 3)
+    assert kspmm.csr_shape(100, buf[2:102]) == (2, 32, 1)
+    assert kspmm.csr_shape(100, buf[1:101]) == (1, 32, 1)
+    assert kspmm.csr_shape(256, buf[2:258]) == (2, 32, 1)
+    assert kspmm.csr_shape(100, buf[:100], buf[1:101]) == (1, 32, 1)
+    bf = torch.zeros(256, dtype=torch.bfloat16)
+    assert kspmm.csr_shape(100, bf[4:104]) == (4, 32, 1)  # a bf16 4-vector
+    assert kspmm.csr_shape(100, bf[2:102]) == (2, 32, 1)
+
+
 # -- the nvcc build step (exercised with stand-in compilers) ----------------
 
 
