@@ -88,6 +88,14 @@ Phases, each printed as it goes; any failure exits non-zero:
      edge_softmax on the segment-reduce kernel, spmm with_data on the sum
      kernel) and to float64; exactly 1 launch of each dot kernel and no
      carry, and method="xla" none;
+ 12b. multi-head dot_attention_aggregate on the card at the UniMP cell's
+     heads: two heads of 32 and of 47 (K = Ka = 64 and 94), scale dh^-1/2,
+     the attention mask (keep 0.7) and without it, on the SBM graph, rmat15
+     and the boundary graph, forward and backward held to the same op in
+     float64 on the CPU (the plain version; forward 1e-5 x max |ref| +
+     1e-6, gradients 1e-4 x max(|ref|, 1)); exactly 1 launch of each dot
+     kernel and 3 edge walks a call; no carry on sbm, and 1, 1 and 2 carries
+     a call on rmat15 and the boundary graph (the split path);
  13. nnz-chunked SpMM vs float64: on the SBM graph and rmat15 at K in {1, 3,
      16, 32, 33, 64, 128, 130, 512} (every walker width of the chunk
      kernel's walk over the plan's pieces), valued and binary, f32 and bf16,
@@ -280,8 +288,8 @@ spmm_grouped_carry), and so do row 7 (halo_spmm_carry), row 5
 (gat_fwd_carry, gat_bwd_rows_carry, gat_bwd_cols_carry), row 2
 (spmm_minmax_carry), row 3 (spmm_minmax_vjp_carry), row 4
 (edge_segment_reduce_carry) and row 6 (dot_fwd_carry, dot_bwd_rows_carry,
-dot_bwd_cols_carry); rows 1 and 5 also count their walks of the edges
-(spmm_csr_edge_walks, gat_edge_walks), which row 1's entry of the kernels
+dot_bwd_cols_carry); rows 1, 5 and 6 also count their walks of the edges
+(spmm_csr_edge_walks, gat_edge_walks, dot_edge_walks), which row 1's entry of the kernels
 line gives for phase 6's GCN.  In the kernels line rows 4 and 8 also give
 the GAT pallas route's launches (phase 24: gat_pallas_launches), row 1 the
 allgather weak-scaling run's and row 7 the halo-tiled one's (phase 27:
@@ -576,7 +584,9 @@ def main(argv=None):
     from gespmm_tpu_torch.ops import reference as ref
     from gespmm_tpu_torch.ops.graph import (add_self_loops,
                                             additive_attention_logits,
-                                            attention_aggregate, edge_softmax,
+                                            attention_aggregate,
+                                            dot_attention_aggregate,
+                                            edge_softmax,
                                             gat_attention_aggregate)
     from gespmm_tpu_torch.ops.interop import (AdjacencyMatrix,
                                               csr_from_torch_sparse,
@@ -647,6 +657,7 @@ def main(argv=None):
                 "dot_fwd_carry": kgat.dot_carry_launches,
                 "dot_bwd_rows_carry": kgat.dot_bwd_rows_carry_launches,
                 "dot_bwd_cols_carry": kgat.dot_bwd_cols_carry_launches,
+                "dot_edge_walks": kgat.dot_edge_walks,
                 "spmm_chunk": kpal.launches,
                 "spmm_chunk_carry": kpal.carry_launches,
                 "spmm_grouped": kgrp.launches,
@@ -1313,6 +1324,65 @@ def main(argv=None):
     record["attention_aggregate"] = {
         "launches": dot_launches, "chain_launches": dot_chain_launches,
         "xla_launches": xla_dot_launches, "errors": dot_op_errs}
+
+    phase("12b multi-head dot_attention_aggregate on the card (H=2, dh=32 "
+          "and 47)")
+    heads_errs = {}
+    for graph, a in (("sbm", adj), ("rmat15", rmat), ("boundary", bnd)):
+        n_a = a.shape[0]
+        a_cpu = Adjacency.from_csr(a.csr.to("cpu"))
+        # sbm has no row or column above L edges; rmat15's hubs and the
+        # boundary graph's long rows and columns run every carry: 1, 1 and
+        # 2 a call.
+        want_carries = (0, 0, 0) if graph == "sbm" else (1, 1, 2)
+        keep = torch.rand((a.nnz, 2), device=dev, generator=gen) < 0.7
+        for dh in (32, 47):
+            K = 2 * dh
+            leaves = [torch.randn(n_a, K, device=dev, generator=gen) * 0.5
+                      for _ in range(3)]
+            g_heads = torch.randn(n_a, K, device=dev, generator=gen)
+            for masked in (False, True):
+                kw = dict(heads=2, scale=dh ** -0.5,
+                          edge_keep=keep if masked else None,
+                          keep_prob=0.7 if masked else None)
+                xs = [t.clone().requires_grad_(True) for t in leaves]
+                reset_counts()
+                out = dot_attention_aggregate(a, *xs, **kw)
+                out.backward(g_heads)
+                torch.cuda.synchronize()
+                got = counts()
+                xs64 = [t.detach().cpu().double().requires_grad_(True)
+                        for t in leaves]
+                kw64 = dict(kw, edge_keep=keep.cpu() if masked else None)
+                out64 = dot_attention_aggregate(a_cpu, *xs64, **kw64)
+                out64.backward(g_heads.cpu().double())
+                label = (f"{graph} dh={dh} "
+                         f"{'masked' if masked else 'unmasked'}")
+                carries = tuple(got[k] for k in dot_carry_names)
+                check((got["dot_fwd"], got["dot_bwd_rows"],
+                       got["dot_bwd_cols"], got["dot_edge_walks"])
+                      == (1, 1, 1, 3) and carries == want_carries,
+                      f"multi-head dot {label}: launches {got}, carries "
+                      f"expected {want_carries}")
+                errs = {}
+                for name, f, x in zip(
+                        ("out", "grad_D1", "grad_D2", "grad_B"),
+                        [out.detach()] + [t.grad for t in xs],
+                        [out64.detach()] + [t.grad for t in xs64]):
+                    scale = float(x.abs().max())
+                    tol = (1e-5 * scale + 1e-6 if name == "out"
+                           else 1e-4 * max(scale, 1.0))
+                    errs[name] = float((f.double().cpu() - x).abs().max())
+                    check(bool(torch.isfinite(f).all()) and errs[name] <= tol,
+                          f"multi-head dot {label} {name}: {errs[name]:.3e} "
+                          f"over {tol:.3e}")
+                heads_errs[label] = {"errors": errs, "carries": carries}
+                print(f"multi-head dot {label}: launches (1, 1, 1), carries "
+                      f"{carries}, edge walks {got['dot_edge_walks']}, vs "
+                      "float64 " + ", ".join(f"{k} {v:.3e}"
+                                             for k, v in errs.items()),
+                      flush=True)
+    record["dot_attention_heads"] = heads_errs
 
     phase("13 nnz-chunked SpMM vs float64")
     chunk_compared = []

@@ -1,21 +1,30 @@
 // Fused dot-product graph attention for Hopper (sm_90a): forward over the
 // CSR, backward over the CSR (to D1) and over the CSC (to D2 and to B).  With
-// D1 (m, Ka), D2 (n, Ka), B (n, K) and act = identity or leaky(., slope):
+// D1 (m, Ka), D2 (n, Ka) and B (n, K) in H head blocks (dk = Ka / H columns
+// of D1 and D2, dv = K / H of B a head; H = 1 is one head over all columns),
+// a scale sc (1 where none is given), act = identity or leaky(., slope), and
+// per (edge, head) an edge factor m~_e (1 / keep_prob where the dropout mask
+// keeps the edge, 0 where it drops it, 1 without a mask), per head h:
 //
-//   pre_e = D1[r] . D2[c],   l_e = act(pre_e)
+//   pre_e = sc * <D1[r], D2[c]>_h,   l_e = act(pre_e)
 //   mx[r]  = max_{e in row r} l_e   (0 for an empty row)
 //   z_e    = exp(max(l_e - mx[r], -80))
 //   den[r] = max(sum_{e in row r} z_e, 1e-20)
-//   out[r] = sum_{e in row r} z_e * B[c] / den[r]
+//   out[r]_h = sum_{e in row r} z_e * m~_e * B[c]_h / den[r]
 //
-// and, for the cotangent g of out, with s[r] = <g[r], out[r]> (one torch op
-// before the launch, from the stored out):
+// (alpha_e = z_e / den[r] is the softmax; the dropout multiplies the weights
+// after it, so den sums the undropped z) and, for the cotangent g of out,
+// with s[r] = <g[r], out[r]>_h (one torch op before the launch, from the
+// stored out, which already holds the dropped weights, so s is still the
+// softmax backward's row term):
 //
-//   alpha_e = z_e / den[r],  u_e = g[r] . B[c]
-//   dpre_e  = alpha_e * (u_e - s[r]) * act'(pre_e)
-//   grad_D1[r] = sum_{e in row r} dpre_e * D2[c]
-//   grad_D2[c] = sum_{e in col c} dpre_e * D1[r]
-//   grad_B[c]  = sum_{e in col c} alpha_e * g[r]
+//   u_e = <g[r], B[c]>_h,   dpre_e = alpha_e * (m~_e * u_e - s[r]) * act'(pre_e)
+//   grad_D1[r]_h = sum_{e in row r} sc * dpre_e * D2[c]_h
+//   grad_D2[c]_h = sum_{e in col c} sc * dpre_e * D1[r]_h
+//   grad_B[c]_h  = sum_{e in col c} alpha_e * m~_e * g[r]_h
+//
+// The single-head kernels below take H = 1 with no scale and no mask; the
+// multi-head kernels (after them) take the rest.
 //
 // Replaces gespmm_tpu/kernels/gat_fused.py::_dot_forward (gat_fused.py:317)
 // and _dot_bwd (:382), which on the TPU ran as four _reduce_part stream passes
@@ -593,6 +602,553 @@ dot_bwd_cols_kernel(int n, int S, int K, int Ka, int L, int leaky,
   }
 }
 
+// --- the multi-head walk ---------------------------------------------------
+//
+// D1 (m, Ka), D2 (n, Ka) and B (n, K) in H head blocks of dk = Ka / H and
+// dv = K / H columns.  A walker is a whole warp (SW = 32) whose lanes hold
+// VEC columns in each of NS slabs of 32*VEC columns, so that one walk of an
+// item's edges covers both widths (kernels/gat_fused.py::DOT_HEAD_WALKS: VEC
+// divides dk and dv, and 32*VEC*NS >= max(K, Ka)).  For each batch of NB
+// edges every lane gathers its columns of the edges' rows and takes its
+// partial of each edge's dot over its columns; the walker then sums each
+// head's partials (head_totals): where every head fills a power-of-two group
+// of G lanes of a slab (dk = dv, dk / VEC = G <= 32: the hidden layers' heads
+// of 32, G = 16) by a butterfly over the group, log2(G) shuffles a dot, else
+// head by head, the lane's partials of the head's columns added in slab
+// order and then Sub::sum's butterfly over the walker (the output layer's
+// heads of 47 at 1-column lanes: head 0 fills slab 0 and 15 lanes of slab 1,
+// head 1 the rest).  Every lane of a head holds
+// its total, the same bits in each.  A lane then folds each of its slabs with
+// the weights of that slab's head: the forward with an online softmax a slab
+// over the batches (the batch's maximum; the sums rescaled by exp(m_old -
+// m_new) when it grows), as the single-head forward over its rounds.  The
+// scale multiplies each dot (pre = scale * dot, one rounded product), and the
+// edge factor m~ (1 / keep_prob, or 0, from the (nnz, H) byte mask in CSR
+// edge order; 1 without a mask) multiplies each weight where it is used:
+// zd = z * m~ in the forward's sum (den keeps the undropped z), u * m~ in
+// dpre, alpha * m~ for grad_B.  Each round of SW edges, lane j loads edge j's
+// per-head values (the mask's factors; over the CSC also its row's mx, den
+// and s_row) into a per-walker [table][head][edge] table in shared memory
+// (stride SW + 1), so that a batch reads them without a dependent load.  The
+// CSC walk reads the mask through perm (the CSR position of each CSC edge):
+// so the UniMP cell's CSC walks took 3.5% and 2.8% less than over a copy of
+// the mask in CSC order, the copy's own 3.5 ms aside (PERF.md, section 6).
+// The three kernels take each dot with the same lanes in the same order
+// (fmaf is symmetric in its factors), so the backward's pre meets the
+// forward's mx and den bit for bit.
+
+// Edges whose rows a multi-head walker gathers before it folds any: 4, or 2
+// in a walker holding several slabs, whose registers would otherwise cost
+// it blocks an SM (the output layer's forward 15% faster, its backward walks
+// 27% and 16%: PERF.md, section 6).
+template <int NS>
+constexpr int kHeadsBatchOf = NS == 1 ? 4 : 2;
+
+// Blocks an SM the CSC walk's registers must allow: three was 2% faster at
+// the output layer's heads of 47 (and slowed the CSR walk there).
+constexpr int kHeadsColsMinBlocks = 3;
+
+// The lane's columns in each of a walker's NS slabs of SW*VEC columns, on the
+// D side (Ka wide, heads of dk) and the B side (K wide, heads of dv): the
+// first column (0 past the width, where the loads are not used) and its head
+// (-1 past the width).
+template <int VEC, int SW, int NS>
+struct HeadCols {
+  int kd[NS], kb[NS], hd[NS], hb[NS];
+  __device__ HeadCols(int lane, int Ka, int K, int H) {
+    const int dk = Ka / H, dv = K / H;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int k = (s * SW + lane) * VEC;
+      hd[s] = k < Ka ? k / dk : -1;
+      hb[s] = k < K ? k / dv : -1;
+      kd[s] = k < Ka ? k : 0;
+      kb[s] = k < K ? k : 0;
+    }
+  }
+};
+
+// p[u][s]: the lane's partial of x[s] . y[s][u] over its VEC columns of slab
+// s, in column order (0 where the slab is past the width).
+template <typename TA, typename TB, int VEC, int NS, int N>
+__device__ __forceinline__ void slab_dots(const Pack<TA, VEC> (&x)[NS],
+                                          const Pack<TB, VEC> (&y)[NS][N],
+                                          const int (&h)[NS],
+                                          float (&p)[N][NS]) {
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      float a = 0.f;
+      if (h[s] >= 0)
+#pragma unroll
+        for (int t = 0; t < VEC; ++t)
+          a = fmaf(to_f32(x[s].v[t]), to_f32(y[s][u].v[t]), a);
+      p[u][s] = a;
+    }
+}
+
+// q[u][s]: the dot of edge u for head dst[s], from the partials p whose
+// columns are of head src[s] (src = dst except where K != Ka): with G > 0
+// (src = dst, each head fills G lanes of a slab) the slab's partials summed
+// over the head's lanes by a butterfly; else for each head the lane's
+// partials of that head added in slab order, then summed over the walker.
+// Walker-uniform: all SW lanes take part.
+template <int SW, int NS, int N>
+__device__ __forceinline__ void head_totals(const Sub<SW>& w, int G, int H,
+                                            const int (&src)[NS],
+                                            const int (&dst)[NS],
+                                            const float (&p)[N][NS],
+                                            float (&q)[N][NS]) {
+  if (G > 0) {
+#pragma unroll
+    for (int u = 0; u < N; ++u)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) q[u][s] = p[u][s];
+    for (int o = G / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < N; ++u)
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          q[u][s] += __shfl_xor_sync(w.mask, q[u][s], o, SW);
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) q[u][s] = 0.f;
+  for (int h = 0; h < H; ++h) {
+    float t[N];
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      float a = 0.f;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        if (src[s] == h) a += p[u][s];
+      t[u] = a;
+    }
+    sums(w, t);
+#pragma unroll
+    for (int u = 0; u < N; ++u)
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        if (dst[s] == h) q[u][s] = t[u];
+  }
+}
+
+// The edge factor m~ of (mask row e, head h): 1 / keep_prob where the edge
+// is kept, 0 where it is dropped.
+__device__ __forceinline__ float edge_factor(const uint8_t* __restrict__ keep,
+                                             int64_t e, int H, int h,
+                                             float inv_keep) {
+  return __ldg(keep + e * H + h) ? inv_keep : 0.f;
+}
+
+// Lane j's edge of a round into the walker's shared [table][head][edge]
+// tables (stride SW + 1): the mask's factor of each head (table 0, where
+// there is a mask) and, with ROW_TABLES, its row's mx, den and s_row of each
+// head (tables 1-3).  Synchronises the walker before (the last round's reads)
+// and after.
+template <bool ROW_TABLES, int SW>
+__device__ __forceinline__ void stage_edges(
+    const Sub<SW>& w, float* __restrict__ st, int H, bool live, int64_t ek,
+    int64_t r, const uint8_t* __restrict__ keep, float inv_keep,
+    const float* __restrict__ mx, const float* __restrict__ den,
+    const float* __restrict__ srow) {
+  constexpr int kStride = SW + 1;
+  w.sync();
+  if (live) {
+#pragma unroll 4
+    for (int h = 0; h < H; ++h) {
+      float* at = st + h * kStride + w.lane;
+      if (keep != nullptr) at[0] = edge_factor(keep, ek, H, h, inv_keep);
+      if constexpr (ROW_TABLES) {
+        at[1 * H * kStride] = __ldg(mx + r * H + h);
+        at[2 * H * kStride] = __ldg(den + r * H + h);
+        at[3 * H * kStride] = __ldg(srow + r * H + h);
+      }
+    }
+  }
+  w.sync();
+}
+
+// scale * dpre: the gradient of an (edge, head)'s dot, from its pre, its
+// row's tables, u = <g[r], B[c]> of the head and the edge factor.
+__device__ __forceinline__ float dot_grad(float pre, float u, float f,
+                                          float mx, float den, float s,
+                                          int leaky, float slope,
+                                          float scale) {
+  return scale * (attention(pre, leaky, slope, mx, den) * (f * u - s) *
+                  dact(pre, leaky, slope));
+}
+
+template <typename T, int VEC, int SW, int NS>
+__global__ void __launch_bounds__(kThreads)
+dot_heads_fwd_kernel(int m, int S, int K, int Ka, int H, int G, int L,
+                     int leaky, float slope, float scale, float inv_keep,
+                     const int* __restrict__ indptr,
+                     const int* __restrict__ indices,
+                     const int* __restrict__ seg_row,
+                     const int* __restrict__ seg_start,
+                     const float* __restrict__ D1,
+                     const float* __restrict__ D2, const T* __restrict__ B,
+                     const uint8_t* __restrict__ keep, T* __restrict__ out,
+                     float* __restrict__ mx, float* __restrict__ den,
+                     float* __restrict__ pm, float* __restrict__ pz,
+                     float* __restrict__ pacc) {
+  using P = Pack<T, VEC>;
+  using F = Pack<float, VEC>;
+  constexpr int NB = kHeadsBatchOf<NS>;
+  constexpr int kStride = SW + 1;
+  constexpr int kPerBlock = kThreads / SW;
+  const Sub<SW> w;
+  extern __shared__ float smem[];
+  float* st = smem + (threadIdx.x / SW) * H * kStride;  // [head][edge]
+  const int dv = K / H;
+  const HeadCols<VEC, SW, NS> hc(w.lane, Ka, K, H);
+  for (int item = blockIdx.x * kPerBlock + threadIdx.x / SW; item < S + m;
+       item += gridDim.x * kPerBlock) {
+    Item it;
+    if (!item_edges(item, S, L, indptr, seg_row, seg_start, it)) continue;
+    F x[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      x[s] = load<float, VEC>(D1 + (int64_t)it.row * Ka + hc.kd[s]);
+    float m_run[NS], zsum[NS], acc[NS][VEC];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      m_run[s] = -CUDART_INF_F;
+      zsum[s] = 0.f;
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) acc[s][t] = 0.f;
+    }
+    for (int base = it.s; base < it.t; base += SW) {
+      // Walker-uniform down to the shuffles: all SW lanes take part.
+      const int e = base + w.lane;
+      const bool live = e < it.t;
+      const int c = live ? __ldg(indices + e) : 0;
+      const int n_here = min(SW, it.t - base);
+      if (keep != nullptr)
+        stage_edges<false>(w, st, H, live, e, 0, keep, inv_keep, nullptr,
+                           nullptr, nullptr);
+      for (int u0 = 0; u0 < n_here; u0 += NB) {
+        const float* drows[NB];
+        const T* brows[NB];
+        batch_rows(w, c, u0, n_here, D2, Ka, drows);
+        batch_rows(w, c, u0, n_here, B, K, brows);
+        F yd[NS][NB];
+        P yb[NS][NB];
+#pragma unroll
+        for (int u = 0; u < NB; ++u)
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            yd[s][u] = load<float, VEC>(drows[u] + hc.kd[s]);
+            yb[s][u] = load<T, VEC>(brows[u] + hc.kb[s]);
+          }
+        float p[NB][NS], l[NB][NS];
+        slab_dots(x, yd, hc.hd, p);
+        head_totals(w, G, H, hc.hd, hc.hb, p, l);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          if (hc.hb[s] < 0) continue;  // no shuffle below
+          float mb = m_run[s];
+#pragma unroll
+          for (int u = 0; u < NB; ++u) {
+            l[u][s] = act(l[u][s] * scale, leaky, slope);
+            if (u0 + u < n_here) mb = fmaxf(mb, l[u][s]);
+          }
+          const float sc = m_run[s] == mb ? 1.f : expf(m_run[s] - mb);
+          m_run[s] = mb;
+          zsum[s] *= sc;
+#pragma unroll
+          for (int t = 0; t < VEC; ++t) acc[s][t] *= sc;
+#pragma unroll
+          for (int u = 0; u < NB; ++u) {
+            if (u0 + u < n_here) {
+              const float z = expf(fmaxf(l[u][s] - mb, kExpFloor));
+              zsum[s] += z;
+              const float zd =
+                  keep == nullptr ? z
+                                  : z * st[hc.hb[s] * kStride + u0 + u];
+#pragma unroll
+              for (int t = 0; t < VEC; ++t)
+                acc[s][t] = fmaf(zd, to_f32(yb[s][u].v[t]), acc[s][t]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int h = hc.hb[s], k = hc.kb[s];
+      if (h < 0) continue;
+      const bool first = k % dv == 0;  // the head's first column
+      if (item < S) {
+        F o;
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) o.v[t] = acc[s][t];
+        *reinterpret_cast<F*>(pacc + (int64_t)item * K + k) = o;
+        if (first) {
+          pm[(int64_t)item * H + h] = m_run[s];
+          pz[(int64_t)item * H + h] = zsum[s];
+        }
+      } else {
+        const float d = fmaxf(zsum[s], kDenomEps);
+        P o;
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) o.v[t] = from_f32<T>(acc[s][t] / d);
+        *reinterpret_cast<P*>(out + (int64_t)it.row * K + k) = o;
+        if (first) {
+          const int64_t at = (int64_t)it.row * H + h;
+          mx[at] = isfinite(m_run[s]) ? m_run[s] : 0.f;  // an empty row: 0
+          den[at] = d;
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int VEC, int SW, int NS>
+__global__ void __launch_bounds__(kThreads)
+dot_heads_bwd_rows_kernel(int m, int S, int K, int Ka, int H, int G, int L,
+                          int leaky, float slope, float scale, float inv_keep,
+                          const int* __restrict__ indptr,
+                          const int* __restrict__ indices,
+                          const int* __restrict__ seg_row,
+                          const int* __restrict__ seg_start,
+                          const float* __restrict__ D1,
+                          const float* __restrict__ D2,
+                          const T* __restrict__ B, const float* __restrict__ g,
+                          const uint8_t* __restrict__ keep,
+                          const float* __restrict__ mx,
+                          const float* __restrict__ den,
+                          const float* __restrict__ srow,
+                          float* __restrict__ grad_D1,
+                          float* __restrict__ part) {
+  using P = Pack<T, VEC>;
+  using F = Pack<float, VEC>;
+  constexpr int NB = kHeadsBatchOf<NS>;
+  constexpr int kStride = SW + 1;
+  constexpr int kPerBlock = kThreads / SW;
+  const Sub<SW> w;
+  extern __shared__ float smem[];
+  float* st = smem + (threadIdx.x / SW) * H * kStride;  // [head][edge]
+  const HeadCols<VEC, SW, NS> hc(w.lane, Ka, K, H);
+  for (int item = blockIdx.x * kPerBlock + threadIdx.x / SW; item < S + m;
+       item += gridDim.x * kPerBlock) {
+    Item it;
+    if (!item_edges(item, S, L, indptr, seg_row, seg_start, it)) continue;
+    const int64_t r = it.row;
+    F xd[NS], xg[NS];
+    float mh[NS], dn[NS], sr[NS];  // the row's tables at slab s's D head
+    float acc[NS][VEC];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      xd[s] = load<float, VEC>(D1 + r * Ka + hc.kd[s]);
+      xg[s] = load<float, VEC>(g + r * K + hc.kb[s]);
+      const int64_t at = r * H + max(hc.hd[s], 0);
+      mh[s] = mx[at];
+      dn[s] = den[at];
+      sr[s] = srow[at];
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) acc[s][t] = 0.f;
+    }
+    for (int base = it.s; base < it.t; base += SW) {
+      const int e = base + w.lane;
+      const bool live = e < it.t;
+      const int c = live ? __ldg(indices + e) : 0;
+      const int n_here = min(SW, it.t - base);
+      if (keep != nullptr)
+        stage_edges<false>(w, st, H, live, e, 0, keep, inv_keep, nullptr,
+                           nullptr, nullptr);
+      for (int u0 = 0; u0 < n_here; u0 += NB) {
+        const float* drows[NB];
+        const T* brows[NB];
+        batch_rows(w, c, u0, n_here, D2, Ka, drows);
+        batch_rows(w, c, u0, n_here, B, K, brows);
+        F yd[NS][NB];
+        P yb[NS][NB];
+#pragma unroll
+        for (int u = 0; u < NB; ++u)
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            yd[s][u] = load<float, VEC>(drows[u] + hc.kd[s]);
+            yb[s][u] = load<T, VEC>(brows[u] + hc.kb[s]);
+          }
+        float pd[NB][NS], pb[NB][NS], qd[NB][NS], qb[NB][NS];
+        slab_dots(xd, yd, hc.hd, pd);
+        slab_dots(xg, yb, hc.hb, pb);
+        head_totals(w, G, H, hc.hd, hc.hd, pd, qd);
+        head_totals(w, G, H, hc.hb, hc.hd, pb, qb);
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+          if (u0 + u < n_here) {  // walker-uniform
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+              const int h = hc.hd[s];
+              if (h < 0) continue;
+              const float f =
+                  keep == nullptr ? 1.f : st[h * kStride + u0 + u];
+              const float dd = dot_grad(qd[u][s] * scale, qb[u][s], f, mh[s],
+                                        dn[s], sr[s], leaky, slope, scale);
+#pragma unroll
+              for (int t = 0; t < VEC; ++t)
+                acc[s][t] = fmaf(dd, yd[s][u].v[t], acc[s][t]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      if (hc.hd[s] < 0) continue;
+      F o;
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) o.v[t] = acc[s][t];
+      float* dst = item < S ? part + (int64_t)item * Ka : grad_D1 + r * Ka;
+      *reinterpret_cast<F*>(dst + hc.kd[s]) = o;
+    }
+  }
+}
+
+// One walk a column gives grad_D2 (Ka wide) and grad_B (K wide).
+template <typename T, int VEC, int SW, int NS>
+__global__ void __launch_bounds__(kThreads, kHeadsColsMinBlocks)
+dot_heads_bwd_cols_kernel(int n, int S, int K, int Ka, int H, int G, int L,
+                          int leaky, float slope, float scale, float inv_keep,
+                          const int* __restrict__ colptr,
+                          const int* __restrict__ rows,
+                          const int* __restrict__ seg_row,
+                          const int* __restrict__ seg_start,
+                          const float* __restrict__ D1,
+                          const float* __restrict__ D2,
+                          const T* __restrict__ B, const float* __restrict__ g,
+                          const uint8_t* __restrict__ keep,
+                          const int* __restrict__ perm,
+                          const float* __restrict__ mx,
+                          const float* __restrict__ den,
+                          const float* __restrict__ srow,
+                          T* __restrict__ grad_B, float* __restrict__ grad_D2,
+                          float* __restrict__ part_B,
+                          float* __restrict__ part_D) {
+  using P = Pack<T, VEC>;
+  using F = Pack<float, VEC>;
+  constexpr int NB = kHeadsBatchOf<NS>;
+  constexpr int kStride = SW + 1;
+  constexpr int kPerBlock = kThreads / SW;
+  const Sub<SW> w;
+  extern __shared__ float smem[];
+  // [table][head][edge]: the edge factor, and the edge's row's mx, den and
+  // s_row.
+  float* st = smem + (threadIdx.x / SW) * 4 * H * kStride;
+  const int tab = H * kStride;
+  const HeadCols<VEC, SW, NS> hc(w.lane, Ka, K, H);
+  for (int item = blockIdx.x * kPerBlock + threadIdx.x / SW; item < S + n;
+       item += gridDim.x * kPerBlock) {
+    Item it;  // it.row is the column
+    if (!item_edges(item, S, L, colptr, seg_row, seg_start, it)) continue;
+    const int64_t c = it.row;
+    F xd[NS];
+    P xb[NS];
+    float accD[NS][VEC], accB[NS][VEC];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      xd[s] = load<float, VEC>(D2 + c * Ka + hc.kd[s]);
+      xb[s] = load<T, VEC>(B + c * K + hc.kb[s]);
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) accD[s][t] = accB[s][t] = 0.f;
+    }
+    for (int base = it.s; base < it.t; base += SW) {
+      const int e = base + w.lane;
+      const bool live = e < it.t;
+      const int r = live ? __ldg(rows + e) : 0;
+      const int n_here = min(SW, it.t - base);
+      // The edge's row of the mask: its CSR position.
+      const int64_t ek = live && keep != nullptr ? __ldg(perm + e) : e;
+      stage_edges<true>(w, st, H, live, ek, r, keep, inv_keep, mx, den, srow);
+      for (int u0 = 0; u0 < n_here; u0 += NB) {
+        const float *drows[NB], *grows[NB];
+        batch_rows(w, r, u0, n_here, D1, Ka, drows);
+        batch_rows(w, r, u0, n_here, g, K, grows);
+        F yd[NS][NB], yg[NS][NB];
+#pragma unroll
+        for (int u = 0; u < NB; ++u)
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            yd[s][u] = load<float, VEC>(drows[u] + hc.kd[s]);
+            yg[s][u] = load<float, VEC>(grows[u] + hc.kb[s]);
+          }
+        float pd[NB][NS], pb[NB][NS], qd[NB][NS], qb[NB][NS], qa[NB][NS];
+        slab_dots(xd, yd, hc.hd, pd);
+        slab_dots(xb, yg, hc.hb, pb);
+        head_totals(w, G, H, hc.hd, hc.hd, pd, qd);
+        head_totals(w, G, H, hc.hb, hc.hd, pb, qb);
+        // The dot of slab s's B head, for grad_B's weight: qd where the
+        // heads of the two sides coincide (K = Ka).
+        if (K == Ka) {
+#pragma unroll
+          for (int u = 0; u < NB; ++u)
+#pragma unroll
+            for (int s = 0; s < NS; ++s) qa[u][s] = qd[u][s];
+        } else {
+          head_totals(w, 0, H, hc.hd, hc.hb, pd, qa);
+        }
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+          if (u0 + u < n_here) {  // walker-uniform
+            const int j = u0 + u;
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+              const int hD = hc.hd[s], hB = hc.hb[s];
+              if (hD >= 0) {
+                const float* at = st + hD * kStride + j;
+                const float dd = dot_grad(
+                    qd[u][s] * scale, qb[u][s], keep == nullptr ? 1.f : at[0],
+                    at[tab], at[2 * tab], at[3 * tab], leaky, slope, scale);
+#pragma unroll
+                for (int t = 0; t < VEC; ++t)
+                  accD[s][t] = fmaf(dd, yd[s][u].v[t], accD[s][t]);
+              }
+              if (hB >= 0) {
+                const float* at = st + hB * kStride + j;
+                float a = attention(qa[u][s] * scale, leaky, slope, at[tab],
+                                    at[2 * tab]);
+                if (keep != nullptr) a *= at[0];
+#pragma unroll
+                for (int t = 0; t < VEC; ++t)
+                  accB[s][t] = fmaf(a, yg[s][u].v[t], accB[s][t]);
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      if (hc.hb[s] >= 0) {
+        if (item < S) {
+          F o;
+#pragma unroll
+          for (int t = 0; t < VEC; ++t) o.v[t] = accB[s][t];
+          *reinterpret_cast<F*>(part_B + (int64_t)item * K + hc.kb[s]) = o;
+        } else {
+          P o;
+#pragma unroll
+          for (int t = 0; t < VEC; ++t) o.v[t] = from_f32<T>(accB[s][t]);
+          *reinterpret_cast<P*>(grad_B + c * K + hc.kb[s]) = o;
+        }
+      }
+      if (hc.hd[s] >= 0) {
+        F o;
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) o.v[t] = accD[s][t];
+        float* dst = item < S ? part_D + (int64_t)item * Ka : grad_D2 + c * Ka;
+        *reinterpret_cast<F*>(dst + hc.kd[s]) = o;
+      }
+    }
+  }
+}
+
 // --- launches --------------------------------------------------------------
 
 bool aligned(const void* p, size_t bytes) {
@@ -690,6 +1246,149 @@ cudaError_t backward_cols(int n, int K, int Ka, int vec, int sw, int leaky,
   });
 }
 
+// The instantiated multi-head walkers (kernels/gat_fused.py::DOT_HEAD_WALKS):
+// whole warps of 2-column lanes holding one slab (K, Ka <= 64 with even
+// heads: the UniMP cell's hidden layers, heads of 32) and of 1-column lanes
+// holding three (K, Ka <= 96: its output layer, heads of 47).
+template <typename Fn>
+cudaError_t dispatch_heads(int vec, int sw, int ns, Fn&& fn) {
+  using gespmm::Int;
+  if (vec == 2 && sw == 32 && ns == 1) return fn(Int<2>(), Int<32>(), Int<1>());
+  if (vec == 1 && sw == 32 && ns == 3) return fn(Int<1>(), Int<32>(), Int<3>());
+  return cudaErrorInvalidValue;
+}
+
+bool bad_heads(int K, int Ka, int H, int vec, int sw, int ns,
+               const Split& sp) {
+  return H < 1 || K < 1 || Ka < 1 || K % H != 0 || Ka % H != 0 ||
+         (K / H) % vec != 0 || (Ka / H) % vec != 0 ||
+         (K > Ka ? K : Ka) > sw * vec * ns || gespmm::bad_split(sp);
+}
+
+// The lanes of a slab that each head fills, where the two sides' heads
+// coincide (K = Ka) and fill power-of-two groups of at most SW lanes
+// (head_totals' butterfly over the group), else 0.
+int head_group(int K, int Ka, int H, int vec, int sw) {
+  const int g = K / H / vec;
+  return K == Ka && g <= sw && (g & (g - 1)) == 0 ? g : 0;
+}
+
+// Dynamic shared memory of `tables` [head][edge] tables a walker, opting in
+// above the default 48 KiB.
+template <typename Kernel>
+cudaError_t head_tables(Kernel kernel, int sw, int tables, int H,
+                        size_t* bytes) {
+  *bytes = (size_t)(kThreads / sw) * tables * H * (sw + 1) * sizeof(float);
+  if (*bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+}
+
+// The multi-head launches' arguments besides the split and the tables.
+struct Heads {
+  int H, leaky;
+  float slope, scale, inv_keep;
+};
+
+template <typename T>
+cudaError_t forward_heads(int m, int K, int Ka, int vec, int sw, int ns,
+                          const Heads& hp, const Split& sp, const int* indptr,
+                          const int* indices, const float* D1, const float* D2,
+                          const T* B, const uint8_t* keep, T* out, float* mx,
+                          float* den, float* pm, float* pz, float* pacc,
+                          cudaStream_t stream) {
+  if (bad_heads(K, Ka, hp.H, vec, sw, ns, sp)) return cudaErrorInvalidValue;
+  return dispatch_heads(vec, sw, ns, [&](auto V, auto W, auto N) {
+    constexpr int VEC = decltype(V)::value, SW = decltype(W)::value;
+    constexpr int NS = decltype(N)::value;
+    if (!aligned_all<T, VEC>({D1, D2, pacc}, {B, out}))
+      return cudaErrorInvalidValue;
+    auto kernel = dot_heads_fwd_kernel<T, VEC, SW, NS>;
+    size_t smem;
+    cudaError_t err = head_tables(kernel, SW, 1, hp.H, &smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<item_grid(sp.S + m, SW), kThreads, smem, stream>>>(
+        m, sp.S, K, Ka, hp.H, head_group(K, Ka, hp.H, VEC, SW), sp.L,
+        hp.leaky, hp.slope, hp.scale, hp.inv_keep, indptr, indices,
+        sp.seg_row, sp.seg_start, D1, D2, B, keep, out, mx, den, pm, pz,
+        pacc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || sp.J == 0) return err;
+    return gespmm::launch_softmax_carry<T, VEC>(sp.J, K, hp.H, 1,
+                                               sp.long_rows, sp.seg_ptr, pm,
+                                               pz, pacc, out, mx, den, stream);
+  });
+}
+
+template <typename T>
+cudaError_t backward_rows_heads(int m, int K, int Ka, int vec, int sw, int ns,
+                                const Heads& hp, const Split& sp,
+                                const int* indptr, const int* indices,
+                                const float* D1, const float* D2, const T* B,
+                                const float* g, const uint8_t* keep,
+                                const float* mx, const float* den,
+                                const float* srow, float* grad_D1, float* part,
+                                cudaStream_t stream) {
+  if (bad_heads(K, Ka, hp.H, vec, sw, ns, sp)) return cudaErrorInvalidValue;
+  return dispatch_heads(vec, sw, ns, [&](auto V, auto W, auto N) {
+    constexpr int VEC = decltype(V)::value, SW = decltype(W)::value;
+    constexpr int NS = decltype(N)::value;
+    if (!aligned_all<T, VEC>({D1, D2, g, grad_D1, part}, {B}))
+      return cudaErrorInvalidValue;
+    auto kernel = dot_heads_bwd_rows_kernel<T, VEC, SW, NS>;
+    size_t smem;
+    cudaError_t err = head_tables(kernel, SW, 1, hp.H, &smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<item_grid(sp.S + m, SW), kThreads, smem, stream>>>(
+        m, sp.S, K, Ka, hp.H, head_group(K, Ka, hp.H, VEC, SW), sp.L,
+        hp.leaky, hp.slope, hp.scale, hp.inv_keep, indptr, indices,
+        sp.seg_row, sp.seg_start, D1, D2, B, g, keep, mx, den, srow, grad_D1,
+        part);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || sp.J == 0) return err;
+    return gespmm::launch_carry<float, VEC>(sp.J, Ka, sp.long_rows,
+                                            sp.seg_ptr, part, grad_D1, stream);
+  });
+}
+
+template <typename T>
+cudaError_t backward_cols_heads(int n, int K, int Ka, int vec, int sw, int ns,
+                                const Heads& hp, const Split& sp,
+                                const int* colptr, const int* rows,
+                                const float* D1, const float* D2, const T* B,
+                                const float* g, const uint8_t* keep,
+                                const int* perm, const float* mx,
+                                const float* den, const float* srow, T* grad_B,
+                                float* grad_D2, float* part_B, float* part_D,
+                                cudaStream_t stream) {
+  if (bad_heads(K, Ka, hp.H, vec, sw, ns, sp)) return cudaErrorInvalidValue;
+  return dispatch_heads(vec, sw, ns, [&](auto V, auto W, auto N) {
+    constexpr int VEC = decltype(V)::value, SW = decltype(W)::value;
+    constexpr int NS = decltype(N)::value;
+    if (!aligned_all<T, VEC>({D1, D2, g, grad_D2, part_B, part_D},
+                             {B, grad_B}))
+      return cudaErrorInvalidValue;
+    auto kernel = dot_heads_bwd_cols_kernel<T, VEC, SW, NS>;
+    size_t smem;
+    cudaError_t err = head_tables(kernel, SW, 4, hp.H, &smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<item_grid(sp.S + n, SW), kThreads, smem, stream>>>(
+        n, sp.S, K, Ka, hp.H, head_group(K, Ka, hp.H, VEC, SW), sp.L,
+        hp.leaky, hp.slope, hp.scale, hp.inv_keep, colptr, rows, sp.seg_row,
+        sp.seg_start, D1, D2, B, g, keep, perm, mx, den, srow, grad_B,
+        grad_D2, part_B, part_D);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || sp.J == 0) return err;
+    err = gespmm::launch_carry<T, VEC>(sp.J, K, sp.long_rows, sp.seg_ptr,
+                                       part_B, grad_B, stream);
+    if (err != cudaSuccess) return err;
+    return gespmm::launch_carry<float, VEC>(sp.J, Ka, sp.long_rows,
+                                            sp.seg_ptr, part_D, grad_D2,
+                                            stream);
+  });
+}
+
+
 }  // namespace
 
 // Every entry point takes the split of its structure: segment length L, S
@@ -763,6 +1462,71 @@ GESPMM_DOT_BWD_ROWS(gespmm_dot_bwd_rows_bf16, __nv_bfloat16)
 
 GESPMM_DOT_BWD_COLS(gespmm_dot_bwd_cols_f32, float)
 GESPMM_DOT_BWD_COLS(gespmm_dot_bwd_cols_bf16, __nv_bfloat16)
+
+// The multi-head entry points, f32 only (the UniMP cell's calls): the
+// arguments of the single-head ones, with H (which divides K and Ka) and ns
+// after K and Ka, the scale and 1 / keep_prob after the slope, and the
+// (nnz, H) byte mask (null: none) after B; the CSC walk also takes perm,
+// through which it reads the mask.  mx, den, srow and the forward's
+// scratch pm, pz are (·, H).
+#define GESPMM_DOT_HEADS_FWD(NAME, T)                                         \
+  extern "C" int NAME(int m, int K, int Ka, int H, int vec, int sw, int ns,   \
+                      int leaky, float slope, float scale, float inv_keep,    \
+                      int L, int S, int J, const int* seg_row,                \
+                      const int* seg_start, const int* long_rows,             \
+                      const int* seg_ptr, const int* indptr,                  \
+                      const int* indices, const float* D1, const float* D2,   \
+                      const void* B, const unsigned char* keep, void* out,    \
+                      float* mx, float* den, float* pm, float* pz,            \
+                      float* pacc, void* stream) {                            \
+    return (int)forward_heads<T>(                                             \
+        m, K, Ka, vec, sw, ns, Heads{H, leaky, slope, scale, inv_keep},       \
+        Split{L, S, J, seg_row, seg_start, long_rows, seg_ptr}, indptr,       \
+        indices, D1, D2, (const T*)B, keep, (T*)out, mx, den, pm, pz, pacc,   \
+        (cudaStream_t)stream);                                                \
+  }
+
+GESPMM_DOT_HEADS_FWD(gespmm_dot_heads_fwd_f32, float)
+
+#define GESPMM_DOT_HEADS_BWD_ROWS(NAME, T)                                    \
+  extern "C" int NAME(int m, int K, int Ka, int H, int vec, int sw, int ns,   \
+                      int leaky, float slope, float scale, float inv_keep,    \
+                      int L, int S, int J, const int* seg_row,                \
+                      const int* seg_start, const int* long_rows,             \
+                      const int* seg_ptr, const int* indptr,                  \
+                      const int* indices, const float* D1, const float* D2,   \
+                      const void* B, const float* g,                          \
+                      const unsigned char* keep, const float* mx,             \
+                      const float* den, const float* srow, float* grad_D1,    \
+                      float* part, void* stream) {                            \
+    return (int)backward_rows_heads<T>(                                       \
+        m, K, Ka, vec, sw, ns, Heads{H, leaky, slope, scale, inv_keep},       \
+        Split{L, S, J, seg_row, seg_start, long_rows, seg_ptr}, indptr,       \
+        indices, D1, D2, (const T*)B, g, keep, mx, den, srow, grad_D1, part,  \
+        (cudaStream_t)stream);                                                \
+  }
+
+GESPMM_DOT_HEADS_BWD_ROWS(gespmm_dot_heads_bwd_rows_f32, float)
+
+#define GESPMM_DOT_HEADS_BWD_COLS(NAME, T)                                    \
+  extern "C" int NAME(int n, int K, int Ka, int H, int vec, int sw, int ns,   \
+                      int leaky, float slope, float scale, float inv_keep,    \
+                      int L, int S, int J, const int* seg_row,                \
+                      const int* seg_start, const int* long_rows,             \
+                      const int* seg_ptr, const int* colptr, const int* rows, \
+                      const float* D1, const float* D2, const void* B,        \
+                      const float* g, const unsigned char* keep,              \
+                      const int* perm, const float* mx, const float* den,     \
+                      const float* srow, void* grad_B, float* grad_D2,        \
+                      float* part_B, float* part_D, void* stream) {           \
+    return (int)backward_cols_heads<T>(                                       \
+        n, K, Ka, vec, sw, ns, Heads{H, leaky, slope, scale, inv_keep},       \
+        Split{L, S, J, seg_row, seg_start, long_rows, seg_ptr}, colptr, rows, \
+        D1, D2, (const T*)B, g, keep, perm, mx, den, srow, (T*)grad_B,        \
+        grad_D2, part_B, part_D, (cudaStream_t)stream);                       \
+  }
+
+GESPMM_DOT_HEADS_BWD_COLS(gespmm_dot_heads_bwd_cols_f32, float)
 
 extern "C" const char* gespmm_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -12,6 +12,11 @@ autograd Function over the launches of ``kernels/gat_fused.py``, which run
 the CUDA kernels on a CUDA tensor and their plain versions
 (``ops/reference.py``) on a CPU tensor.  ``attention_aggregate``, the
 dot-product attention layer, runs the fused op.
+
+``dot_attention_aggregate`` takes heads (D1, D2 and B in head blocks, a
+softmax a row and head), a scale of the dots and an edge factor (attention
+dropout: a (nnz, H) mask whose kept weights are divided by the keep
+probability after the softmax); its docstring gives the gradients.
 """
 
 from __future__ import annotations
@@ -285,67 +290,104 @@ class _DotFused(torch.autograd.Function):
     and B."""
 
     @staticmethod
-    def forward(ctx, adj: Adjacency, slope: Optional[float], D1: Tensor,
-                D2: Tensor, B: Tensor) -> Tensor:
+    def forward(ctx, adj: Adjacency, slope: Optional[float], heads: int,
+                scale: Optional[float], edge_keep: Optional[Tensor],
+                keep_prob: Optional[float], D1: Tensor, D2: Tensor,
+                B: Tensor) -> Tensor:
         B = B.contiguous()
+        kw = dict(slope=slope, heads=heads, scale=scale, edge_keep=edge_keep,
+                  keep_prob=keep_prob)
         out, mx, den = dot_forward(adj.csr.indptr, adj.csr.indices, D1, D2, B,
-                                   slope=slope, rows=adj.rows, split=adj.split)
-        ctx.adj, ctx.slope = adj, slope
+                                   rows=adj.rows, split=adj.split, **kw)
+        ctx.adj, ctx.kw = adj, kw
         ctx.save_for_backward(D1, D2, B, out, mx, den)
         return out
 
     @staticmethod
     def backward(ctx, g: Tensor):
-        adj, slope = ctx.adj, ctx.slope
-        D1, D2, B, out, mx, den = ctx.saved_tensors
-        g = g.contiguous()
-        s_row = ref.dot_row_dot(g, out)
-        tables = (D1, D2, B, g, mx, den, s_row)
-        grad_D1 = grad_D2 = grad_B = None
-        if ctx.needs_input_grad[2]:
-            grad_D1 = dot_backward_rows(adj.csr.indptr, adj.csr.indices,
-                                        *tables, slope=slope, rows=adj.rows,
-                                        split=adj.split)
-        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
-            grad_D2, grad_B = dot_backward_cols(
-                adj.csc.indptr, adj.csc.indices, *tables, slope=slope,
-                cols=adj.rows_t, split=adj.split_t)
-        if grad_D1 is not None:
-            grad_D1 = grad_D1.to(D1.dtype)
-        if grad_D2 is not None:
-            grad_D2 = grad_D2.to(D2.dtype)
-            grad_B = grad_B.to(B.dtype)
-        return None, None, grad_D1, grad_D2, grad_B
+        with span("op/dot.grad"):
+            adj, kw = ctx.adj, ctx.kw
+            D1, D2, B, out, mx, den = ctx.saved_tensors
+            g = g.contiguous()
+            s_row = ref.dot_row_dot(g, out, kw["heads"])
+            tables = (D1, D2, B, g, mx, den, s_row)
+            grad_D1 = grad_D2 = grad_B = None
+            if ctx.needs_input_grad[6]:
+                grad_D1 = dot_backward_rows(adj.csr.indptr, adj.csr.indices,
+                                            *tables, rows=adj.rows,
+                                            split=adj.split, **kw)
+            if ctx.needs_input_grad[7] or ctx.needs_input_grad[8]:
+                grad_D2, grad_B = dot_backward_cols(
+                    adj.csc.indptr, adj.csc.indices, *tables,
+                    perm=adj.perm, cols=adj.rows_t, split=adj.split_t, **kw)
+            if grad_D1 is not None:
+                grad_D1 = grad_D1.to(D1.dtype)
+            if grad_D2 is not None:
+                grad_D2 = grad_D2.to(D2.dtype)
+                grad_B = grad_B.to(B.dtype)
+            return (None,) * 6 + (grad_D1, grad_D2, grad_B)
 
 
 def dot_attention_aggregate(adj: Union[Adjacency, CSR], D1: Tensor,
-                            D2: Tensor, B: Tensor, *,
+                            D2: Tensor, B: Tensor, *, heads: int = 1,
+                            scale: Optional[float] = None,
+                            edge_keep: Optional[Tensor] = None,
+                            keep_prob: Optional[float] = None,
                             negative_slope: Optional[float] = None) -> Tensor:
-    """out[r] = Σ_c softmax_c(act(D1[r]·D2[c])) · B[c] over the edge pattern
-    — fused dot-product (transformer-style) graph attention.
+    """out[r] = Σ_c softmax_c(act(sc·D1[r]·D2[c])) · m~ · B[c] over the edge
+    pattern, per head — fused dot-product (transformer-style) graph
+    attention.
 
-    ``act`` is the identity (default) or leaky ReLU when ``negative_slope``
-    is given.  D1: (m, Ka); D2: (n, Ka); B: (n, K); ``out`` takes B's dtype
-    (f32 or bf16 on the card).  Differentiable in all three; each gradient
-    takes its input's dtype.  Rows without an edge give 0.
+    Heads: D1 (m, H·dk), D2 (n, H·dk) and B (n, H·dv) hold ``heads`` = H
+    head blocks; head h's logits are the dots of D1's and D2's h-th blocks
+    and weigh B's h-th block, and the heads' outputs lie side by side in
+    ``out`` (m, H·dv) (a caller that averages them does so after).  One call
+    runs every head: on the card each of its three kernels walks the edges
+    once for all of them.  ``scale`` (sc, default 1) multiplies each dot
+    before ``act``, the identity (default) or leaky ReLU when
+    ``negative_slope`` is given.  ``edge_keep`` ((nnz, H) bool, in the CSR's
+    edge order) is attention dropout: each softmax weight is multiplied by
+    m~ = 1/``keep_prob`` where it is True and by 0 where it is False, after
+    the softmax (its denominator sums every edge).
+
+    Gradients (per head, with alpha the softmax, u_e = <g[r], B[c]>,
+    s[r] = <g[r], out[r]>, taken from the stored out, which holds the
+    dropped weights): dpre_e = alpha_e·(m~_e·u_e − s[r])·act'(pre_e);
+    grad_D1[r] = Σ_e sc·dpre_e·D2[c], grad_D2[c] = Σ_e sc·dpre_e·D1[r],
+    grad_B[c] = Σ_e alpha_e·m~_e·g[r].  ``out`` takes B's dtype (f32 or
+    bf16 on the card); each gradient takes its input's dtype.  Rows without
+    an edge give 0.  One head with no scale and no mask runs the
+    single-head kernels, the JAX package's op.
 
     ``adj``: an ``Adjacency``, or a bare ``CSR`` paired on the fly.  The JAX
     package needs tiled plans here; the port walks the CSR and the CSC and
-    needs none.
+    needs none.  The call runs under the span ``op/dot`` and its backward
+    under ``op/dot.grad`` (``utils/profiling.py``).
     """
-    if isinstance(adj, CSR):
-        adj = Adjacency.from_csr(adj)
-    m, n = adj.shape
-    if D1.dim() != 2 or D2.dim() != 2 or D1.shape[1] != D2.shape[1]:
-        raise ValueError(f"D1 {tuple(D1.shape)} / D2 {tuple(D2.shape)} must be "
-                         "(m,Ka)/(n,Ka)")
-    if D1.shape[0] != m or D2.shape[0] != n:
-        raise ValueError(f"D1/D2 rows {D1.shape[0]}/{D2.shape[0]} must match "
-                         f"the pattern {adj.shape}")
-    if B.dim() != 2 or B.shape[0] != n:
-        raise ValueError(f"B must be ({n}, K), got {tuple(B.shape)}")
-    slope = None if negative_slope is None else float(negative_slope)
-    return _DotFused.apply(adj, slope, D1, D2, B)
+    with span("op/dot"):
+        if isinstance(adj, CSR):
+            adj = Adjacency.from_csr(adj)
+        m, n = adj.shape
+        if D1.dim() != 2 or D2.dim() != 2 or D1.shape[1] != D2.shape[1]:
+            raise ValueError(f"D1 {tuple(D1.shape)} / D2 {tuple(D2.shape)} "
+                             "must be (m,Ka)/(n,Ka)")
+        if D1.shape[0] != m or D2.shape[0] != n:
+            raise ValueError(f"D1/D2 rows {D1.shape[0]}/{D2.shape[0]} must "
+                             f"match the pattern {adj.shape}")
+        if B.dim() != 2 or B.shape[0] != n:
+            raise ValueError(f"B must be ({n}, K), got {tuple(B.shape)}")
+        H = int(heads)
+        if H < 1 or D1.shape[1] % H or B.shape[1] % H:
+            raise ValueError(f"Ka={D1.shape[1]} and K={B.shape[1]} must be "
+                             f"multiples of heads={heads}")
+        if edge_keep is not None and keep_prob is None:
+            raise ValueError("edge_keep needs keep_prob")
+        slope = None if negative_slope is None else float(negative_slope)
+        return _DotFused.apply(adj, slope, H,
+                               None if scale is None else float(scale),
+                               edge_keep,
+                               None if keep_prob is None else float(keep_prob),
+                               D1, D2, B)
 
 
 def attention_aggregate(adj: Union[Adjacency, CSR], q: Tensor, k: Tensor,

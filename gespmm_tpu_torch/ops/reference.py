@@ -777,12 +777,18 @@ def gat_split_vjp_cols(rows_t, colptr, cols_t, src2, dst2, B, g, mx, den,
 # --- fused dot-product attention (kernel row 6) ----------------------------
 #
 # The math of gespmm_tpu/kernels/gat_fused.py::_dot_forward / _dot_bwd, term
-# by term, with act = identity (slope None) or leaky(·, slope):
-#   pre_e = D1[r]·D2[c],  l_e = act(pre_e),  mx[r] = max_{e in row r} l_e
-#   (0 for an empty row),  z_e = exp(max(l_e − mx[r], EXP_FLOOR)),
-#   den[r] = max(Σ z_e, DENOM_EPS),  out[r] = Σ z_e·B[c] / den[r];
-#   alpha_e = z_e / den[r],  u_e = g[r]·B[c],  s[r] = <g[r], out[r]>,
-#   dpre_e = alpha_e·(u_e − s[r])·act'(pre_e).
+# by term, with act = identity (slope None) or leaky(·, slope), per head h of
+# H (D1, D2 and B in head blocks; H = 1 is the JAX package's one head), a
+# scale sc (1 where None) and an edge factor m~ (1/keep_prob where the
+# (nnz, H) mask keeps the (edge, head), 0 where it drops it; 1 without one):
+#   pre_e = sc·<D1[r], D2[c]>_h,  l_e = act(pre_e),  mx[r] = max_{e in row r}
+#   l_e (0 for an empty row),  z_e = exp(max(l_e − mx[r], EXP_FLOOR)),
+#   den[r] = max(Σ z_e, DENOM_EPS),  out[r]_h = Σ z_e·m~_e·B[c]_h / den[r];
+#   alpha_e = z_e / den[r],  u_e = <g[r], B[c]>_h,  s[r] = <g[r], out[r]>_h,
+#   dpre_e = alpha_e·(m~_e·u_e − s[r])·act'(pre_e); the dot's gradient is
+#   sc·dpre_e, and grad_B's weight alpha_e·m~_e.
+# Per-edge values are (nnz,) and row tables (m,) at one head, else (nnz, H)
+# and (m, H).
 
 
 def _act(x: Tensor, slope: Optional[float]) -> Tensor:
@@ -793,75 +799,130 @@ def _dact(x: Tensor, slope: Optional[float]) -> Tensor:
     return torch.ones_like(x) if slope is None else dleaky(x, slope)
 
 
+def _head_sums(prod: Tensor, heads: int) -> Tensor:
+    """Each row of ``prod`` summed over its columns (heads = 1, (nnz,)) or
+    over each head block of them ((nnz, H))."""
+    if heads == 1:
+        return prod.sum(-1)
+    return prod.view(prod.shape[0], heads, -1).sum(-1)
+
+
 def _dot_pre(rows: Tensor, cols: Tensor, D1: Tensor, D2: Tensor,
-             acc: torch.dtype) -> Tensor:
-    """pre_e = D1[rows[e]]·D2[cols[e]] (nnz,) in ``acc``."""
-    return (D1.to(acc).index_select(0, rows.long())
-            * D2.to(acc).index_select(0, cols.long())).sum(-1)
+             acc: torch.dtype, heads: int = 1,
+             scale: Optional[float] = None) -> Tensor:
+    """pre_e = sc·<D1[rows[e]], D2[cols[e]]>_h in ``acc``."""
+    pre = _head_sums(D1.to(acc).index_select(0, rows.long())
+                     * D2.to(acc).index_select(0, cols.long()), heads)
+    return pre if scale is None else pre * scale
+
+
+def _keep_factor(keep: Tensor, keep_prob: float, acc: torch.dtype) -> Tensor:
+    """m~ (nnz, H): 1/keep_prob where ``keep`` holds, else 0, in ``acc``."""
+    return keep.to(acc) * (1.0 / keep_prob)
+
+
+def _by_head(vals: Tensor, table: Tensor, heads: int) -> Tensor:
+    """(nnz, H, width/H) view of ``table`` rows scaled by ``vals`` ((nnz,)
+    or (nnz, H)) per head, flattened back to (nnz, width)."""
+    nnz, width = table.shape
+    return (table.view(nnz, heads, width // heads)
+            * vals.view(nnz, heads, 1)).view(nnz, width)
 
 
 def dot_attention_rows(rows: Tensor, cols: Tensor, D1: Tensor, D2: Tensor,
-                       B: Tensor, m: int, slope: Optional[float] = None):
-    """(out, mx, den): the plain version of the dot-attention forward kernel.
+                       B: Tensor, m: int, slope: Optional[float] = None, *,
+                       heads: int = 1, scale: Optional[float] = None,
+                       keep: Optional[Tensor] = None,
+                       keep_prob: Optional[float] = None):
+    """(out, mx, den): the plain version of the dot-attention forward kernels.
 
-    D1 (m, Ka), D2 (n, Ka), B (n, K).  ``out`` (m, K) takes B's dtype;
-    ``mx`` and ``den`` (m,) stay in the accumulation dtype (f32, or f64 for
-    an f64 input).  Empty rows give out 0, mx 0 and den DENOM_EPS.
+    D1 (m, Ka), D2 (n, Ka), B (n, K), in ``heads`` head blocks.  ``out``
+    (m, K) takes B's dtype; ``mx`` and ``den`` ((m,) at one head, else
+    (m, H)) stay in the accumulation dtype (f32, or f64 for an f64 input).
+    ``keep`` ((nnz, H) bool, in the edges' order) and ``keep_prob`` give the
+    edge factor.  Empty rows give out 0, mx 0 and den DENOM_EPS.
     """
     acc = _gat_acc(D1, D2, B)
-    l = _act(_dot_pre(rows, cols, D1, D2, acc), slope)
-    mx = edge_segment_rows(rows, l[:, None], m, "max")[:, 0]
+    H = heads
+    l = _act(_dot_pre(rows, cols, D1, D2, acc, H, scale), slope).view(-1, H)
+    mx = edge_segment_rows(rows, l, m, "max")
     r = rows.long()
     z = torch.exp(torch.clamp(l - mx.index_select(0, r), min=EXP_FLOOR))
-    den = torch.zeros(m, dtype=acc, device=B.device).index_add_(0, r, z)
+    den = torch.zeros((m, H), dtype=acc, device=B.device).index_add_(0, r, z)
     den = torch.clamp(den, min=DENOM_EPS)
-    out = torch.zeros((m, B.shape[1]), dtype=acc, device=B.device)
-    out.index_add_(0, r, B.index_select(0, cols.long()).to(acc) * z[:, None])
-    return (out / den[:, None]).to(B.dtype), mx, den
+    if keep is not None:
+        z = z * _keep_factor(keep, keep_prob, acc).view(-1, H)
+    K = B.shape[1]
+    out = torch.zeros((m, K), dtype=acc, device=B.device)
+    out.index_add_(0, r, _by_head(z, B.index_select(0, cols.long()).to(acc),
+                                  H))
+    out = (out.view(m, H, K // H) / den[:, :, None]).view(m, K)
+    shape = (m,) if H == 1 else (m, H)
+    return out.to(B.dtype), mx.view(shape), den.view(shape)
 
 
-def dot_row_dot(g: Tensor, out: Tensor) -> Tensor:
-    """s = <g_r, out_r> (m,), from the STORED ``out`` cast up, as
-    ``_dot_bwd`` forms it (one torch op before the backward launches)."""
+def dot_row_dot(g: Tensor, out: Tensor, heads: int = 1) -> Tensor:
+    """s = <g_r, out_r> per head ((m,) at one head, else (m, H)), from the
+    STORED ``out`` cast up, as ``_dot_bwd`` forms it (one torch op before
+    the backward launches)."""
     acc = _gat_acc(g, out)
-    return (g.to(acc) * out.to(acc)).sum(-1)
+    return _head_sums(g.to(acc) * out.to(acc), heads)
 
 
-def _dot_dpre(rows, cols, D1, D2, B, g, mx, den, s_row, slope):
-    """(alpha, dpre) per edge, in the accumulation dtype."""
+def _dot_dpre(rows, cols, D1, D2, B, g, mx, den, s_row, slope, heads=1,
+              scale=None, keep=None, keep_prob=None):
+    """(alpha·m~, sc·dpre) per edge and head, in the accumulation dtype
+    ((alpha, dpre) without a mask or a scale)."""
     acc = _gat_acc(D1, D2, B, g)
     r, c = rows.long(), cols.long()
-    pre = _dot_pre(rows, cols, D1, D2, acc)
+    pre = _dot_pre(rows, cols, D1, D2, acc, heads, scale)
     alpha = (torch.exp(torch.clamp(_act(pre, slope) - mx.to(acc)[r],
                                    min=EXP_FLOOR))
              / torch.clamp(den.to(acc), min=DENOM_EPS)[r])
-    u = (g.to(acc).index_select(0, r) * B.to(acc).index_select(0, c)).sum(-1)
+    u = _head_sums(g.to(acc).index_select(0, r)
+                   * B.to(acc).index_select(0, c), heads)
+    f = (None if keep is None
+         else _keep_factor(keep, keep_prob, acc).view(pre.shape))
+    if f is not None:
+        u = f * u
     dpre = alpha * (u - s_row.to(acc)[r]) * _dact(pre, slope)
-    return alpha, dpre
+    if scale is not None:
+        dpre = scale * dpre
+    return (alpha if f is None else alpha * f), dpre
 
 
 def dot_attention_vjp_rows(rows, cols, D1, D2, B, g, mx, den, s_row, m,
-                           slope=None) -> Tensor:
-    """grad_D1 (m, Ka) = Σ_{e in row r} dpre_e·D2[c_e]: the plain version of
-    the backward kernel over the CSR, in the accumulation dtype."""
-    _, dpre = _dot_dpre(rows, cols, D1, D2, B, g, mx, den, s_row, slope)
+                           slope=None, *, heads=1, scale=None, keep=None,
+                           keep_prob=None) -> Tensor:
+    """grad_D1 (m, Ka) = Σ_{e in row r} sc·dpre_e·D2[c_e] per head: the
+    plain version of the backward kernels over the CSR, in the
+    accumulation dtype."""
+    _, dpre = _dot_dpre(rows, cols, D1, D2, B, g, mx, den, s_row, slope,
+                        heads, scale, keep, keep_prob)
     out = torch.zeros((m, D2.shape[1]), dtype=dpre.dtype, device=dpre.device)
-    return out.index_add_(0, rows.long(), D2.to(dpre.dtype).index_select(
-        0, cols.long()) * dpre[:, None])
+    return out.index_add_(0, rows.long(), _by_head(
+        dpre, D2.to(dpre.dtype).index_select(0, cols.long()), heads))
 
 
 def dot_attention_vjp_cols(rows, cols, D1, D2, B, g, mx, den, s_row,
-                           slope=None):
+                           slope=None, *, heads=1, scale=None, keep=None,
+                           keep_prob=None):
     """(grad_D2 (n, Ka), grad_B (n, K)): grad_D2[c] = Σ_{e in col c}
-    dpre_e·D1[r_e] and grad_B[c] = Σ_{e in col c} alpha_e·g[r_e], the plain
-    version of the backward kernel over the CSC, in the accumulation dtype."""
-    alpha, dpre = _dot_dpre(rows, cols, D1, D2, B, g, mx, den, s_row, slope)
+    sc·dpre_e·D1[r_e] and grad_B[c] = Σ_{e in col c} alpha_e·m~_e·g[r_e]
+    per head, the plain version of the backward kernels over the CSC (the
+    edges, and ``keep``, in any one order), in the accumulation dtype."""
+    weight, dpre = _dot_dpre(rows, cols, D1, D2, B, g, mx, den, s_row, slope,
+                             heads, scale, keep, keep_prob)
     r, c = rows.long(), cols.long()
     n = B.shape[0]
-    grad_D2 = torch.zeros((n, D1.shape[1]), dtype=dpre.dtype, device=dpre.device)
-    grad_D2.index_add_(0, c, D1.to(dpre.dtype).index_select(0, r) * dpre[:, None])
-    grad_B = torch.zeros((n, B.shape[1]), dtype=dpre.dtype, device=dpre.device)
-    grad_B.index_add_(0, c, g.to(dpre.dtype).index_select(0, r) * alpha[:, None])
+    grad_D2 = torch.zeros((n, D1.shape[1]), dtype=dpre.dtype,
+                          device=dpre.device)
+    grad_D2.index_add_(0, c, _by_head(
+        dpre, D1.to(dpre.dtype).index_select(0, r), heads))
+    grad_B = torch.zeros((n, B.shape[1]), dtype=dpre.dtype,
+                         device=dpre.device)
+    grad_B.index_add_(0, c, _by_head(
+        weight, g.to(dpre.dtype).index_select(0, r), heads))
     return grad_D2, grad_B
 
 

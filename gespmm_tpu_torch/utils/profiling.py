@@ -63,13 +63,16 @@ def trace(log_dir: str):
 
 
 # Every span the program opens, by layer: the train step, the model, the
-# SpMM op, the fused GAT op, graph prep, the kernel libraries.
+# SpMM op, the fused GAT and dot-attention ops, graph prep, the kernel
+# libraries.
 SPANS = (
     "step", "step/zero_grad", "step/forward", "step/loss", "step/bwd",
     "step/optimizer",
     "model/dense", "model/norm", "model/relu", "model/dropout",
     "model/log_softmax", "model/attn_scores", "model/elu",
-    "op/spmm", "op/spmm.grad", "op/gat", "op/gat.grad",
+    "model/layer_norm", "model/gate",
+    "op/spmm", "op/spmm.grad", "op/gat", "op/gat.grad", "op/dot",
+    "op/dot.grad",
     "graph_prep", "graph_prep/d2h", "graph_prep/rows", "graph_prep/csc",
     "graph_prep/inv_perm", "graph_prep/plans", "graph_prep/split",
     "graph_prep/h2d", "graph_prep/degree_norm",

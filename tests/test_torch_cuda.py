@@ -502,6 +502,29 @@ def test_products_cell_step_walks_row_1s_edges(dev, config, launches, walks,
     assert (kspmm.launches, kspmm.edge_walks) == (launches, walks)
 
 
+def test_unimp_cell_step_walks_row_6s_edges_nine_times(dev, tmp_path):
+    """One training step of the UniMP cell's program on the benchmark's
+    tiny graph, at the cell's widths: one fused dot-attention call a layer,
+    each of its three kernels walking the edges once for both heads (K =
+    Ka = 64, 64, 94), so 9 walks a step; and the tiny cell correct."""
+    from gnnbench import harness
+    from gnnbench.tests import tiny_cells
+
+    cell = tiny_cells.tiny_cell(tiny_cells.make_root(tmp_path),
+                                "unimp-ogbn-products")
+    seed = 2**31 + 11
+    graph, inputs, init = harness.make_inputs(cell, seed, dev)
+    prog = harness.build_program(cell, graph, inputs, init, seed, dev,
+                                 harness.Clock(dev))
+    prog.step()
+    kgat.reset_launches()
+    prog.step()
+    torch.cuda.synchronize()
+    assert (kgat.dot_launches, kgat.dot_bwd_rows_launches,
+            kgat.dot_bwd_cols_launches, kgat.dot_edge_walks) == (3, 3, 3, 9)
+    assert harness.run(cell, seed, 0.5, False, dev, 0.0)["correct"]
+
+
 @pytest.mark.parametrize("view", ["column slice", "transposed"])
 def test_spmm_takes_a_non_contiguous_B(dev, view):
     # A column slice or a transposed view is a valid operand of the op; the
@@ -1761,6 +1784,151 @@ def test_dot_backward_takes_the_forwards_walker_for_a_misaligned_g(dev, Ka,
 
     for a, b in zip(grads(skewed), grads(skewed.clone())):
         assert torch.equal(a, b), (Ka, K)
+
+
+def dot_heads_vs_float64(adj, H, dh, masked, seed=0):
+    """The three dot kernels once each at H heads of dh, scale dh**-0.5,
+    with the attention mask (keep 0.7) or without: ({name: (max abs error,
+    bound)} against the float64 plain versions, the outputs, the edge walks
+    of the three launches)."""
+    dev = adj.csr.indptr.device
+    m, n = adj.shape
+    K = H * dh
+    D1 = randn((m, K), dev, seed) * 0.5
+    D2 = randn((n, K), dev, seed + 1) * 0.5
+    B, g = randn((n, K), dev, seed + 2), randn((m, K), dev, seed + 3)
+    keep = None
+    if masked:
+        gen = torch.Generator(device=dev).manual_seed(seed + 4)
+        keep = torch.rand((adj.nnz, H), generator=gen, device=dev) < 0.7
+    kw = dict(heads=H, scale=dh ** -0.5, edge_keep=keep,
+              keep_prob=0.7 if masked else None)
+    walks = kgat.dot_edge_walks
+    out, mx, den = kgat.dot_forward(adj.csr.indptr, adj.csr.indices, D1, D2, B,
+                                    split=adj.split, **kw)
+    s_row = ref.dot_row_dot(g, out, H)
+    tabs = (D1, D2, B, g, mx, den, s_row)
+    gD1 = kgat.dot_backward_rows(adj.csr.indptr, adj.csr.indices, *tabs,
+                                 split=adj.split, **kw)
+    gD2, gB = kgat.dot_backward_cols(
+        adj.csc.indptr, adj.csc.indices, *tabs, split=adj.split_t,
+        perm=adj.perm, **kw)
+    torch.cuda.synchronize()
+    walks = kgat.dot_edge_walks - walks
+    assert mx.shape == den.shape == (m, H)
+    kw64 = dict(heads=H, scale=dh ** -0.5, keep=keep,
+                keep_prob=0.7 if masked else None)
+    edges = (adj.rows, adj.csr.indices)
+    want_out, mx64, den64 = ref.dot_attention_rows(
+        *edges, D1.double(), D2.double(), B.double(), m, **kw64)
+    tabs64 = (D1.double(), D2.double(), B.double(), g.double(), mx64, den64,
+              ref.dot_row_dot(g.double(), out.double(), H))
+    want_d1 = ref.dot_attention_vjp_rows(*edges, *tabs64, m, **kw64)
+    want_d2, want_B = ref.dot_attention_vjp_cols(*edges, *tabs64, **kw64)
+    errs = {}
+    got = (out, mx, den, gD1, gD2, gB)
+    for name, t, want, fwd, tol in (
+            ("out", out, want_out, True, 1e-5),
+            ("mx", mx, mx64, True, 1e-5), ("den", den, den64, True, 1e-5),
+            ("grad_D1", gD1, want_d1, False, 1e-4),
+            ("grad_D2", gD2, want_d2, False, 1e-4),
+            ("grad_B", gB, want_B, False, 1e-4)):
+        assert t.shape == want.shape and torch.isfinite(t).all(), name
+        scale = float(want.abs().max())
+        bound = tol * scale + 1e-6 if fwd else tol * max(scale, 1.0)
+        errs[name] = (float((t.double() - want).abs().max()), bound)
+    return errs, got, walks
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dh", [32, 47])
+def test_dot_heads_kernels_split_at_each_boundary(dev, dh, masked):
+    # Two heads at the UniMP cell's widths (dh = 32: 2-column lanes, one
+    # slab; dh = 47: 1-column lanes, three slabs, lanes and a slab that
+    # straddle the heads), rows and columns of L - 1, L, L + 1, 2L + 1 and
+    # 10,000 edges: every kernel walks segments and launches its carry, and
+    # each launch walks the edges once for both heads.
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    before = dot_carries()
+    errs, _, walks = dot_heads_vs_float64(adj, 2, dh, masked)
+    for name, (err, bound) in errs.items():
+        assert err <= bound, (name, err, bound)
+    assert dot_carries() == (before[0] + 1, before[1] + 1, before[2] + 2)
+    assert walks == 3
+
+
+@pytest.mark.parametrize("dh", [32, 47])
+def test_dot_heads_kernels_on_rmat15(dev, dh):
+    adj = Adjacency.from_csr(rmat15(), device=dev)
+    errs, _, walks = dot_heads_vs_float64(adj, 2, dh, True)
+    for name, (err, bound) in errs.items():
+        assert err <= bound, (name, err, bound)
+    assert walks == 3
+
+
+@pytest.mark.parametrize("dh", [32, 47])
+def test_dot_heads_kernels_are_deterministic(dev, dh):
+    # Two runs with the mask give the same bits.
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    _, first, _ = dot_heads_vs_float64(adj, 2, dh, True)
+    _, again, _ = dot_heads_vs_float64(adj, 2, dh, True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_dot_heads_refuse_what_no_walker_takes(dev):
+    # Widths past every instantiated walker, and a bf16 B (the multi-head
+    # kernels are built for f32 alone).
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    m, n = adj.shape
+    D1, D2, B = (randn((k, 2 * 65), dev, i) for i, k in enumerate((m, n, n)))
+    with pytest.raises(ValueError, match="no multi-head walker"):
+        kgat.dot_forward(adj.csr.indptr, adj.csr.indices, D1, D2, B, heads=2)
+    D1, D2, B = (randn((k, 64), dev, i) for i, k in enumerate((m, n, n)))
+    with pytest.raises(TypeError, match="f32 B"):
+        kgat.dot_forward(adj.csr.indptr, adj.csr.indices, D1, D2,
+                         B.to(torch.bfloat16), heads=2)
+
+
+def test_unimp_trains_through_one_fused_call_a_layer(dev):
+    # A training step of the cell's stack at its widths on the boundary
+    # graph: one dot-attention call a layer for both heads, each of its
+    # three kernels walking the edges once.  Then, without dropout, the
+    # logits and every leaf's gradient within 1e-4 of the float64 model on
+    # the CPU.
+    from gespmm_tpu_torch.models.transformer import UniMP
+
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    n = adj.shape[0]
+    x = randn((n, 100), dev, 7)
+    model = UniMP([100, 64, 64, 47], heads=2, attn_dropout=0.3,
+                  generator=torch.Generator(device=dev).manual_seed(0),
+                  device=dev)
+    kgat.reset_launches()
+    model(adj, x, generator=torch.Generator(device=dev).manual_seed(5)
+          ).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (kgat.dot_launches, kgat.dot_bwd_rows_launches,
+            kgat.dot_bwd_cols_launches, kgat.dot_edge_walks) == (3, 3, 3, 9)
+    cpu = UniMP([100, 64, 64, 47], heads=2).double()
+    cpu.load_state_dict({k: v.cpu().double()
+                         for k, v in model.state_dict().items()})
+    model.eval()
+    cpu.eval()
+    model.zero_grad()
+    logits = model(adj, x)
+    logits.square().sum().backward()
+    want = cpu(Adjacency.from_csr(boundary_graph()), x.cpu().double())
+    want.square().sum().backward()
+    scale = float(want.detach().abs().max())
+    assert float((logits.detach().cpu().double() - want).abs().max()) \
+        <= 1e-4 * scale
+    for (k, p), (_, q) in zip(model.named_parameters(),
+                              cpu.named_parameters()):
+        if k.endswith("key.b"):  # rounding: the softmax takes it away
+            continue
+        err = float((p.grad.cpu().double() - q.grad).abs().max())
+        assert err <= 1e-4 * float(q.grad.abs().max()), k
 
 
 def test_dot_without_a_long_row_launches_no_carry(dev):

@@ -24,6 +24,7 @@ from gespmm_tpu_torch.kernels import _build
 from gespmm_tpu_torch.models.gat import GAT
 from gespmm_tpu_torch.models.gcn import GCN
 from gespmm_tpu_torch.models.sage import GraphSAGE
+from gespmm_tpu_torch.models.transformer import UniMP
 from gespmm_tpu_torch.ops.spmm import Adjacency
 from gespmm_tpu_torch.sparse.formats import CSR
 from gespmm_tpu_torch.sparse.partition import build_row_split
@@ -45,6 +46,9 @@ STEP_SPANS = {
     "gat": {"step", *STEP_CHILDREN, "model/dense", "model/attn_scores",
             "model/elu", "model/dropout", "model/log_softmax", "op/gat",
             "op/gat.grad"},
+    "unimp": {"step", *STEP_CHILDREN, "model/dense", "model/dropout",
+              "model/layer_norm", "model/gate", "model/relu",
+              "model/log_softmax", "op/dot", "op/dot.grad"},
 }
 GRAPH_PREP = [n for n in tprof.SPANS
               if n.startswith("graph_prep/") and n != "graph_prep/degree_norm"]
@@ -120,6 +124,8 @@ def _problem(kind):
     elif kind == "gat":
         model = GAT([8, 4, 3], dropout_rate=0.5, heads=2, skip=True,
                     generator=gen)
+    elif kind == "unimp":
+        model = UniMP([8, 4, 3], heads=2, attn_dropout=0.3, generator=gen)
     else:
         model = GraphSAGE([8, 16, 3], aggregator="mean", dropout_rate=0.5,
                           generator=gen)
@@ -131,7 +137,7 @@ def _problem(kind):
     return step, model
 
 
-@pytest.mark.parametrize("kind", ["gcn", "sage", "gat"])
+@pytest.mark.parametrize("kind", ["gcn", "sage", "gat", "unimp"])
 def test_a_step_shows_every_span_under_the_profiler(kind):
     step, _ = _problem(kind)
     step()
@@ -144,7 +150,7 @@ def test_a_step_shows_every_span_under_the_profiler(kind):
     assert isinstance(tprof.span("step"), contextlib.nullcontext)
 
 
-@pytest.mark.parametrize("kind", ["gcn", "sage", "gat"])
+@pytest.mark.parametrize("kind", ["gcn", "sage", "gat", "unimp"])
 def test_step_holds_its_five_children_in_order(kind):
     step, _ = _problem(kind)
     with tprof.recording() as rec:
@@ -269,7 +275,7 @@ def test_kernel_build_span_around_the_compiler(tmp_path, ok):
     assert lib.exists() == ok
 
 
-@pytest.mark.parametrize("kind", ["gcn", "sage", "gat"])
+@pytest.mark.parametrize("kind", ["gcn", "sage", "gat", "unimp"])
 def test_step_frees_log_probs_during_the_backward(kind):
     """The spanned step holds no name on the log-probabilities through the
     backward: they are freed once their node has run, before the first
@@ -287,8 +293,9 @@ def test_step_frees_log_probs_during_the_backward(kind):
         return out
 
     model.log_probs = log_probs
-    weight = (model.layer_0.neigh.w if kind == "sage"
-              else model.layer_0.w)
+    layer = model.layer_0
+    weight = (layer.neigh.w if kind == "sage" else
+              layer.query.w if kind == "unimp" else layer.w)
     weight.register_hook(lambda g: alive.append(refs[-1]() is not None))
     step()
     assert alive == [False]
