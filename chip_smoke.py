@@ -94,8 +94,9 @@ Phases, each printed as it goes; any failure exits non-zero:
      and the boundary graph, forward and backward held to the same op in
      float64 on the CPU (the plain version; forward 1e-5 x max |ref| +
      1e-6, gradients 1e-4 x max(|ref|, 1)); exactly 1 launch of each dot
-     kernel and 3 edge walks a call; no carry on sbm, and 1, 1 and 2 carries
-     a call on rmat15 and the boundary graph (the split path);
+     kernel and 3 edge walks a call, each summing a head's dots over its
+     group of 16 lanes (3 grouped walks); no carry on sbm, and 1, 1 and 2
+     carries a call on rmat15 and the boundary graph (the split path);
  13. nnz-chunked SpMM vs float64: on the SBM graph and rmat15 at K in {1, 3,
      16, 32, 33, 64, 128, 130, 512} (every walker width of the chunk
      kernel's walk over the plan's pieces), valued and binary, f32 and bf16,
@@ -289,8 +290,9 @@ spmm_grouped_carry), and so do row 7 (halo_spmm_carry), row 5
 (spmm_minmax_carry), row 3 (spmm_minmax_vjp_carry), row 4
 (edge_segment_reduce_carry) and row 6 (dot_fwd_carry, dot_bwd_rows_carry,
 dot_bwd_cols_carry); rows 1, 5 and 6 also count their walks of the edges
-(spmm_csr_edge_walks, gat_edge_walks, dot_edge_walks), which row 1's entry of the kernels
-line gives for phase 6's GCN.  In the kernels line rows 4 and 8 also give
+(spmm_csr_edge_walks, gat_edge_walks, dot_edge_walks; row 6 those in head
+groups too, dot_grouped_walks), which row 1's entry of the kernels line
+gives for phase 6's GCN.  In the kernels line rows 4 and 8 also give
 the GAT pallas route's launches (phase 24: gat_pallas_launches), row 1 the
 allgather weak-scaling run's and row 7 the halo-tiled one's (phase 27:
 dist_bench_launches), and row 7 the (2, 2) GCN's (phase 28:
@@ -658,6 +660,7 @@ def main(argv=None):
                 "dot_bwd_rows_carry": kgat.dot_bwd_rows_carry_launches,
                 "dot_bwd_cols_carry": kgat.dot_bwd_cols_carry_launches,
                 "dot_edge_walks": kgat.dot_edge_walks,
+                "dot_grouped_walks": kgat.dot_grouped_walks,
                 "spmm_chunk": kpal.launches,
                 "spmm_chunk_carry": kpal.carry_launches,
                 "spmm_grouped": kgrp.launches,
@@ -1359,9 +1362,12 @@ def main(argv=None):
                 label = (f"{graph} dh={dh} "
                          f"{'masked' if masked else 'unmasked'}")
                 carries = tuple(got[k] for k in dot_carry_names)
+                # Heads of 32 and of 47 both sum each dot over a head's
+                # group of 16 lanes: every walk is grouped.
                 check((got["dot_fwd"], got["dot_bwd_rows"],
-                       got["dot_bwd_cols"], got["dot_edge_walks"])
-                      == (1, 1, 1, 3) and carries == want_carries,
+                       got["dot_bwd_cols"], got["dot_edge_walks"],
+                       got["dot_grouped_walks"]) == (1, 1, 1, 3, 3)
+                      and carries == want_carries,
                       f"multi-head dot {label}: launches {got}, carries "
                       f"expected {want_carries}")
                 errs = {}
@@ -1376,9 +1382,12 @@ def main(argv=None):
                     check(bool(torch.isfinite(f).all()) and errs[name] <= tol,
                           f"multi-head dot {label} {name}: {errs[name]:.3e} "
                           f"over {tol:.3e}")
-                heads_errs[label] = {"errors": errs, "carries": carries}
+                heads_errs[label] = {
+                    "errors": errs, "carries": carries,
+                    "grouped_walks": got["dot_grouped_walks"]}
                 print(f"multi-head dot {label}: launches (1, 1, 1), carries "
-                      f"{carries}, edge walks {got['dot_edge_walks']}, vs "
+                      f"{carries}, edge walks {got['dot_edge_walks']}, "
+                      f"grouped walks {got['dot_grouped_walks']}, vs "
                       "float64 " + ", ".join(f"{k} {v:.3e}"
                                              for k, v in errs.items()),
                       flush=True)

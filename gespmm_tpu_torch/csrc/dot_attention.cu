@@ -606,35 +606,53 @@ dot_bwd_cols_kernel(int n, int S, int K, int Ka, int L, int leaky,
 //
 // D1 (m, Ka), D2 (n, Ka) and B (n, K) in H head blocks of dk = Ka / H and
 // dv = K / H columns.  A walker is a whole warp (SW = 32) whose lanes hold
-// VEC columns in each of NS slabs of 32*VEC columns, so that one walk of an
-// item's edges covers both widths (kernels/gat_fused.py::DOT_HEAD_WALKS: VEC
-// divides dk and dv, and 32*VEC*NS >= max(K, Ka)).  For each batch of NB
-// edges every lane gathers its columns of the edges' rows and takes its
-// partial of each edge's dot over its columns; the walker then sums each
-// head's partials (head_totals): where every head fills a power-of-two group
-// of G lanes of a slab (dk = dv, dk / VEC = G <= 32: the hidden layers' heads
-// of 32, G = 16) by a butterfly over the group, log2(G) shuffles a dot, else
-// head by head, the lane's partials of the head's columns added in slab
-// order and then Sub::sum's butterfly over the walker (the output layer's
-// heads of 47 at 1-column lanes: head 0 fills slab 0 and 15 lanes of slab 1,
-// head 1 the rest).  Every lane of a head holds
-// its total, the same bits in each.  A lane then folds each of its slabs with
-// the weights of that slab's head: the forward with an online softmax a slab
-// over the batches (the batch's maximum; the sums rescaled by exp(m_old -
-// m_new) when it grows), as the single-head forward over its rounds.  The
-// scale multiplies each dot (pre = scale * dot, one rounded product), and the
-// edge factor m~ (1 / keep_prob, or 0, from the (nnz, H) byte mask in CSR
-// edge order; 1 without a mask) multiplies each weight where it is used:
-// zd = z * m~ in the forward's sum (den keeps the undropped z), u * m~ in
-// dpre, alpha * m~ for grad_B.  Each round of SW edges, lane j loads edge j's
-// per-head values (the mask's factors; over the CSC also its row's mx, den
-// and s_row) into a per-walker [table][head][edge] table in shared memory
-// (stride SW + 1), so that a batch reads them without a dependent load.  The
-// CSC walk reads the mask through perm (the CSR position of each CSC edge):
-// so the UniMP cell's CSC walks took 3.5% and 2.8% less than over a copy of
-// the mask in CSC order, the copy's own 3.5 ms aside (PERF.md, section 6).
-// The three kernels take each dot with the same lanes in the same order
-// (fmaf is symmetric in its factors), so the backward's pre meets the
+// VEC columns in each of NS slabs, so that one walk of an item's edges
+// covers both widths (kernels/gat_fused.py::DOT_HEAD_WALKS: VEC divides dk
+// and dv, and 32*VEC*NS >= max(K, Ka)).  For each batch of NB edges every
+// lane gathers its columns of the edges' rows and takes its partial of each
+// edge's dot over its columns of each slab; the walker then sums each head's
+// partials (head_totals).  Which lanes hold which columns, and so how a dot
+// is summed, follows G, the lanes of a head's group
+// (kernels/gat_fused.py::dot_head_group, which bad_heads checks):
+//   * head-major (G > 0 and H*G <= SW: the MAJOR kernels): head h owns lanes
+//     [h*G, (h+1)*G), and lane l holds columns h*dk + (s*G + l%G)*VEC of
+//     slab s on both sides (K = Ka), so every slab of a lane is of one head.
+//     The lane adds its slabs' partials in slab order, and a butterfly over
+//     the group, log2(G) shuffles, completes every head's dot at once.  G is
+//     dk / VEC where that is a power of two (the UniMP cell's hidden layers'
+//     heads of 32 at 2-column lanes: 16, one slab), else the least power of
+//     two whose NS slabs cover a head (its output layer's heads of 47 at
+//     1-column lanes: 16, three slabs of 16 lanes a head, 94 of 96 lane
+//     slots; one head of several slabs: 32, the walker-wide sum);
+//   * slab-major (the rest): lane l holds columns (s*SW + l)*VEC of slab s,
+//     so its slabs may be of different heads.  With G > 0 (K = Ka, and each
+//     head fills G = dk / VEC lanes of a slab, more heads than a slab holds)
+//     a butterfly over the head's lanes of each slab; with G = 0 (K != Ka,
+//     or groups that would not fit: three heads of 30 at three slabs) head
+//     by head: for each head the lane's partials of the head's columns added
+//     in slab order, then Sub::sum's butterfly over the walker.
+// A column past the head's width (past K or Ka) loads column 0, adds 0 to
+// the dot and is neither folded nor stored.  Every lane of a head holds its
+// total, the same bits in each.  A lane then folds its slabs with the
+// weights of their heads, taken once a head slot (one a lane head-major, one
+// a slab slab-major): the forward with an online softmax over the batches
+// (the batch's maximum; the sums rescaled by exp(m_old - m_new) when it
+// grows), as the single-head forward over its rounds.  The scale multiplies
+// each dot (pre = scale * dot, one rounded product, __fmul_rn: no compiler
+// fuses it into the subtraction of the row's maximum in one kernel and not
+// in another), and the edge factor m~ (1 / keep_prob, or 0, from the (nnz,
+// H) byte mask in CSR edge order; 1 without a mask) multiplies each weight
+// where it is used: zd = z * m~ in the forward's sum (den keeps the
+// undropped z), u * m~ in dpre, alpha * m~ for grad_B.  Each round of SW
+// edges, lane j loads edge j's per-head values
+// (the mask's factors; over the CSC also its row's mx, den and s_row) into a
+// per-walker [table][head][edge] table in shared memory (stride SW + 1), so
+// that a batch reads them without a dependent load.  The CSC walk reads the
+// mask through perm (the CSR position of each CSC edge): so the UniMP cell's
+// CSC walks took 3.5% and 2.8% less than over a copy of the mask in CSC
+// order, the copy's own 3.5 ms aside (PERF.md, section 6).  The three
+// kernels take G from one rule and each dot with the same lanes in the same
+// order (fmaf is symmetric in its factors), so the backward's pre meets the
 // forward's mx and den bit for bit.
 
 // Edges whose rows a multi-head walker gathers before it folds any: 4, or 2
@@ -644,27 +662,49 @@ dot_bwd_cols_kernel(int n, int S, int K, int Ka, int L, int leaky,
 template <int NS>
 constexpr int kHeadsBatchOf = NS == 1 ? 4 : 2;
 
-// Blocks an SM the CSC walk's registers must allow: three was 2% faster at
-// the output layer's heads of 47 (and slowed the CSR walk there).
-constexpr int kHeadsColsMinBlocks = 3;
+// Blocks an SM the CSC walk's registers must allow: four (at most 64
+// registers) took 5% less than three at the head-major walks of the UniMP
+// cell's heads of 32 and 3-6% less at its heads of 47, with the same bits
+// (PERF.md, section 6).
+constexpr int kHeadsColsMinBlocks = 4;
 
-// The lane's columns in each of a walker's NS slabs of SW*VEC columns, on the
-// D side (Ka wide, heads of dk) and the B side (K wide, heads of dv): the
-// first column (0 past the width, where the loads are not used) and its head
-// (-1 past the width).
-template <int VEC, int SW, int NS>
+// The lane's columns in each of a walker's NS slabs, on the D side (Ka wide,
+// heads of dk) and the B side (K wide, heads of dv): the first column (0
+// past the width, where the loads are not used) and its head (-1 past the
+// width); and the D and B heads of each of its NH head slots (-1: none), the
+// heads whose weights it folds: one slot in all head-major (the lane's
+// group's head), one a slab slab-major.
+template <int VEC, int SW, int NS, bool MAJOR>
 struct HeadCols {
-  int kd[NS], kb[NS], hd[NS], hb[NS];
-  __device__ HeadCols(int lane, int Ka, int K, int H) {
-    const int dk = Ka / H, dv = K / H;
+  static constexpr int NH = MAJOR ? 1 : NS;
+  int kd[NS], kb[NS], hd[NS], hb[NS], jd[NH], jb[NH];
+  __device__ HeadCols(int lane, int Ka, int K, int H, int G) {
+    const int dk = Ka / H;
+    if constexpr (MAJOR) {
+      const int h = lane / G, c0 = lane % G;
+      jd[0] = jb[0] = h < H ? h : -1;
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const int k = (s * SW + lane) * VEC;
-      hd[s] = k < Ka ? k / dk : -1;
-      hb[s] = k < K ? k / dv : -1;
-      kd[s] = k < Ka ? k : 0;
-      kb[s] = k < K ? k : 0;
+      for (int s = 0; s < NS; ++s) {
+        const int c = (s * G + c0) * VEC;
+        const bool on = h < H && c < dk;
+        hd[s] = hb[s] = on ? h : -1;
+        kd[s] = kb[s] = on ? h * dk + c : 0;
+      }
+    } else {
+      const int dv = K / H;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int k = (s * SW + lane) * VEC;
+        hd[s] = jd[s] = k < Ka ? k / dk : -1;
+        hb[s] = jb[s] = k < K ? k / dv : -1;
+        kd[s] = k < Ka ? k : 0;
+        kb[s] = k < K ? k : 0;
+      }
     }
+  }
+  // Whether slab s takes the weights of slot j.
+  __device__ static constexpr bool of(int s, int j) {
+    return MAJOR ? j == 0 : s == j;
   }
 };
 
@@ -688,51 +728,66 @@ __device__ __forceinline__ void slab_dots(const Pack<TA, VEC> (&x)[NS],
     }
 }
 
-// q[u][s]: the dot of edge u for head dst[s], from the partials p whose
-// columns are of head src[s] (src = dst except where K != Ka): with G > 0
-// (src = dst, each head fills G lanes of a slab) the slab's partials summed
-// over the head's lanes by a butterfly; else for each head the lane's
-// partials of that head added in slab order, then summed over the walker.
-// Walker-uniform: all SW lanes take part.
-template <int SW, int NS, int N>
+// q[u][j]: the dot of edge u for the head of slot j (dst: the slabs' heads
+// on the other side where K != Ka), from the partials p whose columns are of
+// head src[s].  Head-major: the lane's partials added in slab order, then a
+// butterfly over its group of G lanes.  Slab-major with G > 0 (src = dst):
+// each slab's partials summed over the head's G lanes by a butterfly; with
+// G = 0, for each head the lane's partials of that head added in slab order,
+// then summed over the walker.  Walker-uniform: all SW lanes take part.
+template <bool MAJOR, int SW, int NS, int N, int NH>
 __device__ __forceinline__ void head_totals(const Sub<SW>& w, int G, int H,
                                             const int (&src)[NS],
                                             const int (&dst)[NS],
                                             const float (&p)[N][NS],
-                                            float (&q)[N][NS]) {
-  if (G > 0) {
+                                            float (&q)[N][NH]) {
+  if constexpr (MAJOR) {
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      float a = p[u][0];
+#pragma unroll
+      for (int s = 1; s < NS; ++s) a += p[u][s];
+      q[u][0] = a;
+    }
+    for (int o = G / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < N; ++u)
+        q[u][0] += __shfl_xor_sync(w.mask, q[u][0], o, SW);
+  } else {
+    if (G > 0) {
+#pragma unroll
+      for (int u = 0; u < N; ++u)
+#pragma unroll
+        for (int s = 0; s < NS; ++s) q[u][s] = p[u][s];
+      for (int o = G / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < N; ++u)
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            q[u][s] += __shfl_xor_sync(w.mask, q[u][s], o, SW);
+      return;
+    }
 #pragma unroll
     for (int u = 0; u < N; ++u)
 #pragma unroll
-      for (int s = 0; s < NS; ++s) q[u][s] = p[u][s];
-    for (int o = G / 2; o > 0; o >>= 1)
+      for (int s = 0; s < NS; ++s) q[u][s] = 0.f;
+    for (int h = 0; h < H; ++h) {
+      float t[N];
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        float a = 0.f;
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          if (src[s] == h) a += p[u][s];
+        t[u] = a;
+      }
+      sums(w, t);
 #pragma unroll
       for (int u = 0; u < N; ++u)
 #pragma unroll
         for (int s = 0; s < NS; ++s)
-          q[u][s] += __shfl_xor_sync(w.mask, q[u][s], o, SW);
-    return;
-  }
-#pragma unroll
-  for (int u = 0; u < N; ++u)
-#pragma unroll
-    for (int s = 0; s < NS; ++s) q[u][s] = 0.f;
-  for (int h = 0; h < H; ++h) {
-    float t[N];
-#pragma unroll
-    for (int u = 0; u < N; ++u) {
-      float a = 0.f;
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-        if (src[s] == h) a += p[u][s];
-      t[u] = a;
+          if (dst[s] == h) q[u][s] = t[u];
     }
-    sums(w, t);
-#pragma unroll
-    for (int u = 0; u < N; ++u)
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-        if (dst[s] == h) q[u][s] = t[u];
   }
 }
 
@@ -782,7 +837,7 @@ __device__ __forceinline__ float dot_grad(float pre, float u, float f,
                   dact(pre, leaky, slope));
 }
 
-template <typename T, int VEC, int SW, int NS>
+template <typename T, int VEC, int SW, int NS, bool MAJOR>
 __global__ void __launch_bounds__(kThreads)
 dot_heads_fwd_kernel(int m, int S, int K, int Ka, int H, int G, int L,
                      int leaky, float slope, float scale, float inv_keep,
@@ -798,6 +853,8 @@ dot_heads_fwd_kernel(int m, int S, int K, int Ka, int H, int G, int L,
                      float* __restrict__ pacc) {
   using P = Pack<T, VEC>;
   using F = Pack<float, VEC>;
+  using HC = HeadCols<VEC, SW, NS, MAJOR>;
+  constexpr int NH = HC::NH;
   constexpr int NB = kHeadsBatchOf<NS>;
   constexpr int kStride = SW + 1;
   constexpr int kPerBlock = kThreads / SW;
@@ -805,7 +862,7 @@ dot_heads_fwd_kernel(int m, int S, int K, int Ka, int H, int G, int L,
   extern __shared__ float smem[];
   float* st = smem + (threadIdx.x / SW) * H * kStride;  // [head][edge]
   const int dv = K / H;
-  const HeadCols<VEC, SW, NS> hc(w.lane, Ka, K, H);
+  const HC hc(w.lane, Ka, K, H, G);
   for (int item = blockIdx.x * kPerBlock + threadIdx.x / SW; item < S + m;
        item += gridDim.x * kPerBlock) {
     Item it;
@@ -814,14 +871,16 @@ dot_heads_fwd_kernel(int m, int S, int K, int Ka, int H, int G, int L,
 #pragma unroll
     for (int s = 0; s < NS; ++s)
       x[s] = load<float, VEC>(D1 + (int64_t)it.row * Ka + hc.kd[s]);
-    float m_run[NS], zsum[NS], acc[NS][VEC];
+    float m_run[NH], zsum[NH], acc[NS][VEC];
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      m_run[s] = -CUDART_INF_F;
-      zsum[s] = 0.f;
+    for (int j = 0; j < NH; ++j) {
+      m_run[j] = -CUDART_INF_F;
+      zsum[j] = 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
 #pragma unroll
       for (int t = 0; t < VEC; ++t) acc[s][t] = 0.f;
-    }
     for (int base = it.s; base < it.t; base += SW) {
       // Walker-uniform down to the shuffles: all SW lanes take part.
       const int e = base + w.lane;
@@ -845,34 +904,40 @@ dot_heads_fwd_kernel(int m, int S, int K, int Ka, int H, int G, int L,
             yd[s][u] = load<float, VEC>(drows[u] + hc.kd[s]);
             yb[s][u] = load<T, VEC>(brows[u] + hc.kb[s]);
           }
-        float p[NB][NS], l[NB][NS];
+        float p[NB][NS], l[NB][NH];
         slab_dots(x, yd, hc.hd, p);
-        head_totals(w, G, H, hc.hd, hc.hb, p, l);
+        head_totals<MAJOR>(w, G, H, hc.hd, hc.hb, p, l);
 #pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          if (hc.hb[s] < 0) continue;  // no shuffle below
-          float mb = m_run[s];
+        for (int j = 0; j < NH; ++j) {
+          const int h = hc.jb[j];
+          if (h < 0) continue;  // no shuffle below
+          float mb = m_run[j];
 #pragma unroll
           for (int u = 0; u < NB; ++u) {
-            l[u][s] = act(l[u][s] * scale, leaky, slope);
-            if (u0 + u < n_here) mb = fmaxf(mb, l[u][s]);
+            l[u][j] = act(__fmul_rn(l[u][j], scale), leaky, slope);
+            if (u0 + u < n_here) mb = fmaxf(mb, l[u][j]);
           }
-          const float sc = m_run[s] == mb ? 1.f : expf(m_run[s] - mb);
-          m_run[s] = mb;
-          zsum[s] *= sc;
+          const float sc = m_run[j] == mb ? 1.f : expf(m_run[j] - mb);
+          m_run[j] = mb;
+          zsum[j] *= sc;
 #pragma unroll
-          for (int t = 0; t < VEC; ++t) acc[s][t] *= sc;
+          for (int s = 0; s < NS; ++s)
+            if (HC::of(s, j))
+#pragma unroll
+              for (int t = 0; t < VEC; ++t) acc[s][t] *= sc;
 #pragma unroll
           for (int u = 0; u < NB; ++u) {
             if (u0 + u < n_here) {
-              const float z = expf(fmaxf(l[u][s] - mb, kExpFloor));
-              zsum[s] += z;
+              const float z = expf(fmaxf(l[u][j] - mb, kExpFloor));
+              zsum[j] += z;
               const float zd =
-                  keep == nullptr ? z
-                                  : z * st[hc.hb[s] * kStride + u0 + u];
+                  keep == nullptr ? z : z * st[h * kStride + u0 + u];
 #pragma unroll
-              for (int t = 0; t < VEC; ++t)
-                acc[s][t] = fmaf(zd, to_f32(yb[s][u].v[t]), acc[s][t]);
+              for (int s = 0; s < NS; ++s)
+                if (HC::of(s, j) && hc.hb[s] >= 0)
+#pragma unroll
+                  for (int t = 0; t < VEC; ++t)
+                    acc[s][t] = fmaf(zd, to_f32(yb[s][u].v[t]), acc[s][t]);
             }
           }
         }
@@ -880,7 +945,7 @@ dot_heads_fwd_kernel(int m, int S, int K, int Ka, int H, int G, int L,
     }
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      const int h = hc.hb[s], k = hc.kb[s];
+      const int h = hc.hb[s], k = hc.kb[s], j = MAJOR ? 0 : s;
       if (h < 0) continue;
       const bool first = k % dv == 0;  // the head's first column
       if (item < S) {
@@ -889,18 +954,18 @@ dot_heads_fwd_kernel(int m, int S, int K, int Ka, int H, int G, int L,
         for (int t = 0; t < VEC; ++t) o.v[t] = acc[s][t];
         *reinterpret_cast<F*>(pacc + (int64_t)item * K + k) = o;
         if (first) {
-          pm[(int64_t)item * H + h] = m_run[s];
-          pz[(int64_t)item * H + h] = zsum[s];
+          pm[(int64_t)item * H + h] = m_run[j];
+          pz[(int64_t)item * H + h] = zsum[j];
         }
       } else {
-        const float d = fmaxf(zsum[s], kDenomEps);
+        const float d = fmaxf(zsum[j], kDenomEps);
         P o;
 #pragma unroll
         for (int t = 0; t < VEC; ++t) o.v[t] = from_f32<T>(acc[s][t] / d);
         *reinterpret_cast<P*>(out + (int64_t)it.row * K + k) = o;
         if (first) {
           const int64_t at = (int64_t)it.row * H + h;
-          mx[at] = isfinite(m_run[s]) ? m_run[s] : 0.f;  // an empty row: 0
+          mx[at] = isfinite(m_run[j]) ? m_run[j] : 0.f;  // an empty row: 0
           den[at] = d;
         }
       }
@@ -908,7 +973,7 @@ dot_heads_fwd_kernel(int m, int S, int K, int Ka, int H, int G, int L,
   }
 }
 
-template <typename T, int VEC, int SW, int NS>
+template <typename T, int VEC, int SW, int NS, bool MAJOR>
 __global__ void __launch_bounds__(kThreads)
 dot_heads_bwd_rows_kernel(int m, int S, int K, int Ka, int H, int G, int L,
                           int leaky, float slope, float scale, float inv_keep,
@@ -927,31 +992,36 @@ dot_heads_bwd_rows_kernel(int m, int S, int K, int Ka, int H, int G, int L,
                           float* __restrict__ part) {
   using P = Pack<T, VEC>;
   using F = Pack<float, VEC>;
+  using HC = HeadCols<VEC, SW, NS, MAJOR>;
+  constexpr int NH = HC::NH;
   constexpr int NB = kHeadsBatchOf<NS>;
   constexpr int kStride = SW + 1;
   constexpr int kPerBlock = kThreads / SW;
   const Sub<SW> w;
   extern __shared__ float smem[];
   float* st = smem + (threadIdx.x / SW) * H * kStride;  // [head][edge]
-  const HeadCols<VEC, SW, NS> hc(w.lane, Ka, K, H);
+  const HC hc(w.lane, Ka, K, H, G);
   for (int item = blockIdx.x * kPerBlock + threadIdx.x / SW; item < S + m;
        item += gridDim.x * kPerBlock) {
     Item it;
     if (!item_edges(item, S, L, indptr, seg_row, seg_start, it)) continue;
     const int64_t r = it.row;
     F xd[NS], xg[NS];
-    float mh[NS], dn[NS], sr[NS];  // the row's tables at slab s's D head
+    float mh[NH], dn[NH], sr[NH];  // the row's tables at slot j's D head
     float acc[NS][VEC];
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
       xd[s] = load<float, VEC>(D1 + r * Ka + hc.kd[s]);
       xg[s] = load<float, VEC>(g + r * K + hc.kb[s]);
-      const int64_t at = r * H + max(hc.hd[s], 0);
-      mh[s] = mx[at];
-      dn[s] = den[at];
-      sr[s] = srow[at];
 #pragma unroll
       for (int t = 0; t < VEC; ++t) acc[s][t] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      const int64_t at = r * H + max(hc.jd[j], 0);
+      mh[j] = mx[at];
+      dn[j] = den[at];
+      sr[j] = srow[at];
     }
     for (int base = it.s; base < it.t; base += SW) {
       const int e = base + w.lane;
@@ -975,25 +1045,29 @@ dot_heads_bwd_rows_kernel(int m, int S, int K, int Ka, int H, int G, int L,
             yd[s][u] = load<float, VEC>(drows[u] + hc.kd[s]);
             yb[s][u] = load<T, VEC>(brows[u] + hc.kb[s]);
           }
-        float pd[NB][NS], pb[NB][NS], qd[NB][NS], qb[NB][NS];
+        float pd[NB][NS], pb[NB][NS], qd[NB][NH], qb[NB][NH];
         slab_dots(xd, yd, hc.hd, pd);
         slab_dots(xg, yb, hc.hb, pb);
-        head_totals(w, G, H, hc.hd, hc.hd, pd, qd);
-        head_totals(w, G, H, hc.hb, hc.hd, pb, qb);
+        head_totals<MAJOR>(w, G, H, hc.hd, hc.hd, pd, qd);
+        head_totals<MAJOR>(w, G, H, hc.hb, hc.hd, pb, qb);
 #pragma unroll
         for (int u = 0; u < NB; ++u) {
           if (u0 + u < n_here) {  // walker-uniform
 #pragma unroll
-            for (int s = 0; s < NS; ++s) {
-              const int h = hc.hd[s];
+            for (int j = 0; j < NH; ++j) {
+              const int h = hc.jd[j];
               if (h < 0) continue;
               const float f =
                   keep == nullptr ? 1.f : st[h * kStride + u0 + u];
-              const float dd = dot_grad(qd[u][s] * scale, qb[u][s], f, mh[s],
-                                        dn[s], sr[s], leaky, slope, scale);
+              const float dd =
+                  dot_grad(__fmul_rn(qd[u][j], scale), qb[u][j], f, mh[j],
+                           dn[j], sr[j], leaky, slope, scale);
 #pragma unroll
-              for (int t = 0; t < VEC; ++t)
-                acc[s][t] = fmaf(dd, yd[s][u].v[t], acc[s][t]);
+              for (int s = 0; s < NS; ++s)
+                if (HC::of(s, j) && hc.hd[s] >= 0)
+#pragma unroll
+                  for (int t = 0; t < VEC; ++t)
+                    acc[s][t] = fmaf(dd, yd[s][u].v[t], acc[s][t]);
             }
           }
         }
@@ -1012,7 +1086,7 @@ dot_heads_bwd_rows_kernel(int m, int S, int K, int Ka, int H, int G, int L,
 }
 
 // One walk a column gives grad_D2 (Ka wide) and grad_B (K wide).
-template <typename T, int VEC, int SW, int NS>
+template <typename T, int VEC, int SW, int NS, bool MAJOR>
 __global__ void __launch_bounds__(kThreads, kHeadsColsMinBlocks)
 dot_heads_bwd_cols_kernel(int n, int S, int K, int Ka, int H, int G, int L,
                           int leaky, float slope, float scale, float inv_keep,
@@ -1033,6 +1107,8 @@ dot_heads_bwd_cols_kernel(int n, int S, int K, int Ka, int H, int G, int L,
                           float* __restrict__ part_D) {
   using P = Pack<T, VEC>;
   using F = Pack<float, VEC>;
+  using HC = HeadCols<VEC, SW, NS, MAJOR>;
+  constexpr int NH = HC::NH;
   constexpr int NB = kHeadsBatchOf<NS>;
   constexpr int kStride = SW + 1;
   constexpr int kPerBlock = kThreads / SW;
@@ -1042,7 +1118,7 @@ dot_heads_bwd_cols_kernel(int n, int S, int K, int Ka, int H, int G, int L,
   // s_row.
   float* st = smem + (threadIdx.x / SW) * 4 * H * kStride;
   const int tab = H * kStride;
-  const HeadCols<VEC, SW, NS> hc(w.lane, Ka, K, H);
+  const HC hc(w.lane, Ka, K, H, G);
   for (int item = blockIdx.x * kPerBlock + threadIdx.x / SW; item < S + n;
        item += gridDim.x * kPerBlock) {
     Item it;  // it.row is the column
@@ -1078,45 +1154,52 @@ dot_heads_bwd_cols_kernel(int n, int S, int K, int Ka, int H, int G, int L,
             yd[s][u] = load<float, VEC>(drows[u] + hc.kd[s]);
             yg[s][u] = load<float, VEC>(grows[u] + hc.kb[s]);
           }
-        float pd[NB][NS], pb[NB][NS], qd[NB][NS], qb[NB][NS], qa[NB][NS];
+        float pd[NB][NS], pb[NB][NS], qd[NB][NH], qb[NB][NH], qa[NB][NH];
         slab_dots(xd, yd, hc.hd, pd);
         slab_dots(xb, yg, hc.hb, pb);
-        head_totals(w, G, H, hc.hd, hc.hd, pd, qd);
-        head_totals(w, G, H, hc.hb, hc.hd, pb, qb);
-        // The dot of slab s's B head, for grad_B's weight: qd where the
-        // heads of the two sides coincide (K = Ka).
-        if (K == Ka) {
+        head_totals<MAJOR>(w, G, H, hc.hd, hc.hd, pd, qd);
+        head_totals<MAJOR>(w, G, H, hc.hb, hc.hd, pb, qb);
+        // The dot of slot j's B head, for grad_B's weight: qd where the
+        // heads of the two sides coincide (K = Ka, always head-major).
+        if (MAJOR || K == Ka) {
 #pragma unroll
           for (int u = 0; u < NB; ++u)
 #pragma unroll
-            for (int s = 0; s < NS; ++s) qa[u][s] = qd[u][s];
+            for (int j = 0; j < NH; ++j) qa[u][j] = qd[u][j];
         } else {
-          head_totals(w, 0, H, hc.hd, hc.hb, pd, qa);
+          head_totals<MAJOR>(w, 0, H, hc.hd, hc.hb, pd, qa);
         }
 #pragma unroll
         for (int u = 0; u < NB; ++u) {
           if (u0 + u < n_here) {  // walker-uniform
-            const int j = u0 + u;
+            const int i = u0 + u;
 #pragma unroll
-            for (int s = 0; s < NS; ++s) {
-              const int hD = hc.hd[s], hB = hc.hb[s];
+            for (int j = 0; j < NH; ++j) {
+              const int hD = hc.jd[j], hB = hc.jb[j];
               if (hD >= 0) {
-                const float* at = st + hD * kStride + j;
+                const float* at = st + hD * kStride + i;
                 const float dd = dot_grad(
-                    qd[u][s] * scale, qb[u][s], keep == nullptr ? 1.f : at[0],
+                    __fmul_rn(qd[u][j], scale), qb[u][j],
+                    keep == nullptr ? 1.f : at[0],
                     at[tab], at[2 * tab], at[3 * tab], leaky, slope, scale);
 #pragma unroll
-                for (int t = 0; t < VEC; ++t)
-                  accD[s][t] = fmaf(dd, yd[s][u].v[t], accD[s][t]);
+                for (int s = 0; s < NS; ++s)
+                  if (HC::of(s, j) && hc.hd[s] >= 0)
+#pragma unroll
+                    for (int t = 0; t < VEC; ++t)
+                      accD[s][t] = fmaf(dd, yd[s][u].v[t], accD[s][t]);
               }
               if (hB >= 0) {
-                const float* at = st + hB * kStride + j;
-                float a = attention(qa[u][s] * scale, leaky, slope, at[tab],
-                                    at[2 * tab]);
+                const float* at = st + hB * kStride + i;
+                float a = attention(__fmul_rn(qa[u][j], scale), leaky, slope,
+                                    at[tab], at[2 * tab]);
                 if (keep != nullptr) a *= at[0];
 #pragma unroll
-                for (int t = 0; t < VEC; ++t)
-                  accB[s][t] = fmaf(a, yg[s][u].v[t], accB[s][t]);
+                for (int s = 0; s < NS; ++s)
+                  if (HC::of(s, j) && hc.hb[s] >= 0)
+#pragma unroll
+                    for (int t = 0; t < VEC; ++t)
+                      accB[s][t] = fmaf(a, yg[s][u].v[t], accB[s][t]);
               }
             }
           }
@@ -1249,28 +1332,40 @@ cudaError_t backward_cols(int n, int K, int Ka, int vec, int sw, int leaky,
 // The instantiated multi-head walkers (kernels/gat_fused.py::DOT_HEAD_WALKS):
 // whole warps of 2-column lanes holding one slab (K, Ka <= 64 with even
 // heads: the UniMP cell's hidden layers, heads of 32) and of 1-column lanes
-// holding three (K, Ka <= 96: its output layer, heads of 47).
+// holding three (K, Ka <= 96: its output layer, heads of 47), each
+// head-major (fn's last argument 1) or slab-major (0).
 template <typename Fn>
-cudaError_t dispatch_heads(int vec, int sw, int ns, Fn&& fn) {
+cudaError_t dispatch_heads(int vec, int sw, int ns, bool major, Fn&& fn) {
   using gespmm::Int;
-  if (vec == 2 && sw == 32 && ns == 1) return fn(Int<2>(), Int<32>(), Int<1>());
-  if (vec == 1 && sw == 32 && ns == 3) return fn(Int<1>(), Int<32>(), Int<3>());
+  if (vec == 2 && sw == 32 && ns == 1)
+    return major ? fn(Int<2>(), Int<32>(), Int<1>(), Int<1>())
+                 : fn(Int<2>(), Int<32>(), Int<1>(), Int<0>());
+  if (vec == 1 && sw == 32 && ns == 3)
+    return major ? fn(Int<1>(), Int<32>(), Int<3>(), Int<1>())
+                 : fn(Int<1>(), Int<32>(), Int<3>(), Int<0>());
   return cudaErrorInvalidValue;
 }
 
-bool bad_heads(int K, int Ka, int H, int vec, int sw, int ns,
+// Whether G lanes a head make the walk head-major (the multi-head walk's
+// comment).
+bool head_major(int G, int H, int sw) { return G > 0 && H * G <= sw; }
+
+// A G (kernels/gat_fused.py::dot_head_group) that the walker cannot take: a
+// group must be a power of two of at most SW lanes, with K = Ka, and hold a
+// whole head, in its NS slabs head-major and in one slab slab-major.
+bool bad_group(int K, int Ka, int H, int vec, int sw, int ns, int G) {
+  if (G == 0) return false;
+  if (G < 0 || G > sw || (G & (G - 1)) != 0 || K != Ka) return true;
+  const int dk = Ka / H;
+  return head_major(G, H, sw) ? G * vec * ns < dk : G * vec != dk;
+}
+
+bool bad_heads(int K, int Ka, int H, int vec, int sw, int ns, int G,
                const Split& sp) {
   return H < 1 || K < 1 || Ka < 1 || K % H != 0 || Ka % H != 0 ||
          (K / H) % vec != 0 || (Ka / H) % vec != 0 ||
-         (K > Ka ? K : Ka) > sw * vec * ns || gespmm::bad_split(sp);
-}
-
-// The lanes of a slab that each head fills, where the two sides' heads
-// coincide (K = Ka) and fill power-of-two groups of at most SW lanes
-// (head_totals' butterfly over the group), else 0.
-int head_group(int K, int Ka, int H, int vec, int sw) {
-  const int g = K / H / vec;
-  return K == Ka && g <= sw && (g & (g - 1)) == 0 ? g : 0;
+         (K > Ka ? K : Ka) > sw * vec * ns ||
+         bad_group(K, Ka, H, vec, sw, ns, G) || gespmm::bad_split(sp);
 }
 
 // Dynamic shared memory of `tables` [head][edge] tables a walker, opting in
@@ -1286,7 +1381,7 @@ cudaError_t head_tables(Kernel kernel, int sw, int tables, int H,
 
 // The multi-head launches' arguments besides the split and the tables.
 struct Heads {
-  int H, leaky;
+  int H, G, leaky;
   float slope, scale, inv_keep;
 };
 
@@ -1297,21 +1392,23 @@ cudaError_t forward_heads(int m, int K, int Ka, int vec, int sw, int ns,
                           const T* B, const uint8_t* keep, T* out, float* mx,
                           float* den, float* pm, float* pz, float* pacc,
                           cudaStream_t stream) {
-  if (bad_heads(K, Ka, hp.H, vec, sw, ns, sp)) return cudaErrorInvalidValue;
-  return dispatch_heads(vec, sw, ns, [&](auto V, auto W, auto N) {
+  if (bad_heads(K, Ka, hp.H, vec, sw, ns, hp.G, sp))
+    return cudaErrorInvalidValue;
+  return dispatch_heads(vec, sw, ns, head_major(hp.G, hp.H, sw),
+                        [&](auto V, auto W, auto N, auto M) {
     constexpr int VEC = decltype(V)::value, SW = decltype(W)::value;
     constexpr int NS = decltype(N)::value;
+    constexpr bool MAJOR = decltype(M)::value == 1;
     if (!aligned_all<T, VEC>({D1, D2, pacc}, {B, out}))
       return cudaErrorInvalidValue;
-    auto kernel = dot_heads_fwd_kernel<T, VEC, SW, NS>;
+    auto kernel = dot_heads_fwd_kernel<T, VEC, SW, NS, MAJOR>;
     size_t smem;
     cudaError_t err = head_tables(kernel, SW, 1, hp.H, &smem);
     if (err != cudaSuccess) return err;
     kernel<<<item_grid(sp.S + m, SW), kThreads, smem, stream>>>(
-        m, sp.S, K, Ka, hp.H, head_group(K, Ka, hp.H, VEC, SW), sp.L,
-        hp.leaky, hp.slope, hp.scale, hp.inv_keep, indptr, indices,
-        sp.seg_row, sp.seg_start, D1, D2, B, keep, out, mx, den, pm, pz,
-        pacc);
+        m, sp.S, K, Ka, hp.H, hp.G, sp.L, hp.leaky, hp.slope, hp.scale,
+        hp.inv_keep, indptr, indices, sp.seg_row, sp.seg_start, D1, D2, B,
+        keep, out, mx, den, pm, pz, pacc);
     err = cudaGetLastError();
     if (err != cudaSuccess || sp.J == 0) return err;
     return gespmm::launch_softmax_carry<T, VEC>(sp.J, K, hp.H, 1,
@@ -1329,21 +1426,23 @@ cudaError_t backward_rows_heads(int m, int K, int Ka, int vec, int sw, int ns,
                                 const float* mx, const float* den,
                                 const float* srow, float* grad_D1, float* part,
                                 cudaStream_t stream) {
-  if (bad_heads(K, Ka, hp.H, vec, sw, ns, sp)) return cudaErrorInvalidValue;
-  return dispatch_heads(vec, sw, ns, [&](auto V, auto W, auto N) {
+  if (bad_heads(K, Ka, hp.H, vec, sw, ns, hp.G, sp))
+    return cudaErrorInvalidValue;
+  return dispatch_heads(vec, sw, ns, head_major(hp.G, hp.H, sw),
+                        [&](auto V, auto W, auto N, auto M) {
     constexpr int VEC = decltype(V)::value, SW = decltype(W)::value;
     constexpr int NS = decltype(N)::value;
+    constexpr bool MAJOR = decltype(M)::value == 1;
     if (!aligned_all<T, VEC>({D1, D2, g, grad_D1, part}, {B}))
       return cudaErrorInvalidValue;
-    auto kernel = dot_heads_bwd_rows_kernel<T, VEC, SW, NS>;
+    auto kernel = dot_heads_bwd_rows_kernel<T, VEC, SW, NS, MAJOR>;
     size_t smem;
     cudaError_t err = head_tables(kernel, SW, 1, hp.H, &smem);
     if (err != cudaSuccess) return err;
     kernel<<<item_grid(sp.S + m, SW), kThreads, smem, stream>>>(
-        m, sp.S, K, Ka, hp.H, head_group(K, Ka, hp.H, VEC, SW), sp.L,
-        hp.leaky, hp.slope, hp.scale, hp.inv_keep, indptr, indices,
-        sp.seg_row, sp.seg_start, D1, D2, B, g, keep, mx, den, srow, grad_D1,
-        part);
+        m, sp.S, K, Ka, hp.H, hp.G, sp.L, hp.leaky, hp.slope, hp.scale,
+        hp.inv_keep, indptr, indices, sp.seg_row, sp.seg_start, D1, D2, B, g,
+        keep, mx, den, srow, grad_D1, part);
     err = cudaGetLastError();
     if (err != cudaSuccess || sp.J == 0) return err;
     return gespmm::launch_carry<float, VEC>(sp.J, Ka, sp.long_rows,
@@ -1361,22 +1460,24 @@ cudaError_t backward_cols_heads(int n, int K, int Ka, int vec, int sw, int ns,
                                 const float* den, const float* srow, T* grad_B,
                                 float* grad_D2, float* part_B, float* part_D,
                                 cudaStream_t stream) {
-  if (bad_heads(K, Ka, hp.H, vec, sw, ns, sp)) return cudaErrorInvalidValue;
-  return dispatch_heads(vec, sw, ns, [&](auto V, auto W, auto N) {
+  if (bad_heads(K, Ka, hp.H, vec, sw, ns, hp.G, sp))
+    return cudaErrorInvalidValue;
+  return dispatch_heads(vec, sw, ns, head_major(hp.G, hp.H, sw),
+                        [&](auto V, auto W, auto N, auto M) {
     constexpr int VEC = decltype(V)::value, SW = decltype(W)::value;
     constexpr int NS = decltype(N)::value;
+    constexpr bool MAJOR = decltype(M)::value == 1;
     if (!aligned_all<T, VEC>({D1, D2, g, grad_D2, part_B, part_D},
                              {B, grad_B}))
       return cudaErrorInvalidValue;
-    auto kernel = dot_heads_bwd_cols_kernel<T, VEC, SW, NS>;
+    auto kernel = dot_heads_bwd_cols_kernel<T, VEC, SW, NS, MAJOR>;
     size_t smem;
     cudaError_t err = head_tables(kernel, SW, 4, hp.H, &smem);
     if (err != cudaSuccess) return err;
     kernel<<<item_grid(sp.S + n, SW), kThreads, smem, stream>>>(
-        n, sp.S, K, Ka, hp.H, head_group(K, Ka, hp.H, VEC, SW), sp.L,
-        hp.leaky, hp.slope, hp.scale, hp.inv_keep, colptr, rows, sp.seg_row,
-        sp.seg_start, D1, D2, B, g, keep, perm, mx, den, srow, grad_B,
-        grad_D2, part_B, part_D);
+        n, sp.S, K, Ka, hp.H, hp.G, sp.L, hp.leaky, hp.slope, hp.scale,
+        hp.inv_keep, colptr, rows, sp.seg_row, sp.seg_start, D1, D2, B, g,
+        keep, perm, mx, den, srow, grad_B, grad_D2, part_B, part_D);
     err = cudaGetLastError();
     if (err != cudaSuccess || sp.J == 0) return err;
     err = gespmm::launch_carry<T, VEC>(sp.J, K, sp.long_rows, sp.seg_ptr,
@@ -1464,23 +1565,25 @@ GESPMM_DOT_BWD_COLS(gespmm_dot_bwd_cols_f32, float)
 GESPMM_DOT_BWD_COLS(gespmm_dot_bwd_cols_bf16, __nv_bfloat16)
 
 // The multi-head entry points, f32 only (the UniMP cell's calls): the
-// arguments of the single-head ones, with H (which divides K and Ka) and ns
-// after K and Ka, the scale and 1 / keep_prob after the slope, and the
-// (nnz, H) byte mask (null: none) after B; the CSC walk also takes perm,
-// through which it reads the mask.  mx, den, srow and the forward's
-// scratch pm, pz are (·, H).
+// arguments of the single-head ones, with H (which divides K and Ka) after K
+// and Ka, ns and G (the lanes of a head's group, 0 for head by head:
+// kernels/gat_fused.py::dot_head_group) after sw, the scale and 1 / keep_prob
+// after the slope, and the (nnz, H) byte mask (null: none) after B; the CSC
+// walk also takes perm, through which it reads the mask.  mx, den, srow and
+// the forward's scratch pm, pz are (·, H).
 #define GESPMM_DOT_HEADS_FWD(NAME, T)                                         \
   extern "C" int NAME(int m, int K, int Ka, int H, int vec, int sw, int ns,   \
-                      int leaky, float slope, float scale, float inv_keep,    \
-                      int L, int S, int J, const int* seg_row,                \
-                      const int* seg_start, const int* long_rows,             \
-                      const int* seg_ptr, const int* indptr,                  \
-                      const int* indices, const float* D1, const float* D2,   \
+                      int G, int leaky, float slope, float scale,             \
+                      float inv_keep, int L, int S, int J,                    \
+                      const int* seg_row, const int* seg_start,               \
+                      const int* long_rows, const int* seg_ptr,               \
+                      const int* indptr, const int* indices, const float* D1, \
+                      const float* D2,                                        \
                       const void* B, const unsigned char* keep, void* out,    \
                       float* mx, float* den, float* pm, float* pz,            \
                       float* pacc, void* stream) {                            \
     return (int)forward_heads<T>(                                             \
-        m, K, Ka, vec, sw, ns, Heads{H, leaky, slope, scale, inv_keep},       \
+        m, K, Ka, vec, sw, ns, Heads{H, G, leaky, slope, scale, inv_keep},    \
         Split{L, S, J, seg_row, seg_start, long_rows, seg_ptr}, indptr,       \
         indices, D1, D2, (const T*)B, keep, (T*)out, mx, den, pm, pz, pacc,   \
         (cudaStream_t)stream);                                                \
@@ -1490,17 +1593,18 @@ GESPMM_DOT_HEADS_FWD(gespmm_dot_heads_fwd_f32, float)
 
 #define GESPMM_DOT_HEADS_BWD_ROWS(NAME, T)                                    \
   extern "C" int NAME(int m, int K, int Ka, int H, int vec, int sw, int ns,   \
-                      int leaky, float slope, float scale, float inv_keep,    \
-                      int L, int S, int J, const int* seg_row,                \
-                      const int* seg_start, const int* long_rows,             \
-                      const int* seg_ptr, const int* indptr,                  \
-                      const int* indices, const float* D1, const float* D2,   \
+                      int G, int leaky, float slope, float scale,             \
+                      float inv_keep, int L, int S, int J,                    \
+                      const int* seg_row, const int* seg_start,               \
+                      const int* long_rows, const int* seg_ptr,               \
+                      const int* indptr, const int* indices, const float* D1, \
+                      const float* D2,                                        \
                       const void* B, const float* g,                          \
                       const unsigned char* keep, const float* mx,             \
                       const float* den, const float* srow, float* grad_D1,    \
                       float* part, void* stream) {                            \
     return (int)backward_rows_heads<T>(                                       \
-        m, K, Ka, vec, sw, ns, Heads{H, leaky, slope, scale, inv_keep},       \
+        m, K, Ka, vec, sw, ns, Heads{H, G, leaky, slope, scale, inv_keep},    \
         Split{L, S, J, seg_row, seg_start, long_rows, seg_ptr}, indptr,       \
         indices, D1, D2, (const T*)B, g, keep, mx, den, srow, grad_D1, part,  \
         (cudaStream_t)stream);                                                \
@@ -1510,9 +1614,10 @@ GESPMM_DOT_HEADS_BWD_ROWS(gespmm_dot_heads_bwd_rows_f32, float)
 
 #define GESPMM_DOT_HEADS_BWD_COLS(NAME, T)                                    \
   extern "C" int NAME(int n, int K, int Ka, int H, int vec, int sw, int ns,   \
-                      int leaky, float slope, float scale, float inv_keep,    \
-                      int L, int S, int J, const int* seg_row,                \
-                      const int* seg_start, const int* long_rows,             \
+                      int G, int leaky, float slope, float scale,             \
+                      float inv_keep, int L, int S, int J,                    \
+                      const int* seg_row, const int* seg_start,               \
+                      const int* long_rows,                                   \
                       const int* seg_ptr, const int* colptr, const int* rows, \
                       const float* D1, const float* D2, const void* B,        \
                       const float* g, const unsigned char* keep,              \
@@ -1520,7 +1625,7 @@ GESPMM_DOT_HEADS_BWD_ROWS(gespmm_dot_heads_bwd_rows_f32, float)
                       const float* srow, void* grad_B, float* grad_D2,        \
                       float* part_B, float* part_D, void* stream) {           \
     return (int)backward_cols_heads<T>(                                       \
-        n, K, Ka, vec, sw, ns, Heads{H, leaky, slope, scale, inv_keep},       \
+        n, K, Ka, vec, sw, ns, Heads{H, G, leaky, slope, scale, inv_keep},    \
         Split{L, S, J, seg_row, seg_start, long_rows, seg_ptr}, colptr, rows, \
         D1, D2, (const T*)B, g, keep, perm, mx, den, srow, (T*)grad_B,        \
         grad_D2, part_B, part_D, (cudaStream_t)stream);                       \

@@ -47,8 +47,10 @@ CSC call with segments); ``dot_edge_walks`` counts their walks of the
 edges.  One head with no scale and no mask runs the single-head kernels,
 which walk the edges once a K (Ka) slab of their ``dot_walk_shape``;
 anything else runs the multi-head kernels at a ``dot_heads_shape``, one
-walk a launch for every head and slab.  Their row-side tables (mx, den,
-s_row) are (m, H), and (m,) at one head.
+walk a launch for every head and slab, with a head's dot summed over a
+group of ``dot_head_group`` lanes by one butterfly where G > 0
+(``dot_grouped_walks`` counts those walks) and head by head where G = 0.
+Their row-side tables (mx, den, s_row) are (m, H), and (m,) at one head.
 
 The ops over both rows, ``gat_attention_aggregate`` and
 ``dot_attention_aggregate`` with their autograd Functions, are in
@@ -99,6 +101,7 @@ dot_carry_launches = 0
 dot_bwd_rows_carry_launches = 0
 dot_bwd_cols_carry_launches = 0
 dot_edge_walks = 0
+dot_grouped_walks = 0
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _F32 = torch.float32
@@ -110,13 +113,13 @@ def reset_launches() -> None:
     global edge_walks
     global dot_launches, dot_bwd_rows_launches, dot_bwd_cols_launches
     global dot_carry_launches, dot_bwd_rows_carry_launches
-    global dot_bwd_cols_carry_launches, dot_edge_walks
+    global dot_bwd_cols_carry_launches, dot_edge_walks, dot_grouped_walks
     launches = bwd_rows_launches = bwd_cols_launches = 0
     carry_launches = bwd_rows_carry_launches = bwd_cols_carry_launches = 0
     edge_walks = 0
     dot_launches = dot_bwd_rows_launches = dot_bwd_cols_launches = 0
     dot_carry_launches = dot_bwd_rows_carry_launches = 0
-    dot_bwd_cols_carry_launches = dot_edge_walks = 0
+    dot_bwd_cols_carry_launches = dot_edge_walks = dot_grouped_walks = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -466,7 +469,7 @@ def _dot_heads_entry(kind: str, dtype: torch.dtype):
     lib = load_library("dot_attention")
     fn = getattr(lib, f"gespmm_dot_heads_{kind}_f32")
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    head = [i] * 8 + [f] * 3 + [i] * 3 + [p] * 4  # shape, act, split
+    head = [i] * 9 + [f] * 3 + [i] * 3 + [p] * 4  # shape, act, split
     fn.argtypes = head + [p] * {"fwd": 13, "bwd_rows": 13, "bwd_cols": 16}[kind]
     fn.restype = ctypes.c_int
     lib.gespmm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -520,6 +523,30 @@ def dot_heads_shape(K: int, Ka: int, heads: int, *tensors: Tensor):
         f"no multi-head walker of csrc/dot_attention.cu covers K={K}, "
         f"Ka={Ka} at heads={heads} (instantiated (VEC, SW, NS): "
         f"{DOT_HEAD_WALKS}; max(K, Ka) <= 96)")
+
+
+def dot_head_group(K: int, Ka: int, heads: int, vec: int, sw: int,
+                   ns: int) -> int:
+    """G, the lanes of a head's group in the multi-head walker (VEC, SW, NS)
+    (``csrc/dot_attention.cu``'s multi-head walk), or 0 for head by head.
+    With K = Ka: a head's dk/VEC lanes where that is a power of two of at
+    most SW (the UniMP cell's hidden layers, heads of 32 at (2, 32, 1): 16);
+    else the least power of two G whose NS slabs of G·VEC columns cover a
+    head, where the H groups fit the walker's SW lanes (its output layer,
+    heads of 47 at (1, 32, 3): 16; one head of 94: 32).  0 where K != Ka or
+    the groups would not fit (three heads of 30 at (1, 32, 3)).  All three
+    kernels take it from the same shape, so that each sums every dot with
+    the same lanes in the same order."""
+    if K != Ka:
+        return 0
+    dk = Ka // heads
+    g = dk // vec
+    if g <= sw and g & (g - 1) == 0:
+        return g
+    g = 1
+    while g * vec * ns < dk:
+        g *= 2
+    return g if heads * g <= sw else 0
 
 
 def _heads(K: int, Ka: int, heads: int) -> int:
@@ -615,6 +642,7 @@ def dot_forward_cuda(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
     """Launch the forward kernel, and its softmax carry when the split has a
     segment, on the current stream of B's device."""
     global dot_launches, dot_carry_launches, dot_edge_walks
+    global dot_grouped_walks
     check_operands(indptr, indices, None, B)
     m, (n, K), Ka = indptr.shape[0] - 1, B.shape, D1.shape[1]
     _check_dot_tables(m, n, Ka, B, D1, D2)
@@ -640,7 +668,8 @@ def dot_forward_cuda(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
             fn, err_str = _dot_heads_entry("fwd", B.dtype)
             keep, inv_keep = _keep_args(edge_keep, keep_prob, nnz, H, B.device)
             vec, sw, ns = dot_heads_shape(K, Ka, H, D1, D2, B)
-            err = fn(m, K, Ka, H, vec, sw, ns, *_act_args(slope),
+            G = dot_head_group(K, Ka, H, vec, sw, ns)
+            err = fn(m, K, Ka, H, vec, sw, ns, G, *_act_args(slope),
                      1.0 if scale is None else float(scale), inv_keep,
                      *_split_args(split, B.device), indptr.data_ptr(),
                      indices.data_ptr(), D1.data_ptr(), D2.data_ptr(),
@@ -651,7 +680,7 @@ def dot_forward_cuda(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
         else:
             fn, err_str = _dot_entry("fwd", B.dtype)
             vec, sw = dot_walk_shape(K, Ka, D1, D2, B)
-            ns, walks = 1, _slab_walks(K, vec, sw)
+            ns, G, walks = 1, 0, _slab_walks(K, vec, sw)
             err = fn(m, K, Ka, vec, sw, *_act_args(slope),
                      *_split_args(split, B.device), indptr.data_ptr(),
                      indices.data_ptr(), D1.data_ptr(), D2.data_ptr(),
@@ -659,9 +688,11 @@ def dot_forward_cuda(indptr: Tensor, indices: Tensor, D1: Tensor, D2: Tensor,
                      den.data_ptr(), _ptr(pm), _ptr(pz), _ptr(pacc),
                      _stream(B))
     raise_on(err, err_str, f"dot forward at m={m} K={K} Ka={Ka} H={H} "
-             f"vec={vec} lanes={sw} slabs={ns} segments={S} dtype={B.dtype}")
+             f"vec={vec} lanes={sw} slabs={ns} group={G} segments={S} "
+             f"dtype={B.dtype}")
     dot_launches += 1
     dot_edge_walks += walks
+    dot_grouped_walks += walks if G > 0 else 0
     dot_carry_launches += int(S > 0)
     return out, mx, den
 
@@ -711,6 +742,7 @@ def dot_backward_rows_cuda(indptr: Tensor, indices: Tensor, D1: Tensor,
     segments' Ka-wide partials when the split has one, on B's device's
     stream."""
     global dot_bwd_rows_launches, dot_bwd_rows_carry_launches, dot_edge_walks
+    global dot_grouped_walks
     check_operands(indptr, indices, None, B)
     m, (n, K), Ka = indptr.shape[0] - 1, B.shape, D1.shape[1]
     H = _heads(K, Ka, heads)
@@ -728,8 +760,9 @@ def dot_backward_rows_cuda(indptr: Tensor, indices: Tensor, D1: Tensor,
             fn, err_str = _dot_heads_entry("bwd_rows", B.dtype)
             keep, inv_keep = _keep_args(edge_keep, keep_prob, nnz, H, B.device)
             vec, sw, ns = dot_heads_shape(K, Ka, H, D1, D2, B)
+            G = dot_head_group(K, Ka, H, vec, sw, ns)
             g = _aligned(g, vec)
-            err = fn(m, K, Ka, H, vec, sw, ns, *_act_args(slope),
+            err = fn(m, K, Ka, H, vec, sw, ns, G, *_act_args(slope),
                      1.0 if scale is None else float(scale), inv_keep,
                      *_split_args(split, B.device), indptr.data_ptr(),
                      indices.data_ptr(), D1.data_ptr(), D2.data_ptr(),
@@ -740,7 +773,7 @@ def dot_backward_rows_cuda(indptr: Tensor, indices: Tensor, D1: Tensor,
         else:
             fn, err_str = _dot_entry("bwd_rows", B.dtype)
             vec, sw = dot_walk_shape(K, Ka, D1, D2, B)
-            ns, walks = 1, _slab_walks(Ka, vec, sw)
+            ns, G, walks = 1, 0, _slab_walks(Ka, vec, sw)
             g = _aligned(g, vec)
             err = fn(m, K, Ka, vec, sw, *_act_args(slope),
                      *_split_args(split, B.device), indptr.data_ptr(),
@@ -749,10 +782,11 @@ def dot_backward_rows_cuda(indptr: Tensor, indices: Tensor, D1: Tensor,
                      den.data_ptr(), s_row.data_ptr(), grad_D1.data_ptr(),
                      _ptr(part), _stream(B))
     raise_on(err, err_str, f"dot backward (rows) at m={m} K={K} Ka={Ka} "
-             f"H={H} vec={vec} lanes={sw} slabs={ns} segments={S} "
+             f"H={H} vec={vec} lanes={sw} slabs={ns} group={G} segments={S} "
              f"dtype={B.dtype}")
     dot_bwd_rows_launches += 1
     dot_edge_walks += walks
+    dot_grouped_walks += walks if G > 0 else 0
     dot_bwd_rows_carry_launches += int(S > 0)
     return grad_D1
 
@@ -807,6 +841,7 @@ def dot_backward_cols_cuda(colptr: Tensor, rows: Tensor, D1: Tensor,
     a segment, on B's device's stream.  ``edge_keep`` and ``perm`` as in
     ``dot_backward_cols``."""
     global dot_bwd_cols_launches, dot_bwd_cols_carry_launches, dot_edge_walks
+    global dot_grouped_walks
     check_operands(colptr, rows, None, B)
     n, K = B.shape
     if colptr.shape[0] - 1 != n:
@@ -832,8 +867,9 @@ def dot_backward_cols_cuda(colptr: Tensor, rows: Tensor, D1: Tensor,
             if keep is not None:
                 check_table("perm", perm, (nnz,), torch.int32, B.device)
             vec, sw, ns = dot_heads_shape(K, Ka, H, D1, D2, B)
+            G = dot_head_group(K, Ka, H, vec, sw, ns)
             g = _aligned(g, vec)
-            err = fn(n, K, Ka, H, vec, sw, ns, *_act_args(slope),
+            err = fn(n, K, Ka, H, vec, sw, ns, G, *_act_args(slope),
                      1.0 if scale is None else float(scale), inv_keep,
                      *_split_args(split, B.device), colptr.data_ptr(),
                      rows.data_ptr(), D1.data_ptr(), D2.data_ptr(),
@@ -846,7 +882,7 @@ def dot_backward_cols_cuda(colptr: Tensor, rows: Tensor, D1: Tensor,
         else:
             fn, err_str = _dot_entry("bwd_cols", B.dtype)
             vec, sw = dot_walk_shape(K, Ka, D1, D2, B)
-            ns, walks = 1, _slab_walks(max(K, Ka), vec, sw)
+            ns, G, walks = 1, 0, _slab_walks(max(K, Ka), vec, sw)
             g = _aligned(g, vec)
             err = fn(n, K, Ka, vec, sw, *_act_args(slope),
                      *_split_args(split, B.device), colptr.data_ptr(),
@@ -856,9 +892,10 @@ def dot_backward_cols_cuda(colptr: Tensor, rows: Tensor, D1: Tensor,
                      grad_D2.data_ptr(), _ptr(part_B), _ptr(part_D),
                      _stream(B))
     raise_on(err, err_str, f"dot backward (cols) at n={n} K={K} Ka={Ka} "
-             f"H={H} vec={vec} lanes={sw} slabs={ns} segments={S} "
+             f"H={H} vec={vec} lanes={sw} slabs={ns} group={G} segments={S} "
              f"dtype={B.dtype}")
     dot_bwd_cols_launches += 1
     dot_edge_walks += walks
+    dot_grouped_walks += walks if G > 0 else 0
     dot_bwd_cols_carry_launches += 2 * int(S > 0)
     return grad_D2, grad_B

@@ -506,7 +506,8 @@ def test_unimp_cell_step_walks_row_6s_edges_nine_times(dev, tmp_path):
     """One training step of the UniMP cell's program on the benchmark's
     tiny graph, at the cell's widths: one fused dot-attention call a layer,
     each of its three kernels walking the edges once for both heads (K =
-    Ka = 64, 64, 94), so 9 walks a step; and the tiny cell correct."""
+    Ka = 64, 64, 94), so 9 walks a step, every one summing each head's dots
+    over a group of 16 lanes; and the tiny cell correct."""
     from gnnbench import harness
     from gnnbench.tests import tiny_cells
 
@@ -522,6 +523,7 @@ def test_unimp_cell_step_walks_row_6s_edges_nine_times(dev, tmp_path):
     torch.cuda.synchronize()
     assert (kgat.dot_launches, kgat.dot_bwd_rows_launches,
             kgat.dot_bwd_cols_launches, kgat.dot_edge_walks) == (3, 3, 3, 9)
+    assert kgat.dot_grouped_walks == 9
     assert harness.run(cell, seed, 0.5, False, dev, 0.0)["correct"]
 
 
@@ -1789,8 +1791,8 @@ def test_dot_backward_takes_the_forwards_walker_for_a_misaligned_g(dev, Ka,
 def dot_heads_vs_float64(adj, H, dh, masked, seed=0):
     """The three dot kernels once each at H heads of dh, scale dh**-0.5,
     with the attention mask (keep 0.7) or without: ({name: (max abs error,
-    bound)} against the float64 plain versions, the outputs, the edge walks
-    of the three launches)."""
+    bound)} against the float64 plain versions, the outputs, (the edge
+    walks of the three launches, those of them in head groups))."""
     dev = adj.csr.indptr.device
     m, n = adj.shape
     K = H * dh
@@ -1803,7 +1805,7 @@ def dot_heads_vs_float64(adj, H, dh, masked, seed=0):
         keep = torch.rand((adj.nnz, H), generator=gen, device=dev) < 0.7
     kw = dict(heads=H, scale=dh ** -0.5, edge_keep=keep,
               keep_prob=0.7 if masked else None)
-    walks = kgat.dot_edge_walks
+    walks = (kgat.dot_edge_walks, kgat.dot_grouped_walks)
     out, mx, den = kgat.dot_forward(adj.csr.indptr, adj.csr.indices, D1, D2, B,
                                     split=adj.split, **kw)
     s_row = ref.dot_row_dot(g, out, H)
@@ -1814,7 +1816,8 @@ def dot_heads_vs_float64(adj, H, dh, masked, seed=0):
         adj.csc.indptr, adj.csc.indices, *tabs, split=adj.split_t,
         perm=adj.perm, **kw)
     torch.cuda.synchronize()
-    walks = kgat.dot_edge_walks - walks
+    walks = (kgat.dot_edge_walks - walks[0],
+             kgat.dot_grouped_walks - walks[1])
     assert mx.shape == den.shape == (m, H)
     kw64 = dict(heads=H, scale=dh ** -0.5, keep=keep,
                 keep_prob=0.7 if masked else None)
@@ -1847,14 +1850,31 @@ def test_dot_heads_kernels_split_at_each_boundary(dev, dh, masked):
     # slab; dh = 47: 1-column lanes, three slabs, lanes and a slab that
     # straddle the heads), rows and columns of L - 1, L, L + 1, 2L + 1 and
     # 10,000 edges: every kernel walks segments and launches its carry, and
-    # each launch walks the edges once for both heads.
+    # each launch walks the edges once for both heads, each head's dots
+    # summed over its group of 16 lanes.
     adj = Adjacency.from_csr(boundary_graph(), device=dev)
     before = dot_carries()
     errs, _, walks = dot_heads_vs_float64(adj, 2, dh, masked)
     for name, (err, bound) in errs.items():
         assert err <= bound, (name, err, bound)
     assert dot_carries() == (before[0] + 1, before[1] + 1, before[2] + 2)
-    assert walks == 3
+    assert walks == (3, 3)
+
+
+@pytest.mark.parametrize("H,dh,grouped", [(2, 15, 3), (3, 30, 0)])
+def test_dot_heads_kernels_in_head_groups_or_head_by_head(dev, H, dh,
+                                                          grouped):
+    # 1-column lanes over three slabs (K = Ka = 30 and 90): two heads of 15
+    # in groups of 8 lanes, a head narrower than its group's 24 lane slots;
+    # three heads of 30, whose groups of 16 would not fit the warp, summed
+    # head by head.  Rows and columns of the boundary graph walk segments.
+    adj = Adjacency.from_csr(boundary_graph(), device=dev)
+    assert kgat.dot_heads_shape(H * dh, H * dh, H) == (1, 32, 3)
+    for masked in (False, True):
+        errs, _, walks = dot_heads_vs_float64(adj, H, dh, masked)
+        for name, (err, bound) in errs.items():
+            assert err <= bound, (masked, name, err, bound)
+        assert walks == (3, grouped)
 
 
 @pytest.mark.parametrize("dh", [32, 47])
@@ -1863,7 +1883,7 @@ def test_dot_heads_kernels_on_rmat15(dev, dh):
     errs, _, walks = dot_heads_vs_float64(adj, 2, dh, True)
     for name, (err, bound) in errs.items():
         assert err <= bound, (name, err, bound)
-    assert walks == 3
+    assert walks == (3, 3)
 
 
 @pytest.mark.parametrize("dh", [32, 47])
@@ -1893,7 +1913,7 @@ def test_dot_heads_refuse_what_no_walker_takes(dev):
 def test_unimp_trains_through_one_fused_call_a_layer(dev):
     # A training step of the cell's stack at its widths on the boundary
     # graph: one dot-attention call a layer for both heads, each of its
-    # three kernels walking the edges once.  Then, without dropout, the
+    # three kernels walking the edges once, in head groups.  Then, without dropout, the
     # logits and every leaf's gradient within 1e-4 of the float64 model on
     # the CPU.
     from gespmm_tpu_torch.models.transformer import UniMP
@@ -1910,6 +1930,7 @@ def test_unimp_trains_through_one_fused_call_a_layer(dev):
     torch.cuda.synchronize()
     assert (kgat.dot_launches, kgat.dot_bwd_rows_launches,
             kgat.dot_bwd_cols_launches, kgat.dot_edge_walks) == (3, 3, 3, 9)
+    assert kgat.dot_grouped_walks == 9
     cpu = UniMP([100, 64, 64, 47], heads=2).double()
     cpu.load_state_dict({k: v.cpu().double()
                          for k, v in model.state_dict().items()})

@@ -17,8 +17,12 @@ rows, and are held:
     ``dot_attention_vjp_rows``, ``dot_attention_vjp_cols``) at rtol 1e-10;
   * on a row of 40 edges (two batches of 32) whose logits span more than 80,
     to JAX's (out, mx, den): the online rescale meets the exp floor.
+Without a card, also the multi-head walkers' head groups
+(``kernels/gat_fused.py::dot_head_group``) and the G their launches pass.
 The CUDA kernels themselves are checked in ``tests/test_torch_cuda.py``.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -248,3 +252,67 @@ def test_dot_walk_shape_reaches_every_instantiation(Ka, K_, vec, lanes):
     wide = max(K_, Ka)
     assert kgat.dot_walk_shape(K_, Ka, skewed) == \
         (1, min(32, max(4, 1 << (wide - 1).bit_length())))
+
+
+# (K, Ka, H, VEC, SW, NS, G): the UniMP cell's output layer (heads of 47,
+# head-major over three slabs), its hidden layers and a narrow-head case as
+# today's rule has them, two heads of 15 (a head narrower than its group's
+# slabs), one head of several slabs (the walker-wide group), groups that
+# would not fit and K != Ka (head by head).
+HEAD_GROUPS = [(94, 94, 2, 1, 32, 3, 16), (64, 64, 2, 2, 32, 1, 16),
+               (12, 12, 3, 2, 32, 1, 2), (30, 30, 2, 1, 32, 3, 8),
+               (94, 94, 1, 1, 32, 3, 32), (90, 90, 3, 1, 32, 3, 0),
+               (18, 12, 3, 1, 32, 1, 0)]
+
+
+@pytest.mark.parametrize("K_,Ka,H,vec,sw,ns,G", HEAD_GROUPS)
+def test_dot_head_group_at_each_width(K_, Ka, H, vec, sw, ns, G):
+    assert kgat.dot_head_group(K_, Ka, H, vec, sw, ns) == G
+    if G and H * G <= sw:
+        # Head-major: head h's G lanes hold columns h*dk + (s*G + l%G)*VEC
+        # of slab s, and every column of K is held once.
+        dk = Ka // H
+        held = [h * dk + (s * G + l % G) * vec + t
+                for l in range(sw) for s in range(ns) for t in range(vec)
+                for h in [l // G]
+                if h < H and (s * G + l % G) * vec < dk]
+        assert sorted(held) == list(range(K_))
+
+
+@pytest.mark.parametrize("K_,H,G", [(94, 2, 16), (64, 2, 16), (90, 3, 0)])
+def test_dot_head_launches_pass_their_group(K_, H, G, monkeypatch):
+    # Each multi-head launch hands its entry point the G of dot_head_group
+    # after (vec, sw, ns), and counts its walk in dot_grouped_walks where
+    # G > 0.  The entry points and the card are stood in for.
+    calls = []
+
+    def entry(kind, dtype):
+        def fn(*args):
+            calls.append((kind, args[4:8]))
+            return 0
+        return fn, None
+
+    monkeypatch.setattr(kgat, "_dot_heads_entry", entry)
+    monkeypatch.setattr(kgat, "check_operands", lambda *a: None)
+    monkeypatch.setattr(kgat, "_stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    csr = tf.CSR(torch.tensor([0, 2, 3], dtype=torch.int32),
+                 torch.tensor([0, 1, 1], dtype=torch.int32), None, (2, 2))
+    adj = TAdjacency.from_csr(csr)
+    D1, D2, B, g = (torch.randn(2, K_) for _ in range(4))
+    mx = den = s = torch.ones(2, H)
+    kw = dict(heads=H, scale=0.5)
+    kgat.reset_launches()
+    kgat.dot_forward_cuda(adj.csr.indptr, adj.csr.indices, D1, D2, B, None,
+                          adj.split, **kw)
+    tabs = (D1, D2, B, g, mx, den, s, None)
+    kgat.dot_backward_rows_cuda(adj.csr.indptr, adj.csr.indices, *tabs,
+                                adj.split, **kw)
+    kgat.dot_backward_cols_cuda(adj.csc.indptr, adj.csc.indices, *tabs,
+                                adj.split_t, **kw)
+    shape = kgat.dot_heads_shape(K_, K_, H, D1)
+    assert calls == [(kind, (*shape, G))
+                     for kind in ("fwd", "bwd_rows", "bwd_cols")]
+    assert G == kgat.dot_head_group(K_, K_, H, *shape)
+    assert (kgat.dot_edge_walks, kgat.dot_grouped_walks) == (3, 3 if G else 0)
