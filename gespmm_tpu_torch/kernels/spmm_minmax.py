@@ -18,7 +18,10 @@ A tensor on the CPU goes to the plain version (``ops/reference.py``); a
 CUDA tensor launches the kernel or raises — there is no fallback.
 ``launches`` and ``vjp_launches`` count the launches of each kernel,
 ``carry_launches`` the forward's pair carry and ``vjp_carry_launches`` the
-backward's carry pass.
+backward's carry pass; ``edge_walks`` and ``vjp_edge_walks`` count each
+kernel's walks of the edges, one a K slab of ``walk_shape``'s SW·VEC
+columns (the launch's second grid dimension), as row 1's ``edge_walks``
+does.
 """
 
 from __future__ import annotations
@@ -49,13 +52,33 @@ launches = 0
 carry_launches = 0
 vjp_launches = 0
 vjp_carry_launches = 0
+edge_walks = 0
+vjp_edge_walks = 0
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launches() -> None:
     global launches, carry_launches, vjp_launches, vjp_carry_launches
+    global edge_walks, vjp_edge_walks
     launches = carry_launches = vjp_launches = vjp_carry_launches = 0
+    edge_walks = vjp_edge_walks = 0
+
+
+def _slabs(K: int, vec: int, sw: int) -> int:
+    """The K slabs of a walker of ``sw`` lanes of ``vec`` columns: the
+    launch's second grid dimension, each slab a walk of the edges."""
+    return -(-K // (sw * vec))
+
+
+def _check_dense(B: Tensor) -> None:
+    if B.device.type != "cuda":
+        raise ValueError(f"B must be a CUDA tensor, got device {B.device}")
+    if B.dtype not in _SUFFIX:
+        raise TypeError(f"B must be float32 or bfloat16, got {B.dtype}")
+    if B.dim() != 2 or not B.is_contiguous():
+        raise ValueError(f"B must be a contiguous 2-D tensor, got "
+                         f"{tuple(B.shape)}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,7 +133,7 @@ def spmm_minmax_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
                      B: Tensor, reduce: str, split: RowSplit):
     """Launch the forward kernel, then the pair carry when the split has a
     long row, on the current stream of B's device."""
-    global launches, carry_launches
+    global launches, carry_launches, edge_walks
     _check_reduce(reduce)
     check_operands(indptr, indices, data, B)
     check_split(split, B.device)
@@ -140,6 +163,7 @@ def spmm_minmax_cuda(indptr: Tensor, indices: Tensor, data: Optional[Tensor],
              f"segments={S} dtype={B.dtype}")
     launches += 1
     carry_launches += int(J > 0)
+    edge_walks += _slabs(K, vec, sw)
     return out, ties
 
 
@@ -234,14 +258,8 @@ def spmm_minmax_vjp_cuda(colptr: Tensor, rows: Tensor, data: Optional[Tensor],
     the split's ``seg_start`` counts from its column's first edge
     (``ShardSplit``), else from the shard's first edge (``RowSplit``).
     Returns grad_B and the (n, stride) grad_values (None without values)."""
-    global vjp_launches, vjp_carry_launches
-    if B.device.type != "cuda":
-        raise ValueError(f"B must be a CUDA tensor, got device {B.device}")
-    if B.dtype not in _SUFFIX:
-        raise TypeError(f"B must be float32 or bfloat16, got {B.dtype}")
-    if B.dim() != 2 or not B.is_contiguous():
-        raise ValueError(f"B must be a contiguous 2-D tensor, got "
-                         f"{tuple(B.shape)}")
+    global vjp_launches, vjp_carry_launches, vjp_edge_walks
+    _check_dense(B)
     n, ncols, K = colptr.shape[0], colptr.shape[1] - 1, B.shape[1]
     stride = rows.shape[1]
     for name, t in (("colptr", colptr), ("rows", rows)):
@@ -284,7 +302,7 @@ def spmm_minmax_vjp_cuda(colptr: Tensor, rows: Tensor, data: Optional[Tensor],
                if S else None)
     vec, sw = walk_shape(K, 1, B, out, g, ties, grad_B,
                          *(() if partial is None else (partial,)))
-    slabs = -(-K // (sw * vec))
+    slabs = _slabs(K, vec, sw)
     # One shard writes every edge slot; stacked shards leave their padding.
     alloc = torch.empty if n == 1 else torch.zeros
     partials = (alloc((slabs, n * stride), dtype=torch.float32,
@@ -303,6 +321,7 @@ def spmm_minmax_vjp_cuda(colptr: Tensor, rows: Tensor, data: Optional[Tensor],
              f"segments={S} dtype={B.dtype}")
     vjp_launches += 1
     vjp_carry_launches += int(J > 0)
+    vjp_edge_walks += slabs
     # Slab partials summed in slab order: deterministic.
     return grad_B, (None if partials is None
                     else partials.sum(0).view(n, stride))

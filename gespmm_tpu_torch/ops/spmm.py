@@ -12,7 +12,9 @@ Max/min route the gradient through the edges that achieve each output,
 split evenly among ties (``jnp.max``'s VJP, as in the JAX package): the
 forward kernel returns the tie counts with ``out``, and the backward kernel
 walks the CSC, giving grad_B and grad_values (back to CSR order through
-``perm``).
+``perm``).  A sum or mean runs under the span ``op/spmm``, its backward
+under ``op/spmm.grad``; a max or min under ``op/spmm_minmax`` and
+``op/spmm_minmax.grad``, so that a trace tells the two paths apart.
 
 ``reduce="mean"`` composes on sum.  Method tiers, with the reductions each
 takes (``_METHOD_REDUCES``, as in the JAX package):
@@ -311,7 +313,7 @@ class _SpmmMinMax(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: Tensor):
-        with span("op/spmm.grad"):
+        with span("op/spmm_minmax.grad"):
             adj, method = ctx.adj, ctx.method
             data, B, out, ties = ctx.saved_tensors
             g = g.contiguous()
@@ -396,9 +398,10 @@ def spmm(adj: Union[Adjacency, CSR], B: Tensor, *, reduce: str = "sum",
             f"A is {adj.shape}, B is {tuple(B.shape)}: inner dims differ"
         )
     _check_method(adj, reduce, method)
-    with span("op/spmm"):
-        if reduce in ("max", "min"):
+    if reduce in ("max", "min"):
+        with span("op/spmm_minmax"):
             return _SpmmMinMax.apply(adj, method, reduce, adj.csr.data, B)
+    with span("op/spmm"):
         out = _SpmmSum.apply(adj, method, mode, adj.csr.data, B)
         if reduce == "mean":
             deg = (adj.csr.indptr[1:] - adj.csr.indptr[:-1]).to(out.dtype)

@@ -7,9 +7,10 @@ trace into ``log_dir``.
 
 ``span(name)`` marks a piece of the program's own work, one of ``SPANS``,
 named ``<layer>/<what>``: the train step and its phases, the model's dense
-and elementwise work, the SpMM op and the fused GAT op forward and
-backward, the phases of ``Adjacency.from_csr`` and the kernel libraries'
-build and load.  Under the torch profiler a span is a ``record_function``
+and elementwise work, the sum/mean and the max/min SpMM ops and the fused
+GAT and dot-attention ops forward and backward, the phases of
+``Adjacency.from_csr`` and the kernel libraries' build and load.  Under
+the torch profiler a span is a ``record_function``
 range in the same trace as the kernels, on the same clock; inside
 ``recording()`` it also appends ``(name, start_ns, end_ns, thread id)``
 from ``time.perf_counter_ns`` to the recording; with both off it is one
@@ -63,16 +64,16 @@ def trace(log_dir: str):
 
 
 # Every span the program opens, by layer: the train step, the model, the
-# SpMM op, the fused GAT and dot-attention ops, graph prep, the kernel
-# libraries.
+# sum/mean and the max/min SpMM ops, the fused GAT and dot-attention ops,
+# graph prep, the kernel libraries.
 SPANS = (
     "step", "step/zero_grad", "step/forward", "step/loss", "step/bwd",
     "step/optimizer",
     "model/dense", "model/norm", "model/relu", "model/dropout",
     "model/log_softmax", "model/attn_scores", "model/elu",
     "model/layer_norm", "model/gate",
-    "op/spmm", "op/spmm.grad", "op/gat", "op/gat.grad", "op/dot",
-    "op/dot.grad",
+    "op/spmm", "op/spmm.grad", "op/spmm_minmax", "op/spmm_minmax.grad",
+    "op/gat", "op/gat.grad", "op/dot", "op/dot.grad",
     "graph_prep", "graph_prep/d2h", "graph_prep/rows", "graph_prep/csc",
     "graph_prep/inv_perm", "graph_prep/plans", "graph_prep/split",
     "graph_prep/h2d", "graph_prep/degree_norm",

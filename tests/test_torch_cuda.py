@@ -45,6 +45,7 @@ launches of rows 7 and 1.
 
 import functools
 import json
+import math
 
 import numpy as np
 import pytest
@@ -525,6 +526,90 @@ def test_unimp_cell_step_walks_row_6s_edges_nine_times(dev, tmp_path):
             kgat.dot_bwd_cols_launches, kgat.dot_edge_walks) == (3, 3, 3, 9)
     assert kgat.dot_grouped_walks == 9
     assert harness.run(cell, seed, 0.5, False, dev, 0.0)["correct"]
+
+
+POOL_DIMS = [100, 256, 256, 47]  # the SAGE-pool cell's widths
+
+
+def pool_hub_csr(dev, n=20_000, seed=5) -> CSR:
+    """The benchmark's Chung-Lu generator at 20,000 nodes and 200,000
+    undirected edges stored both ways, hub_offset 5: hubs of about 2,000
+    edges, hundreds of rows and columns above the split length."""
+    from gnnbench import graphgen
+
+    traffic = {"nodes": n, "undirected_edges": 10 * n, "train_nodes": n // 10,
+               "degree_law": {"kind": "chung_lu", "gamma": 2.3,
+                              "hub_offset": 5}}
+    g = graphgen.make_graph(traffic, seed, dev, False)
+    return CSR(g.indptr, g.indices, None, (n, n))
+
+
+def test_sage_pool_cell_step_on_a_hub_graph(dev):
+    """Three training steps of GraphSAGE(aggregator="pool") at the cell's
+    widths (max SpMMs at K = 100, 256, 256) on a hub-heavy graph, on the
+    kernels (rows 2 and 3, both splits in use) and on the plain path
+    (method="xla"): the first gradients agree within 1e-4 of each leaf's
+    largest, the losses within 1e-4, the trained kernel model's logits
+    within chip_smoke.py phase 7's 1e-4 of a float64 CPU forward, and the
+    kernel path gives the same bits twice.  A step launches each kernel 3
+    times with its carry, and walks the edges 1 + 2 + 2 times forward and
+    backward."""
+    from gespmm_tpu_torch.train.loop import make_train_step
+
+    csr = pool_hub_csr(dev)
+    adj = Adjacency.from_csr(csr)
+    assert adj.split.num_segments > 0 and adj.split_t.num_segments > 0
+    n = csr.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(n, POOL_DIMS[0], device=dev, generator=gen)
+    labels = torch.randint(0, POOL_DIMS[-1], (n,), device=dev, generator=gen)
+    mask = torch.rand(n, device=dev, generator=gen) < 0.1
+
+    def run(method):
+        model = GraphSAGE(POOL_DIMS, aggregator="pool", dropout_rate=0.5,
+                          method=method, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+        opt = torch.optim.Adam(model.parameters(), lr=0.01)
+        step = make_train_step(model, opt, adj, x, labels, mask,
+                               generator=torch.Generator(
+                                   device=dev).manual_seed(2))
+        kmm.reset_launches()
+        losses = [float(step())]
+        grads = {k: opt.state[p]["exp_avg"] / 0.1
+                 for k, p in model.named_parameters()}
+        losses += [float(step()) for _ in range(2)]
+        torch.cuda.synchronize()
+        counts = (kmm.launches, kmm.carry_launches, kmm.edge_walks,
+                  kmm.vjp_launches, kmm.vjp_carry_launches,
+                  kmm.vjp_edge_walks)
+        return model, losses, grads, counts
+
+    model, losses, grads, counts = run("auto")
+    assert counts == (9, 9, 15, 9, 9, 15)
+    again = run("auto")
+    assert again[1] == losses and again[3] == counts
+    for (k, p), q in zip(model.named_parameters(), again[0].parameters()):
+        assert torch.equal(p, q), k
+    _, plain_losses, plain_grads, plain_counts = run("xla")
+    assert plain_counts == (0,) * 6
+    assert losses == pytest.approx(plain_losses, rel=1e-4)
+    assert all(math.isfinite(v) for v in losses)
+    for k, g in grads.items():
+        want = plain_grads[k]
+        err = float((g - want).abs().max())
+        assert err <= 1e-4 * max(float(want.abs().max()), 1e-30), k
+    model.eval()
+    with torch.no_grad():
+        logits = model(adj, x)
+        cpu_model = GraphSAGE(POOL_DIMS, aggregator="pool",
+                              method="xla").double()
+        cpu_model.load_state_dict({k: v.cpu().double()
+                                   for k, v in model.state_dict().items()})
+        cpu_model.eval()
+        want = cpu_model(Adjacency.from_csr(csr.to("cpu")),
+                         x.cpu().double())
+    err = float((logits.cpu().double() - want).abs().max())
+    assert err <= 1e-4 * max(float(want.abs().max()), 1.0), err
 
 
 @pytest.mark.parametrize("view", ["column slice", "transposed"])

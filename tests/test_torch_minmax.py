@@ -10,9 +10,12 @@ formed as the same f32 product on both sides, so the forward is exact
 against the XLA tier and within 1e-6 of the tiled tier (its one-hot matmul
 scatter); tie counts are exact; gradients rtol 1e-4, atol 1e-5, as in the
 JAX package's own tests.  The CUDA kernels are checked in
-``tests/test_torch_cuda.py``.
+``tests/test_torch_cuda.py``; their launch counters here, with the entry
+points and the card stood in for.
 """
 
+import contextlib
+import types
 import warnings
 
 import jax
@@ -232,3 +235,41 @@ def test_minmax_on_empty_work(m, n, K):
     assert out.shape == (m, K) and not out.any()
     out.sum().backward()
     assert not B.grad.any()
+
+
+@pytest.mark.parametrize("K,slabs", [(100, 1), (256, 2)])
+def test_edge_walks_count_the_slabs_each_launch_walks(K, slabs, monkeypatch):
+    """Each launch of row 2 (forward) and row 3 (backward) walks the edges
+    once a K slab of ``walk_shape``'s SW·VEC columns: K = 100 one slab of
+    32 lanes of 4, K = 256 two.  ``reset_launches`` clears the walks with
+    the launches.  The entry points and the card are stood in for."""
+    calls = []
+
+    def entry(kind, dtype):
+        def fn(*args):
+            calls.append(kind)
+            return 0
+        return fn, None
+
+    monkeypatch.setattr(kmm, "_entry", entry)
+    monkeypatch.setattr(kmm, "check_operands", lambda *a: None)
+    monkeypatch.setattr(kmm, "_check_dense", lambda B: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    _, t = graph(True)
+    adj = TAdjacency.from_csr(t)
+    B = torch.from_numpy(quantized_B(K))
+    assert kmm.walk_shape(K, 1, B) == (4, 32)
+    kmm.reset_launches()
+    out, ties = kmm.spmm_minmax_cuda(adj.csr.indptr, adj.csr.indices, None,
+                                     B, "max", adj.split)
+    kmm.spmm_minmax_vjp_cuda(adj.csc.indptr[None], adj.csc.indices[None],
+                             None, B, out, torch.zeros_like(out), ties, False,
+                             adj.split_t, 0, 0, False)
+    assert calls == ["fwd", "vjp"]
+    assert (kmm.launches, kmm.vjp_launches) == (1, 1)
+    assert (kmm.edge_walks, kmm.vjp_edge_walks) == (slabs, slabs)
+    kmm.reset_launches()
+    assert (kmm.edge_walks, kmm.vjp_edge_walks) == (0, 0)

@@ -25,7 +25,7 @@ from gespmm_tpu_torch.models.gat import GAT
 from gespmm_tpu_torch.models.gcn import GCN
 from gespmm_tpu_torch.models.sage import GraphSAGE
 from gespmm_tpu_torch.models.transformer import UniMP
-from gespmm_tpu_torch.ops.spmm import Adjacency
+from gespmm_tpu_torch.ops.spmm import Adjacency, spmm
 from gespmm_tpu_torch.sparse.formats import CSR
 from gespmm_tpu_torch.sparse.partition import build_row_split
 from gespmm_tpu_torch.train.loop import make_train_step
@@ -43,6 +43,11 @@ STEP_SPANS = {
     "sage": {"step", *STEP_CHILDREN, "model/dense", "model/relu",
              "model/dropout", "model/log_softmax", "op/spmm",
              "op/spmm.grad"},
+    # The max aggregate runs under the max/min op's own spans, not the
+    # sum's.
+    "sage_pool": {"step", *STEP_CHILDREN, "model/dense", "model/relu",
+                  "model/dropout", "model/log_softmax", "op/spmm_minmax",
+                  "op/spmm_minmax.grad"},
     "gat": {"step", *STEP_CHILDREN, "model/dense", "model/attn_scores",
             "model/elu", "model/dropout", "model/log_softmax", "op/gat",
             "op/gat.grad"},
@@ -127,8 +132,8 @@ def _problem(kind):
     elif kind == "unimp":
         model = UniMP([8, 4, 3], heads=2, attn_dropout=0.3, generator=gen)
     else:
-        model = GraphSAGE([8, 16, 3], aggregator="mean", dropout_rate=0.5,
-                          generator=gen)
+        model = GraphSAGE([8, 16, 3], aggregator="pool" if kind == "sage_pool"
+                          else "mean", dropout_rate=0.5, generator=gen)
     opt = torch.optim.Adam(model.parameters(), lr=1e-2)
     step = make_train_step(model, opt, adj, torch.as_tensor(ds.features),
                            torch.as_tensor(ds.labels),
@@ -137,7 +142,7 @@ def _problem(kind):
     return step, model
 
 
-@pytest.mark.parametrize("kind", ["gcn", "sage", "gat", "unimp"])
+@pytest.mark.parametrize("kind", ["gcn", "sage", "sage_pool", "gat", "unimp"])
 def test_a_step_shows_every_span_under_the_profiler(kind):
     step, _ = _problem(kind)
     step()
@@ -150,7 +155,7 @@ def test_a_step_shows_every_span_under_the_profiler(kind):
     assert isinstance(tprof.span("step"), contextlib.nullcontext)
 
 
-@pytest.mark.parametrize("kind", ["gcn", "sage", "gat", "unimp"])
+@pytest.mark.parametrize("kind", ["gcn", "sage", "sage_pool", "gat", "unimp"])
 def test_step_holds_its_five_children_in_order(kind):
     step, _ = _problem(kind)
     with tprof.recording() as rec:
@@ -299,3 +304,21 @@ def test_step_frees_log_probs_during_the_backward(kind):
     weight.register_hook(lambda g: alive.append(refs[-1]() is not None))
     step()
     assert alive == [False]
+
+
+@pytest.mark.parametrize("reduce,op", [("sum", "op/spmm"), ("mean", "op/spmm"),
+                                       ("max", "op/spmm_minmax"),
+                                       ("min", "op/spmm_minmax")])
+def test_each_reduction_runs_under_its_ops_spans(reduce, op):
+    """A sum or mean SpMM and its backward run under ``op/spmm`` and
+    ``op/spmm.grad``; a max or min under ``op/spmm_minmax`` and
+    ``op/spmm_minmax.grad``, so that a trace tells the two ops apart."""
+    ds = tds.sbm_graph(n_per_class=20, num_classes=3, p_in=0.2, p_out=0.02,
+                       feat_dim=8, seed=0)
+    adj = Adjacency.from_csr(ds.csr)
+    B = torch.randn(adj.shape[1], 8, requires_grad=True)
+    with tprof.recording() as rec:
+        out = spmm(adj, B, reduce=reduce)
+        out.sum().backward()
+    assert [name for name, *_ in rec.spans] == [op, f"{op}.grad"]
+    assert B.grad is not None
